@@ -1,0 +1,525 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA H100.
+
+Run from the root of a checkout, on a machine with the card and the CUDA
+toolkit:
+
+    python3 chip_smoke.py                 # every phase
+    python3 chip_smoke.py --kernels-only  # build + kernel checks only
+
+Phases, each of which fails the run (non-zero exit) if anything is off:
+
+1. print the card's name and power limit (nvidia-smi); turn TF32 off;
+2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` with
+   nvcc (one process per source, all at once) and print each kernel's
+   registers and spills (``-Xptxas -v``);
+3. hold each kernel against its plain PyTorch version at the serving
+   path's shapes, in fp32 (atol 1e-4) and bf16 (atol 1e-3, rtol 1e-2:
+   both sides accumulate in fp32 and round once, so they may differ by
+   one bf16 unit, a relative 2^-8 to 2^-7; the appends bit-exact), and
+   time kernel, plain version and one PyTorch library call computing the
+   same function (CUDA events, warm, the median of five windows);
+4. serve a small request trace with the reduced llama3-8b in fp32 on the
+   card and on the CPU (plain versions): the greedy tokens and the phase
+   log must be identical;
+5. serve 8 seeded requests at the full width of llama3-8b in bf16
+   through ``repro_torch.launch.serve`` (DynamicScheduler over
+   FlyingEngine), with every kernel's launch count reset just before and
+   read just after: every request must finish with its full output,
+   every token must be in the vocab, every kernel must have launched,
+   and no token may have been read back one at a time;
+6. serve the same trace again under torch.profiler and print the device
+   time by kernel class and the device's busy share of the wall time.
+
+The line before the last is the kernels' JSON record, the last line
+``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
+BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16, NVIDIA data sheet
+F32_TOL = dict(atol=1e-4, rtol=0.0)
+BF16_TOL = dict(atol=1e-3, rtol=1e-2)
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def check(ok: bool, msg: str) -> None:
+    if not ok:
+        fail(msg)
+
+
+# ---------------------------------------------------------------------------
+# timing and bounds
+# ---------------------------------------------------------------------------
+
+def time_ms(torch, fn, iters: int = 20, warm: int = 3,
+            windows: int = 5) -> float:
+    """Time of one ``fn()`` on the card's timeline (CUDA events): the
+    median over ``windows`` windows of the mean over ``iters`` calls."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    means = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        means.append(start.elapsed_time(end) / iters)
+    return sorted(means)[windows // 2]
+
+
+def bound(nbytes: float, flops: float):
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_f = flops / BF16_FLOPS_PER_S * 1e3
+    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def kernel_checks(torch, np):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.flash_prefill import kernel as fk
+    from repro_torch.kernels.flash_prefill import ref as fr
+    from repro_torch.kernels.paged_attention import kernel as pk
+    from repro_torch.kernels.paged_attention import ref as pr
+    from repro_torch.models.cache import paged_gather
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    # serving shapes of llama3-8b: H=32, KV=8, hd=128, page 16, a 4096-
+    # block pool, 256-block tables, decode batch 8, prefill chunk 512
+    H, KV, hd, page, nblk, MB = 32, 8, 128, 16, 4096, 256
+    w = KV * hd
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows = []
+
+    def t(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def pools(dtype):
+        return tuple(torch.randn((nblk, page, KV, hd), generator=gen,
+                                 device=dev).to(dtype) for _ in range(2))
+
+    def tables(B):
+        perm = rng.permutation(nblk - 1)[:B * MB]
+        return t(perm.reshape(B, MB), torch.int32)
+
+    def err(a, b):
+        return float((a.float() - b.float()).abs().max())
+
+    def close(a, b, dtype, what):
+        e = err(a, b)
+        ok = torch.allclose(a.float(), b.float(),
+                            **(F32_TOL if dtype == f32 else BF16_TOL))
+        print(f"  {what}: max_abs_err={e:.3e}")
+        check(ok, f"{what} disagrees with its plain version (max {e:.3e})")
+        return e
+
+    # -- K1 / K3: appends (bit-exact, scratch row excluded) --------------
+    def append_case(kind, B, T, dtype):
+        shape = (B,) if kind == "token" else (B, T)
+        n = int(np.prod(shape))
+        s = rng.choice((nblk - 1) * page, size=n, replace=False)
+        s[rng.random(n) < 0.25] = -1                      # parked rows
+        slots = t(s.reshape(shape), torch.int32)
+        vals = tuple(t(rng.standard_normal(shape + (KV, hd)), dtype)
+                     for _ in range(2))
+        kern = pk.paged_append_token_kernel if kind == "token" \
+            else pk.paged_append_chunk_kernel
+        plain = pr.paged_append_token_ref if kind == "token" \
+            else pr.paged_append_chunk_ref
+        base = pools(dtype)
+        got = kern(tuple(p.clone() for p in base), vals, slots)
+        want = plain(tuple(p.clone() for p in base), vals, slots)
+        torch.cuda.synchronize()
+        for g, wnt in zip(got, want):
+            g, wnt = g.view(-1, w), wnt.view(-1, w)
+            check(torch.equal(g[:-1], wnt[:-1]),
+                  f"paged_append_{kind} {dtype} is not bit-exact")
+        print(f"  paged_append_{kind} {dtype} {tuple(shape)}: bit-exact")
+        return base, vals, slots, kern, plain, n
+
+    def append_row(kind, name, replaces, B, T):
+        append_case(kind, B, T, f32)
+        base, vals, slots, kern, plain, n = append_case(kind, B, T, bf16)
+        flat = tuple(p.view(-1, w) for p in base)
+        idx = torch.where(slots.reshape(-1) >= 0, slots.reshape(-1).long(),
+                          nblk * page - 1)
+        rows_v = tuple(v.reshape(n, w) for v in vals)
+
+        def library():
+            for f, v in zip(flat, rows_v):
+                f.index_copy_(0, idx, v)
+        nbytes = 2 * n * w * (2 + 2) + 4 * n
+        bms, by = bound(nbytes, 0.0)
+        rows.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/paged_append.cu",
+            replaces=replaces, max_abs_err=0.0,
+            ms=time_ms(torch, lambda: kern(base, vals, slots)),
+            plain_ms=time_ms(torch, lambda: plain(base, vals, slots)),
+            bound_ms=bms, bound_by=by, library_ms=time_ms(torch, library)))
+
+    print("kernels against their plain versions:")
+    append_row("token", "paged_append_token",
+               "src/repro/kernels/paged_attention/kernel.py:165", 8, 1)
+
+    # -- K2: paged decode attention --------------------------------------
+    B = 8
+    ctx_np = np.concatenate([[1, MB * page], rng.integers(
+        2, MB * page, size=B - 2)]).astype(np.int32)
+    ctx = t(ctx_np, torch.int32)
+    bt = tables(B)
+    errs = []
+    for dtype in (f32, bf16):
+        kp_, vp_ = pools(dtype)
+        q = t(rng.standard_normal((B, H, hd)), dtype)
+        for window, lse in ((None, False), (1024, False), (None, True)):
+            tag = f"paged_attention {dtype} window={window} lse={lse}"
+            if lse:
+                c0 = ctx.clone()
+                c0[2] = 0                      # a row with no live key
+                g, gl = pk.paged_attention_kernel(
+                    q.float(), kp_, vp_, bt, c0, return_lse=True)
+                wnt, wl = pr.paged_attention_with_lse_ref(
+                    q.float(), kp_, vp_, bt, c0)
+                close(gl, wl, f32, tag + " (lse)")
+            else:
+                g = pk.paged_attention_kernel(q, kp_, vp_, bt, ctx,
+                                              window=window)
+                wnt = pr.paged_attention_ref(q, kp_, vp_, bt, ctx,
+                                             window=window)
+            e = close(g, wnt, dtype, tag)
+            if dtype == bf16:
+                errs.append(e)
+    live = np.minimum(ctx_np, MB * page)
+    nbytes = 2 * B * H * hd * 2 + int(live.sum()) * KV * hd * 2 * 2 \
+        + int(np.ceil(live / page).sum()) * 4 + B * 4
+    flops = 4.0 * H * hd * int(live.sum())
+    bms, by = bound(nbytes, flops)
+    kg = paged_gather(kp_, bt).transpose(1, 2).repeat_interleave(H // KV, 1)
+    vg = paged_gather(vp_, bt).transpose(1, 2).repeat_interleave(H // KV, 1)
+    mask = (torch.arange(MB * page, device=dev)[None, :]
+            < ctx[:, None].long())[:, None, None, :]
+    q4 = q[:, :, None, :]
+    rows.append(dict(
+        name="paged_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/paged_attention.cu",
+        replaces="src/repro/kernels/paged_attention/kernel.py:97",
+        max_abs_err=max(errs),
+        ms=time_ms(torch, lambda: pk.paged_attention_kernel(
+            q, kp_, vp_, bt, ctx)),
+        plain_ms=time_ms(torch, lambda: pr.paged_attention_ref(
+            q, kp_, vp_, bt, ctx), iters=5, windows=3),
+        bound_ms=bms, bound_by=by,
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q4, kg, vg, attn_mask=mask))))
+    del kg, vg
+
+    append_row("chunk", "paged_append_chunk",
+               "src/repro/kernels/paged_attention/kernel.py:224", 8, 512)
+
+    # -- K4: paged flash prefill -----------------------------------------
+    B, T = 4, 512
+    prior_np = np.array([0, 1024, 2560, MB * page - T], np.int32)
+    prior = t(prior_np, torch.int32)
+    bt = tables(B)
+    errs = []
+    for dtype in (f32, bf16):
+        kp_, vp_ = pools(dtype)
+        q = t(rng.standard_normal((B, T, H, hd)), dtype)
+        for window, prior_only in ((None, False), (1024, False),
+                                   (None, True)):
+            tag = f"paged_flash_prefill {dtype} window={window} " \
+                  f"prior_only={prior_only}"
+            if prior_only:
+                g, gl = fk.paged_flash_prefill_kernel(
+                    q.float(), kp_, vp_, bt, prior, prior_only=True,
+                    return_lse=True)
+                wnt, wl = fr.paged_prefill_sweep_with_lse_ref(
+                    q.float(), kp_, vp_, bt, prior, prior_only=True)
+                close(gl, wl, f32, tag + " (lse)")
+            else:
+                g = fk.paged_flash_prefill_kernel(q, kp_, vp_, bt, prior,
+                                                  window=window)
+                wnt = fr.paged_flash_prefill_ref(q, kp_, vp_, bt, prior,
+                                                 window=window)
+            e = close(g, wnt, dtype, tag)
+            if dtype == bf16:
+                errs.append(e)
+    keys = prior_np.astype(np.int64) + T                 # keys per request
+    pairs = int(sum(T * int(p) + T * (T + 1) // 2 for p in prior_np))
+    nbytes = 2 * B * T * H * hd * 2 + int(keys.sum()) * KV * hd * 2 * 2 \
+        + int(np.ceil(keys / page).sum()) * 4 + B * 4
+    flops = 4.0 * H * hd * pairs
+    bms, by = bound(nbytes, flops)
+    kg = paged_gather(kp_, bt).transpose(1, 2).repeat_interleave(H // KV, 1)
+    vg = paged_gather(vp_, bt).transpose(1, 2).repeat_interleave(H // KV, 1)
+    qpos = prior[:, None].long() + torch.arange(T, device=dev)[None, :]
+    mask = (torch.arange(MB * page, device=dev)[None, None, :]
+            <= qpos[:, :, None])[:, None]
+    qt = q.transpose(1, 2)
+    rows.append(dict(
+        name="paged_flash_prefill", route="cuda",
+        source="src/repro_torch/kernels/csrc/paged_prefill.cu",
+        replaces="src/repro/kernels/flash_prefill/kernel.py:204",
+        max_abs_err=max(errs),
+        ms=time_ms(torch, lambda: fk.paged_flash_prefill_kernel(
+            q, kp_, vp_, bt, prior)),
+        plain_ms=time_ms(torch, lambda: fr.paged_flash_prefill_ref(
+            q, kp_, vp_, bt, prior), iters=3, warm=1, windows=3),
+        bound_ms=bms, bound_by=by,
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kg, vg, attn_mask=mask), iters=5, windows=3)))
+    del kg, vg, mask
+    _lib.reset_launches()
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the whole path on the card against the plain path on the CPU
+# ---------------------------------------------------------------------------
+
+def reference_check(torch):
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import FlyingEngine
+    from repro_torch.core.kv_adaptor import PoolGeometry
+    from repro_torch.core.modes import ParallelPlan
+    from repro_torch.core.scheduler import DynamicScheduler, SchedulerConfig
+    from repro_torch.core.task_pool import Request
+    from repro_torch.models.model import build_model
+
+    cfg = get_config("llama3-8b").reduced()
+    plan = ParallelPlan(engine_rows=1, tp_base=1, data_rows=1)
+    params = build_model(cfg, torch.float32, "cpu").init(
+        torch.Generator().manual_seed(0))
+
+    class FixedClock:
+        """Backend proxy whose steps report a fixed duration, so both
+        runs see the same scheduler clock."""
+        def __init__(self, eng):
+            self.eng = eng
+
+        def __getattr__(self, k):
+            return getattr(self.eng, k)
+
+        def prefill(self, *a):
+            self.eng.prefill(*a)
+            return 0.01
+
+        def decode(self, *a):
+            self.eng.decode(*a)
+            return 0.01
+
+        def mixed(self, *a):
+            self.eng.mixed(*a)
+            return 0.01
+
+    def serve(device):
+        geom = PoolGeometry(cfg, plan, num_blocks=64, block_base=4)
+        eng = FlyingEngine(build_model(cfg, torch.float32, device), plan,
+                           geom, params, batch_per_engine=2,
+                           max_blocks_per_req=16, device=device)
+        sched = DynamicScheduler(plan, geom, FixedClock(eng), SchedulerConfig(
+            strategy="hard", max_batch_per_group=2, prefill_chunk=8))
+        sched.submit(Request(req_id="a", arrival=0.0, prompt_len=24,
+                             output_len=6))
+        sched.submit(Request(req_id="b", arrival=0.001, prompt_len=8,
+                             output_len=8))
+        sched.run(max_steps=200)
+        return ({rid: eng.generated_tokens(rid) for rid in ("a", "b")},
+                [l.phase for l in sched.log])
+
+    toks_gpu, ph_gpu = serve("cuda")
+    toks_cpu, ph_cpu = serve("cpu")
+    print(f"reduced llama3-8b fp32, card vs CPU: tokens {toks_gpu} "
+          f"phases {ph_gpu}")
+    check(toks_gpu == toks_cpu, f"card tokens {toks_gpu} != CPU {toks_cpu}")
+    check(ph_gpu == ph_cpu and "mixed" in ph_gpu,
+          f"phase logs differ: {ph_gpu} vs {ph_cpu}")
+
+
+# ---------------------------------------------------------------------------
+# phase 5: full-width serving
+# ---------------------------------------------------------------------------
+
+def serve_config():
+    from repro_torch.launch.serve import ServeConfig
+    return ServeConfig(arch="llama3-8b", requests=8, seed=0,
+                       num_blocks=4096, block_base=16, batch_per_engine=8,
+                       max_blocks_per_req=256, prefill_chunk=512,
+                       prompt_range=(256, 2048), output_range=(32, 64),
+                       rate=20.0)
+
+
+def serve_full_width(torch):
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.serve import build_stack, run_offline
+
+    cfg = serve_config()
+    t0 = time.perf_counter()
+    stack = build_stack(cfg)
+    torch.cuda.synchronize()
+    print(f"serve: built llama3-8b (bf16, 32 layers) and a "
+          f"{cfg.num_blocks}x{cfg.block_base}-token pool in "
+          f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launches()
+    sched, engine, summary, wall = run_offline(cfg, stack)
+    launches = dict(_lib.LAUNCHES)
+    reqs = list(sched.pool.all.values())
+    vocab = engine.cfg.vocab_size
+    n_tok = 0
+    for r in reqs:
+        toks = engine.generated_tokens(r.req_id)
+        check(r.state == "done" and len(toks) == r.output_len,
+              f"{r.req_id}: state {r.state}, {len(toks)}/{r.output_len} "
+              f"tokens")
+        check(all(0 <= x < vocab for x in toks),
+              f"{r.req_id}: token outside the vocab")
+        n_tok += len(toks)
+    phases = [l.phase for l in sched.log]
+    stats = engine.sync_stats
+    print(f"serve: {len(reqs)} requests, prompts "
+          f"{sorted(r.prompt_len for r in reqs)}, outputs "
+          f"{sorted(r.output_len for r in reqs)}")
+    print(f"serve: {stats.steps} steps ({phases.count('mixed')} mixed, "
+          f"{phases.count('prefill')} prefill, {phases.count('decode')} "
+          f"decode), {n_tok} tokens in {wall:.3f} s = "
+          f"{n_tok / wall:.1f} tok/s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"serve: sync stats {stats}")
+    print(f"serve: kernel launches {launches}")
+    check(stats.host_argmax == 0, "tokens were read back one at a time")
+    check(phases.count("mixed") > 0, "no mixed step occurred")
+    for k, n in launches.items():
+        check(n > 0, f"kernel {k} never launched on the serving path")
+    return launches
+
+
+def serve_breakdown(torch):
+    """Device time by kernel class over a second, profiled run of the
+    same trace (the first run's wall time stays unprofiled)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.serve import build_stack, run_offline
+
+    cfg = serve_config()
+    stack = build_stack(cfg)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, _, _, wall = run_offline(cfg, stack)
+    classes = (("paged_flash_prefill", "prefill_kernel"),
+               ("paged_attention", "decode_kernel"),
+               ("paged_append", "append_rows_kernel"),
+               ("gemm", "gemm"), ("gemm", "nvjet"), ("gemm", "cutlass"),
+               ("gemm", "xmma"))
+    by: dict = {}
+    other: dict = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0) \
+            or getattr(e, "self_cuda_time_total", 0)
+        if us:
+            name = next((c for c, pat in classes if pat in e.key.lower()),
+                        "other")
+            by[name] = by.get(name, 0.0) + us / 1e3
+            if name == "other":
+                k = e.key[:60]
+                other[k] = other.get(k, 0.0) + us / 1e3
+    busy = sum(by.values())
+    if not busy:
+        print("breakdown: not measured (the profiler saw no device time)")
+        return
+    parts = ", ".join(f"{k} {v:.1f} ms ({v / busy:.1%})"
+                      for k, v in sorted(by.items(), key=lambda kv: -kv[1]))
+    top = sorted(other.items(), key=lambda kv: -kv[1])[:6]
+    print(f"breakdown (profiled rerun, {wall * 1e3:.1f} ms wall): device "
+          f"busy {busy:.1f} ms = {busy / (wall * 1e3):.1%} of wall; {parts}")
+    print("breakdown: largest 'other' kernels: " + "; ".join(
+        f"{k} {v:.1f} ms" for k, v in top))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after the kernel checks")
+    args = ap.parse_args(argv)
+
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        fail("no CUDA device is visible")
+    if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
+        fail("src/repro_torch is missing: run from a checkout of the repo")
+    sys.path.insert(0, str(ROOT / "src"))
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(smi)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
+          f"{torch.cuda.get_device_name(0)}")
+
+    from repro_torch.kernels import _lib
+    t0 = time.perf_counter()
+    _lib.build_all(force=True)
+    print(f"built {len(_lib.SOURCES)} kernel sources in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for name in _lib.SOURCES:
+        _lib.lib(name)
+        for line in _lib.BUILD_LOG.get(name, "").splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}.cu: {line.strip()}")
+
+    rows = kernel_checks(torch, np)
+    for r in rows:
+        print(f"  {r['name']:<20} {r['ms']:.4f} ms   plain {r['plain_ms']:.4f} "
+              f"ms   library {r['library_ms']:.4f} ms   bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    if args.kernels_only:
+        # the serving path did not run: its launch counts are unknown
+        launches = {r["name"]: None for r in rows}
+    else:
+        reference_check(torch)
+        launches = serve_full_width(torch)
+        serve_breakdown(torch)
+    for r in rows:
+        r["launches"] = launches[r["name"]]
+    keys = ("name", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    print(f"device: {smi}")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

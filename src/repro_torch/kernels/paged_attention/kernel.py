@@ -1,0 +1,79 @@
+"""CUDA wrappers of the paged decode kernels (csrc/paged_append.cu,
+csrc/paged_attention.cu): validate, allocate outputs, launch on the
+current stream, count the launch, raise on a launch error. They take
+CUDA tensors only; ``ops`` routes CPU tensors to the plain versions."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _lib
+
+
+def _append_rows(pools, vals, slots, n_rows: int, what: str):
+    kp, vp = pools
+    kv, vv = (v.contiguous() for v in vals)
+    slots = slots.to(torch.int32).contiguous()
+    _lib.require_cuda(kp, vp, kv, vv, slots)
+    nblk, page = kp.shape[0], kp.shape[1]
+    w = kp[0, 0].numel()
+    if vp.shape != kp.shape or kv.shape != vv.shape \
+            or kv.numel() != n_rows * w or vp.dtype != kp.dtype:
+        raise ValueError(f"{what}: pools {tuple(kp.shape)} vs values "
+                         f"{tuple(kv.shape)}")
+    rc = _lib.lib("paged_append").paged_append_rows(
+        kv.data_ptr(), vv.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+        slots.data_ptr(), n_rows, nblk * page - 1, w,
+        _lib.dtype_code(kv), _lib.dtype_code(kp), _lib.stream_of(kp))
+    _lib.LAUNCHES[what] += 1
+    _lib.check(rc, what)
+    return pools
+
+
+def paged_append_token_kernel(pools, vals, slots):
+    """In-place single-token append: pools (k, v) [nblk,page,*w] (views
+    of the engine's flat pools, written in place), vals (k, v) [B,*w],
+    slots [B] (negative: parked on the scratch row)."""
+    return _append_rows(pools, vals, slots, slots.shape[0],
+                        "paged_append_token")
+
+
+def paged_append_chunk_kernel(pools, vals, slots):
+    """In-place chunk append: vals (k, v) [B,T,*w], slots [B,T]."""
+    return _append_rows(pools, vals, slots, slots.numel(),
+                        "paged_append_chunk")
+
+
+def paged_attention_kernel(q, k_pool, v_pool, block_table, context_len, *,
+                           window: Optional[int] = None,
+                           softmax_scale: Optional[float] = None,
+                           return_lse: bool = False):
+    """q [B,H,hd]; pools [nblk,page,KV,hd]; block_table [B,MB];
+    context_len [B] -> [B,H,hd] in q's dtype (+ lse [B,H] fp32)."""
+    q = q.contiguous()
+    bt = block_table.to(torch.int32).contiguous()
+    ctx = context_len.to(torch.int32).contiguous()
+    _lib.require_cuda(q, k_pool, v_pool, bt, ctx)
+    B, H, hd = q.shape
+    nblk, page, KV, hd_k = k_pool.shape
+    if hd_k != hd or v_pool.shape != k_pool.shape or H % KV:
+        raise ValueError(f"paged_attention: q {tuple(q.shape)} vs pools "
+                         f"{tuple(k_pool.shape)}")
+    if hd not in (64, 128) or H // KV > 8:
+        raise ValueError(f"paged_attention kernel takes hd 64 or 128 and at "
+                         f"most 8 query heads per kv head, not hd={hd}, "
+                         f"H/KV={H // KV}")
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H), dtype=torch.float32, device=q.device) \
+        if return_lse else None
+    scale = softmax_scale if softmax_scale is not None else hd ** -0.5
+    rc = _lib.lib("paged_attention").paged_attention_decode(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), bt.data_ptr(),
+        ctx.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if lse is not None else None,
+        B, H, KV, hd, page, bt.shape[1], window or 0, scale,
+        _lib.dtype_code(q), _lib.dtype_code(k_pool), _lib.stream_of(q))
+    _lib.LAUNCHES["paged_attention"] += 1
+    _lib.check(rc, "paged_attention")
+    return (out, lse) if return_lse else out

@@ -1,0 +1,140 @@
+"""Backbone assembly for dense GQA stacks.
+
+A layer *kind* is ``(mixer, ffn)``. The stack plan partitions layers into
+groups of a repeating kind sequence, as in the JAX package (which scans
+each group); the port loops over the layers of a group. This slice
+serves dense decoder stacks — mixers ``gqa``/``gqa_win`` with the gated
+``mlp`` — and raises on the other kinds.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.views import TPContext
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import ffn as ffn_mod
+from repro_torch.models.common import init_embedding, init_linear, rms_norm
+
+Kind = Tuple[str, str]  # (mixer, ffn)
+
+# vocab columns of the head upcast to fp32 at a time (bf16 weights)
+_HEAD_CHUNK = 16384
+
+
+def stack_plan(cfg: ArchConfig) -> List[Tuple[Tuple[Kind, ...], int]]:
+    """[(kind_sequence, repeat_count), ...] covering all decoder layers."""
+    L = cfg.num_layers
+    if cfg.family == "ssm":
+        return [((("mamba", "none"),), L)]
+    if cfg.hybrid is not None:
+        pat = tuple(("rglru" if k == "rglru" else "gqa_win", "gelu_mlp")
+                    for k in cfg.hybrid.pattern)
+        n = L // len(pat)
+        plan = [(pat, n)] if n else []
+        rem = L % len(pat)
+        if rem:
+            plan.append((pat[:rem], 1))
+        return plan
+    ffn = "moe" if cfg.moe is not None else (
+        "gelu_mlp" if cfg.enc_dec is not None else "mlp")
+    mixer = "mla" if cfg.mla is not None else "gqa"
+    if cfg.mla is not None and cfg.moe is not None:
+        return [(((mixer, "mlp"),), 1), (((mixer, "moe"),), L - 1)]
+    return [(((mixer, ffn),), L)]
+
+
+def check_kind(kind: Kind) -> None:
+    mixer, ffn = kind
+    if mixer not in ("gqa", "gqa_win") or ffn != "mlp":
+        raise NotImplementedError(
+            f"layer kind {kind}: this slice of the port serves dense GQA "
+            f"stacks with a gated MLP")
+
+
+def init_layer(generator, cfg: ArchConfig, kind: Kind, dtype, device):
+    check_kind(kind)
+    ones = dict(dtype=dtype, device=device)
+    return {"norm1": torch.ones((cfg.d_model,), **ones),
+            "attn": attn_mod.init_gqa(generator, cfg, dtype, device),
+            "norm2": torch.ones((cfg.d_model,), **ones),
+            "ffn": ffn_mod.init_mlp(generator, cfg.d_model, cfg.d_ff, dtype,
+                                    device)}
+
+
+def apply_layer(cfg: ArchConfig, kind: Kind, p, x, ctx: TPContext, backend,
+                state, *, positions, window: Optional[int] = None):
+    """One pre-norm decoder layer. ``state`` is the layer's (k, v) pool
+    pair; returns (x, state)."""
+    mixer, _ = kind
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    w = cfg.hybrid.window if (mixer == "gqa_win" and cfg.hybrid) else window
+    out, state = attn_mod.gqa_attention(cfg, p["attn"], h, ctx, backend,
+                                        state, positions=positions, window=w)
+    x = x + out
+    h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
+    x = x + ffn_mod.mlp(p["ffn"], h2, ctx, cfg.d_ff)
+    return x, state
+
+
+# ---------------------------------------------------------------------------
+# embedding / head
+# ---------------------------------------------------------------------------
+
+def init_embed(generator, cfg: ArchConfig, dtype, device):
+    p: Dict[str, Any] = {
+        "tok": init_embedding(generator, cfg.vocab_size, cfg.d_model, dtype,
+                              device),
+        "norm_f": torch.ones((cfg.d_model,), dtype=dtype, device=device)}
+    if not cfg.tie_embeddings:
+        p["head"] = init_linear(generator, cfg.d_model, cfg.vocab_size,
+                                dtype, device)
+    return p
+
+
+def embed_tokens(cfg, p, tokens, ctx: TPContext):
+    x = p["tok"][tokens.long()]
+    if cfg.hybrid is not None:
+        x = x * math.sqrt(cfg.d_model)
+    return x
+
+
+def lm_head(cfg, p, x, ctx: TPContext):
+    """fp32 logits [.., V]. A bf16 head is upcast a slice of vocab
+    columns at a time, so the products are fp32 without an fp32 copy of
+    the whole head."""
+    w = p["tok"].t() if cfg.tie_embeddings else p["head"]
+    x = x.float()
+    if w.dtype == torch.float32:
+        return x @ w
+    V = w.shape[1]
+    out = x.new_empty(x.shape[:-1] + (V,))
+    for i in range(0, V, _HEAD_CHUNK):
+        out[..., i:i + _HEAD_CHUNK] = x @ w[:, i:i + _HEAD_CHUNK].float()
+    return out
+
+
+def gather_vocab(cfg, logits_local, ctx: TPContext):
+    """Full-vocab logits from the local shard: the whole vocab at tp=1."""
+    return logits_local
+
+
+def tp_argmax(cfg, logits_local, ctx: TPContext):
+    """Greedy token ids [..] int32 (first index among ties, as
+    ``jnp.argmax``)."""
+    return torch.argmax(logits_local, dim=-1).to(torch.int32)
+
+
+def sample_tokens(cfg, logits_local, ctx: TPContext, *,
+                  temperature: float = 0.0, top_k: int = 0, seeds=None):
+    """In-step sampling [B, V] -> [B] int32. Greedy only in this slice:
+    token identity with the JAX package at temperature > 0 needs its
+    threefry bits, which a later slice brings."""
+    if temperature > 0.0:
+        raise NotImplementedError(
+            "temperature sampling is not ported yet (needs threefry for "
+            "token identity with the JAX package)")
+    return tp_argmax(cfg, logits_local, ctx)

@@ -8,3 +8,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 MD_SCRIPTS = os.path.join(REPO, "tests", "md_scripts")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips where there is none")

@@ -1,0 +1,162 @@
+"""The port's CUDA kernels on the card, against their plain versions.
+
+Every test here needs a CUDA card: the kernels have no CPU mode. Each
+decides inside its fixture whether a card is present and skips when
+not. The file imports no JAX, so it also runs where only the port is
+installed:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
+
+Tolerances: fp32 atol = rtol = 1e-5 (the kernels sum in another order
+than the plain versions); bf16 atol 1e-3, rtol 1e-2 (both sides
+accumulate in fp32 and round once, so they may differ by one bf16 unit,
+a relative 2^-8 to 2^-7); appends bit-exact.
+"""
+import copy
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import _lib
+from repro_torch.kernels.flash_prefill import ops as fops
+from repro_torch.kernels.flash_prefill import ref as fref
+from repro_torch.kernels.paged_attention import ops as pops
+from repro_torch.kernels.paged_attention import ref as pref
+
+H, KV, HD, B, MB, T = 8, 2, 64, 3, 6, 8
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _case(dev, dtype, page, seed=0):
+    rng = np.random.default_rng(seed)
+    nblk = B * MB + 2
+
+    def t(shape):
+        return torch.from_numpy(rng.standard_normal(shape)).to(dev, dtype)
+    bt = rng.permutation(nblk - 1)[:B * MB].reshape(B, MB)
+    return dict(kp=t((nblk, page, KV, HD)), vp=t((nblk, page, KV, HD)),
+                q1=t((B, H, HD)), qT=t((B, T, H, HD)),
+                new1=(t((B, KV, HD)), t((B, KV, HD))),
+                newT=(t((B, T, KV, HD)), t((B, T, KV, HD))),
+                bt=torch.from_numpy(bt.astype(np.int32)).to(dev))
+
+
+def _tol(dtype):
+    return dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32 \
+        else dict(atol=1e-3, rtol=1e-2)
+
+
+def _same_rows(got, want):
+    """Pools equal but for the scratch row (parked rows race there)."""
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(-1, KV * HD)[:-1], w.view(-1, KV * HD)[:-1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 5])
+def test_decode_kernels_match_plain(cuda, dtype, window):
+    c = _case(cuda, dtype, 16)
+    ctx = torch.tensor([0, 1, 93], dtype=torch.int32, device=cuda)
+    got = pops.paged_attention_with_lse(c["q1"], c["kp"], c["vp"], c["bt"],
+                                        ctx, window=window)
+    want = pref.paged_attention_with_lse_ref(c["q1"].float(), c["kp"],
+                                             c["vp"], c["bt"], ctx,
+                                             window=window)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **_tol(torch.float32))
+    slots = torch.tensor([5, -1, 77], dtype=torch.int32, device=cuda)
+    ptr = c["kp"].data_ptr()
+    got = pops.paged_append_token((c["kp"].clone(), c["vp"].clone()),
+                                  c["new1"], slots)
+    want = pref.paged_append_token_ref((c["kp"].clone(), c["vp"].clone()),
+                                       c["new1"], slots)
+    _same_rows(got, want)
+    out, kp, _ = pops.paged_attention_decode(
+        c["q1"], *c["new1"], c["kp"], c["vp"], slots, c["bt"], ctx + 1,
+        window=window)
+    assert kp.data_ptr() == ptr                     # written in place
+    torch.testing.assert_close(
+        out, pref.paged_attention_ref(c["q1"], c["kp"], c["vp"], c["bt"],
+                                      ctx + 1, window=window),
+        **_tol(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window,prior_only", [(None, False), (6, False),
+                                               (None, True)])
+def test_prefill_kernels_match_plain(cuda, dtype, window, prior_only):
+    c = _case(cuda, dtype, 4)
+    prior = torch.tensor([0, 5, 13], dtype=torch.int32, device=cuda)
+    got = fops.paged_prefill_sweep_with_lse(
+        c["qT"], c["kp"], c["vp"], c["bt"], prior, window=window,
+        prior_only=prior_only)
+    want = fref.paged_prefill_sweep_with_lse_ref(
+        c["qT"].float(), c["kp"], c["vp"], c["bt"], prior, window=window,
+        prior_only=prior_only)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **_tol(torch.float32))
+    pos = prior[:, None].long() + torch.arange(T, device=cuda)
+    slots = (c["bt"].long().gather(1, pos // 4) * 4 + pos % 4).int()
+    slots[0, -1] = -1
+    got = pops.paged_append_chunk((c["kp"].clone(), c["vp"].clone()),
+                                  c["newT"], slots)
+    want = pref.paged_append_chunk_ref((c["kp"].clone(), c["vp"].clone()),
+                                       c["newT"], slots)
+    _same_rows(got, want)
+
+
+@pytest.mark.gpu
+def test_engine_on_the_card_matches_the_cpu(cuda):
+    """The reduced llama3-8b served on the card (every kernel launched)
+    gives the CPU's greedy tokens, pools never move."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import FlyingEngine
+    from repro_torch.core.kv_adaptor import PoolGeometry
+    from repro_torch.core.modes import ParallelPlan
+    from repro_torch.core.task_pool import Request
+    from repro_torch.models.model import build_model
+
+    cfg = get_config("llama3-8b").reduced()
+    plan = ParallelPlan(engine_rows=1, tp_base=1, data_rows=1)
+    params = build_model(cfg, torch.float32, "cpu").init(
+        torch.Generator().manual_seed(0))
+
+    def serve(device):
+        geom = PoolGeometry(cfg, plan, num_blocks=64, block_base=4)
+        eng = FlyingEngine(build_model(cfg, torch.float32, device), plan,
+                           geom, params, batch_per_engine=2,
+                           max_blocks_per_req=16, device=device)
+        pools = [p.data_ptr() for g in eng.islands[0].states for st in g
+                 for p in st["mixer"]]
+        reqs = []
+        for i, plen in enumerate((13, 8)):
+            r = Request(req_id=f"q{i}", arrival=0.0, prompt_len=plen,
+                        output_len=1 << 30)
+            r.engine_group = 0
+            eng.adaptors[0].append_slots(r.req_id, plen)
+            reqs.append(r)
+        eng.prefill(reqs, 1, 16)
+        for _ in range(6):
+            for r in reqs:
+                eng.adaptors[0].append_slots(r.req_id, 1)
+            eng.decode(reqs, 1)
+        stats = copy.copy(eng.sync_stats)
+        assert pools == [p.data_ptr() for g in eng.islands[0].states
+                         for st in g for p in st["mixer"]]
+        return {r.req_id: eng.generated_tokens(r.req_id) for r in reqs}, \
+            stats
+
+    _lib.reset_launches()
+    on_card, stats = serve("cuda")
+    assert all(n > 0 for n in _lib.LAUNCHES.values())
+    assert stats.host_argmax == 0 and stats.d2h_batched == 0
+    assert on_card == serve("cpu")[0]
