@@ -13,12 +13,14 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
 2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` with
    nvcc (one process per source, all at once) and print each kernel's
    registers and spills (``-Xptxas -v``);
-3. hold each kernel against its plain PyTorch version at the serving
-   path's shapes, in fp32 (atol 1e-4) and bf16 (atol 1e-3, rtol 1e-2:
-   both sides accumulate in fp32 and round once, so they may differ by
-   one bf16 unit, a relative 2^-8 to 2^-7; the appends bit-exact), and
-   time kernel, plain version and one PyTorch library call computing the
-   same function (CUDA events, warm, the median of five windows);
+3. hold each kernel against its plain PyTorch version at its path's
+   shapes (serving for K1-K4; training, batch 4 x 2048 tokens of
+   llama3-8b, for K5 and its backward), in fp32 (atol 1e-4) and bf16
+   (atol 1e-3, rtol 1e-2: both sides accumulate in fp32 and round once,
+   so they may differ by one bf16 unit, a relative 2^-8 to 2^-7; the
+   appends bit-exact), and time kernel, plain version and one PyTorch
+   library call computing the same function (CUDA events, warm, the
+   median of five windows, three for the slowest calls);
 4. serve a small request trace with the reduced llama3-8b in fp32 on the
    card and on the CPU (plain versions): the greedy tokens and the phase
    log must be identical;
@@ -26,12 +28,25 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    through ``repro_torch.launch.serve`` (DynamicScheduler over
    FlyingEngine), with every kernel's launch count reset just before and
    read just after: every request must finish with its full output,
-   every token must be in the vocab, every kernel must have launched,
+   every token must be in the vocab, K1-K4 must have launched,
    and no token may have been read back one at a time;
 6. serve the same trace again under torch.profiler and print the device
-   time by kernel class and the device's busy share of the wall time.
+   time by kernel class and the device's busy share of the wall time;
+7. train the reduced llama3-8b three fp32 steps on the card (K5 forward
+   and backward) and on the CPU (their plain versions) from the same
+   weights and batches: the losses must agree (rtol 1e-4);
+8. train llama3-8b at full width, 4 of its 32 layers, in bf16 (fp32
+   AdamW moments), batch 4 x 2048 tokens, 20 steps, through
+   ``repro_torch.launch.train.train``, with the launch counts reset
+   just before and read just after: every loss must be finite, the last
+   below the first, and K5 must have launched 8 times forward (twice per
+   layer: the forward pass and its recomputation under remat) and 4
+   times backward per step; then two more steps under torch.profiler
+   for the device time by kernel class.
 
-The line before the last is the kernels' JSON record, the last line
+Each kernel's launch count in the JSON record comes from the path that
+runs it: K1-K4 from phase 5, K5 and its backward from phase 8. The line
+before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -48,6 +63,9 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16, NVIDIA data sheet
 F32_TOL = dict(atol=1e-4, rtol=0.0)
 BF16_TOL = dict(atol=1e-3, rtol=1e-2)
+SERVE_KERNELS = ("paged_append_token", "paged_attention",
+                 "paged_append_chunk", "paged_flash_prefill")
+TRAIN_KERNELS = ("flash_prefill", "flash_prefill_bwd")
 
 
 def fail(msg: str) -> None:
@@ -294,6 +312,70 @@ def kernel_checks(torch, np):
         library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kg, vg, attn_mask=mask), iters=5, windows=3)))
     del kg, vg, mask
+
+    # -- K5: dense causal flash attention, forward and backward ----------
+    # the training shapes: batch 4 x 2048 tokens of llama3-8b
+    B, T = 4, 2048
+
+    def rnd(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+    errs = {"fwd": [], "bwd": []}
+    for dtype in (f32, bf16):
+        q, do = rnd((B, T, H, hd), dtype), rnd((B, T, H, hd), dtype)
+        k, v = rnd((B, T, KV, hd), dtype), rnd((B, T, KV, hd), dtype)
+        for window in (None, 1024):
+            tag = f"{dtype} window={window}"
+            o, lse = fk.flash_prefill_kernel(q, k, v, window=window)
+            wo, wl = fr.flash_prefill_fwd_ref(q, k, v, window=window)
+            close(lse, wl, f32, f"flash_prefill {tag} (lse)")
+            e = close(o, wo, dtype, f"flash_prefill {tag}")
+            grads = fk.flash_prefill_bwd_kernel(q, k, v, o, lse, do,
+                                                window=window)
+            wants = fr.flash_prefill_bwd_ref(q, k, v, o, lse, do,
+                                             window=window)
+            eb = max(close(g, w_, dtype, f"flash_prefill_bwd {tag} d{n}")
+                     for n, g, w_ in zip("qkv", grads, wants))
+            if dtype == bf16:
+                errs["fwd"].append(e)
+                errs["bwd"].append(eb)
+            del grads, wants, wo, wl
+    o, lse = fk.flash_prefill_kernel(q, k, v)
+    pairs = B * H * T * (T + 1) // 2            # live (query row, key) pairs
+    esz = 2                                     # bf16
+    qbytes, kbytes = B * T * H * hd * esz, B * T * KV * hd * esz
+    stat = B * H * T * 4                        # the fp32 lse
+    fwd_b = bound(2 * qbytes + 2 * kbytes + stat, 4.0 * hd * pairs)
+    bwd_b = bound(4 * qbytes + 4 * kbytes + stat, 10.0 * hd * pairs)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    lo = F.scaled_dot_product_attention(
+        *(x.transpose(1, 2) for x in leaves), is_causal=True,
+        enable_gqa=True)
+    dot = do.transpose(1, 2)
+    rows.append(dict(
+        name="flash_prefill", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_prefill.cu",
+        replaces="src/repro/kernels/flash_prefill/kernel.py:74",
+        max_abs_err=max(errs["fwd"]),
+        ms=time_ms(torch, lambda: fk.flash_prefill_kernel(q, k, v)),
+        plain_ms=time_ms(torch, lambda: fr.flash_prefill_fwd_ref(q, k, v),
+                         iters=3, warm=1, windows=3),
+        bound_ms=fwd_b[0], bound_by=fwd_b[1],
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True))))
+    rows.append(dict(
+        name="flash_prefill_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_prefill.cu",
+        replaces="src/repro/kernels/flash_prefill/kernel.py:74",
+        max_abs_err=max(errs["bwd"]),
+        ms=time_ms(torch, lambda: fk.flash_prefill_bwd_kernel(
+            q, k, v, o, lse, do), iters=5, windows=3),
+        plain_ms=time_ms(torch, lambda: fr.flash_prefill_bwd_ref(
+            q, k, v, o, lse, do), iters=3, warm=1, windows=3),
+        bound_ms=bwd_b[0], bound_by=bwd_b[1],
+        library_ms=time_ms(torch, lambda: torch.autograd.grad(
+            lo, leaves, dot, retain_graph=True))))
+    del lo, leaves, o, lse, q, k, v, do
     _lib.reset_launches()
     torch.cuda.empty_cache()
     return rows
@@ -415,9 +497,10 @@ def serve_full_width(torch):
     print(f"serve: kernel launches {launches}")
     check(stats.host_argmax == 0, "tokens were read back one at a time")
     check(phases.count("mixed") > 0, "no mixed step occurred")
-    for k, n in launches.items():
-        check(n > 0, f"kernel {k} never launched on the serving path")
-    return launches
+    for k in SERVE_KERNELS:
+        check(launches[k] > 0, f"kernel {k} never launched on the serving "
+                               f"path")
+    return {k: launches[k] for k in SERVE_KERNELS}
 
 
 def serve_breakdown(torch):
@@ -431,11 +514,18 @@ def serve_breakdown(torch):
     stack = build_stack(cfg)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, _, _, wall = run_offline(cfg, stack)
-    classes = (("paged_flash_prefill", "prefill_kernel"),
-               ("paged_attention", "decode_kernel"),
-               ("paged_append", "append_rows_kernel"),
-               ("gemm", "gemm"), ("gemm", "nvjet"), ("gemm", "cutlass"),
-               ("gemm", "xmma"))
+    print_breakdown("breakdown", prof, wall, (
+        ("paged_flash_prefill", "prefill_kernel"),
+        ("paged_attention", "decode_kernel"),
+        ("paged_append", "append_rows_kernel")))
+
+
+def print_breakdown(tag: str, prof, wall: float, classes) -> None:
+    """Device time by kernel class (``classes``: (class, name pattern)
+    pairs, GEMM patterns added) and the device's busy share of ``wall``
+    seconds."""
+    classes = tuple(classes) + (("gemm", "gemm"), ("gemm", "nvjet"),
+                                ("gemm", "cutlass"), ("gemm", "xmma"))
     by: dict = {}
     other: dict = {}
     for e in prof.key_averages():
@@ -450,15 +540,105 @@ def serve_breakdown(torch):
                 other[k] = other.get(k, 0.0) + us / 1e3
     busy = sum(by.values())
     if not busy:
-        print("breakdown: not measured (the profiler saw no device time)")
+        print(f"{tag}: not measured (the profiler saw no device time)")
         return
     parts = ", ".join(f"{k} {v:.1f} ms ({v / busy:.1%})"
                       for k, v in sorted(by.items(), key=lambda kv: -kv[1]))
     top = sorted(other.items(), key=lambda kv: -kv[1])[:6]
-    print(f"breakdown (profiled rerun, {wall * 1e3:.1f} ms wall): device "
+    print(f"{tag} (profiled rerun, {wall * 1e3:.1f} ms wall): device "
           f"busy {busy:.1f} ms = {busy / (wall * 1e3):.1%} of wall; {parts}")
-    print("breakdown: largest 'other' kernels: " + "; ".join(
+    print(f"{tag}: largest 'other' kernels: " + "; ".join(
         f"{k} {v:.1f} ms" for k, v in top))
+
+
+# ---------------------------------------------------------------------------
+# phases 7 and 8: training
+# ---------------------------------------------------------------------------
+
+def train_reference_check(torch, np):
+    """The reduced config trained in fp32 on the card and on the CPU from
+    the same weights and batches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+    from repro_torch.models.model import build_model
+    from repro_torch.training.checkpoint import tree_map
+
+    cfg = get_config("llama3-8b").reduced()
+    params = build_model(cfg, torch.float32, "cpu").init(
+        torch.Generator().manual_seed(0))
+    kw = dict(steps=3, batch=4, seq=128, dtype=torch.float32,
+              log=lambda s: None)
+    card = train(cfg, device="cuda",
+                 params=tree_map(lambda t: t.to("cuda"), params), **kw)
+    cpu = train(cfg, device="cpu", params=params, **kw)
+    print(f"train reduced llama3-8b fp32: card losses {card.losses}, CPU "
+          f"losses {cpu.losses}")
+    check(np.allclose(card.losses, cpu.losses, rtol=1e-4, atol=0.0),
+          "card and CPU training losses differ")
+
+
+def train_full_width(torch):
+    import dataclasses
+    import math
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.train import train
+    from repro_torch.training.checkpoint import tree_leaves
+
+    # full width, depth cut to 4 of 32 layers: bf16 params and grads plus
+    # fp32 moments take 12 bytes a parameter, 96 GB at full depth
+    cfg = dataclasses.replace(get_config("llama3-8b"), num_layers=4)
+    steps, batch, seq = 20, 4, 2048
+    kw = dict(batch=batch, seq=seq, device="cuda", dtype=torch.bfloat16)
+    gc_collect(torch)
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launches()
+    res = train(cfg, steps=steps, log_every=5,
+                log=lambda s: print(f"train: {s}"), **kw)
+    launches = dict(_lib.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(t.numel() for t in tree_leaves(res.params))
+    del res.params
+    steady = sorted(res.step_s[1:])
+    med = steady[len(steady) // 2]
+    print(f"train: llama3-8b at full width, {cfg.num_layers} of 32 layers "
+          f"({n_params / 1e9:.3f} B parameters), bf16 parameters, fp32 "
+          f"AdamW moments, batch {batch} x {seq} tokens, {steps} steps")
+    print("train: losses " + " ".join(f"{x:.4f}" for x in res.losses))
+    print(f"train: step time median {med * 1e3:.1f} ms over steps 2-{steps} "
+          f"(min {steady[0] * 1e3:.1f}, max {steady[-1] * 1e3:.1f}; first "
+          f"{res.step_s[0] * 1e3:.1f} ms) = "
+          f"{res.tokens_per_step / med:.1f} tok/s; peak memory "
+          f"{peak / 2**30:.2f} GiB")
+    print(f"train: kernel launches {launches}")
+    check(all(math.isfinite(x) for x in res.losses), "a loss is not finite")
+    check(res.losses[-1] < res.losses[0],
+          f"loss did not decrease: {res.losses[0]} -> {res.losses[-1]}")
+    want = {"flash_prefill": 2 * cfg.num_layers * steps,
+            "flash_prefill_bwd": cfg.num_layers * steps}
+    for k, n in want.items():
+        check(launches[k] == n, f"{k} launched {launches[k]} times on the "
+                                f"training path, not {n}")
+    gc_collect(torch)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train(cfg, steps=2, log=lambda s: None, **kw)
+        wall = time.perf_counter() - t0
+    print_breakdown("train breakdown", prof, wall, (
+        ("flash_prefill_bwd dq", "dq_kernel"),
+        ("flash_prefill_bwd dkdv", "dkdv_kernel"),
+        ("flash_prefill", "fwd_kernel")))
+    gc_collect(torch)
+    return {k: launches[k] for k in TRAIN_KERNELS}
+
+
+def gc_collect(torch) -> None:
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:
@@ -502,12 +682,15 @@ def main(argv=None) -> int:
               f"ms   library {r['library_ms']:.4f} ms   bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
     if args.kernels_only:
-        # the serving path did not run: its launch counts are unknown
+        # the paths did not run: their launch counts are unknown
         launches = {r["name"]: None for r in rows}
     else:
         reference_check(torch)
         launches = serve_full_width(torch)
         serve_breakdown(torch)
+        gc_collect(torch)
+        train_reference_check(torch, np)
+        launches.update(train_full_width(torch))
     for r in rows:
         r["launches"] = launches[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches",

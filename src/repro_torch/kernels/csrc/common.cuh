@@ -1,5 +1,7 @@
-// Shared helpers of the port's CUDA kernels: dtype codes and loads and
-// stores that convert between the storage type and fp32.
+// Shared helpers of the port's CUDA kernels: dtype codes, loads and
+// stores that convert between the storage type and fp32, and the flash
+// sweep that the paged prefill kernel (paged_prefill.cu) and the dense
+// causal kernels (flash_prefill.cu) share.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -25,3 +27,119 @@ template <> __device__ __forceinline__ __nv_bfloat16
 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);  // round to nearest even, as torch's .to()
 }
+
+// ---------------------------------------------------------------------------
+// The flash sweep over key tiles.
+//
+// A block of NT threads owns ROWS query rows: the rep = H/KV query heads
+// of one kv head times ROWS/rep query positions, four threads per row,
+// each thread holding every fourth element of its row (dims 4*i + qq), so
+// that the four threads of a row read neighbouring shared-memory words
+// and the rows of a warp read the same ones: conflict-free broadcasts.
+// The block walks its key range itself in tiles of BK key positions,
+// staged in shared memory in fp32 once for all ROWS rows. Where a key row
+// lies in memory is the caller's business: a functor maps a key position
+// to the element offset of its row of this kv head (a block-table lookup
+// for the paged pool, plain arithmetic for a dense [B,T,KV,hd] tensor).
+// ---------------------------------------------------------------------------
+namespace flash {
+
+constexpr int ROWS = 64;       // query rows per block
+constexpr int NT = ROWS * 4;   // four threads per row
+constexpr int BK = 32;         // key positions per shared tile
+
+template <int HD> struct KVTile {
+  float k[BK][HD];
+  float v[BK][HD];
+  long long off[BK];
+};
+
+// Stage key positions [t0, t0 + BK) of one kv head into ``sm`` in fp32;
+// positions at or past ``hi`` are zero. Ends with the tile visible to
+// every thread of the block.
+template <int HD, typename KT, typename KeyOff>
+__device__ __forceinline__ void stage_tile(KVTile<HD>& sm,
+                                           const KT* __restrict__ k,
+                                           const KT* __restrict__ v, int t0,
+                                           int hi, KeyOff key_off) {
+  const int tid = threadIdx.x;
+  __syncthreads();  // the previous tile is consumed
+  if (tid < BK) {
+    const int kp = t0 + tid;
+    sm.off[tid] = kp < hi ? key_off(kp) : -1;
+  }
+  __syncthreads();
+  for (int idx = tid; idx < BK * HD; idx += NT) {
+    const int j = idx / HD;
+    const int d = idx % HD;
+    const long long off = sm.off[j];
+    sm.k[j][d] = off >= 0 ? to_f32(k[off + d]) : 0.f;
+    sm.v[j][d] = off >= 0 ? to_f32(v[off + d]) : 0.f;
+  }
+  __syncthreads();
+}
+
+// Dot product of one row (four threads, this one holding ``r``) with row
+// ``j`` of a staged tile; every thread of the row gets the full sum.
+template <int HD>
+__device__ __forceinline__ float row_dot(const float (&r)[HD / 4],
+                                         const float (*x)[HD], int j,
+                                         int qq) {
+  float p = 0.f;
+#pragma unroll
+  for (int i = 0; i < HD / 4; ++i) p += r[i] * x[j][4 * i + qq];
+  p += __shfl_xor_sync(0xffffffffu, p, 1);
+  p += __shfl_xor_sync(0xffffffffu, p, 2);
+  return p;
+}
+
+// A key at position kp is live for a query row at position qpos when it
+// lies below ``hi``, at or before ``last`` (the causal bound: qpos, or
+// the end of a prior-only segment) and, with a window, after qpos - window.
+__device__ __forceinline__ bool live(int kp, int hi, int last, int qpos,
+                                     int window) {
+  return kp < hi && kp <= last && (window <= 0 || kp > qpos - window);
+}
+
+// Online-softmax sweep of this thread's query row over key positions
+// [lo, hi): updates the running max ``m`` (of scaled scores), sum ``l``
+// and unnormalised output ``acc``. Masked keys get probability exactly 0.
+// Every thread of the block must call it with the same lo and hi.
+template <int HD, typename KT, typename KeyOff>
+__device__ __forceinline__ void sweep(KVTile<HD>& sm, const KT* __restrict__ k,
+                                      const KT* __restrict__ v,
+                                      KeyOff key_off, const float (&qr)[HD / 4],
+                                      int lo, int hi, int last, int qpos,
+                                      int window, float scale, float& m,
+                                      float& l, float (&acc)[HD / 4]) {
+  constexpr int PER = HD / 4;
+  const int qq = threadIdx.x & 3;
+  for (int t0 = lo; t0 < hi; t0 += BK) {
+    stage_tile<HD>(sm, k, v, t0, hi, key_off);
+    float s[BK];
+    float mt = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < BK; ++j) {
+      const float p = row_dot<HD>(qr, sm.k, j, qq);
+      s[j] = live(t0 + j, hi, last, qpos, window) ? p * scale : -INFINITY;
+      mt = fmaxf(mt, s[j]);
+    }
+    const float mn = fmaxf(m, mt);
+    if (mn > -INFINITY) {
+      const float alpha = expf(m - mn);
+      l *= alpha;
+#pragma unroll
+      for (int i = 0; i < PER; ++i) acc[i] *= alpha;
+#pragma unroll
+      for (int j = 0; j < BK; ++j) {
+        const float p = s[j] > -INFINITY ? expf(s[j] - mn) : 0.f;
+        l += p;
+#pragma unroll
+        for (int i = 0; i < PER; ++i) acc[i] += p * sm.v[j][4 * i + qq];
+      }
+      m = mn;
+    }
+  }
+}
+
+}  // namespace flash

@@ -10,7 +10,8 @@
 // holding every fourth element of its row's query and accumulator. The
 // block walks the block table over its own key range itself: [window_lo,
 // last query position], or [0, prior) for prior_only, in tiles of 32 key
-// positions staged in shared memory in fp32. Query row i of request b
+// positions staged in shared memory in fp32 (flash::sweep in common.cuh,
+// which the dense kernel of flash_prefill.cu shares). Query row i of request b
 // sits at absolute position prior_len[b] + i, so the causal mask kpos <=
 // qpos covers the prior context and the chunk's prefix in one sweep.
 // Rows past T (the ragged edge of the last tile) compute but never
@@ -28,9 +29,8 @@
 
 namespace {
 
-constexpr int ROWS = 64;          // query rows per block
-constexpr int NT = ROWS * 4;      // four threads per row
-constexpr int BK = 32;            // key positions per shared tile
+using flash::NT;
+using flash::ROWS;
 
 template <typename QT, typename KT, int HD>
 __global__ void __launch_bounds__(NT)
@@ -66,67 +66,19 @@ prefill_kernel(const QT* __restrict__ q, const KT* __restrict__ kpool,
   const int q_last = prior + min(tile * BQ + BQ, T) - 1;
   const int hi = min(prior_only ? prior : q_last + 1, MB * page);
   const int lo = window > 0 ? max(0, q_first - window + 1) : 0;
+  // the block table gives each key position's page
+  auto key_off = [=](int kp) -> long long {
+    const long long blk = max(bt[(long long)b * MB + kp / page], 0);
+    return ((blk * page + kp % page) * KV + kvh) * HD;
+  };
 
-  __shared__ float ks[BK][HD];
-  __shared__ float vs[BK][HD];
-  __shared__ long long rowoff[BK];
-
+  __shared__ flash::KVTile<HD> sm;
   float m = -INFINITY, l = 0.f, acc[PER];
 #pragma unroll
   for (int i = 0; i < PER; ++i) acc[i] = 0.f;
-
-  for (int t0 = lo; t0 < hi; t0 += BK) {
-    __syncthreads();  // the previous tile is consumed
-    if (tid < BK) {
-      const int kp = t0 + tid;
-      long long off = -1;
-      if (kp < hi) {
-        const long long blk = max(bt[(long long)b * MB + kp / page], 0);
-        off = ((blk * page + kp % page) * KV + kvh) * HD;
-      }
-      rowoff[tid] = off;
-    }
-    __syncthreads();
-    for (int idx = tid; idx < BK * HD; idx += NT) {
-      const int j = idx / HD;
-      const int d = idx % HD;
-      const long long off = rowoff[j];
-      ks[j][d] = off >= 0 ? to_f32(kpool[off + d]) : 0.f;
-      vs[j][d] = off >= 0 ? to_f32(vpool[off + d]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[BK];
-    float mt = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      float p = 0.f;
-#pragma unroll
-      for (int i = 0; i < PER; ++i) p += qr[i] * ks[j][4 * i + qq];
-      p += __shfl_xor_sync(0xffffffffu, p, 1);
-      p += __shfl_xor_sync(0xffffffffu, p, 2);
-      const int kp = t0 + j;
-      const bool ok = kp < hi && (prior_only ? kp < prior : kp <= qpos) &&
-                      (window <= 0 || kp > qpos - window);
-      s[j] = ok ? p * scale : -INFINITY;
-      mt = fmaxf(mt, s[j]);
-    }
-    const float mn = fmaxf(m, mt);
-    if (mn > -INFINITY) {
-      const float alpha = expf(m - mn);
-      l *= alpha;
-#pragma unroll
-      for (int i = 0; i < PER; ++i) acc[i] *= alpha;
-#pragma unroll
-      for (int j = 0; j < BK; ++j) {
-        const float p = s[j] > -INFINITY ? expf(s[j] - mn) : 0.f;
-        l += p;
-#pragma unroll
-        for (int i = 0; i < PER; ++i) acc[i] += p * vs[j][4 * i + qq];
-      }
-      m = mn;
-    }
-  }
+  flash::sweep<HD>(sm, kpool, vpool, key_off, qr, lo, hi,
+                   prior_only ? prior - 1 : qpos, qpos, window, scale, m, l,
+                   acc);
 
   if (row_ok) {
     const long long o = (((long long)b * T + qi) * H + h) * HD;

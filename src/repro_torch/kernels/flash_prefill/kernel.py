@@ -1,7 +1,9 @@
-"""CUDA wrapper of the paged flash-prefill kernel (csrc/paged_prefill.cu):
-validate, allocate outputs, launch on the current stream, count the
-launch, raise on a launch error. CUDA tensors only; ``ops`` routes CPU
-tensors to the plain version."""
+"""CUDA wrappers of the flash-prefill kernels: the paged chunked-prefill
+sweep (csrc/paged_prefill.cu) and the dense causal attention of the
+training path, forward and backward (csrc/flash_prefill.cu). Each
+validates, allocates outputs, launches on the current stream, counts the
+launch and raises on a launch error. CUDA tensors only; ``ops`` routes
+CPU tensors to the plain versions."""
 from __future__ import annotations
 
 from typing import Optional
@@ -48,3 +50,63 @@ def paged_flash_prefill_kernel(q, k_pool, v_pool, block_table, prior_len, *,
     _lib.LAUNCHES["paged_flash_prefill"] += 1
     _lib.check(rc, "paged_flash_prefill")
     return (out, lse) if return_lse else out
+
+
+def _dense_args(q, k, v):
+    """Validate the dense kernels' q [B,T,H,hd], k/v [B,T,KV,hd]."""
+    _lib.require_cuda(q, k, v)
+    B, T, H, hd = q.shape
+    KV = k.shape[2]
+    if k.shape != (B, T, KV, hd) or v.shape != k.shape or H % KV:
+        raise ValueError(f"flash_prefill: q {tuple(q.shape)} vs k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    if not q.dtype == k.dtype == v.dtype:
+        raise TypeError(f"flash_prefill: q, k, v of one dtype, not "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if hd not in (64, 128) or 64 % (H // KV):
+        raise ValueError(f"flash_prefill kernels take hd 64 or 128 and "
+                         f"H/KV dividing 64, not hd={hd}, H/KV={H // KV}")
+    return B, T, H, KV, hd
+
+
+def flash_prefill_kernel(q, k, v, *, window: Optional[int] = None):
+    """Dense causal attention: q [B,T,H,hd], k/v [B,T,KV,hd] (heads not
+    repeated; any T) -> (out [B,T,H,hd] in q's dtype, lse [B,H,T]
+    fp32)."""
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    B, T, H, KV, hd = _dense_args(q, k, v)
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    rc = _lib.lib("flash_prefill").flash_prefill_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), B, T, H, KV, hd, window or 0, hd ** -0.5,
+        _lib.dtype_code(q), _lib.stream_of(q))
+    _lib.LAUNCHES["flash_prefill"] += 1
+    _lib.check(rc, "flash_prefill")
+    return out, lse
+
+
+def flash_prefill_bwd_kernel(q, k, v, out, lse, dout, *,
+                             window: Optional[int] = None):
+    """Backward of ``flash_prefill_kernel``: the forward's inputs, its
+    (out, lse) and dout [B,T,H,hd] -> (dq, dk, dv) in the inputs'
+    dtype."""
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out, dout, lse = out.contiguous(), dout.contiguous(), lse.contiguous()
+    B, T, H, KV, hd = _dense_args(q, k, v)
+    _lib.require_cuda(q, out, lse, dout)
+    if any(t.shape != q.shape or t.dtype != q.dtype for t in (out, dout)) \
+            or lse.shape != (B, H, T) or lse.dtype != torch.float32:
+        raise ValueError("flash_prefill_bwd: out and dout must match q, "
+                         "lse be [B,H,T] fp32")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
+        torch.empty_like(v)
+    delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    rc = _lib.lib("flash_prefill").flash_prefill_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, T, H, KV, hd, window or 0,
+        hd ** -0.5, _lib.dtype_code(q), _lib.stream_of(q))
+    _lib.LAUNCHES["flash_prefill_bwd"] += 1
+    _lib.check(rc, "flash_prefill_bwd")
+    return dq, dk, dv

@@ -1,12 +1,15 @@
-"""Plain PyTorch versions of the paged flash-prefill kernel: what the
-wrappers run for CPU tensors, and what the CUDA kernel is held against."""
+"""Plain PyTorch versions of the flash-prefill kernels: what the wrappers
+run for CPU tensors, and what the CUDA kernels are held against. The
+paged chunked-prefill sweep (serving) and the dense causal attention of
+the training path, forward and backward."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
 
-from repro_torch.models.cache import attention_with_lse, paged_gather
+from repro_torch.models.cache import (attention_with_lse, causal_attention,
+                                      causal_mask, paged_gather)
 
 
 def paged_prefill_sweep_with_lse_ref(q, k_pool, v_pool, block_table,
@@ -44,3 +47,51 @@ def paged_flash_prefill_ref(q, k_pool, v_pool, block_table, prior_len, *,
         q, k_pool, v_pool, block_table, prior_len, window=window,
         softmax_scale=softmax_scale)
     return out.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# dense causal attention (the training path)
+# ---------------------------------------------------------------------------
+
+def flash_prefill_ref(q, k, v, *, window: Optional[int] = None):
+    """q [B,T,H,hd]; k/v [B,T,KV,hd]; causal (+ window) -> [B,T,H,hd] in
+    q's dtype, scaled by hd^-0.5."""
+    return causal_attention(q, k, v, window=window)
+
+
+def flash_prefill_fwd_ref(q, k, v, *, window: Optional[int] = None):
+    """The forward kernel's function: (out [B,T,H,hd] in q's dtype, lse
+    [B,H,T] fp32, the log-sum-exp of each row's scaled scores)."""
+    T, hd = q.shape[1], q.shape[-1]
+    mask = causal_mask(T, window=window, device=q.device)
+    out, lse = attention_with_lse(q, k, v, mask[None, None], hd ** -0.5)
+    return out.to(q.dtype), lse
+
+
+def flash_prefill_bwd_ref(q, k, v, out, lse, dout, *,
+                          window: Optional[int] = None):
+    """The backward kernel's function, written as its formula: with S =
+    Q K^T * scale, P = exp(S - lse) on live keys, D = rowsum(dO * O),
+    dS = P * (dO V^T - D): dQ = scale * dS K, dK = scale * dS^T Q,
+    dV = P^T dO, GQA heads summed onto their kv head. Returns (dq, dk,
+    dv) in the inputs' dtypes; all sums in fp32."""
+    B, T, H, hd = q.shape
+    KV = k.shape[2]
+    rep = H // KV
+    scale = hd ** -0.5
+    qg = q.float().reshape(B, T, KV, rep, hd)
+    dog = dout.float().reshape(B, T, KV, rep, hd)
+    kf, vf = k.float(), v.float()
+    mask = causal_mask(T, window=window, device=q.device)
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qg, kf) * scale
+    lse_g = lse.reshape(B, KV, rep, T)[..., None]
+    p = torch.where(mask, torch.exp(s - lse_g), 0.0)
+    dv = torch.einsum("bgrqk,bqgrd->bkgd", p, dog)
+    dp = torch.einsum("bqgrd,bkgd->bgrqk", dog, vf)
+    d = (dout.float() * out.float()).sum(-1)               # [B,T,H]
+    d = d.reshape(B, T, KV, rep).permute(0, 2, 3, 1)[..., None]
+    ds = p * (dp - d)
+    dq = torch.einsum("bgrqk,bkgd->bqgrd", ds, kf) * scale
+    dk = torch.einsum("bgrqk,bqgrd->bkgd", ds, qg) * scale
+    return (dq.reshape(B, T, H, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))

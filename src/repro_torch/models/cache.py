@@ -14,6 +14,8 @@ the same tensors it was given, their storage (``data_ptr()``) unchanged.
   chunk prefix (kernels/flash_prefill).
 - ``DecodeBackend``  — single-token append + paged decode attention
   (kernels/paged_attention).
+- ``TrainBackend``   — no cache: full-sequence causal attention,
+  optionally windowed, differentiable (kernels/flash_prefill).
 
 Which implementation runs is decided by where the tensors lie: the CUDA
 kernels for tensors on the card, their plain PyTorch versions for
@@ -57,6 +59,27 @@ def attention_with_lse(q, k, v, mask, softmax_scale):
     lse = torch.where(denom > 0.0, m + torch.log(denom.clamp_min(1e-30)),
                       NEG_INF)[..., 0]
     return out, lse
+
+
+def causal_mask(T: int, *, window: Optional[int] = None, device=None):
+    """[T, T] bool: key j is live for query i when j <= i and, with a
+    window, j > i - window."""
+    qpos = torch.arange(T, device=device)[:, None]
+    kpos = torch.arange(T, device=device)[None, :]
+    mask = kpos <= qpos
+    if window is not None:
+        mask = mask & (kpos > qpos - window)
+    return mask
+
+
+def causal_attention(q, k, v, *, window: Optional[int] = None):
+    """q [B,T,H,hd], k/v [B,T,KV,hd]; causal with an optional sliding
+    window, scaled by hd^-0.5 -> [B,T,H,hd] in q's dtype (the JAX
+    package's ``causal_attention`` at its defaults, q_offset 0)."""
+    T, hd = q.shape[1], q.shape[-1]
+    mask = causal_mask(T, window=window, device=q.device)
+    out, _ = attention_with_lse(q, k, v, mask[None, None], hd ** -0.5)
+    return out.to(q.dtype)
 
 
 def merge_attention(outs_lses):
@@ -124,6 +147,18 @@ def paged_attention_ref(q, k_pool, v_pool, block_table, context_len, *,
 # ---------------------------------------------------------------------------
 # backends
 # ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class TrainBackend:
+    """Full-sequence causal attention, no cache (training / eval); the
+    gradient flows through the flash-prefill op's backward."""
+    window: Optional[int] = None
+
+    def attend(self, state, q, k, v, *, positions, window=None):
+        from repro_torch.kernels.flash_prefill import ops as fp_ops
+        w = window if window is not None else self.window
+        return fp_ops.flash_prefill(q, k, v, window=w), state
+
 
 @dataclass(frozen=True)
 class PrefillBackend:

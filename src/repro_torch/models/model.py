@@ -2,18 +2,21 @@
 
 ``Model.init`` makes the parameters as a plain dict of tensors, layers of
 a group stacked on axis 0 as in the JAX package (so its parameters carry
-over leaf for leaf, ``repro_torch.convert``). ``forward`` runs prefill or
-decode with a cache backend; the JAX package scans each group of layers,
-the port loops over them. Per-layer states (the paged KV pool views) are
-written in place and returned as given.
+over leaf for leaf, ``repro_torch.convert``). ``forward`` runs train,
+prefill or decode with a cache backend; the JAX package scans each group
+of layers, the port loops over them. Per-layer states (the paged KV pool
+views) are written in place and returned as given. Train mode keeps the
+autograd graph and, as the JAX package's ``remat``, recomputes each
+layer's activations in the backward pass.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from functools import cached_property
+from functools import cached_property, partial
 from typing import Any, Dict, Optional, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.views import TPContext
@@ -57,6 +60,8 @@ class Model:
     cfg: ArchConfig
     dtype: torch.dtype = torch.bfloat16
     device: torch.device = torch.device("cpu")
+    # rematerialize layer activations in the backward pass (training)
+    remat: bool = True
 
     @cached_property
     def plan(self):
@@ -116,30 +121,50 @@ class Model:
     # ------------------------------------------------------------------
     # forward
     # ------------------------------------------------------------------
-    @torch.no_grad()
     def forward(self, params, ctx: TPContext, *, mode: str, tokens,
-                backend, states, positions=None, last_pos=None):
+                backend, states=None, positions=None, last_pos=None):
         """Returns (fp32 logits, states, aux_loss).
 
-        mode: 'prefill' | 'decode'. ``positions`` [B,T] absolute
+        mode: 'train' | 'prefill' | 'decode'. ``positions`` [B,T] absolute
         positions. ``last_pos`` [B] (prefill only): per-request index of
         the final real prompt token, so the sampled logits don't depend
         on batch padding; defaults to the padded window's last position.
-        ``states`` are updated in place and returned as given."""
+        Serving ``states`` are updated in place and returned as given;
+        train mode takes none, and is the only mode that records the
+        autograd graph."""
+        if mode == "train":
+            if states is not None:
+                raise ValueError("train mode runs without cache states")
+            return self._forward(params, ctx, mode=mode, tokens=tokens,
+                                 backend=backend, states=None,
+                                 positions=positions, last_pos=None)
+        with torch.no_grad():
+            return self._forward(params, ctx, mode=mode, tokens=tokens,
+                                 backend=backend, states=states,
+                                 positions=positions, last_pos=last_pos)
+
+    def _forward(self, params, ctx, *, mode, tokens, backend, states,
+                 positions, last_pos):
         cfg = self.cfg
         x = tfm.embed_tokens(cfg, params["embed"], tokens, ctx)
         B, T = x.shape[0], x.shape[1]
         if positions is None:
             positions = torch.arange(T, device=x.device)[None].expand(B, T)
+        remat = mode == "train" and self.remat
         for gi, (kind_seq, n) in enumerate(self.plan):
             p_group = params["groups"][gi]
-            st_group = states[gi]
             for li in range(n):
                 for si, kind in enumerate(kind_seq):
-                    st = tuple(t[li] for t in st_group[si]["mixer"])
-                    x, _ = tfm.apply_layer(
-                        cfg, kind, _index(p_group[si], li), x, ctx, backend,
-                        st, positions=positions)
+                    st = None if states is None else tuple(
+                        t[li] for t in states[gi][si]["mixer"])
+                    layer = partial(tfm.apply_layer, cfg, kind,
+                                    _index(p_group[si], li), ctx=ctx,
+                                    backend=backend, state=st,
+                                    positions=positions)
+                    if remat:
+                        x, _ = checkpoint(layer, x, use_reentrant=False)
+                    else:
+                        x, _ = layer(x)
         x = tfm.rms_norm(x, params["embed"]["norm_f"], cfg.norm_eps)
         if mode == "prefill":
             if last_pos is not None:

@@ -122,6 +122,26 @@ def gather_vocab(cfg, logits_local, ctx: TPContext):
     return logits_local
 
 
+def tp_cross_entropy(cfg, logits_local, labels, ctx: TPContext, mask=None):
+    """Softmax cross entropy over the whole vocab (tp = 1: the local
+    shard is the vocab), as the JAX package computes it: max-shifted
+    log-sum-exp minus the gold logit; labels outside the vocab score a
+    gold logit of 0. ``mask`` [..] weights positions; the mean over the
+    weighted positions is returned."""
+    V = logits_local.shape[-1]
+    m = logits_local.amax(dim=-1)
+    denom = torch.exp(logits_local - m[..., None]).sum(dim=-1)
+    labels = labels.long()
+    ok = (labels >= 0) & (labels < V)
+    gold = logits_local.gather(-1, labels.clamp(0, V - 1)[..., None])[..., 0]
+    gold = torch.where(ok, gold, 0.0)
+    nll = torch.log(denom.clamp_min(1e-30)) + m - gold
+    if mask is not None:
+        nll = nll * mask
+        return nll.sum() / mask.sum().clamp_min(1.0)
+    return nll.mean()
+
+
 def tp_argmax(cfg, logits_local, ctx: TPContext):
     """Greedy token ids [..] int32 (first index among ties, as
     ``jnp.argmax``)."""

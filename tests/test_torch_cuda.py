@@ -8,7 +8,8 @@ installed:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
 
 Tolerances: fp32 atol = rtol = 1e-5 (the kernels sum in another order
-than the plain versions); bf16 atol 1e-3, rtol 1e-2 (both sides
+than the plain versions), 1e-4 for the dense backward's gradients (each
+sums T products of products); bf16 atol 1e-3, rtol 1e-2 (both sides
 accumulate in fp32 and round once, so they may differ by one bf16 unit,
 a relative 2^-8 to 2^-7); appends bit-exact.
 """
@@ -19,6 +20,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import _lib
+from repro_torch.kernels.flash_prefill import kernel as fker
 from repro_torch.kernels.flash_prefill import ops as fops
 from repro_torch.kernels.flash_prefill import ref as fref
 from repro_torch.kernels.paged_attention import ops as pops
@@ -115,6 +117,64 @@ def test_prefill_kernels_match_plain(cuda, dtype, window, prior_only):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Bd,Td,Hd,KVd,hdd,window", [
+    (2, 100, 8, 2, 64, None), (2, 100, 8, 2, 64, 16),
+    (1, 130, 4, 4, 128, None), (1, 70, 4, 1, 128, 24)])
+def test_dense_flash_kernels_match_plain(cuda, dtype, Bd, Td, Hd, KVd, hdd,
+                                         window):
+    """K5 forward and backward against their plain versions: ragged T,
+    rep 1 and 4, windows, hd 64 and 128; the backward from the same
+    (out, lse), and through the autograd op (one launch of each)."""
+    rng = np.random.default_rng(1)
+
+    def t(shape):
+        return torch.from_numpy(rng.standard_normal(shape)).to(cuda, dtype)
+    q, do = t((Bd, Td, Hd, hdd)), t((Bd, Td, Hd, hdd))
+    k, v = t((Bd, Td, KVd, hdd)), t((Bd, Td, KVd, hdd))
+    out, lse = fker.flash_prefill_kernel(q, k, v, window=window)
+    want_o, want_l = fref.flash_prefill_fwd_ref(q, k, v, window=window)
+    torch.testing.assert_close(out, want_o, **_tol(dtype))
+    torch.testing.assert_close(lse, want_l, **_tol(torch.float32))
+    got = fker.flash_prefill_bwd_kernel(q, k, v, out, lse, do, window=window)
+    want = fref.flash_prefill_bwd_ref(q, k, v, out, lse, do, window=window)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(
+            g, w, **(dict(atol=1e-4, rtol=1e-4) if dtype == torch.float32
+                     else _tol(dtype)))
+    _lib.reset_launches()
+    ins = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    o = fops.flash_prefill(*ins, window=window)
+    for g, w in zip(torch.autograd.grad(o, ins, do), got):
+        torch.testing.assert_close(g, w, atol=0.0, rtol=0.0)
+    assert _lib.LAUNCHES["flash_prefill"] == 1
+    assert _lib.LAUNCHES["flash_prefill_bwd"] == 1
+
+
+@pytest.mark.gpu
+def test_training_on_the_card_matches_the_cpu(cuda):
+    """Reduced llama3-8b trained three fp32 steps on the card (K5 forward
+    and backward launched) and on the CPU from the same weights: the
+    losses agree."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+    from repro_torch.models.model import build_model
+    from repro_torch.training.checkpoint import tree_map
+
+    cfg = get_config("llama3-8b").reduced()
+    params = build_model(cfg, torch.float32, "cpu").init(
+        torch.Generator().manual_seed(0))
+    on_card_params = tree_map(lambda x: x.to(cuda), params)
+    kw = dict(steps=3, batch=2, seq=64, dtype=torch.float32, log=lambda s: 0)
+    _lib.reset_launches()
+    card = train(cfg, device="cuda", params=on_card_params, **kw)
+    assert _lib.LAUNCHES["flash_prefill"] == 3 * 2 * cfg.num_layers
+    assert _lib.LAUNCHES["flash_prefill_bwd"] == 3 * cfg.num_layers
+    cpu = train(cfg, device="cpu", params=params, **kw)
+    np.testing.assert_allclose(card.losses, cpu.losses, rtol=1e-4)
+
+
+@pytest.mark.gpu
 def test_engine_on_the_card_matches_the_cpu(cuda):
     """The reduced llama3-8b served on the card (every kernel launched)
     gives the CPU's greedy tokens, pools never move."""
@@ -157,6 +217,8 @@ def test_engine_on_the_card_matches_the_cpu(cuda):
 
     _lib.reset_launches()
     on_card, stats = serve("cuda")
-    assert all(n > 0 for n in _lib.LAUNCHES.values())
+    serving = ("paged_append_token", "paged_attention", "paged_append_chunk",
+               "paged_flash_prefill")
+    assert all(_lib.LAUNCHES[k] > 0 for k in serving)
     assert stats.host_argmax == 0 and stats.d2h_batched == 0
     assert on_card == serve("cpu")[0]

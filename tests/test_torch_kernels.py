@@ -6,13 +6,18 @@ in interpret mode, on the same numpy inputs: fp32, atol = rtol = 1e-5
 (summation order differs between the frameworks), appends exactly
 equal. Shapes are small (H=8, KV=2, hd=64), with pages of 4 and 16,
 ragged context lengths including 0, windows, LSE outputs, prior-only
-sweeps and parked slots. The tests marked ``gpu`` launch the CUDA
-kernels against the plain versions and skip without a card.
+sweeps and parked slots. The dense causal kernel (K5) is held against
+the JAX package's ``ops.flash_prefill`` (its Pallas kernel in interpret
+mode) and ``flash_prefill_ref`` at atol 1e-5, and its plain backward
+against ``jax.vjp`` of ``flash_prefill_ref`` at atol 1e-4 (gradients sum
+T products more than the forward does). The tests marked ``gpu`` launch
+the CUDA kernels against the plain versions and skip without a card.
 """
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from repro.kernels.flash_prefill import kernel as jfk
@@ -266,6 +271,62 @@ def test_causal_sweep_is_chunk_plus_prior_merge():
 
 
 # ---------------------------------------------------------------------------
+# K5: dense causal flash attention, forward and backward
+# ---------------------------------------------------------------------------
+
+# (B, T, H, KV, hd, window): rep 1 and 4, T not a multiple of 64, windows,
+# hd 64 and 128
+DENSE_CASES = [(2, 100, 4, 4, 64, None), (2, 100, 8, 2, 64, 16),
+               (1, 128, 8, 2, 128, None), (1, 70, 4, 1, 128, 24)]
+
+
+def _dense(B, T, H, KV, hd, seed=0):
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    return (rng.standard_normal((B, T, H, hd)).astype(f),
+            rng.standard_normal((B, T, KV, hd)).astype(f),
+            rng.standard_normal((B, T, KV, hd)).astype(f),
+            rng.standard_normal((B, T, H, hd)).astype(f))
+
+
+@pytest.mark.parametrize("B,T,H,KV,hd,window", DENSE_CASES)
+def test_flash_prefill_forward_matches_jax(B, T, H, KV, hd, window):
+    from repro.kernels.flash_prefill.ops import flash_prefill as jax_op
+    q, k, v, _ = _dense(B, T, H, KV, hd)
+    got = fops.flash_prefill(_t(q), _t(k), _t(v), window=window)
+    _close(got, jax_op(*map(jnp.asarray, (q, k, v)), window=window,
+                       blk=32))
+    _close(got, jfr.flash_prefill_ref(*map(jnp.asarray, (q, k, v)),
+                                      window=window))
+    # the plain forward's lse is the paged sweep's over a one-page table
+    out, lse = tfr.flash_prefill_fwd_ref(_t(q), _t(k), _t(v),
+                                         window=window)
+    _close(out, got)
+    bt = np.arange(B, dtype=np.int32)[:, None]
+    _, want_lse = jfr.paged_prefill_sweep_with_lse_ref(
+        *map(jnp.asarray, (q, k, v, bt, np.zeros(B, np.int32))),
+        window=window)
+    _close(lse, want_lse)
+
+
+@pytest.mark.parametrize("B,T,H,KV,hd,window", DENSE_CASES)
+def test_flash_prefill_backward_matches_jax(B, T, H, KV, hd, window):
+    q, k, v, do = _dense(B, T, H, KV, hd, seed=1)
+    ins = [_t(x).requires_grad_(True) for x in (q, k, v)]
+    out = fops.flash_prefill(*ins, window=window)
+    got = torch.autograd.grad(out, ins, _t(do))
+    _, vjp = jax.vjp(lambda *a: jfr.flash_prefill_ref(*a, window=window),
+                     *map(jnp.asarray, (q, k, v)))
+    for g, w in zip(got, vjp(jnp.asarray(do))):
+        _close(g, w, atol=1e-4, rtol=0.0)
+    # the autograd op's backward is the plain formula
+    o, lse = tfr.flash_prefill_fwd_ref(*map(_t, (q, k, v)), window=window)
+    for g, w in zip(got, tfr.flash_prefill_bwd_ref(
+            *map(_t, (q, k, v)), o, lse, _t(do), window=window)):
+        _close(g, w, atol=0.0, rtol=0.0)
+
+
+# ---------------------------------------------------------------------------
 # dispatch: CPU tensors take the plain versions and launch nothing
 # ---------------------------------------------------------------------------
 
@@ -275,6 +336,9 @@ def test_cpu_dispatch_launches_no_kernel():
     ctx = np.array([2, 3, 4], np.int32)
     pops.paged_attention(_t(c["q1"]), _t(c["kp"]), _t(c["vp"]), _t(c["bt"]),
                          _t(ctx))
+    q, k, v, do = (_t(x).requires_grad_(True)
+                   for x in _dense(1, 9, 4, 1, 64))
+    torch.autograd.grad(fops.flash_prefill(q, k, v), (q, k, v), do)
     assert all(n == 0 for n in _lib.LAUNCHES.values())
     with pytest.raises(ValueError):
         pops.on_cuda(torch.empty(1, device="meta"))
