@@ -20,7 +20,12 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    so they may differ by one bf16 unit, a relative 2^-8 to 2^-7; the
    appends bit-exact), and time kernel, plain version and one PyTorch
    library call computing the same function (CUDA events, warm, the
-   median of five windows, three for the slowest calls);
+   median of five windows, three for the slowest calls); K6 and its
+   backward (training, batch 4 x 2048 tokens of mamba2-2.7b, and a
+   ragged T through the autograd op) at rtol 1e-4 with an atol of 1e-4
+   times each output's largest entry (dA and dt sum thousands of terms
+   that cancel), 1e-2 of both for bf16 gradients (one bf16 unit), with
+   no library call to time (no single PyTorch call computes the scan);
 4. serve a small request trace with the reduced llama3-8b in fp32 on the
    card and on the CPU (plain versions): the greedy tokens and the phase
    log must be identical;
@@ -42,10 +47,18 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    below the first, and K5 must have launched 8 times forward (twice per
    layer: the forward pass and its recomputation under remat) and 4
    times backward per step; then two more steps under torch.profiler
-   for the device time by kernel class.
+   for the device time by kernel class;
+9. train the reduced mamba2-2.7b three fp32 steps on the card (K6
+   forward and backward) and on the CPU from the same weights and
+   batches: the losses must agree (rtol 1e-4);
+10. train mamba2-2.7b at full width and all 64 layers in bf16 (fp32
+   AdamW moments), batch 4 x 2048 tokens, 20 steps, as phase 8: finite
+   losses, the last below the first, and K6 launched 128 times forward
+   and 64 times backward per step; then two profiled steps.
 
 Each kernel's launch count in the JSON record comes from the path that
-runs it: K1-K4 from phase 5, K5 and its backward from phase 8. The line
+runs it: K1-K4 from phase 5, K5 and its backward from phase 8, K6 and
+its backward from phase 10. The line
 before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -66,6 +79,8 @@ BF16_TOL = dict(atol=1e-3, rtol=1e-2)
 SERVE_KERNELS = ("paged_append_token", "paged_attention",
                  "paged_append_chunk", "paged_flash_prefill")
 TRAIN_KERNELS = ("flash_prefill", "flash_prefill_bwd")
+MAMBA_KERNELS = ("ssd_scan", "ssd_scan_bwd")
+MAMBA_STEPS = 20
 
 
 def fail(msg: str) -> None:
@@ -376,8 +391,138 @@ def kernel_checks(torch, np):
         library_ms=time_ms(torch, lambda: torch.autograd.grad(
             lo, leaves, dot, retain_graph=True))))
     del lo, leaves, o, lse, q, k, v, do
+    torch.cuda.empty_cache()
+    rows.extend(ssd_rows(torch, gen))
     _lib.reset_launches()
     torch.cuda.empty_cache()
+    return rows
+
+
+def ssd_close(torch, got, want, what):
+    """K6's tolerance: an atol of 1e-4 times the largest entry of the
+    plain output (dA and dt sum thousands of terms that cancel, so fp32
+    error scales with the terms, not the result), and rtol 1e-4 in fp32.
+    For bf16 outputs (dx, dB, dC with bf16 inputs) both sides compute in
+    fp32 and round once, so they differ by that fp32 error plus at most
+    one bf16 unit of the entry, which is at most 2**-7 of it: rtol
+    2**-7."""
+    got = got.detach()
+    rtol = 1e-4 if got.dtype == torch.float32 else 2.0 ** -7
+    scale = float(want.float().abs().max())
+    e = float((got.float() - want.float()).abs().max())
+    ok = torch.allclose(got.float(), want.float(), rtol=rtol,
+                        atol=1e-4 * scale)
+    print(f"  {what}: max_abs_err={e:.3e} (largest entry {scale:.3e})")
+    check(ok, f"{what} disagrees with its plain version (max {e:.3e})")
+    return e
+
+
+def ssd_rows(torch, gen):
+    """K6 forward and backward against their plain versions at the
+    training shape of mamba2-2.7b (batch 4 x 2048 tokens, 80 heads of
+    64, d_state 128, chunk 128) and at a small ragged shape through the
+    autograd op, in fp32 and with bf16 x, B and C; then timed in bf16 at
+    the training shape."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    from repro_torch.kernels.ssd_scan import ops as so
+    from repro_torch.kernels.ssd_scan import ref as sr
+
+    dev = torch.device("cuda")
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def rnd(shape, dtype=f32, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(dtype)
+
+    def inputs(Bs, T, H, hd, S, dtype):
+        # the model's ranges: A = -exp(log(linspace(1, 16))), dt a
+        # softplus, x and B/C after the SiLU'd convolution
+        return (F.silu(rnd((Bs, T, H, hd))).to(dtype),
+                F.softplus(rnd((Bs, T, H))),
+                -torch.linspace(1.0, 16.0, H, device=dev),
+                F.silu(rnd((Bs, T, S))).to(dtype),
+                F.silu(rnd((Bs, T, S))).to(dtype))
+    errs = {"fwd": [], "bwd": []}
+    Bs, T, H, hd, S, ch = 4, 2048, 80, 64, 128, 128
+    for dtype in (f32, bf16):
+        ins = inputs(Bs, T, H, hd, S, dtype)
+        dy = rnd((Bs, T, H, hd))
+        tag = f"ssd_scan {dtype} [{Bs},{T},{H},{hd}] S={S}"
+        y, hT, st = sk.ssd_scan_kernel(*ins, chunk=ch)
+        wy, wh, wst = sr.ssd_scan_fwd_ref(*ins, chunk=ch)
+        e = max(ssd_close(torch, g, w, f"{tag} {n}")
+                for n, g, w in (("y", y, wy), ("hT", hT, wh),
+                                ("states", st, wst)))
+        del wy, wh, wst
+        grads = sk.ssd_scan_bwd_kernel(*ins, st, dy, chunk=ch)
+        wants = sr.ssd_scan_bwd_ref(*ins, dy, chunk=ch)
+        eb = max(ssd_close(torch, g, w, f"ssd_scan_bwd {dtype} d{n}")
+                 for n, g, w in zip(("x", "dt", "A", "B", "C"), grads,
+                                    wants))
+        errs["fwd"].append(e)
+        errs["bwd"].append(eb)
+        del grads, wants, y, hT, st
+        torch.cuda.empty_cache()
+    # a ragged T through the autograd op (padded to a multiple of 32)
+    for dtype in (f32, bf16):
+        ins = inputs(2, 100, 3, 32, 32, dtype)
+        leaves = [t.clone().requires_grad_(True) for t in ins]
+        dy = rnd((2, 100, 3, 32))
+        y, _ = so.ssd_scan(*leaves, chunk=32)
+        grads = torch.autograd.grad(y, leaves, dy)
+        pad = [F.pad(t, (0, 0) * (t.dim() - 2) + (0, 28))
+               if t.dim() > 1 else t for t in ins]
+        wy, _, _ = sr.ssd_scan_fwd_ref(*pad, chunk=32)
+        wants = sr.ssd_scan_bwd_ref(*pad, F.pad(dy, (0, 0, 0, 0, 0, 28)),
+                                    chunk=32)
+        ssd_close(torch, y, wy[:, :100], f"ssd_scan op {dtype} T=100 y")
+        for n, g, w in zip(("x", "dt", "A", "B", "C"), grads, wants):
+            ssd_close(torch, g, w[:, :100] if w.dim() > 1 else w,
+                      f"ssd_scan op {dtype} T=100 d{n}")
+
+    # timed in bf16 at the training shape
+    ins = inputs(Bs, T, H, hd, S, bf16)
+    dy = rnd((Bs, T, H, hd))
+    y, hT, st = sk.ssd_scan_kernel(*ins, chunk=ch)
+    # the bounds count the function's own inputs and outputs, not the
+    # per-chunk states this design passes from its forward to its backward
+    xb, yb = Bs * T * H * hd * 2, Bs * T * H * hd * 4
+    bcb, dtb = 2 * Bs * T * S * 2, Bs * T * H * 4
+    htb = Bs * H * hd * S * 4
+    per = Bs * H * (T // ch)            # (row, head, chunk) blocks of work
+    # operations as the TPU kernel counts them: C.B^T, the intra-chunk
+    # product, the inter-chunk term and the state update
+    fwd_f = per * (2 * ch * ch * S + 2 * ch * ch * hd + 4 * ch * hd * S)
+    # the backward's products, each counted once: C.B^T and dy.xd^T, the
+    # three chunk products with them (dxd, dB, dC), and five terms
+    # against a state-sized matrix (R twice, the R update, h twice)
+    bwd_f = per * (2 * ch * ch * (3 * S + 2 * hd) + 10 * ch * hd * S)
+    # forward: x, dt, A, B, C in, y and hT out; backward: the same five
+    # and dy (fp32) in, their five gradients out
+    fwd_b = bound(xb + dtb + H * 4 + bcb + yb + htb, fwd_f)
+    bwd_b = bound(2 * (xb + dtb + H * 4 + bcb) + yb, bwd_f)
+    rows = [dict(
+        name="ssd_scan", route="cuda",
+        source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan/kernel.py:67",
+        max_abs_err=max(errs["fwd"]),
+        ms=time_ms(torch, lambda: sk.ssd_scan_kernel(*ins, chunk=ch),
+                   iters=5),
+        plain_ms=time_ms(torch, lambda: sr.ssd_scan_fwd_ref(*ins, chunk=ch),
+                         iters=3, warm=1, windows=3),
+        bound_ms=fwd_b[0], bound_by=fwd_b[1], library_ms=None), dict(
+        name="ssd_scan_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan/kernel.py:67",
+        max_abs_err=max(errs["bwd"]),
+        ms=time_ms(torch, lambda: sk.ssd_scan_bwd_kernel(
+            *ins, st, dy, chunk=ch), iters=5),
+        plain_ms=time_ms(torch, lambda: sr.ssd_scan_bwd_ref(
+            *ins, dy, chunk=ch), iters=2, warm=1, windows=3),
+        bound_ms=bwd_b[0], bound_by=bwd_b[1], library_ms=None)]
+    del ins, dy, y, hT, st
     return rows
 
 
@@ -555,7 +700,7 @@ def print_breakdown(tag: str, prof, wall: float, classes) -> None:
 # phases 7 and 8: training
 # ---------------------------------------------------------------------------
 
-def train_reference_check(torch, np):
+def train_reference_check(torch, np, arch: str):
     """The reduced config trained in fp32 on the card and on the CPU from
     the same weights and batches."""
     from repro_torch.configs import get_config
@@ -563,7 +708,7 @@ def train_reference_check(torch, np):
     from repro_torch.models.model import build_model
     from repro_torch.training.checkpoint import tree_map
 
-    cfg = get_config("llama3-8b").reduced()
+    cfg = get_config(arch).reduced()
     params = build_model(cfg, torch.float32, "cpu").init(
         torch.Generator().manual_seed(0))
     kw = dict(steps=3, batch=4, seq=128, dtype=torch.float32,
@@ -571,7 +716,7 @@ def train_reference_check(torch, np):
     card = train(cfg, device="cuda",
                  params=tree_map(lambda t: t.to("cuda"), params), **kw)
     cpu = train(cfg, device="cpu", params=params, **kw)
-    print(f"train reduced llama3-8b fp32: card losses {card.losses}, CPU "
+    print(f"train reduced {arch} fp32: card losses {card.losses}, CPU "
           f"losses {cpu.losses}")
     check(np.allclose(card.losses, cpu.losses, rtol=1e-4, atol=0.0),
           "card and CPU training losses differ")
@@ -635,6 +780,68 @@ def train_full_width(torch):
     return {k: launches[k] for k in TRAIN_KERNELS}
 
 
+def train_mamba2(torch):
+    """mamba2-2.7b at full width and all 64 layers, bf16 parameters, fp32
+    AdamW moments, batch 4 x 2048 tokens, through
+    ``repro_torch.launch.train.train``."""
+    import math
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.train import train
+    from repro_torch.training.checkpoint import tree_leaves
+
+    cfg = get_config("mamba2-2.7b")
+    steps, batch, seq = MAMBA_STEPS, 4, 2048
+    kw = dict(batch=batch, seq=seq, device="cuda", dtype=torch.bfloat16)
+    gc_collect(torch)
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launches()
+    res = train(cfg, steps=steps, log_every=5,
+                log=lambda s: print(f"mamba2: {s}"), **kw)
+    launches = dict(_lib.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(t.numel() for t in tree_leaves(res.params))
+    del res.params
+    steady = sorted(res.step_s[1:])
+    med = steady[len(steady) // 2]
+    print(f"mamba2: mamba2-2.7b at full width and depth, {cfg.num_layers} "
+          f"layers ({n_params / 1e9:.3f} B parameters), bf16 parameters, "
+          f"fp32 AdamW moments, batch {batch} x {seq} tokens, {steps} steps")
+    print("mamba2: losses " + " ".join(f"{x:.4f}" for x in res.losses))
+    print(f"mamba2: step time median {med * 1e3:.1f} ms over steps "
+          f"2-{steps} (min {steady[0] * 1e3:.1f}, max "
+          f"{steady[-1] * 1e3:.1f}; first {res.step_s[0] * 1e3:.1f} ms) = "
+          f"{res.tokens_per_step / med:.1f} tok/s; peak memory "
+          f"{peak / 2**30:.2f} GiB")
+    print(f"mamba2: kernel launches {launches}")
+    check(all(math.isfinite(x) for x in res.losses), "a loss is not finite")
+    check(res.losses[-1] < res.losses[0],
+          f"loss did not decrease: {res.losses[0]} -> {res.losses[-1]}")
+    # per step: the forward pass and its recomputation under remat, then
+    # one backward, in each of the 64 layers
+    want = {"ssd_scan": 2 * cfg.num_layers * steps,
+            "ssd_scan_bwd": cfg.num_layers * steps}
+    for k, n in want.items():
+        check(launches[k] == n, f"{k} launched {launches[k]} times on the "
+                                f"training path, not {n}")
+    gc_collect(torch)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train(cfg, steps=2, log=lambda s: None, **kw)
+        wall = time.perf_counter() - t0
+    print_breakdown("mamba2 breakdown", prof, wall, (
+        ("ssd_scan_bwd dC", "dc_kernel"),
+        ("ssd_scan_bwd scan", "bwd_scan_kernel"),
+        ("ssd_scan", "fwd_kernel"),
+        ("elementwise", "elementwise"),
+        ("reduction", "reduce_kernel")))
+    gc_collect(torch)
+    return {k: launches[k] for k in MAMBA_KERNELS}
+
+
 def gc_collect(torch) -> None:
     import gc
     gc.collect()
@@ -678,9 +885,11 @@ def main(argv=None) -> int:
 
     rows = kernel_checks(torch, np)
     for r in rows:
+        lib_ms = "none" if r["library_ms"] is None \
+            else f"{r['library_ms']:.4f} ms"
         print(f"  {r['name']:<20} {r['ms']:.4f} ms   plain {r['plain_ms']:.4f} "
-              f"ms   library {r['library_ms']:.4f} ms   bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+              f"ms   library {lib_ms}   bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})")
     if args.kernels_only:
         # the paths did not run: their launch counts are unknown
         launches = {r["name"]: None for r in rows}
@@ -689,8 +898,10 @@ def main(argv=None) -> int:
         launches = serve_full_width(torch)
         serve_breakdown(torch)
         gc_collect(torch)
-        train_reference_check(torch, np)
+        train_reference_check(torch, np, "llama3-8b")
         launches.update(train_full_width(torch))
+        train_reference_check(torch, np, "mamba2-2.7b")
+        launches.update(train_mamba2(torch))
     for r in rows:
         r["launches"] = launches[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches",

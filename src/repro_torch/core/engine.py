@@ -131,6 +131,7 @@ class FlyingEngine:
             raise NotImplementedError(
                 "the port serves ParallelPlan(1, 1, 1) on one card; "
                 "multi-rank islands are a later slice")
+        model.check_serving()
         self.model = model
         self.cfg = model.cfg
         self.plan = plan

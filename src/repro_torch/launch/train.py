@@ -37,13 +37,13 @@ class TrainResult:
 def train(cfg: ArchConfig, *, steps: int, batch: int, seq: int,
           lr: float = 1e-3, device: Optional[str] = None,
           dtype: torch.dtype = torch.bfloat16, params=None, ckpt: str = "",
-          ckpt_every: int = 100, log_every: int = 10,
+          ckpt_every: int = 100, log_every: int = 10, seed: int = 0,
           log=print) -> TrainResult:
     """Train ``cfg`` for ``steps`` steps of ``batch`` x ``seq`` tokens and
     return the per-step losses and wall times (each step ends in a device
     synchronisation). ``dtype`` is the parameters' (the moments are
     fp32); ``params`` (a tree on ``device``, updated in place) replaces
-    the initialisation from seed 0, which the data stream uses too."""
+    the initialisation from ``seed``, which the data stream uses too."""
     from repro_torch.core.modes import ParallelPlan
     from repro_torch.device import resolve_device
     from repro_torch.models.model import build_model
@@ -55,12 +55,12 @@ def train(cfg: ArchConfig, *, steps: int, batch: int, seq: int,
     dev = resolve_device(device)
     model = build_model(cfg, dtype, dev)
     if params is None:
-        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        params = model.init(torch.Generator(device=dev).manual_seed(seed))
     opt = AdamW(lr=lr, warmup=min(50, steps // 4 or 1))
     plan = ParallelPlan(engine_rows=1, tp_base=1, data_rows=1)
     step = build_train_step(model, plan, opt=opt)
     carry = (params, opt.init(params))
-    it = batches(DataConfig(cfg.vocab_size, seq, batch))
+    it = batches(DataConfig(cfg.vocab_size, seq, batch, seed=seed))
     res = TrainResult(tokens_per_step=batch * seq)
     t_start = time.perf_counter()
     for i in range(steps):

@@ -57,3 +57,12 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 def silu(x: torch.Tensor) -> torch.Tensor:
     return F.silu(x)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: log(1 + e^x) as ``logaddexp(x, 0)`` at every
+    x. ``F.softplus`` returns x itself above its threshold of 20, where
+    logaddexp adds log1p(e^-x) < 2.1e-9, under half an fp32 unit of x;
+    the same formula keeps the two packages' gradients alike as well."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                          device=x.device))

@@ -1,4 +1,5 @@
-"""Public model API: build a dense GQA architecture from its ArchConfig.
+"""Public model API: build a dense GQA or Mamba-2 architecture from its
+ArchConfig.
 
 ``Model.init`` makes the parameters as a plain dict of tensors, layers of
 a group stacked on axis 0 as in the JAX package (so its parameters carry
@@ -7,7 +8,9 @@ prefill or decode with a cache backend; the JAX package scans each group
 of layers, the port loops over them. Per-layer states (the paged KV pool
 views) are written in place and returned as given. Train mode keeps the
 autograd graph and, as the JAX package's ``remat``, recomputes each
-layer's activations in the backward pass.
+layer's activations in the backward pass. Mamba-2 stacks run in train
+mode only: their serving states are not ported, and asking for them
+raises.
 """
 from __future__ import annotations
 
@@ -96,12 +99,18 @@ class Model:
                     page: int):
         """One layer's state: the (k, v) pool pair [num_blocks, page,
         kvh_local, hd], zeroed."""
-        tfm.check_kind(kind)
+        tfm.check_kind(kind, serving=True)
         shape = (num_blocks, page, ctx.local_units(self.cfg.num_kv_heads),
                  self.cfg.resolved_head_dim)
         return {"mixer": tuple(torch.zeros(shape, dtype=self.dtype,
                                            device=self.device)
                                for _ in range(2))}
+
+    def check_serving(self) -> None:
+        """Raise unless every layer kind of the stack can serve."""
+        for kind_seq, _ in self.plan:
+            for kind in kind_seq:
+                tfm.check_kind(kind, serving=True)
 
     def init_states(self, *, ctx: TPContext, num_blocks: int, page: int):
         """Full stacked state tree aligned with the stack plan: per group,
@@ -160,7 +169,7 @@ class Model:
                     layer = partial(tfm.apply_layer, cfg, kind,
                                     _index(p_group[si], li), ctx=ctx,
                                     backend=backend, state=st,
-                                    positions=positions)
+                                    positions=positions, mode=mode)
                     if remat:
                         x, _ = checkpoint(layer, x, use_reentrant=False)
                     else:

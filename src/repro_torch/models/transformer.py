@@ -1,10 +1,12 @@
-"""Backbone assembly for dense GQA stacks.
+"""Backbone assembly for dense GQA stacks and Mamba-2 stacks.
 
 A layer *kind* is ``(mixer, ffn)``. The stack plan partitions layers into
 groups of a repeating kind sequence, as in the JAX package (which scans
-each group); the port loops over the layers of a group. This slice
-serves dense decoder stacks — mixers ``gqa``/``gqa_win`` with the gated
-``mlp`` — and raises on the other kinds.
+each group); the port loops over the layers of a group. The port serves
+and trains dense decoder stacks (mixers ``gqa``/``gqa_win`` with the
+gated ``mlp``) and trains Mamba-2 stacks (``("mamba", "none")``: no
+``norm2`` and no FFN, so the parameter tree is the JAX package's leaf for
+leaf); it raises on the other kinds, and on serving a Mamba-2 stack.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from repro_torch.core.views import TPContext
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models.common import init_embedding, init_linear, rms_norm
+from repro_torch.models.mamba2 import init_mamba2, mamba2_layer
 
 Kind = Tuple[str, str]  # (mixer, ffn)
 
@@ -47,17 +50,30 @@ def stack_plan(cfg: ArchConfig) -> List[Tuple[Tuple[Kind, ...], int]]:
     return [(((mixer, ffn),), L)]
 
 
-def check_kind(kind: Kind) -> None:
+MAMBA: Kind = ("mamba", "none")
+
+
+def check_kind(kind: Kind, *, serving: bool = False) -> None:
+    """Raise unless the port runs this kind (in serving, if asked)."""
     mixer, ffn = kind
-    if mixer not in ("gqa", "gqa_win") or ffn != "mlp":
+    if kind == MAMBA:
+        if serving:
+            raise NotImplementedError(
+                "Mamba-2 serving is not ported: it needs K6 with a carried "
+                "h0 and a decision on the JAX engine's recurrent state "
+                "(ROADMAP Queue 3); the port trains Mamba-2 stacks only")
+    elif mixer not in ("gqa", "gqa_win") or ffn != "mlp":
         raise NotImplementedError(
-            f"layer kind {kind}: this slice of the port serves dense GQA "
-            f"stacks with a gated MLP")
+            f"layer kind {kind}: the port runs dense GQA stacks with a "
+            f"gated MLP and trains Mamba-2 stacks")
 
 
 def init_layer(generator, cfg: ArchConfig, kind: Kind, dtype, device):
     check_kind(kind)
     ones = dict(dtype=dtype, device=device)
+    if kind == MAMBA:
+        return {"norm1": torch.ones((cfg.d_model,), **ones),
+                "mixer": init_mamba2(generator, cfg, dtype, device)}
     return {"norm1": torch.ones((cfg.d_model,), **ones),
             "attn": attn_mod.init_gqa(generator, cfg, dtype, device),
             "norm2": torch.ones((cfg.d_model,), **ones),
@@ -66,11 +82,16 @@ def init_layer(generator, cfg: ArchConfig, kind: Kind, dtype, device):
 
 
 def apply_layer(cfg: ArchConfig, kind: Kind, p, x, ctx: TPContext, backend,
-                state, *, positions, window: Optional[int] = None):
+                state, *, positions, mode: str,
+                window: Optional[int] = None):
     """One pre-norm decoder layer. ``state`` is the layer's (k, v) pool
-    pair; returns (x, state)."""
+    pair (None for a Mamba-2 layer, which runs in train mode only);
+    returns (x, state)."""
     mixer, _ = kind
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    if kind == MAMBA:
+        out, state = mamba2_layer(cfg, p["mixer"], h, ctx, state, mode=mode)
+        return x + out, state
     w = cfg.hybrid.window if (mixer == "gqa_win" and cfg.hybrid) else window
     out, state = attn_mod.gqa_attention(cfg, p["attn"], h, ctx, backend,
                                         state, positions=positions, window=w)

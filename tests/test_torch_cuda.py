@@ -11,7 +11,13 @@ Tolerances: fp32 atol = rtol = 1e-5 (the kernels sum in another order
 than the plain versions), 1e-4 for the dense backward's gradients (each
 sums T products of products); bf16 atol 1e-3, rtol 1e-2 (both sides
 accumulate in fp32 and round once, so they may differ by one bf16 unit,
-a relative 2^-8 to 2^-7); appends bit-exact.
+a relative 2^-8 to 2^-7); appends bit-exact. The SSD scan (K6) in fp32
+at rtol 1e-4 and an atol of 1e-4 times the largest entry of each output
+(dA and dt sum many terms that cancel, so fp32 error scales with the
+terms, not the result); with bf16 x, B and C its fp32 outputs at the
+same tolerance (both sides compute in fp32 from the same bf16 values),
+its bf16 gradients one bf16 unit (rtol 1e-2, atol 1e-2 of the largest
+entry).
 """
 import copy
 
@@ -25,6 +31,9 @@ from repro_torch.kernels.flash_prefill import ops as fops
 from repro_torch.kernels.flash_prefill import ref as fref
 from repro_torch.kernels.paged_attention import ops as pops
 from repro_torch.kernels.paged_attention import ref as pref
+from repro_torch.kernels.ssd_scan import kernel as sker
+from repro_torch.kernels.ssd_scan import ops as sops
+from repro_torch.kernels.ssd_scan import ref as sref
 
 H, KV, HD, B, MB, T = 8, 2, 64, 3, 6, 8
 
@@ -149,6 +158,78 @@ def test_dense_flash_kernels_match_plain(cuda, dtype, Bd, Td, Hd, KVd, hdd,
         torch.testing.assert_close(g, w, atol=0.0, rtol=0.0)
     assert _lib.LAUNCHES["flash_prefill"] == 1
     assert _lib.LAUNCHES["flash_prefill_bwd"] == 1
+
+
+def _ssd_close(got, want):
+    """chip_smoke.py's K6 tolerance: atol 1e-4 of the largest entry, and
+    rtol 1e-4 in fp32 or 2**-7 (one bf16 unit at most) for bf16 outputs."""
+    scale = float(want.float().abs().max())
+    rtol = 1e-4 if got.dtype == torch.float32 else 2.0 ** -7
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=1e-4 * scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Bs,T,H,hd,S,chunk", [
+    (2, 100, 3, 32, 32, 32), (1, 96, 2, 64, 128, 128),
+    (2, 256, 4, 64, 128, 128), (1, 64, 2, 32, 128, 16)])
+def test_ssd_kernels_match_plain(cuda, dtype, Bs, T, H, hd, S, chunk):
+    """K6 forward (y, hT, per-chunk states) and backward (dx, ddt, dA,
+    dB, dC) against their plain versions, then through the autograd op
+    with T padded (one launch of each)."""
+    rng = np.random.default_rng(7)
+    ch = min(chunk, T)
+    Tp = T + (-T) % ch
+
+    def t(shape, scale=1.0, dt_=dtype):
+        return torch.from_numpy(rng.standard_normal(shape) * scale).to(
+            cuda, dt_)
+    x, B, C = t((Bs, Tp, H, hd)), t((Bs, Tp, S), 0.5), t((Bs, Tp, S), 0.5)
+    dt = torch.nn.functional.softplus(t((Bs, Tp, H), dt_=torch.float32))
+    A = -torch.exp(t((H,), dt_=torch.float32))
+    dy = t((Bs, Tp, H, hd), dt_=torch.float32)
+    y, hT, st = sker.ssd_scan_kernel(x, dt, A, B, C, chunk=ch)
+    wy, wh, wst = sref.ssd_scan_fwd_ref(x, dt, A, B, C, chunk=ch)
+    for g, w in ((y, wy), (hT, wh), (st, wst)):
+        torch.testing.assert_close(g, w.contiguous(), rtol=1e-4,
+                                   atol=1e-4 * float(w.abs().max()))
+    got = sker.ssd_scan_bwd_kernel(x, dt, A, B, C, st, dy, chunk=ch)
+    want = sref.ssd_scan_bwd_ref(x, dt, A, B, C, dy, chunk=ch)
+    for g, w, src in zip(got, want, (x, dt, A, B, C)):
+        assert g.dtype == src.dtype and g.shape == src.shape
+        _ssd_close(g, w)
+    _lib.reset_launches()
+    ins = [a[:, :T].clone().requires_grad_(True) if a.dim() > 1
+           else a.clone().requires_grad_(True) for a in (x, dt, A, B, C)]
+    yo, _ = sops.ssd_scan(*ins, chunk=chunk)
+    torch.testing.assert_close(yo, y[:, :T], rtol=0.0, atol=0.0)
+    torch.autograd.grad(yo, ins, dy[:, :T])
+    assert _lib.LAUNCHES["ssd_scan"] == 1
+    assert _lib.LAUNCHES["ssd_scan_bwd"] == 1
+
+
+@pytest.mark.gpu
+def test_mamba2_training_on_the_card_matches_the_cpu(cuda):
+    """Reduced mamba2-2.7b trained three fp32 steps on the card (K6
+    forward and backward launched, twice and once per layer and step)
+    and on the CPU from the same weights: the losses agree."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+    from repro_torch.models.model import build_model
+    from repro_torch.training.checkpoint import tree_map
+
+    cfg = get_config("mamba2-2.7b").reduced()
+    params = build_model(cfg, torch.float32, "cpu").init(
+        torch.Generator().manual_seed(0))
+    on_card_params = tree_map(lambda x: x.to(cuda), params)
+    kw = dict(steps=3, batch=2, seq=80, dtype=torch.float32, log=lambda s: 0)
+    _lib.reset_launches()
+    card = train(cfg, device="cuda", params=on_card_params, **kw)
+    assert _lib.LAUNCHES["ssd_scan"] == 3 * 2 * cfg.num_layers
+    assert _lib.LAUNCHES["ssd_scan_bwd"] == 3 * cfg.num_layers
+    cpu = train(cfg, device="cpu", params=params, **kw)
+    np.testing.assert_allclose(card.losses, cpu.losses, rtol=1e-4)
 
 
 @pytest.mark.gpu

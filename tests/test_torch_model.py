@@ -150,5 +150,8 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError):
         sample_tokens(None, torch.zeros(1, 4), SINGLE, temperature=0.7)
     with pytest.raises(NotImplementedError):
+        build_model(get_config("recurrentgemma-9b").reduced(),
+                    torch.float32, "cpu").plan
+    with pytest.raises(NotImplementedError):          # trains, not serves
         build_model(get_config("mamba2-2.7b").reduced(), torch.float32,
-                    "cpu").plan
+                    "cpu").check_serving()

@@ -4,13 +4,14 @@ Inputs come from numpy with a seed, in fp32, and go through both
 packages: the data pipeline (bit-identical), the cross entropy and its
 gradient (atol 1e-5), AdamW over several steps (atol 1e-6: the same fp32
 arithmetic in another order), checkpoints in the JAX package's layout
-(exact), and the whole slice: reduced llama3-8b trained three steps by
-the JAX package's ``build_train_step`` and by the port's, from the same
-converted weights and batches. There the losses agree within rtol 1e-4
-and the parameters within atol 1e-4: Adam's first steps move a weight by
-about lr * sign(g), so a gradient element whose float rounding differs
-near zero moves its weight differently, by far less than the 1.8e-3
-that three warm-up steps move a weight at most.
+(exact), and the whole slice: reduced llama3-8b and reduced mamba2-2.7b
+each trained three steps by the JAX package's ``build_train_step`` and
+by the port's, from the same converted weights and batches. There the
+losses agree within rtol 1e-4 and the parameters within atol 1e-4:
+Adam's first steps move a weight by about lr * sign(g), so a gradient
+element whose float rounding differs near zero moves its weight
+differently, by far less than the 1.8e-3 that three warm-up steps move
+a weight at most.
 """
 import os
 
@@ -37,6 +38,7 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.core.modes import ParallelPlan
 from repro_torch.core.views import SINGLE
 from repro_torch.kernels.flash_prefill import ref as fref
+from repro_torch.kernels.ssd_scan import ref as sref
 from repro_torch.models import transformer as tfm
 from repro_torch.models.cache import TrainBackend
 from repro_torch.models.model import build_model
@@ -50,15 +52,34 @@ def _np_tree(tree):
     return jax.tree.map(np.asarray, tree)
 
 
+ARCHS = ["llama3-8b", "mamba2-2.7b"]
+# the plain versions of each architecture's training kernels:
+# (module, forward, backward)
+TRAIN_REFS = {"llama3-8b": (fref, "flash_prefill_fwd_ref",
+                            "flash_prefill_bwd_ref"),
+              "mamba2-2.7b": (sref, "ssd_scan_fwd_ref", "ssd_scan_bwd_ref")}
+
+
 @pytest.fixture(scope="module")
-def reduced():
-    """Reduced llama3-8b: the JAX model, its init(key(0)) params, and the
-    port's config and model."""
-    jcfg = jax_config("llama3-8b").reduced()
-    jm = jax_build(jcfg, jnp.float32)
-    jp = jm.init(jax.random.key(0))
-    cfg = get_config("llama3-8b").reduced()
-    return jm, jp, cfg, build_model(cfg, torch.float32, "cpu")
+def zoo():
+    """``zoo(arch)``: the reduced arch's JAX model, its init(key(0))
+    params, and the port's config and model, built once."""
+    built = {}
+
+    def get(arch):
+        if arch not in built:
+            jm = jax_build(jax_config(arch).reduced(), jnp.float32)
+            cfg = get_config(arch).reduced()
+            built[arch] = (jm, jm.init(jax.random.key(0)), cfg,
+                           build_model(cfg, torch.float32, "cpu"))
+        return built[arch]
+    return get
+
+
+@pytest.fixture(scope="module")
+def reduced(zoo):
+    """Reduced llama3-8b (see ``zoo``)."""
+    return zoo("llama3-8b")
 
 
 # ---------------------------------------------------------------------------
@@ -209,8 +230,9 @@ def test_tree_order_is_jax_flatten_order(reduced):
 # train mode of the model
 # ---------------------------------------------------------------------------
 
-def test_train_forward_matches_jax(reduced):
-    jm, jp, cfg, tm = reduced
+@pytest.mark.parametrize("arch", ARCHS)
+def test_train_forward_matches_jax(zoo, arch):
+    jm, jp, cfg, tm = zoo(arch)
     from repro.models.cache import TrainBackend as JTrain
     toks = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 24))
     want, _, _ = jm.forward(jp, JSINGLE, mode="train",
@@ -230,22 +252,25 @@ def test_train_forward_matches_jax(reduced):
                    backend=TrainBackend(), states=[])
 
 
-def test_remat_recomputes_each_layer_once(reduced, monkeypatch):
-    """Per-layer remat: the attention forward runs twice per layer (the
-    forward pass and its recomputation in the backward), its backward
-    once; the gradients equal those without remat. On the card these are
-    the K5 launch counts of a training step."""
-    _, jp, cfg, tm = reduced
+@pytest.mark.parametrize("arch", ARCHS)
+def test_remat_recomputes_each_layer_once(zoo, arch, monkeypatch):
+    """Per-layer remat: the mixer's kernel forward (attention or the SSD
+    scan) runs twice per layer (the forward pass and its recomputation in
+    the backward), its backward once; the gradients equal those without
+    remat. On the card these are the K5 or K6 launch counts of a training
+    step."""
+    _, jp, cfg, tm = zoo(arch)
     calls = {"fwd": 0, "bwd": 0}
-    fwd, bwd = fref.flash_prefill_fwd_ref, fref.flash_prefill_bwd_ref
+    mod, fwd_name, bwd_name = TRAIN_REFS[arch]
+    fwd, bwd = getattr(mod, fwd_name), getattr(mod, bwd_name)
 
     def count(name, fn):
         def wrapped(*a, **kw):
             calls[name] += 1
             return fn(*a, **kw)
         return wrapped
-    monkeypatch.setattr(fref, "flash_prefill_fwd_ref", count("fwd", fwd))
-    monkeypatch.setattr(fref, "flash_prefill_bwd_ref", count("bwd", bwd))
+    monkeypatch.setattr(mod, fwd_name, count("fwd", fwd))
+    monkeypatch.setattr(mod, bwd_name, count("bwd", bwd))
     toks = torch.from_numpy(
         np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 16)))
     grads = {}
@@ -275,7 +300,16 @@ def test_three_train_steps_match_jax(reduced):
     5) as ``tests/test_training.py`` sets it up: the JAX package's
     ``build_train_step`` and the port's, from the same weights and
     batches."""
-    jm, jp, cfg, tm = reduced
+    _three_steps_match_jax(*reduced, seq=32)
+
+
+def test_three_mamba2_train_steps_match_jax(zoo):
+    """Reduced mamba2-2.7b, fp32, batch 4 x 64 tokens (two chunks of 32),
+    the same set-up: SSD scan, conv, gated norm and all."""
+    _three_steps_match_jax(*zoo("mamba2-2.7b"), seq=64)
+
+
+def _three_steps_match_jax(jm, jp, cfg, tm, *, seq):
     plan = JaxPlan(engine_rows=1, tp_base=1, data_rows=1)
     jopt = JaxAdamW(lr=1e-3, warmup=5)
     jstep, psh, osh, _ = jax_train_step(jm, plan, train_mesh(plan),
@@ -286,7 +320,7 @@ def test_three_train_steps_match_jax(reduced):
     step = build_train_step(tm, ParallelPlan(1, 1, 1), opt=opt)
     params = params_from_numpy(cfg, _np_tree(jp))
     carry = (params, opt.init(params))
-    it = batches(DataConfig(cfg.vocab_size, 32, 4, seed=0))
+    it = batches(DataConfig(cfg.vocab_size, seq, 4, seed=0))
     for _ in range(3):
         b = next(it)
         jcarry, jm_ = jstep(jcarry, {k: jnp.asarray(v) for k, v in b.items()})
@@ -313,11 +347,19 @@ def test_train_step_rejects_sharded_plans(reduced):
 
 
 def test_launcher_trains_on_the_cpu_when_asked(capsys, tmp_path):
+    _launch_on_the_cpu(capsys, tmp_path, "llama3-8b")
+
+
+def test_launcher_trains_mamba2_on_the_cpu(capsys, tmp_path):
+    _launch_on_the_cpu(capsys, tmp_path, "mamba2-2.7b")
+
+
+def _launch_on_the_cpu(capsys, tmp_path, arch):
     from repro_torch.launch import train
     path = os.path.join(tmp_path, "ck")
-    train.main(["--reduced", "--device", "cpu", "--steps", "8", "--batch",
-                "2", "--seq", "32", "--log-every", "4", "--ckpt", path,
-                "--ckpt-every", "4"])
+    train.main(["--arch", arch, "--reduced", "--device", "cpu", "--steps",
+                "8", "--batch", "2", "--seq", "32", "--log-every", "4",
+                "--ckpt", path, "--ckpt-every", "4"])
     out = capsys.readouterr().out
     assert "tok/s" in out and "ms/step" in out and "OK" in out
     assert ckpt.latest_step(path) == 8
