@@ -26,6 +26,13 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    times each output's largest entry (dA and dt sum thousands of terms
    that cancel), 1e-2 of both for bf16 gradients (one bf16 unit), with
    no library call to time (no single PyTorch call computes the scan);
+   K7 and its backward (training, batch 4 x 2048 tokens of
+   recurrentgemma-9b's 4096 channels, in fp32, with a drawn as a
+   sigmoid and within 1e-3 of 1, and a ragged shape through the autograd
+   op) at K6's tolerance, with no library call either; K5 and its
+   backward at recurrentgemma-9b's attention shape (hd 256, 16 query
+   heads on one kv head, window 2048) at batch 4 x 2048 and at batch
+   2 x 4096, where the window masks keys, timed against SDPA;
 4. serve a small request trace with the reduced llama3-8b in fp32 on the
    card and on the CPU (plain versions): the greedy tokens and the phase
    log must be identical;
@@ -54,11 +61,23 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
 10. train mamba2-2.7b at full width and all 64 layers in bf16 (fp32
    AdamW moments), batch 4 x 2048 tokens, 20 steps, as phase 8: finite
    losses, the last below the first, and K6 launched 128 times forward
-   and 64 times backward per step; then two profiled steps.
+   and 64 times backward per step; then two profiled steps;
+11. train the 4-layer RecurrentGemma test config (reduced
+   recurrentgemma-9b with one whole super-layer and one more RG-LRU
+   layer) three fp32 steps of 128 tokens on the card (K7, K5) and on
+   the CPU from the same weights and batches: the losses must agree
+   (rtol 1e-4);
+12. train recurrentgemma-9b at full width, 6 of its 38 layers (two
+   super-layers), in bf16 (fp32 AdamW moments), batch 4 x 2048 tokens,
+   20 steps, as phase 8: finite losses, the last below the first, K7
+   launched 8 times forward and 4 times backward per step (four RG-LRU
+   layers), K5 4 and 2 (two local-attention layers); then two profiled
+   steps.
 
 Each kernel's launch count in the JSON record comes from the path that
-runs it: K1-K4 from phase 5, K5 and its backward from phase 8, K6 and
-its backward from phase 10. The line
+runs it: K1-K4 from phase 5, K5 and its backward at hd 128 from phase 8
+and at hd 256 from phase 12, K6 and its backward from phase 10, K7 and
+its backward from phase 12. The line
 before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -81,6 +100,11 @@ SERVE_KERNELS = ("paged_append_token", "paged_attention",
 TRAIN_KERNELS = ("flash_prefill", "flash_prefill_bwd")
 MAMBA_KERNELS = ("ssd_scan", "ssd_scan_bwd")
 MAMBA_STEPS = 20
+# phase 12's kernels: the JSON rows of K5 at hd 256 take its launches
+HYBRID_ROWS = {"rglru_scan": "rglru_scan",
+               "rglru_scan_bwd": "rglru_scan_bwd",
+               "flash_prefill_hd256": "flash_prefill",
+               "flash_prefill_bwd_hd256": "flash_prefill_bwd"}
 
 
 def fail(msg: str) -> None:
@@ -329,70 +353,19 @@ def kernel_checks(torch, np):
     del kg, vg, mask
 
     # -- K5: dense causal flash attention, forward and backward ----------
-    # the training shapes: batch 4 x 2048 tokens of llama3-8b
-    B, T = 4, 2048
-
-    def rnd(shape, dtype):
-        return torch.randn(shape, generator=gen, device=dev).to(dtype)
-    errs = {"fwd": [], "bwd": []}
-    for dtype in (f32, bf16):
-        q, do = rnd((B, T, H, hd), dtype), rnd((B, T, H, hd), dtype)
-        k, v = rnd((B, T, KV, hd), dtype), rnd((B, T, KV, hd), dtype)
-        for window in (None, 1024):
-            tag = f"{dtype} window={window}"
-            o, lse = fk.flash_prefill_kernel(q, k, v, window=window)
-            wo, wl = fr.flash_prefill_fwd_ref(q, k, v, window=window)
-            close(lse, wl, f32, f"flash_prefill {tag} (lse)")
-            e = close(o, wo, dtype, f"flash_prefill {tag}")
-            grads = fk.flash_prefill_bwd_kernel(q, k, v, o, lse, do,
-                                                window=window)
-            wants = fr.flash_prefill_bwd_ref(q, k, v, o, lse, do,
-                                             window=window)
-            eb = max(close(g, w_, dtype, f"flash_prefill_bwd {tag} d{n}")
-                     for n, g, w_ in zip("qkv", grads, wants))
-            if dtype == bf16:
-                errs["fwd"].append(e)
-                errs["bwd"].append(eb)
-            del grads, wants, wo, wl
-    o, lse = fk.flash_prefill_kernel(q, k, v)
-    pairs = B * H * T * (T + 1) // 2            # live (query row, key) pairs
-    esz = 2                                     # bf16
-    qbytes, kbytes = B * T * H * hd * esz, B * T * KV * hd * esz
-    stat = B * H * T * 4                        # the fp32 lse
-    fwd_b = bound(2 * qbytes + 2 * kbytes + stat, 4.0 * hd * pairs)
-    bwd_b = bound(4 * qbytes + 4 * kbytes + stat, 10.0 * hd * pairs)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
-    lo = F.scaled_dot_product_attention(
-        *(x.transpose(1, 2) for x in leaves), is_causal=True,
-        enable_gqa=True)
-    dot = do.transpose(1, 2)
-    rows.append(dict(
-        name="flash_prefill", route="cuda",
-        source="src/repro_torch/kernels/csrc/flash_prefill.cu",
-        replaces="src/repro/kernels/flash_prefill/kernel.py:74",
-        max_abs_err=max(errs["fwd"]),
-        ms=time_ms(torch, lambda: fk.flash_prefill_kernel(q, k, v)),
-        plain_ms=time_ms(torch, lambda: fr.flash_prefill_fwd_ref(q, k, v),
-                         iters=3, warm=1, windows=3),
-        bound_ms=fwd_b[0], bound_by=fwd_b[1],
-        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True))))
-    rows.append(dict(
-        name="flash_prefill_bwd", route="cuda",
-        source="src/repro_torch/kernels/csrc/flash_prefill.cu",
-        replaces="src/repro/kernels/flash_prefill/kernel.py:74",
-        max_abs_err=max(errs["bwd"]),
-        ms=time_ms(torch, lambda: fk.flash_prefill_bwd_kernel(
-            q, k, v, o, lse, do), iters=5, windows=3),
-        plain_ms=time_ms(torch, lambda: fr.flash_prefill_bwd_ref(
-            q, k, v, o, lse, do), iters=3, warm=1, windows=3),
-        bound_ms=bwd_b[0], bound_by=bwd_b[1],
-        library_ms=time_ms(torch, lambda: torch.autograd.grad(
-            lo, leaves, dot, retain_graph=True))))
-    del lo, leaves, o, lse, q, k, v, do
+    # the training shape of llama3-8b: batch 4 x 2048 tokens
+    rows.extend(flash_rows(torch, gen, close, "", H, KV, hd, [(4, 2048)],
+                           (None, 1024)))
     torch.cuda.empty_cache()
     rows.extend(ssd_rows(torch, gen))
+    torch.cuda.empty_cache()
+    rows.extend(rglru_rows(torch, gen))
+    torch.cuda.empty_cache()
+    # recurrentgemma-9b's attention: hd 256, 16 query heads on one kv
+    # head, window 2048, at 2 x 4096 (where the window masks keys) and at
+    # its training shape, 4 x 2048 (where it masks nothing)
+    rows.extend(flash_rows(torch, gen, close, "_hd256", 16, 1, 256,
+                           [(2, 4096), (4, 2048)], (2048,)))
     _lib.reset_launches()
     torch.cuda.empty_cache()
     return rows
@@ -523,6 +496,173 @@ def ssd_rows(torch, gen):
             *ins, dy, chunk=ch), iters=2, warm=1, windows=3),
         bound_ms=bwd_b[0], bound_by=bwd_b[1], library_ms=None)]
     del ins, dy, y, hT, st
+    return rows
+
+
+def rglru_rows(torch, gen):
+    """K7 forward and backward against their plain versions at the
+    training shape of recurrentgemma-9b (batch 4 x 2048 tokens, 4096
+    channels, fp32, as the RG-LRU block passes them) with two draws of
+    a, and at a ragged shape through the autograd op in fp32 and bf16;
+    then timed at the training shape."""
+    from repro_torch.kernels.rglru_scan import kernel as rk
+    from repro_torch.kernels.rglru_scan import ops as ro
+    from repro_torch.kernels.rglru_scan import ref as rr
+
+    dev = torch.device("cuda")
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def rnd(shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def inputs(B, T, C, draw, dtype=f32):
+        # a as test_rglru_scan draws it, or within 1e-3 of 1 so that the
+        # carry over all of T matters; g = 0.5 N(0, 1)
+        a = torch.sigmoid(rnd((B, T, C))) if draw == "sigmoid" else \
+            1.0 - 1e-3 * torch.rand((B, T, C), generator=gen, device=dev)
+        return a.to(dtype), (0.5 * rnd((B, T, C))).to(dtype)
+    errs = {"fwd": [], "bwd": []}
+    B, T, C = 4, 2048, 4096
+    for draw in ("sigmoid", "near 1"):
+        a, g = inputs(B, T, C, draw)
+        dy = rnd((B, T, C))
+        tag = f"rglru_scan fp32 [{B},{T},{C}] a {draw}"
+        y, hT = rk.rglru_scan_kernel(a, g)
+        wy, wh = rr.rglru_scan_ref(a, g)
+        errs["fwd"].append(max(ssd_close(torch, got, want, f"{tag} {n}")
+                               for n, got, want in (("y", y, wy),
+                                                    ("hT", hT, wh))))
+        grads = rk.rglru_scan_bwd_kernel(a, y, dy)
+        wants = rr.rglru_scan_bwd_ref(a, y, dy)
+        errs["bwd"].append(max(
+            ssd_close(torch, got, want, f"rglru_scan_bwd {tag} d{n}")
+            for n, got, want in zip("ag", grads, wants)))
+        del grads, wants, wy, wh, y, hT, dy
+    for dtype in (f32, bf16):
+        a, g = inputs(1, 100, 96, "near 1", dtype)
+        leaves = [a.clone().requires_grad_(True),
+                  g.clone().requires_grad_(True)]
+        dy = rnd((1, 100, 96))
+        y, _ = ro.rglru_scan(*leaves)
+        grads = torch.autograd.grad(y, leaves, dy)
+        wy, _ = rr.rglru_scan_ref(a, g)
+        ssd_close(torch, y, wy, f"rglru_scan op {dtype} (1,100,96) y")
+        for n, got, want in zip("ag", grads,
+                                rr.rglru_scan_bwd_ref(a, wy, dy)):
+            ssd_close(torch, got, want, f"rglru_scan op {dtype} (1,100,96) "
+                                        f"d{n}")
+
+    a, g = inputs(B, T, C, "sigmoid")
+    dy = rnd((B, T, C))
+    y, _ = rk.rglru_scan_kernel(a, g)
+    n = B * T * C
+    # forward: a and g in, y and hT out; backward: a, y, dy in, da and dg
+    # out; all fp32. Two and three flops an element.
+    fwd_b = bound(3 * n * 4 + B * C * 4, 2.0 * n)
+    bwd_b = bound(5 * n * 4, 3.0 * n)
+    rows = [dict(
+        name="rglru_scan", route="cuda",
+        source="src/repro_torch/kernels/csrc/rglru_scan.cu",
+        replaces="src/repro/kernels/rglru_scan/kernel.py:53",
+        max_abs_err=max(errs["fwd"]),
+        ms=time_ms(torch, lambda: rk.rglru_scan_kernel(a, g)),
+        plain_ms=time_ms(torch, lambda: rr.rglru_scan_ref(a, g), iters=2,
+                         warm=1, windows=3),
+        bound_ms=fwd_b[0], bound_by=fwd_b[1], library_ms=None), dict(
+        name="rglru_scan_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/rglru_scan.cu",
+        replaces="src/repro/kernels/rglru_scan/kernel.py:53",
+        max_abs_err=max(errs["bwd"]),
+        ms=time_ms(torch, lambda: rk.rglru_scan_bwd_kernel(a, y, dy)),
+        plain_ms=time_ms(torch, lambda: rr.rglru_scan_bwd_ref(a, y, dy),
+                         iters=2, warm=1, windows=3),
+        bound_ms=bwd_b[0], bound_by=bwd_b[1], library_ms=None)]
+    del a, g, y, dy
+    return rows
+
+
+def flash_rows(torch, gen, close, suffix: str, H: int, KV: int, hd: int,
+               shapes, windows):
+    """K5 forward and backward against their plain versions at each
+    (batch, tokens) of ``shapes`` and each window, in fp32 and bf16; then
+    timed in bf16 at the last shape and the first window against SDPA,
+    causal with GQA (the same function there: the timed window is None
+    or no shorter than T). Rows ``flash_prefill{suffix}`` and
+    ``flash_prefill_bwd{suffix}``."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_prefill import kernel as fk
+    from repro_torch.kernels.flash_prefill import ref as fr
+
+    dev = torch.device("cuda")
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def rnd(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+    errs = {"fwd": [], "bwd": []}
+    for B, T in shapes:
+        for dtype in (f32, bf16):
+            q, do = rnd((B, T, H, hd), dtype), rnd((B, T, H, hd), dtype)
+            k, v = rnd((B, T, KV, hd), dtype), rnd((B, T, KV, hd), dtype)
+            for window in windows:
+                tag = f"hd {hd} {dtype} [{B},{T}] window={window}"
+                o, lse = fk.flash_prefill_kernel(q, k, v, window=window)
+                wo, wl = fr.flash_prefill_fwd_ref(q, k, v, window=window)
+                close(lse, wl, f32, f"flash_prefill {tag} (lse)")
+                e = close(o, wo, dtype, f"flash_prefill {tag}")
+                grads = fk.flash_prefill_bwd_kernel(q, k, v, o, lse, do,
+                                                    window=window)
+                wants = fr.flash_prefill_bwd_ref(q, k, v, o, lse, do,
+                                                 window=window)
+                eb = max(close(g, w_, dtype,
+                               f"flash_prefill_bwd {tag} d{n}")
+                         for n, g, w_ in zip("qkv", grads, wants))
+                if dtype == bf16:
+                    errs["fwd"].append(e)
+                    errs["bwd"].append(eb)
+                del grads, wants, wo, wl, o, lse
+            torch.cuda.empty_cache()
+
+    # timed on the last shape's bf16 inputs
+    (B, T), window = shapes[-1], windows[0]
+    o, lse = fk.flash_prefill_kernel(q, k, v, window=window)
+    # live (query row, key) pairs under the causal mask and the window
+    pairs = B * H * sum(min(t + 1, window or T) for t in range(T))
+    qbytes, kbytes = B * T * H * hd * 2, B * T * KV * hd * 2
+    stat = B * H * T * 4                        # the fp32 lse
+    fwd_b = bound(2 * qbytes + 2 * kbytes + stat, 4.0 * hd * pairs)
+    bwd_b = bound(4 * qbytes + 4 * kbytes + stat, 10.0 * hd * pairs)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    lo = F.scaled_dot_product_attention(
+        *(x.transpose(1, 2) for x in leaves), is_causal=True,
+        enable_gqa=True)
+    dot = do.transpose(1, 2)
+    rows = [dict(
+        name="flash_prefill" + suffix, route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_prefill.cu",
+        replaces="src/repro/kernels/flash_prefill/kernel.py:74",
+        max_abs_err=max(errs["fwd"]),
+        ms=time_ms(torch, lambda: fk.flash_prefill_kernel(
+            q, k, v, window=window)),
+        plain_ms=time_ms(torch, lambda: fr.flash_prefill_fwd_ref(
+            q, k, v, window=window), iters=3, warm=1, windows=3),
+        bound_ms=fwd_b[0], bound_by=fwd_b[1],
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True))), dict(
+        name="flash_prefill_bwd" + suffix, route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_prefill.cu",
+        replaces="src/repro/kernels/flash_prefill/kernel.py:74",
+        max_abs_err=max(errs["bwd"]),
+        ms=time_ms(torch, lambda: fk.flash_prefill_bwd_kernel(
+            q, k, v, o, lse, do, window=window), iters=5, windows=3),
+        plain_ms=time_ms(torch, lambda: fr.flash_prefill_bwd_ref(
+            q, k, v, o, lse, do, window=window), iters=3, warm=1,
+            windows=3),
+        bound_ms=bwd_b[0], bound_by=bwd_b[1],
+        library_ms=time_ms(torch, lambda: torch.autograd.grad(
+            lo, leaves, dot, retain_graph=True)))]
+    del lo, leaves, o, lse, q, k, v, do
     return rows
 
 
@@ -700,15 +840,19 @@ def print_breakdown(tag: str, prof, wall: float, classes) -> None:
 # phases 7 and 8: training
 # ---------------------------------------------------------------------------
 
-def train_reference_check(torch, np, arch: str):
-    """The reduced config trained in fp32 on the card and on the CPU from
-    the same weights and batches."""
+def train_reference_check(torch, np, arch: str, layers: int = 0):
+    """The reduced config (with ``layers`` layers, if given) trained in
+    fp32 on the card and on the CPU from the same weights and batches."""
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.launch.train import train
     from repro_torch.models.model import build_model
     from repro_torch.training.checkpoint import tree_map
 
     cfg = get_config(arch).reduced()
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     params = build_model(cfg, torch.float32, "cpu").init(
         torch.Generator().manual_seed(0))
     kw = dict(steps=3, batch=4, seq=128, dtype=torch.float32,
@@ -716,8 +860,8 @@ def train_reference_check(torch, np, arch: str):
     card = train(cfg, device="cuda",
                  params=tree_map(lambda t: t.to("cuda"), params), **kw)
     cpu = train(cfg, device="cpu", params=params, **kw)
-    print(f"train reduced {arch} fp32: card losses {card.losses}, CPU "
-          f"losses {cpu.losses}")
+    print(f"train reduced {arch} ({cfg.num_layers} layers) fp32: card "
+          f"losses {card.losses}, CPU losses {cpu.losses}")
     check(np.allclose(card.losses, cpu.losses, rtol=1e-4, atol=0.0),
           "card and CPU training losses differ")
 
@@ -842,10 +986,135 @@ def train_mamba2(torch):
     return {k: launches[k] for k in MAMBA_KERNELS}
 
 
+def train_recurrentgemma(torch):
+    """recurrentgemma-9b at full width, 6 of its 38 layers (two whole
+    super-layers: four RG-LRU layers, two local-attention layers), bf16
+    parameters (the RG-LRU's decay and gate leaves fp32), fp32 AdamW
+    moments, batch 4 x 2048 tokens, through
+    ``repro_torch.launch.train.train``."""
+    import dataclasses
+    import math
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.train import train
+    from repro_torch.models.transformer import stack_plan
+    from repro_torch.training.checkpoint import tree_leaves
+
+    # at 12 bytes a parameter the full 7.66 B need 92 GB; two super-layers
+    # (2.97 B) leave room for the fp32 logits over the 256000-word vocab
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b"), num_layers=6)
+    steps, batch, seq = 20, 4, 2048
+    kw = dict(batch=batch, seq=seq, device="cuda", dtype=torch.bfloat16)
+    kinds = [k[0] for seq_, n in stack_plan(cfg) for _ in range(n)
+             for k in seq_]
+    n_rec, n_attn = kinds.count("rglru"), kinds.count("gqa_win")
+    gc_collect(torch)
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launches()
+    res = train(cfg, steps=steps, log_every=5,
+                log=lambda s: print(f"hybrid: {s}"), **kw)
+    launches = dict(_lib.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    leaves = tree_leaves(res.params)
+    n_params = sum(t.numel() for t in leaves)
+    n_f32 = sum(t.numel() for t in leaves if t.dtype == torch.float32)
+    del res.params, leaves
+    steady = sorted(res.step_s[1:])
+    med = steady[len(steady) // 2]
+    print(f"hybrid: recurrentgemma-9b at full width, {cfg.num_layers} of 38 "
+          f"layers ({n_rec} RG-LRU, {n_attn} local attention; "
+          f"{n_params / 1e9:.3f} B parameters, {n_f32} of them fp32), bf16 "
+          f"parameters, fp32 AdamW moments, batch {batch} x {seq} tokens, "
+          f"{steps} steps")
+    print("hybrid: losses " + " ".join(f"{x:.4f}" for x in res.losses))
+    print(f"hybrid: step time median {med * 1e3:.1f} ms over steps "
+          f"2-{steps} (min {steady[0] * 1e3:.1f}, max "
+          f"{steady[-1] * 1e3:.1f}; first {res.step_s[0] * 1e3:.1f} ms) = "
+          f"{res.tokens_per_step / med:.1f} tok/s; peak memory "
+          f"{peak / 2**30:.2f} GiB")
+    print(f"hybrid: kernel launches {launches}")
+    check(all(math.isfinite(x) for x in res.losses), "a loss is not finite")
+    check(res.losses[-1] < res.losses[0],
+          f"loss did not decrease: {res.losses[0]} -> {res.losses[-1]}")
+    # per step: each layer's kernel forward, its recomputation under remat
+    # and one backward
+    want = {"rglru_scan": 2 * n_rec * steps, "rglru_scan_bwd": n_rec * steps,
+            "flash_prefill": 2 * n_attn * steps,
+            "flash_prefill_bwd": n_attn * steps}
+    for k, n in want.items():
+        check(launches[k] == n, f"{k} launched {launches[k]} times on the "
+                                f"training path, not {n}")
+    gc_collect(torch)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train(cfg, steps=2, log=lambda s: None, **kw)
+        wall = time.perf_counter() - t0
+    print_breakdown("hybrid breakdown", prof, wall, (
+        ("rglru_scan", "rglru_fwd_kernel"),
+        ("rglru_scan_bwd", "rglru_bwd_kernel"),
+        ("flash_prefill_bwd dq", "dq_kernel"),
+        ("flash_prefill_bwd dkdv", "dkdv_kernel"),
+        ("flash_prefill", "fwd_kernel"),
+        ("elementwise", "elementwise"),
+        ("reduction", "reduce_kernel")))
+    gc_collect(torch)
+    return {row: launches[k] for row, k in HYBRID_ROWS.items()}
+
+
 def gc_collect(torch) -> None:
     import gc
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def kernel_label(mangled: str) -> str:
+    """``fwd_kernel<bf16, 256>`` from an Itanium-mangled kernel name in an
+    (anonymous) namespace; the name itself if it is not one."""
+    import re
+    m = re.match(r"_ZN(\d+)", mangled)
+    if not m:
+        return mangled[:48]
+    rest = mangled[m.end() + int(m.group(1)):]
+    m = re.match(r"(\d+)", rest)
+    if not m:
+        return mangled[:48]
+    n = int(m.group(1))
+    name, rest = rest[m.end():m.end() + n], rest[m.end() + n:]
+    args = []
+    i = 1 if rest.startswith("I") else len(rest)
+    while i < len(rest) and rest[i] != "E":
+        m = re.match(r"(\d+)|Li(-?\d+)E", rest[i:])
+        if m and m.group(1):             # a named type
+            k = int(m.group(1))
+            j = i + m.end()
+            args.append(rest[j:j + k].replace("__nv_bfloat16", "bf16"))
+            i = j + k
+        elif m:                          # an int
+            args.append(m.group(2))
+            i += m.end()
+        else:                            # a builtin type
+            args.append({"f": "f32"}.get(rest[i], rest[i]))
+            i += 1
+    return f"{name}<{', '.join(args)}>" if args else name
+
+
+def print_ptxas(source: str, log: str) -> None:
+    """One line per compiled kernel from nvcc's ``-Xptxas -v`` report:
+    its name, registers, shared memory and spills."""
+    import re
+    fn, spill = "?", ""
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = kernel_label(m.group(1))
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line:
+            used = line.split(":", 1)[-1].strip()
+            print(f"  {source}.cu {fn}: {used}; {spill}")
 
 
 def main(argv=None) -> int:
@@ -879,9 +1148,7 @@ def main(argv=None) -> int:
           f"{time.perf_counter() - t0:.1f} s")
     for name in _lib.SOURCES:
         _lib.lib(name)
-        for line in _lib.BUILD_LOG.get(name, "").splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}.cu: {line.strip()}")
+        print_ptxas(name, _lib.BUILD_LOG.get(name, ""))
 
     rows = kernel_checks(torch, np)
     for r in rows:
@@ -902,6 +1169,8 @@ def main(argv=None) -> int:
         launches.update(train_full_width(torch))
         train_reference_check(torch, np, "mamba2-2.7b")
         launches.update(train_mamba2(torch))
+        train_reference_check(torch, np, "recurrentgemma-9b", layers=4)
+        launches.update(train_recurrentgemma(torch))
     for r in rows:
         r["launches"] = launches[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches",

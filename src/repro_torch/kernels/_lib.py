@@ -26,13 +26,13 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("paged_append", "paged_attention", "paged_prefill",
-           "flash_prefill", "ssd_scan")
+           "flash_prefill", "ssd_scan", "rglru_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 KERNELS = ("paged_append_token", "paged_attention", "paged_append_chunk",
            "paged_flash_prefill", "flash_prefill", "flash_prefill_bwd",
-           "ssd_scan", "ssd_scan_bwd")
+           "ssd_scan", "ssd_scan_bwd", "rglru_scan", "rglru_scan_bwd")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 # nvcc's -Xptxas -v report of each source's last build (registers,
 # shared memory, spills), for chip_smoke.py to print
@@ -59,6 +59,9 @@ _SIGNATURES = {
     "ssd_scan": {
         "ssd_scan_fwd": [_P] * 8 + [_I] * 7 + [_P],
         "ssd_scan_bwd": [_P] * 13 + [_I] * 7 + [_P]},
+    "rglru_scan": {
+        "rglru_scan_fwd": [_P] * 4 + [_I] * 4 + [_P],
+        "rglru_scan_bwd": [_P] * 5 + [_I] * 4 + [_P]},
 }
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

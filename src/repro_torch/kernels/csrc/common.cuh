@@ -31,27 +31,40 @@ from_f32<__nv_bfloat16>(float x) {
 // ---------------------------------------------------------------------------
 // The flash sweep over key tiles.
 //
-// A block of NT threads owns ROWS query rows: the rep = H/KV query heads
-// of one kv head times ROWS/rep query positions, four threads per row,
-// each thread holding every fourth element of its row (dims 4*i + qq), so
-// that the four threads of a row read neighbouring shared-memory words
-// and the rows of a warp read the same ones: conflict-free broadcasts.
-// The block walks its key range itself in tiles of BK key positions,
-// staged in shared memory in fp32 once for all ROWS rows. Where a key row
-// lies in memory is the caller's business: a functor maps a key position
-// to the element offset of its row of this kv head (a block-table lookup
-// for the paged pool, plain arithmetic for a dense [B,T,KV,hd] tensor).
+// A block of NT threads owns Tile<HD>::ROWS query rows: the rep = H/KV
+// query heads of one kv head times ROWS/rep query positions, TPR threads
+// per row, each thread holding every TPR-th element of its row (dims
+// TPR*i + qq), so that the threads of a row read neighbouring
+// shared-memory words and the rows of a warp read the same ones:
+// conflict-free broadcasts. The block walks its key range itself in tiles
+// of BK key positions, staged in shared memory in fp32 once for all ROWS
+// rows. Where a key row lies in memory is the caller's business: a
+// functor maps a key position to the element offset of its row of this
+// kv head (a block-table lookup for the paged pool, plain arithmetic for
+// a dense [B,T,KV,hd] tensor).
+//
+// At hd 64 and 128 a row has four threads and a tile 32 keys (ROWS = 64,
+// the constants below, which the paged kernel uses). At hd 256 a row has
+// eight threads and a tile 16 keys, so that a thread's slices of its row
+// (HD/TPR floats each) and the static shared tile (2 x BK x HD floats,
+// 32 KB) keep their hd-128 sizes; a block then owns 32 rows.
 // ---------------------------------------------------------------------------
 namespace flash {
 
-constexpr int ROWS = 64;       // query rows per block
-constexpr int NT = ROWS * 4;   // four threads per row
-constexpr int BK = 32;         // key positions per shared tile
+constexpr int NT = 256;        // threads per block, at every head dim
+constexpr int ROWS = 64;       // query rows per block at hd <= 128
+
+template <int HD> struct Tile {
+  static constexpr int TPR = HD > 128 ? 8 : 4;   // threads per query row
+  static constexpr int PER = HD / TPR;           // row elements a thread
+  static constexpr int ROWS = NT / TPR;          // query rows per block
+  static constexpr int BK = HD > 128 ? 16 : 32;  // key positions a tile
+};
 
 template <int HD> struct KVTile {
-  float k[BK][HD];
-  float v[BK][HD];
-  long long off[BK];
+  float k[Tile<HD>::BK][HD];
+  float v[Tile<HD>::BK][HD];
+  long long off[Tile<HD>::BK];
 };
 
 // Stage key positions [t0, t0 + BK) of one kv head into ``sm`` in fp32;
@@ -62,6 +75,7 @@ __device__ __forceinline__ void stage_tile(KVTile<HD>& sm,
                                            const KT* __restrict__ k,
                                            const KT* __restrict__ v, int t0,
                                            int hi, KeyOff key_off) {
+  constexpr int BK = Tile<HD>::BK;
   const int tid = threadIdx.x;
   __syncthreads();  // the previous tile is consumed
   if (tid < BK) {
@@ -79,17 +93,18 @@ __device__ __forceinline__ void stage_tile(KVTile<HD>& sm,
   __syncthreads();
 }
 
-// Dot product of one row (four threads, this one holding ``r``) with row
+// Dot product of one row (TPR threads, this one holding ``r``) with row
 // ``j`` of a staged tile; every thread of the row gets the full sum.
 template <int HD>
-__device__ __forceinline__ float row_dot(const float (&r)[HD / 4],
+__device__ __forceinline__ float row_dot(const float (&r)[Tile<HD>::PER],
                                          const float (*x)[HD], int j,
                                          int qq) {
+  constexpr int TPR = Tile<HD>::TPR;
   float p = 0.f;
 #pragma unroll
-  for (int i = 0; i < HD / 4; ++i) p += r[i] * x[j][4 * i + qq];
-  p += __shfl_xor_sync(0xffffffffu, p, 1);
-  p += __shfl_xor_sync(0xffffffffu, p, 2);
+  for (int i = 0; i < Tile<HD>::PER; ++i) p += r[i] * x[j][TPR * i + qq];
+#pragma unroll
+  for (int w = 1; w < TPR; w <<= 1) p += __shfl_xor_sync(0xffffffffu, p, w);
   return p;
 }
 
@@ -106,14 +121,15 @@ __device__ __forceinline__ bool live(int kp, int hi, int last, int qpos,
 // and unnormalised output ``acc``. Masked keys get probability exactly 0.
 // Every thread of the block must call it with the same lo and hi.
 template <int HD, typename KT, typename KeyOff>
-__device__ __forceinline__ void sweep(KVTile<HD>& sm, const KT* __restrict__ k,
-                                      const KT* __restrict__ v,
-                                      KeyOff key_off, const float (&qr)[HD / 4],
-                                      int lo, int hi, int last, int qpos,
-                                      int window, float scale, float& m,
-                                      float& l, float (&acc)[HD / 4]) {
-  constexpr int PER = HD / 4;
-  const int qq = threadIdx.x & 3;
+__device__ __forceinline__ void sweep(
+    KVTile<HD>& sm, const KT* __restrict__ k, const KT* __restrict__ v,
+    KeyOff key_off, const float (&qr)[Tile<HD>::PER], int lo, int hi,
+    int last, int qpos, int window, float scale, float& m, float& l,
+    float (&acc)[Tile<HD>::PER]) {
+  constexpr int PER = Tile<HD>::PER;
+  constexpr int TPR = Tile<HD>::TPR;
+  constexpr int BK = Tile<HD>::BK;
+  const int qq = threadIdx.x % TPR;
   for (int t0 = lo; t0 < hi; t0 += BK) {
     stage_tile<HD>(sm, k, v, t0, hi, key_off);
     float s[BK];
@@ -135,7 +151,7 @@ __device__ __forceinline__ void sweep(KVTile<HD>& sm, const KT* __restrict__ k,
         const float p = s[j] > -INFINITY ? expf(s[j] - mn) : 0.f;
         l += p;
 #pragma unroll
-        for (int i = 0; i < PER; ++i) acc[i] += p * sm.v[j][4 * i + qq];
+        for (int i = 0; i < PER; ++i) acc[i] += p * sm.v[j][TPR * i + qq];
       }
       m = mn;
     }

@@ -31,6 +31,12 @@
 //     dK += scale * dS^T Q.
 // The same causal and window masks apply throughout.
 //
+// Head dims 64, 128 and 256. At hd 256 (RecurrentGemma's local
+// attention) a query row has eight threads and a key tile 16 positions
+// (flash::Tile), a dK/dV block 16 keys of 16 threads each and 16 staged
+// query rows (KTile): every thread holds as many elements as at hd 128,
+// and every tile stays in 32 KB of static shared memory.
+//
 // Bound on the H100: operations. At the training shapes (T = 2048, hd =
 // 128) the forward does 4 * hd flops per live (query row, key) pair and
 // the backward 10 * hd, about 500 flops per byte moved, above the ~295
@@ -42,23 +48,23 @@
 
 namespace {
 
-using flash::BK;
 using flash::NT;
-using flash::ROWS;
+using flash::Tile;
 
 // Row ownership shared by the forward and dq kernels: the query row
-// (head h, position qi) of this thread, four threads per row.
-struct RowMap {
+// (head h, position qi) of this thread, Tile<HD>::TPR threads per row.
+template <int HD> struct RowMap {
   int tile, kvh, b, h, qi, qq, q_first, q_last, lo;
   bool ok;
   __device__ RowMap(int T, int H, int KV, int window) {
+    constexpr int TPR = Tile<HD>::TPR;
     const int rep = H / KV;
-    const int bq = ROWS / rep;
+    const int bq = Tile<HD>::ROWS / rep;
     tile = gridDim.x - 1 - blockIdx.x;  // the longest sweeps start first
     kvh = blockIdx.y;
     b = blockIdx.z;
-    const int row = threadIdx.x >> 2;
-    qq = threadIdx.x & 3;
+    const int row = threadIdx.x / TPR;
+    qq = threadIdx.x % TPR;
     h = kvh * rep + row / bq;
     qi = tile * bq + row % bq;
     ok = qi < T;
@@ -66,7 +72,7 @@ struct RowMap {
     q_last = min(q_first + bq, T) - 1;
     lo = window > 0 ? max(0, q_first - window + 1) : 0;
   }
-  __device__ long long elem(int T, int H, int HD) const {
+  __device__ long long elem(int T, int H) const {
     return (((long long)b * T + qi) * H + h) * HD;
   }
   __device__ long long stat(int T, int H) const {
@@ -75,11 +81,21 @@ struct RowMap {
 };
 
 template <int HD, typename T>
-__device__ __forceinline__ void load_row(float (&r)[HD / 4], const T* x,
-                                         long long o, bool ok, int qq) {
+__device__ __forceinline__ void load_row(float (&r)[Tile<HD>::PER],
+                                         const T* x, long long o, bool ok,
+                                         int qq) {
 #pragma unroll
-  for (int i = 0; i < HD / 4; ++i)
-    r[i] = ok ? to_f32(x[o + 4 * i + qq]) : 0.f;
+  for (int i = 0; i < Tile<HD>::PER; ++i)
+    r[i] = ok ? to_f32(x[o + Tile<HD>::TPR * i + qq]) : 0.f;
+}
+
+// The sum over the TPR threads of a row; every one of them gets it.
+template <int HD>
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int w = 1; w < Tile<HD>::TPR; w <<= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, w);
+  return x;
 }
 
 template <typename T, int HD>
@@ -88,14 +104,15 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
            const T* __restrict__ v, T* __restrict__ out,
            float* __restrict__ lse, int Tn, int H, int KV, int window,
            float scale) {
-  constexpr int PER = HD / 4;
-  const RowMap rm(Tn, H, KV, window);
+  constexpr int PER = Tile<HD>::PER;
+  constexpr int TPR = Tile<HD>::TPR;
+  const RowMap<HD> rm(Tn, H, KV, window);
   const int kvh = rm.kvh, b = rm.b;
   auto key_off = [=](int kp) -> long long {
     return (((long long)b * Tn + kp) * KV + kvh) * HD;
   };
   float qr[PER];
-  load_row<HD>(qr, q, rm.elem(Tn, H, HD), rm.ok, rm.qq);
+  load_row<HD>(qr, q, rm.elem(Tn, H), rm.ok, rm.qq);
 
   __shared__ flash::KVTile<HD> sm;
   float m = -INFINITY, l = 0.f, acc[PER];
@@ -105,11 +122,11 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    rm.qi, window, scale, m, l, acc);
 
   if (rm.ok) {
-    const long long o = rm.elem(Tn, H, HD);
+    const long long o = rm.elem(Tn, H);
     const float inv = 1.f / fmaxf(l, 1e-30f);
 #pragma unroll
     for (int i = 0; i < PER; ++i)
-      out[o + 4 * i + rm.qq] = from_f32<T>(acc[i] * inv);
+      out[o + TPR * i + rm.qq] = from_f32<T>(acc[i] * inv);
     if (rm.qq == 0)
       lse[rm.stat(Tn, H)] = l > 0.f ? m + logf(l) : REPRO_NEG_INF;
   }
@@ -122,13 +139,15 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ dout, const float* __restrict__ lse,
           float* __restrict__ delta, T* __restrict__ dq, int Tn, int H,
           int KV, int window, float scale) {
-  constexpr int PER = HD / 4;
-  const RowMap rm(Tn, H, KV, window);
+  constexpr int PER = Tile<HD>::PER;
+  constexpr int TPR = Tile<HD>::TPR;
+  constexpr int BK = Tile<HD>::BK;
+  const RowMap<HD> rm(Tn, H, KV, window);
   const int kvh = rm.kvh, b = rm.b, qq = rm.qq;
   auto key_off = [=](int kp) -> long long {
     return (((long long)b * Tn + kp) * KV + kvh) * HD;
   };
-  const long long o = rm.elem(Tn, H, HD);
+  const long long o = rm.elem(Tn, H);
   float qr[PER], dor[PER], acc[PER];
   load_row<HD>(qr, q, o, rm.ok, qq);
   load_row<HD>(dor, dout, o, rm.ok, qq);
@@ -137,8 +156,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float dsum = 0.f;
 #pragma unroll
   for (int i = 0; i < PER; ++i) dsum += dor[i] * acc[i];
-  dsum += __shfl_xor_sync(0xffffffffu, dsum, 1);
-  dsum += __shfl_xor_sync(0xffffffffu, dsum, 2);
+  dsum = row_sum<HD>(dsum);
   const float lse_r = rm.ok ? lse[rm.stat(Tn, H)] : 0.f;
   if (rm.ok && qq == 0) delta[rm.stat(Tn, H)] = dsum;
 #pragma unroll
@@ -156,28 +174,39 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float p = on ? expf(s * scale - lse_r) : 0.f;
       const float ds = p * (dp - dsum);
 #pragma unroll
-      for (int i = 0; i < PER; ++i) acc[i] += ds * sm.k[j][4 * i + qq];
+      for (int i = 0; i < PER; ++i) acc[i] += ds * sm.k[j][TPR * i + qq];
     }
   }
   if (rm.ok) {
 #pragma unroll
     for (int i = 0; i < PER; ++i)
-      dq[o + 4 * i + qq] = from_f32<T>(acc[i] * scale);
+      dq[o + TPR * i + qq] = from_f32<T>(acc[i] * scale);
   }
 }
 
-constexpr int KB = 32;         // keys per dK/dV block
-constexpr int LPK = 8;         // threads per key row
-constexpr int NTB = KB * LPK;  // threads per dK/dV block
-constexpr int QR = 32;         // query rows staged per tile
+// Tiling of dkdv_kernel by head dim: KB keys per block, LPK threads per
+// key row, QR query rows staged at a time. At hd 256 a key row has 16
+// threads, so that each holds the same 16 elements of K, V, dK and dV as
+// at hd 128, and a block 16 keys and 16 staged rows, so that it keeps
+// 256 threads and 32 KB of static shared memory.
+template <int HD> struct KTile {
+  static constexpr int KB = HD > 128 ? 16 : 32;
+  static constexpr int LPK = HD > 128 ? 16 : 8;
+  static constexpr int QR = HD > 128 ? 16 : 32;
+  static constexpr int NTB = KB * LPK;
+};
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(NTB)
+__global__ void __launch_bounds__(KTile<HD>::NTB)
 dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const T* __restrict__ v, const T* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ delta,
             T* __restrict__ dk, T* __restrict__ dv, int Tn, int H, int KV,
             int window, float scale) {
+  constexpr int KB = KTile<HD>::KB;
+  constexpr int LPK = KTile<HD>::LPK;
+  constexpr int QR = KTile<HD>::QR;
+  constexpr int NTB = KTile<HD>::NTB;
   constexpr int PER = HD / LPK;
   const int tile = blockIdx.x;  // early keys have the most queries
   const int kvh = blockIdx.y;
@@ -285,7 +314,7 @@ template <typename T, int HD>
 void launch_fwd(const void* q, const void* k, const void* v, void* out,
                 void* lse, int B, int Tn, int H, int KV, int window,
                 float scale, cudaStream_t st) {
-  const int bq = ROWS / (H / KV);
+  const int bq = Tile<HD>::ROWS / (H / KV);
   dim3 grid((Tn + bq - 1) / bq, KV, B);
   fwd_kernel<T, HD><<<grid, NT, 0, st>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)out, (float*)lse, Tn, H,
@@ -297,11 +326,13 @@ void launch_bwd(const void* q, const void* k, const void* v, const void* out,
                 const void* dout, const void* lse, void* delta, void* dq,
                 void* dk, void* dv, int B, int Tn, int H, int KV, int window,
                 float scale, cudaStream_t st) {
-  const int bq = ROWS / (H / KV);
+  const int bq = Tile<HD>::ROWS / (H / KV);
   dim3 grid_q((Tn + bq - 1) / bq, KV, B);
   dq_kernel<T, HD><<<grid_q, NT, 0, st>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)out, (const T*)dout,
       (const float*)lse, (float*)delta, (T*)dq, Tn, H, KV, window, scale);
+  constexpr int KB = KTile<HD>::KB;
+  constexpr int NTB = KTile<HD>::NTB;
   dim3 grid_k((Tn + KB - 1) / KB, KV, B);
   dkdv_kernel<T, HD><<<grid_k, NTB, 0, st>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
@@ -311,29 +342,27 @@ void launch_bwd(const void* q, const void* k, const void* v, const void* out,
 
 // Runs CALL with T_ and HD bound to the dtype code and head dim, or
 // returns cudaErrorInvalidValue from the enclosing function.
+#define FLASH_CASE(code, type, hd_, dtype, hd, CALL)                     \
+  if ((dtype) == (code) && (hd) == (hd_)) {                             \
+    using T_ = type;                                                     \
+    constexpr int HD = hd_;                                              \
+    CALL;                                                                \
+  } else
 #define FLASH_DISPATCH(dtype, hd, CALL)                                  \
-  if ((dtype) == DT_F32 && (hd) == 64) {                                 \
-    using T_ = float;                                                    \
-    constexpr int HD = 64;                                               \
-    CALL;                                                                \
-  } else if ((dtype) == DT_F32 && (hd) == 128) {                         \
-    using T_ = float;                                                    \
-    constexpr int HD = 128;                                              \
-    CALL;                                                                \
-  } else if ((dtype) == DT_BF16 && (hd) == 64) {                         \
-    using T_ = __nv_bfloat16;                                            \
-    constexpr int HD = 64;                                               \
-    CALL;                                                                \
-  } else if ((dtype) == DT_BF16 && (hd) == 128) {                        \
-    using T_ = __nv_bfloat16;                                            \
-    constexpr int HD = 128;                                              \
-    CALL;                                                                \
-  } else {                                                               \
+  FLASH_CASE(DT_F32, float, 64, dtype, hd, CALL)                         \
+  FLASH_CASE(DT_F32, float, 128, dtype, hd, CALL)                        \
+  FLASH_CASE(DT_F32, float, 256, dtype, hd, CALL)                        \
+  FLASH_CASE(DT_BF16, __nv_bfloat16, 64, dtype, hd, CALL)                \
+  FLASH_CASE(DT_BF16, __nv_bfloat16, 128, dtype, hd, CALL)               \
+  FLASH_CASE(DT_BF16, __nv_bfloat16, 256, dtype, hd, CALL) {             \
     return (int)cudaErrorInvalidValue;                                   \
   }
 
-bool bad_heads(int H, int KV) {
-  return KV <= 0 || H % KV != 0 || ROWS % (H / KV) != 0;
+// The query heads of a kv head must divide the rows of a block: 64 at hd
+// 64 and 128, 32 at hd 256.
+bool bad_heads(int H, int KV, int hd) {
+  const int rows = hd > 128 ? Tile<256>::ROWS : Tile<128>::ROWS;
+  return KV <= 0 || H % KV != 0 || rows % (H / KV) != 0;
 }
 
 }  // namespace
@@ -344,7 +373,7 @@ extern "C" int flash_prefill_fwd(const void* q, const void* k, const void* v,
                                  void* out, void* lse, int B, int T, int H,
                                  int KV, int hd, int window, float scale,
                                  int dtype, void* stream) {
-  if (bad_heads(H, KV)) return (int)cudaErrorInvalidValue;
+  if (bad_heads(H, KV, hd)) return (int)cudaErrorInvalidValue;
   if (B == 0 || T == 0) return (int)cudaGetLastError();
   cudaStream_t st = (cudaStream_t)stream;
   FLASH_DISPATCH(dtype, hd, (launch_fwd<T_, HD>(q, k, v, out, lse, B, T, H,
@@ -361,7 +390,7 @@ extern "C" int flash_prefill_bwd(const void* q, const void* k, const void* v,
                                  void* dk, void* dv, int B, int T, int H,
                                  int KV, int hd, int window, float scale,
                                  int dtype, void* stream) {
-  if (bad_heads(H, KV)) return (int)cudaErrorInvalidValue;
+  if (bad_heads(H, KV, hd)) return (int)cudaErrorInvalidValue;
   if (B == 0 || T == 0) return (int)cudaGetLastError();
   cudaStream_t st = (cudaStream_t)stream;
   FLASH_DISPATCH(dtype, hd, (launch_bwd<T_, HD>(q, k, v, out, dout, lse,

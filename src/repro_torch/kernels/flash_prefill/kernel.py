@@ -63,9 +63,11 @@ def _dense_args(q, k, v):
     if not q.dtype == k.dtype == v.dtype:
         raise TypeError(f"flash_prefill: q, k, v of one dtype, not "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if hd not in (64, 128) or 64 % (H // KV):
-        raise ValueError(f"flash_prefill kernels take hd 64 or 128 and "
-                         f"H/KV dividing 64, not hd={hd}, H/KV={H // KV}")
+    rows = 32 if hd == 256 else 64          # query rows of a block
+    if hd not in (64, 128, 256) or rows % (H // KV):
+        raise ValueError(f"flash_prefill kernels take hd 64, 128 or 256 "
+                         f"and H/KV dividing 64 (32 at hd 256), not "
+                         f"hd={hd}, H/KV={H // KV}")
     return B, T, H, KV, hd
 
 

@@ -55,6 +55,11 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(x, approximate=True)``: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     return F.silu(x)
 

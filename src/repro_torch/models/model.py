@@ -1,5 +1,5 @@
-"""Public model API: build a dense GQA or Mamba-2 architecture from its
-ArchConfig.
+"""Public model API: build a dense GQA, Mamba-2 or RecurrentGemma
+architecture from its ArchConfig.
 
 ``Model.init`` makes the parameters as a plain dict of tensors, layers of
 a group stacked on axis 0 as in the JAX package (so its parameters carry
@@ -8,9 +8,11 @@ prefill or decode with a cache backend; the JAX package scans each group
 of layers, the port loops over them. Per-layer states (the paged KV pool
 views) are written in place and returned as given. Train mode keeps the
 autograd graph and, as the JAX package's ``remat``, recomputes each
-layer's activations in the backward pass. Mamba-2 stacks run in train
-mode only: their serving states are not ported, and asking for them
-raises.
+layer's activations in the backward pass. Mamba-2 and RecurrentGemma
+stacks run in train mode only: their serving states are not ported, and
+asking for them raises (``check_serving``, ``layer_state``). Parameter
+leaves keep the dtypes the JAX package gives them, so the RG-LRU's
+decay and gate leaves stay fp32 in a bf16 model.
 """
 from __future__ import annotations
 

@@ -1,12 +1,16 @@
-"""Backbone assembly for dense GQA stacks and Mamba-2 stacks.
+"""Backbone assembly for dense GQA stacks, Mamba-2 stacks and the hybrid
+RecurrentGemma stack.
 
 A layer *kind* is ``(mixer, ffn)``. The stack plan partitions layers into
 groups of a repeating kind sequence, as in the JAX package (which scans
 each group); the port loops over the layers of a group. The port serves
 and trains dense decoder stacks (mixers ``gqa``/``gqa_win`` with the
-gated ``mlp``) and trains Mamba-2 stacks (``("mamba", "none")``: no
+gated ``mlp``), trains Mamba-2 stacks (``("mamba", "none")``: no
 ``norm2`` and no FFN, so the parameter tree is the JAX package's leaf for
-leaf); it raises on the other kinds, and on serving a Mamba-2 stack.
+leaf) and trains the hybrid stack (``("rglru", "gelu_mlp")`` and
+``("gqa_win", "gelu_mlp")``: the RG-LRU block or windowed attention,
+then the ungated GeLU MLP); it raises on the other kinds, and on serving
+a Mamba-2 or hybrid stack.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models.common import init_embedding, init_linear, rms_norm
 from repro_torch.models.mamba2 import init_mamba2, mamba2_layer
+from repro_torch.models.rglru import init_rglru, rglru_block
 
 Kind = Tuple[str, str]  # (mixer, ffn)
 
@@ -51,6 +56,8 @@ def stack_plan(cfg: ArchConfig) -> List[Tuple[Tuple[Kind, ...], int]]:
 
 
 MAMBA: Kind = ("mamba", "none")
+RGLRU: Kind = ("rglru", "gelu_mlp")
+LOCAL_ATTN: Kind = ("gqa_win", "gelu_mlp")
 
 
 def check_kind(kind: Kind, *, serving: bool = False) -> None:
@@ -62,42 +69,60 @@ def check_kind(kind: Kind, *, serving: bool = False) -> None:
                 "Mamba-2 serving is not ported: it needs K6 with a carried "
                 "h0 and a decision on the JAX engine's recurrent state "
                 "(ROADMAP Queue 3); the port trains Mamba-2 stacks only")
+    elif kind in (RGLRU, LOCAL_ATTN):
+        if serving:
+            raise NotImplementedError(
+                "RecurrentGemma serving is not ported: it needs K7 with a "
+                "carried h0 and a decision on the JAX engine's recurrent "
+                "state (ROADMAP Queue 3); the port trains hybrid stacks "
+                "only")
     elif mixer not in ("gqa", "gqa_win") or ffn != "mlp":
         raise NotImplementedError(
             f"layer kind {kind}: the port runs dense GQA stacks with a "
-            f"gated MLP and trains Mamba-2 stacks")
+            f"gated MLP and trains Mamba-2 and RecurrentGemma stacks")
 
 
 def init_layer(generator, cfg: ArchConfig, kind: Kind, dtype, device):
     check_kind(kind)
+    mixer, ffn = kind
     ones = dict(dtype=dtype, device=device)
+    p = {"norm1": torch.ones((cfg.d_model,), **ones)}
     if kind == MAMBA:
-        return {"norm1": torch.ones((cfg.d_model,), **ones),
-                "mixer": init_mamba2(generator, cfg, dtype, device)}
-    return {"norm1": torch.ones((cfg.d_model,), **ones),
-            "attn": attn_mod.init_gqa(generator, cfg, dtype, device),
-            "norm2": torch.ones((cfg.d_model,), **ones),
-            "ffn": ffn_mod.init_mlp(generator, cfg.d_model, cfg.d_ff, dtype,
-                                    device)}
+        p["mixer"] = init_mamba2(generator, cfg, dtype, device)
+        return p
+    if mixer == "rglru":
+        p["mixer"] = init_rglru(generator, cfg, dtype, device)
+    else:
+        p["attn"] = attn_mod.init_gqa(generator, cfg, dtype, device)
+    p["norm2"] = torch.ones((cfg.d_model,), **ones)
+    p["ffn"] = ffn_mod.init_mlp(generator, cfg.d_model, cfg.d_ff, dtype,
+                                device, gated=(ffn == "mlp"))
+    return p
 
 
 def apply_layer(cfg: ArchConfig, kind: Kind, p, x, ctx: TPContext, backend,
                 state, *, positions, mode: str,
                 window: Optional[int] = None):
     """One pre-norm decoder layer. ``state`` is the layer's (k, v) pool
-    pair (None for a Mamba-2 layer, which runs in train mode only);
-    returns (x, state)."""
-    mixer, _ = kind
+    pair (None for a Mamba-2 or RG-LRU layer, which runs in train mode
+    only); returns (x, state)."""
+    mixer, ffn = kind
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if kind == MAMBA:
         out, state = mamba2_layer(cfg, p["mixer"], h, ctx, state, mode=mode)
         return x + out, state
-    w = cfg.hybrid.window if (mixer == "gqa_win" and cfg.hybrid) else window
-    out, state = attn_mod.gqa_attention(cfg, p["attn"], h, ctx, backend,
-                                        state, positions=positions, window=w)
+    if mixer == "rglru":
+        out, state = rglru_block(cfg, p["mixer"], h, ctx, state, mode=mode)
+    else:
+        w = cfg.hybrid.window if (mixer == "gqa_win" and cfg.hybrid) \
+            else window
+        out, state = attn_mod.gqa_attention(cfg, p["attn"], h, ctx, backend,
+                                            state, positions=positions,
+                                            window=w)
     x = x + out
     h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
-    x = x + ffn_mod.mlp(p["ffn"], h2, ctx, cfg.d_ff)
+    ffn_fn = ffn_mod.gelu_mlp if ffn == "gelu_mlp" else ffn_mod.mlp
+    x = x + ffn_fn(p["ffn"], h2, ctx, cfg.d_ff)
     return x, state
 
 
@@ -148,9 +173,13 @@ def tp_cross_entropy(cfg, logits_local, labels, ctx: TPContext, mask=None):
     shard is the vocab), as the JAX package computes it: max-shifted
     log-sum-exp minus the gold logit; labels outside the vocab score a
     gold logit of 0. ``mask`` [..] weights positions; the mean over the
-    weighted positions is returned."""
+    weighted positions is returned. The shift's gradient is zero (the
+    JAX package's carries only rounding), so the max is taken without
+    one: ``amax``'s backward would count ties in an int64 copy of the
+    whole [tokens, vocab] mask, 16.8 GB at 8192 tokens of a 256000-word
+    vocab."""
     V = logits_local.shape[-1]
-    m = logits_local.amax(dim=-1)
+    m = logits_local.detach().amax(dim=-1)
     denom = torch.exp(logits_local - m[..., None]).sum(dim=-1)
     labels = labels.long()
     ok = (labels >= 0) & (labels < V)

@@ -17,7 +17,9 @@ at rtol 1e-4 and an atol of 1e-4 times the largest entry of each output
 terms, not the result); with bf16 x, B and C its fp32 outputs at the
 same tolerance (both sides compute in fp32 from the same bf16 values),
 its bf16 gradients one bf16 unit (rtol 1e-2, atol 1e-2 of the largest
-entry).
+entry). The RG-LRU recurrence (K7) at rtol 1e-4 and an atol of 1e-4
+times each output's largest entry (da sums up to T products), its bf16
+gradients one bf16 unit (rtol 2^-7) more.
 """
 import copy
 
@@ -31,6 +33,9 @@ from repro_torch.kernels.flash_prefill import ops as fops
 from repro_torch.kernels.flash_prefill import ref as fref
 from repro_torch.kernels.paged_attention import ops as pops
 from repro_torch.kernels.paged_attention import ref as pref
+from repro_torch.kernels.rglru_scan import kernel as rker
+from repro_torch.kernels.rglru_scan import ops as rops
+from repro_torch.kernels.rglru_scan import ref as rref
 from repro_torch.kernels.ssd_scan import kernel as sker
 from repro_torch.kernels.ssd_scan import ops as sops
 from repro_torch.kernels.ssd_scan import ref as sref
@@ -129,11 +134,13 @@ def test_prefill_kernels_match_plain(cuda, dtype, window, prior_only):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Bd,Td,Hd,KVd,hdd,window", [
     (2, 100, 8, 2, 64, None), (2, 100, 8, 2, 64, 16),
-    (1, 130, 4, 4, 128, None), (1, 70, 4, 1, 128, 24)])
+    (1, 130, 4, 4, 128, None), (1, 70, 4, 1, 128, 24),
+    (2, 100, 16, 1, 256, None), (1, 150, 16, 1, 256, 40)])
 def test_dense_flash_kernels_match_plain(cuda, dtype, Bd, Td, Hd, KVd, hdd,
                                          window):
     """K5 forward and backward against their plain versions: ragged T,
-    rep 1 and 4, windows, hd 64 and 128; the backward from the same
+    rep 1, 4 and 16, windows, hd 64, 128 and 256 (RecurrentGemma's
+    multi-query local attention); the backward from the same
     (out, lse), and through the autograd op (one launch of each)."""
     rng = np.random.default_rng(1)
 
@@ -210,6 +217,45 @@ def test_ssd_kernels_match_plain(cuda, dtype, Bs, T, H, hd, S, chunk):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,C,near_one", [
+    (2, 64, 128, False), (1, 100, 96, False), (2, 300, 200, True),
+    (3, 5, 130, True)])
+def test_rglru_kernels_match_plain(cuda, dtype, B, T, C, near_one):
+    """K7 forward (y, hT) and backward (da, dg) against their plain
+    versions: ragged T and C (a partial block of channels, T shorter than
+    the steps a thread keeps in flight), a within 1e-3 of 1; then through
+    the autograd op (one launch of each)."""
+    rng = np.random.default_rng(9)
+    z = rng.standard_normal((B, T, C))
+    a = 1.0 - 1e-3 * rng.random((B, T, C)) if near_one \
+        else 1.0 / (1.0 + np.exp(-z))
+    a = torch.from_numpy(a).to(cuda, dtype)
+    g = torch.from_numpy(0.5 * rng.standard_normal((B, T, C))).to(cuda,
+                                                                 dtype)
+    dy = torch.from_numpy(rng.standard_normal((B, T, C))).to(
+        cuda, torch.float32)
+    y, hT = rker.rglru_scan_kernel(a, g)
+    wy, wh = rref.rglru_scan_ref(a, g)
+    for got, want in ((y, wy), (hT, wh)):
+        assert got.dtype == torch.float32
+        _ssd_close(got, want)
+    got = rker.rglru_scan_bwd_kernel(a, y, dy)
+    want = rref.rglru_scan_bwd_ref(a, y, dy)
+    for gr, w in zip(got, want):
+        assert gr.dtype == dtype and gr.shape == a.shape
+        _ssd_close(gr, w)
+    _lib.reset_launches()
+    ins = [a.clone().requires_grad_(True), g.clone().requires_grad_(True)]
+    yo, _ = rops.rglru_scan(*ins)
+    torch.testing.assert_close(yo, y, rtol=0.0, atol=0.0)
+    for gr, w in zip(torch.autograd.grad(yo, ins, dy), got):
+        torch.testing.assert_close(gr, w, rtol=0.0, atol=0.0)
+    assert _lib.LAUNCHES["rglru_scan"] == 1
+    assert _lib.LAUNCHES["rglru_scan_bwd"] == 1
+
+
+@pytest.mark.gpu
 def test_mamba2_training_on_the_card_matches_the_cpu(cuda):
     """Reduced mamba2-2.7b trained three fp32 steps on the card (K6
     forward and backward launched, twice and once per layer and step)
@@ -228,6 +274,36 @@ def test_mamba2_training_on_the_card_matches_the_cpu(cuda):
     card = train(cfg, device="cuda", params=on_card_params, **kw)
     assert _lib.LAUNCHES["ssd_scan"] == 3 * 2 * cfg.num_layers
     assert _lib.LAUNCHES["ssd_scan_bwd"] == 3 * cfg.num_layers
+    cpu = train(cfg, device="cpu", params=params, **kw)
+    np.testing.assert_allclose(card.losses, cpu.losses, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_recurrentgemma_training_on_the_card_matches_the_cpu(cuda):
+    """The 4-layer RecurrentGemma test config trained three fp32 steps on
+    the card (K7 launched twice and once per RG-LRU layer and step, K5
+    per local-attention layer) and on the CPU from the same weights: the
+    losses agree."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+    from repro_torch.models.model import build_model
+    from repro_torch.training.checkpoint import tree_map
+
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b").reduced(),
+                              num_layers=4)
+    params = build_model(cfg, torch.float32, "cpu").init(
+        torch.Generator().manual_seed(0))
+    on_card_params = tree_map(lambda x: x.to(cuda), params)
+    kw = dict(steps=3, batch=2, seq=130, dtype=torch.float32,
+              log=lambda s: 0)
+    _lib.reset_launches()
+    card = train(cfg, device="cuda", params=on_card_params, **kw)
+    assert _lib.LAUNCHES["rglru_scan"] == 3 * 2 * 3
+    assert _lib.LAUNCHES["rglru_scan_bwd"] == 3 * 3
+    assert _lib.LAUNCHES["flash_prefill"] == 3 * 2
+    assert _lib.LAUNCHES["flash_prefill_bwd"] == 3
     cpu = train(cfg, device="cpu", params=params, **kw)
     np.testing.assert_allclose(card.losses, cpu.losses, rtol=1e-4)
 

@@ -149,9 +149,11 @@ def test_unported_paths_raise():
     from repro_torch.models.transformer import sample_tokens
     with pytest.raises(NotImplementedError):
         sample_tokens(None, torch.zeros(1, 4), SINGLE, temperature=0.7)
-    with pytest.raises(NotImplementedError):
-        build_model(get_config("recurrentgemma-9b").reduced(),
-                    torch.float32, "cpu").plan
-    with pytest.raises(NotImplementedError):          # trains, not serves
-        build_model(get_config("mamba2-2.7b").reduced(), torch.float32,
-                    "cpu").check_serving()
+    for arch in ("deepseek-v2-236b", "phi3.5-moe-42b-a6.6b"):  # MLA, MoE
+        with pytest.raises(NotImplementedError):
+            build_model(get_config(arch).reduced(), torch.float32,
+                        "cpu").plan
+    for arch in ("mamba2-2.7b", "recurrentgemma-9b"):  # trains, not serves
+        with pytest.raises(NotImplementedError):
+            build_model(get_config(arch).reduced(), torch.float32,
+                        "cpu").check_serving()

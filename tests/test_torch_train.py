@@ -4,15 +4,20 @@ Inputs come from numpy with a seed, in fp32, and go through both
 packages: the data pipeline (bit-identical), the cross entropy and its
 gradient (atol 1e-5), AdamW over several steps (atol 1e-6: the same fp32
 arithmetic in another order), checkpoints in the JAX package's layout
-(exact), and the whole slice: reduced llama3-8b and reduced mamba2-2.7b
-each trained three steps by the JAX package's ``build_train_step`` and
-by the port's, from the same converted weights and batches. There the
-losses agree within rtol 1e-4 and the parameters within atol 1e-4:
+(exact), and the whole slice: reduced llama3-8b, reduced mamba2-2.7b and
+the 4-layer RecurrentGemma test config (reduced recurrentgemma-9b with 4
+layers: one super-layer of two RG-LRU layers and a local-attention
+layer, then one more RG-LRU layer; at 128 tokens its window of 64 masks
+keys) each trained three steps by the JAX package's ``build_train_step``
+and by the port's, from the same converted weights and batches. There
+the losses agree within rtol 1e-4 and the parameters within atol 1e-4:
 Adam's first steps move a weight by about lr * sign(g), so a gradient
 element whose float rounding differs near zero moves its weight
 differently, by far less than the 1.8e-3 that three warm-up steps move
-a weight at most.
+a weight at most. Each config's train-mode logits match the JAX
+model's at atol = rtol = 1e-4.
 """
+import dataclasses
 import os
 
 import numpy as np
@@ -38,6 +43,7 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.core.modes import ParallelPlan
 from repro_torch.core.views import SINGLE
 from repro_torch.kernels.flash_prefill import ref as fref
+from repro_torch.kernels.rglru_scan import ref as rref
 from repro_torch.kernels.ssd_scan import ref as sref
 from repro_torch.models import transformer as tfm
 from repro_torch.models.cache import TrainBackend
@@ -52,24 +58,40 @@ def _np_tree(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-ARCHS = ["llama3-8b", "mamba2-2.7b"]
-# the plain versions of each architecture's training kernels:
-# (module, forward, backward)
-TRAIN_REFS = {"llama3-8b": (fref, "flash_prefill_fwd_ref",
-                            "flash_prefill_bwd_ref"),
-              "mamba2-2.7b": (sref, "ssd_scan_fwd_ref", "ssd_scan_bwd_ref")}
+ARCHS = ["llama3-8b", "mamba2-2.7b", "recurrentgemma-9b"]
+# the plain versions of each architecture's training kernels, with the
+# mixers whose layers run them: (module, forward, backward, mixers)
+_FLASH = (fref, "flash_prefill_fwd_ref", "flash_prefill_bwd_ref")
+TRAIN_REFS = {
+    "llama3-8b": [(*_FLASH, ("gqa",))],
+    "mamba2-2.7b": [(sref, "ssd_scan_fwd_ref", "ssd_scan_bwd_ref",
+                     ("mamba",))],
+    "recurrentgemma-9b": [(rref, "rglru_scan_ref", "rglru_scan_bwd_ref",
+                           ("rglru",)), (*_FLASH, ("gqa_win",))]}
+# tokens a sequence in the forward test: past the hybrid's window of 64
+SEQ = {"recurrentgemma-9b": 160}
+
+
+def _test_config(get, arch):
+    """The arch's reduced config; RecurrentGemma's with 4 layers, so that
+    its stack has a local-attention layer (its own reduced() has two
+    RG-LRU layers only)."""
+    cfg = get(arch).reduced()
+    if arch == "recurrentgemma-9b":
+        cfg = dataclasses.replace(cfg, num_layers=4)
+    return cfg
 
 
 @pytest.fixture(scope="module")
 def zoo():
-    """``zoo(arch)``: the reduced arch's JAX model, its init(key(0))
+    """``zoo(arch)``: the test config's JAX model, its init(key(0))
     params, and the port's config and model, built once."""
     built = {}
 
     def get(arch):
         if arch not in built:
-            jm = jax_build(jax_config(arch).reduced(), jnp.float32)
-            cfg = get_config(arch).reduced()
+            jm = jax_build(_test_config(jax_config, arch), jnp.float32)
+            cfg = _test_config(get_config, arch)
             built[arch] = (jm, jm.init(jax.random.key(0)), cfg,
                            build_model(cfg, torch.float32, "cpu"))
         return built[arch]
@@ -234,7 +256,8 @@ def test_tree_order_is_jax_flatten_order(reduced):
 def test_train_forward_matches_jax(zoo, arch):
     jm, jp, cfg, tm = zoo(arch)
     from repro.models.cache import TrainBackend as JTrain
-    toks = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 24))
+    toks = np.random.default_rng(4).integers(0, cfg.vocab_size,
+                                             (2, SEQ.get(arch, 24)))
     want, _, _ = jm.forward(jp, JSINGLE, mode="train",
                             tokens=jnp.asarray(toks, jnp.int32),
                             backend=JTrain())
@@ -254,23 +277,21 @@ def test_train_forward_matches_jax(zoo, arch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_remat_recomputes_each_layer_once(zoo, arch, monkeypatch):
-    """Per-layer remat: the mixer's kernel forward (attention or the SSD
-    scan) runs twice per layer (the forward pass and its recomputation in
-    the backward), its backward once; the gradients equal those without
-    remat. On the card these are the K5 or K6 launch counts of a training
-    step."""
+    """Per-layer remat: each mixer's kernel forward (attention, the SSD
+    scan or the RG-LRU recurrence) runs twice per layer of that mixer
+    (the forward pass and its recomputation in the backward), its
+    backward once; the gradients equal those without remat. On the card
+    these are the K5, K6 and K7 launch counts of a training step."""
     _, jp, cfg, tm = zoo(arch)
-    calls = {"fwd": 0, "bwd": 0}
-    mod, fwd_name, bwd_name = TRAIN_REFS[arch]
-    fwd, bwd = getattr(mod, fwd_name), getattr(mod, bwd_name)
-
-    def count(name, fn):
-        def wrapped(*a, **kw):
-            calls[name] += 1
-            return fn(*a, **kw)
-        return wrapped
-    monkeypatch.setattr(mod, fwd_name, count("fwd", fwd))
-    monkeypatch.setattr(mod, bwd_name, count("bwd", bwd))
+    refs = TRAIN_REFS[arch]
+    calls = {}
+    for mod, fwd_name, bwd_name, _ in refs:
+        for name in (fwd_name, bwd_name):
+            def wrapped(*a, _fn=getattr(mod, name), _name=name, **kw):
+                calls[_name] += 1
+                return _fn(*a, **kw)
+            monkeypatch.setattr(mod, name, wrapped)
+    layers = [k[0] for seq, n in tm.plan for _ in range(n) for k in seq]
     toks = torch.from_numpy(
         np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 16)))
     grads = {}
@@ -280,12 +301,16 @@ def test_remat_recomputes_each_layer_once(zoo, arch, monkeypatch):
         leaves = ckpt.tree_leaves(params)
         for p in leaves:
             p.requires_grad_(True)
-        calls.update(fwd=0, bwd=0)
+        calls.update({n: 0 for _, f, b, _ in refs for n in (f, b)})
         logits, _, _ = tm.forward(params, SINGLE, mode="train", tokens=toks,
                                   backend=TrainBackend())
         grads[remat] = torch.autograd.grad(logits.square().mean(), leaves)
-        L = cfg.num_layers
-        assert calls == {"fwd": 2 * L if remat else L, "bwd": L}
+        want = {}
+        for _, fwd_name, bwd_name, mixers in refs:
+            L = sum(m in mixers for m in layers)
+            assert L > 0
+            want.update({fwd_name: 2 * L if remat else L, bwd_name: L})
+        assert calls == want
     tm.remat = True
     for a, b in zip(grads[True], grads[False]):
         torch.testing.assert_close(a, b, atol=0.0, rtol=0.0)
@@ -307,6 +332,13 @@ def test_three_mamba2_train_steps_match_jax(zoo):
     """Reduced mamba2-2.7b, fp32, batch 4 x 64 tokens (two chunks of 32),
     the same set-up: SSD scan, conv, gated norm and all."""
     _three_steps_match_jax(*zoo("mamba2-2.7b"), seq=64)
+
+
+def test_three_recurrentgemma_train_steps_match_jax(zoo):
+    """The 4-layer RecurrentGemma test config, fp32, batch 4 x 128 tokens
+    (twice the window), the same set-up: RG-LRU blocks, local attention
+    with its window, GeLU MLPs and the embedding scale."""
+    _three_steps_match_jax(*zoo("recurrentgemma-9b"), seq=128)
 
 
 def _three_steps_match_jax(jm, jp, cfg, tm, *, seq):
@@ -352,6 +384,10 @@ def test_launcher_trains_on_the_cpu_when_asked(capsys, tmp_path):
 
 def test_launcher_trains_mamba2_on_the_cpu(capsys, tmp_path):
     _launch_on_the_cpu(capsys, tmp_path, "mamba2-2.7b")
+
+
+def test_launcher_trains_recurrentgemma_on_the_cpu(capsys, tmp_path):
+    _launch_on_the_cpu(capsys, tmp_path, "recurrentgemma-9b")
 
 
 def _launch_on_the_cpu(capsys, tmp_path, arch):
