@@ -17,7 +17,8 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    shapes (serving for K1-K4; training, batch 4 x 2048 tokens of
    llama3-8b, for K5 and its backward), in fp32 (atol 1e-4) and bf16
    (atol 1e-3, rtol 1e-2: both sides accumulate in fp32 and round once,
-   so they may differ by one bf16 unit, a relative 2^-8 to 2^-7; the
+   so they may differ by one bf16 unit, a relative 2^-8 to 2^-7; K5's
+   bf16 kernels keep P and dS to 16 bits as bf16 hi + lo halves; the
    appends bit-exact), and time kernel, plain version and one PyTorch
    library call computing the same function (CUDA events, warm, the
    median of five windows, three for the slowest calls); K6 and its
@@ -46,7 +47,9 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    time by kernel class and the device's busy share of the wall time;
 7. train the reduced llama3-8b three fp32 steps on the card (K5 forward
    and backward) and on the CPU (their plain versions) from the same
-   weights and batches: the losses must agree (rtol 1e-4);
+   weights and batches: the losses must agree (rtol 1e-4); then three
+   bf16 steps from the same bf16 weights, whose losses must agree within
+   twice the CPU's own relative bf16-vs-fp32 drift over those steps;
 8. train llama3-8b at full width, 4 of its 32 layers, in bf16 (fp32
    AdamW moments), batch 4 x 2048 tokens, 20 steps, through
    ``repro_torch.launch.train.train``, with the launch counts reset
@@ -66,7 +69,7 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    recurrentgemma-9b with one whole super-layer and one more RG-LRU
    layer) three fp32 steps of 128 tokens on the card (K7, K5) and on
    the CPU from the same weights and batches: the losses must agree
-   (rtol 1e-4);
+   (rtol 1e-4); then three bf16 steps as in phase 7;
 12. train recurrentgemma-9b at full width, 6 of its 38 layers (two
    super-layers), in bf16 (fp32 AdamW moments), batch 4 x 2048 tokens,
    20 steps, as phase 8: finite losses, the last below the first, K7
@@ -100,6 +103,11 @@ SERVE_KERNELS = ("paged_append_token", "paged_attention",
 TRAIN_KERNELS = ("flash_prefill", "flash_prefill_bwd")
 MAMBA_KERNELS = ("ssd_scan", "ssd_scan_bwd")
 MAMBA_STEPS = 20
+# the bf16 K5 kernels' classes in the profiled breakdowns
+FLASH_CLASSES = (("flash_prefill_bwd dq", "dq_tc"),
+                 ("flash_prefill_bwd dkdv", "dkdv_tc"),
+                 ("flash_prefill_bwd sum", "sum_parts"),
+                 ("flash_prefill", "fwd_tc"))
 # phase 12's kernels: the JSON rows of K5 at hd 256 take its launches
 HYBRID_ROWS = {"rglru_scan": "rglru_scan",
                "rglru_scan_bwd": "rglru_scan_bwd",
@@ -353,6 +361,8 @@ def kernel_checks(torch, np):
     del kg, vg, mask
 
     # -- K5: dense causal flash attention, forward and backward ----------
+    tile_checks(torch, rng)
+    print_hgmma()
     # the training shape of llama3-8b: batch 4 x 2048 tokens
     rows.extend(flash_rows(torch, gen, close, "", H, KV, hd, [(4, 2048)],
                            (None, 1024)))
@@ -369,6 +379,66 @@ def kernel_checks(torch, np):
     _lib.reset_launches()
     torch.cuda.empty_cache()
     return rows
+
+
+def tile_checks(torch, rng):
+    """The bf16 K5 kernels' tile machinery on one tile pair of each
+    operand layout, against torch.matmul in fp32 (TF32 off), each entry
+    held to a bound on its rounding: a b^T (both bf16 operands K-major in
+    swizzled shared memory) by fp32 summation, hd units of 2^-24 of
+    sum |a||b|; a b (a fp32 as bf16 hi + lo register fragments, b
+    N-major) by 2^-16 of sum |a||b|."""
+    from repro_torch.kernels.flash_prefill import kernel as fk
+
+    dev = torch.device("cuda")
+
+    def t(shape, dtype=torch.bfloat16):
+        return torch.from_numpy(rng.standard_normal(shape)).to(dev, dtype)
+    for hd in (64, 128, 256):
+        a, b = t((64, hd)), t((64, hd))
+        got = fk.flash_tile_check(a, b, 0)
+        want = a.float() @ b.float().T
+        lim = (a.float().abs() @ b.float().abs().T) * hd * 2.0 ** -24
+        e0 = float((got - want).abs().max())
+        check(bool(((got - want).abs() <= lim).all()),
+              f"tile product a b^T at hd {hd} off by {e0:.3e}")
+        a = t((64, 64), torch.float32)
+        got = fk.flash_tile_check(a, b, 1)
+        want = a @ b.float()
+        lim = (a.abs() @ b.float().abs()) * 2.0 ** -16
+        e1 = float((got - want).abs().max())
+        check(bool(((got - want).abs() <= lim).all()),
+              f"tile product a b at hd {hd} off by {e1:.3e}")
+        print(f"  tile products at hd {hd} against torch.matmul: a b^T "
+              f"(SS, K-major) max_abs_err={e0:.3e}, a b (RS hi + lo, "
+              f"N-major) max_abs_err={e1:.3e}")
+
+
+def print_hgmma() -> None:
+    """HGMMA instructions in the SASS of each kernel of the flash_prefill
+    library (cuobjdump), where cuobjdump exists; printed, not gated."""
+    import re
+    import shutil
+
+    from repro_torch.kernels import _lib
+
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(exe).exists():
+        print("  HGMMA count: not measured (no cuobjdump)")
+        return
+    sass = subprocess.run([exe, "-sass", str(_lib.build_all()[
+        "flash_prefill"])], capture_output=True, text=True).stdout
+    counts: dict = {}
+    fn = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = kernel_label(m.group(1))
+            counts[fn] = 0
+        elif fn and "HGMMA" in line:
+            counts[fn] += 1
+    print("  HGMMA instructions in SASS: " + ", ".join(
+        f"{k} {v}" for k, v in sorted(counts.items())))
 
 
 def ssd_close(torch, got, want, what):
@@ -638,30 +708,49 @@ def flash_rows(torch, gen, close, suffix: str, H: int, KV: int, hd: int,
         *(x.transpose(1, 2) for x in leaves), is_causal=True,
         enable_gqa=True)
     dot = do.transpose(1, 2)
+    # SDPA's own bf16 error against the same plain version: the yardstick
+    # of what bf16 rounding costs
+    wo, wl = fr.flash_prefill_fwd_ref(q, k, v, window=window)
+    sdpa_fwd = float((lo.detach().transpose(1, 2).float() - wo.float())
+                     .abs().max())
+    wants = fr.flash_prefill_bwd_ref(q, k, v, wo, wl, do, window=window)
+    sdpa_bwd = max(float((g.float() - w_.float()).abs().max())
+                   for g, w_ in zip(torch.autograd.grad(
+                       lo, leaves, dot, retain_graph=True), wants))
+    del wo, wl, wants
+    ms = time_ms(torch, lambda: fk.flash_prefill_kernel(
+        q, k, v, window=window))
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True))
+    bwd_ms = time_ms(torch, lambda: fk.flash_prefill_bwd_kernel(
+        q, k, v, o, lse, do, window=window), iters=5, windows=3)
+    bwd_lib_ms = time_ms(torch, lambda: torch.autograd.grad(
+        lo, leaves, dot, retain_graph=True))
+    for name, t_ms, flops, b, e, sd in (
+            ("flash_prefill", ms, 4.0 * hd * pairs, fwd_b,
+             max(errs["fwd"]), sdpa_fwd),
+            ("flash_prefill_bwd", bwd_ms, 10.0 * hd * pairs, bwd_b,
+             max(errs["bwd"]), sdpa_bwd)):
+        print(f"  {name}{suffix} bf16 [{B},{T}] hd {hd}: {t_ms:.4f} ms = "
+              f"{flops / t_ms / 1e9:.1f} TFLOP/s ({flops / 1e9:.1f} GFLOP "
+              f"on live pairs), {b[0] / t_ms:.1%} of its bound; max_abs_err "
+              f"{e:.3e} against the plain version, SDPA's {sd:.3e}")
     rows = [dict(
         name="flash_prefill" + suffix, route="cuda",
         source="src/repro_torch/kernels/csrc/flash_prefill.cu",
         replaces="src/repro/kernels/flash_prefill/kernel.py:74",
-        max_abs_err=max(errs["fwd"]),
-        ms=time_ms(torch, lambda: fk.flash_prefill_kernel(
-            q, k, v, window=window)),
+        max_abs_err=max(errs["fwd"]), ms=ms,
         plain_ms=time_ms(torch, lambda: fr.flash_prefill_fwd_ref(
             q, k, v, window=window), iters=3, warm=1, windows=3),
-        bound_ms=fwd_b[0], bound_by=fwd_b[1],
-        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True))), dict(
+        bound_ms=fwd_b[0], bound_by=fwd_b[1], library_ms=lib_ms), dict(
         name="flash_prefill_bwd" + suffix, route="cuda",
         source="src/repro_torch/kernels/csrc/flash_prefill.cu",
         replaces="src/repro/kernels/flash_prefill/kernel.py:74",
-        max_abs_err=max(errs["bwd"]),
-        ms=time_ms(torch, lambda: fk.flash_prefill_bwd_kernel(
-            q, k, v, o, lse, do, window=window), iters=5, windows=3),
+        max_abs_err=max(errs["bwd"]), ms=bwd_ms,
         plain_ms=time_ms(torch, lambda: fr.flash_prefill_bwd_ref(
             q, k, v, o, lse, do, window=window), iters=3, warm=1,
             windows=3),
-        bound_ms=bwd_b[0], bound_by=bwd_b[1],
-        library_ms=time_ms(torch, lambda: torch.autograd.grad(
-            lo, leaves, dot, retain_graph=True)))]
+        bound_ms=bwd_b[0], bound_by=bwd_b[1], library_ms=bwd_lib_ms)]
     del lo, leaves, o, lse, q, k, v, do
     return rows
 
@@ -840,9 +929,14 @@ def print_breakdown(tag: str, prof, wall: float, classes) -> None:
 # phases 7 and 8: training
 # ---------------------------------------------------------------------------
 
-def train_reference_check(torch, np, arch: str, layers: int = 0):
+def train_reference_check(torch, np, arch: str, layers: int = 0,
+                          bf16: bool = False):
     """The reduced config (with ``layers`` layers, if given) trained in
-    fp32 on the card and on the CPU from the same weights and batches."""
+    fp32 on the card and on the CPU from the same weights and batches;
+    with ``bf16``, then in bf16 from the same bf16 weights, the card's
+    losses within twice the CPU's own largest relative bf16-vs-fp32
+    drift over the same steps (the card and the CPU round at different
+    places, each by about as much as bf16 moves a run from fp32)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -864,6 +958,24 @@ def train_reference_check(torch, np, arch: str, layers: int = 0):
           f"losses {card.losses}, CPU losses {cpu.losses}")
     check(np.allclose(card.losses, cpu.losses, rtol=1e-4, atol=0.0),
           "card and CPU training losses differ")
+    if not bf16:
+        return
+    pb = build_model(cfg, torch.bfloat16, "cpu").init(
+        torch.Generator().manual_seed(0))
+    kw = dict(steps=3, batch=4, seq=128, log=lambda s: None)
+    card = train(cfg, device="cuda", dtype=torch.bfloat16,
+                 params=tree_map(lambda t: t.to("cuda"), pb), **kw)
+    cpu = train(cfg, device="cpu", dtype=torch.bfloat16,
+                params=tree_map(lambda t: t.clone(), pb), **kw)
+    f32 = train(cfg, device="cpu", dtype=torch.float32,
+                params=tree_map(lambda t: t.float(), pb), **kw)
+    drift = max(abs(b - f) / abs(f) for b, f in zip(cpu.losses, f32.losses))
+    diff = max(abs(c - b) / abs(b) for c, b in zip(card.losses, cpu.losses))
+    print(f"train reduced {arch} bf16: card losses {card.losses}, CPU "
+          f"{cpu.losses} (fp32 {f32.losses}); largest relative difference "
+          f"{diff:.3e}, limit 2 x the CPU's bf16 drift {drift:.3e}")
+    check(diff <= 2 * drift, "card and CPU bf16 training losses differ by "
+                             "more than twice the CPU's bf16 drift")
 
 
 def train_full_width(torch):
@@ -916,10 +1028,8 @@ def train_full_width(torch):
         t0 = time.perf_counter()
         train(cfg, steps=2, log=lambda s: None, **kw)
         wall = time.perf_counter() - t0
-    print_breakdown("train breakdown", prof, wall, (
-        ("flash_prefill_bwd dq", "dq_kernel"),
-        ("flash_prefill_bwd dkdv", "dkdv_kernel"),
-        ("flash_prefill", "fwd_kernel")))
+    print_breakdown("train breakdown", prof, wall, FLASH_CLASSES + (
+        ("elementwise", "elementwise"), ("reduction", "reduce_kernel")))
     gc_collect(torch)
     return {k: launches[k] for k in TRAIN_KERNELS}
 
@@ -1055,9 +1165,7 @@ def train_recurrentgemma(torch):
     print_breakdown("hybrid breakdown", prof, wall, (
         ("rglru_scan", "rglru_fwd_kernel"),
         ("rglru_scan_bwd", "rglru_bwd_kernel"),
-        ("flash_prefill_bwd dq", "dq_kernel"),
-        ("flash_prefill_bwd dkdv", "dkdv_kernel"),
-        ("flash_prefill", "fwd_kernel"),
+        *FLASH_CLASSES,
         ("elementwise", "elementwise"),
         ("reduction", "reduce_kernel")))
     gc_collect(torch)
@@ -1078,11 +1186,15 @@ def kernel_label(mangled: str) -> str:
     if not m:
         return mangled[:48]
     rest = mangled[m.end() + int(m.group(1)):]
-    m = re.match(r"(\d+)", rest)
-    if not m:
+    name = None
+    while True:                          # nested names: keep the last
+        m = re.match(r"(\d+)", rest)
+        if not m:
+            break
+        n = int(m.group(1))
+        name, rest = rest[m.end():m.end() + n], rest[m.end() + n:]
+    if name is None:
         return mangled[:48]
-    n = int(m.group(1))
-    name, rest = rest[m.end():m.end() + n], rest[m.end() + n:]
     args = []
     i = 1 if rest.startswith("I") else len(rest)
     while i < len(rest) and rest[i] != "E":
@@ -1149,6 +1261,11 @@ def main(argv=None) -> int:
     for name in _lib.SOURCES:
         _lib.lib(name)
         print_ptxas(name, _lib.BUILD_LOG.get(name, ""))
+    smem = _lib.lib("flash_prefill").flash_tc_smem
+    print("  flash_prefill.cu, dynamic shared memory of the bf16 kernels: "
+          + ", ".join(f"{k}<{hd}> {smem(hd, i)} bytes"
+                      for hd in (64, 128, 256)
+                      for i, k in enumerate(("fwd_tc", "dq_tc", "dkdv_tc"))))
 
     rows = kernel_checks(torch, np)
     for r in rows:
@@ -1165,11 +1282,12 @@ def main(argv=None) -> int:
         launches = serve_full_width(torch)
         serve_breakdown(torch)
         gc_collect(torch)
-        train_reference_check(torch, np, "llama3-8b")
+        train_reference_check(torch, np, "llama3-8b", bf16=True)
         launches.update(train_full_width(torch))
         train_reference_check(torch, np, "mamba2-2.7b")
         launches.update(train_mamba2(torch))
-        train_reference_check(torch, np, "recurrentgemma-9b", layers=4)
+        train_reference_check(torch, np, "recurrentgemma-9b", layers=4,
+                              bf16=True)
         launches.update(train_recurrentgemma(torch))
     for r in rows:
         r["launches"] = launches[r["name"]]

@@ -55,7 +55,9 @@ _SIGNATURES = {
                                 _I, _I, _I, _I, _F, _I, _I, _I, _P]},
     "flash_prefill": {
         "flash_prefill_fwd": [_P] * 5 + [_I] * 6 + [_F, _I, _P],
-        "flash_prefill_bwd": [_P] * 10 + [_I] * 6 + [_F, _I, _P]},
+        "flash_prefill_bwd": [_P] * 11 + [_I] * 7 + [_F, _I, _P],
+        "flash_tile_check": [_P] * 3 + [_I] * 2 + [_P],
+        "flash_tc_smem": [_I, _I]},
     "ssd_scan": {
         "ssd_scan_fwd": [_P] * 8 + [_I] * 7 + [_P],
         "ssd_scan_bwd": [_P] * 13 + [_I] * 7 + [_P]},
@@ -81,7 +83,8 @@ def _nvcc() -> str:
 
 def _digest(name: str) -> str:
     h = hashlib.sha256()
-    for p in (CSRC / "common.cuh", CSRC / f"{name}.cu"):
+    for p in (CSRC / "common.cuh", CSRC / "hopper.cuh",
+              CSRC / f"{name}.cu"):
         h.update(p.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:12]

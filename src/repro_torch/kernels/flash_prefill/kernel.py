@@ -1,9 +1,10 @@
 """CUDA wrappers of the flash-prefill kernels: the paged chunked-prefill
 sweep (csrc/paged_prefill.cu) and the dense causal attention of the
-training path, forward and backward (csrc/flash_prefill.cu). Each
-validates, allocates outputs, launches on the current stream, counts the
-launch and raises on a launch error. CUDA tensors only; ``ops`` routes
-CPU tensors to the plain versions."""
+training path, forward and backward (csrc/flash_prefill.cu: bf16 on the
+tensor cores, fp32 on the CUDA cores). Each validates, allocates outputs
+and scratch, launches on the current stream, counts the launch and
+raises on a launch error. CUDA tensors only; ``ops`` routes CPU tensors
+to the plain versions."""
 from __future__ import annotations
 
 from typing import Optional
@@ -63,19 +64,40 @@ def _dense_args(q, k, v):
     if not q.dtype == k.dtype == v.dtype:
         raise TypeError(f"flash_prefill: q, k, v of one dtype, not "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    rows = 32 if hd == 256 else 64          # query rows of a block
-    if hd not in (64, 128, 256) or rows % (H // KV):
-        raise ValueError(f"flash_prefill kernels take hd 64, 128 or 256 "
-                         f"and H/KV dividing 64 (32 at hd 256), not "
-                         f"hd={hd}, H/KV={H // KV}")
+    if hd not in (64, 128, 256):
+        raise ValueError(f"flash_prefill kernels take hd 64, 128 or 256, "
+                         f"not {hd}")
+    rows = 32 if hd == 256 else 64          # query rows of an fp32 block
+    if q.dtype == torch.float32 and rows % (H // KV):
+        raise ValueError(f"flash_prefill's fp32 kernels take H/KV dividing "
+                         f"{rows} at hd {hd}, not {H // KV}")
     return B, T, H, KV, hd
+
+
+def _aligned(t):
+    """``t``, or a copy of it if its data does not start on 16 bytes (the
+    bf16 kernels copy rows in 16-byte pieces)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def dkdv_groups(B: int, T: int, KV: int, rep: int, device) -> int:
+    """Head groups of the bf16 dK/dV kernel: the rep query heads of a kv
+    head are halved into groups until its blocks (one per batch row, kv
+    head, 64-key tile and group) fill the card's SMs four times over or
+    each group holds one head. Each group adds an fp32 partial sum."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    blocks = B * KV * -(-T // 64)
+    g = 1
+    while blocks * g < 4 * sms and rep % (2 * g) == 0:
+        g *= 2
+    return g
 
 
 def flash_prefill_kernel(q, k, v, *, window: Optional[int] = None):
     """Dense causal attention: q [B,T,H,hd], k/v [B,T,KV,hd] (heads not
     repeated; any T) -> (out [B,T,H,hd] in q's dtype, lse [B,H,T]
     fp32)."""
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (_aligned(x.contiguous()) for x in (q, k, v))
     B, T, H, KV, hd = _dense_args(q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
@@ -93,8 +115,9 @@ def flash_prefill_bwd_kernel(q, k, v, out, lse, dout, *,
     """Backward of ``flash_prefill_kernel``: the forward's inputs, its
     (out, lse) and dout [B,T,H,hd] -> (dq, dk, dv) in the inputs'
     dtype."""
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    out, dout, lse = out.contiguous(), dout.contiguous(), lse.contiguous()
+    q, k, v, out, dout = (_aligned(x.contiguous())
+                          for x in (q, k, v, out, dout))
+    lse = lse.contiguous()
     B, T, H, KV, hd = _dense_args(q, k, v)
     _lib.require_cuda(q, out, lse, dout)
     if any(t.shape != q.shape or t.dtype != q.dtype for t in (out, dout)) \
@@ -104,11 +127,43 @@ def flash_prefill_bwd_kernel(q, k, v, out, lse, dout, *,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
         torch.empty_like(v)
     delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    groups = dkdv_groups(B, T, KV, H // KV, q.device) \
+        if q.dtype == torch.bfloat16 else 1
+    part = torch.empty((2, groups, B, T, KV, hd), dtype=torch.float32,
+                       device=q.device) if groups > 1 else None
     rc = _lib.lib("flash_prefill").flash_prefill_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), B, T, H, KV, hd, window or 0,
-        hd ** -0.5, _lib.dtype_code(q), _lib.stream_of(q))
+        dk.data_ptr(), dv.data_ptr(),
+        part.data_ptr() if part is not None else None, B, T, H, KV, hd,
+        window or 0, groups, hd ** -0.5, _lib.dtype_code(q),
+        _lib.stream_of(q))
     _lib.LAUNCHES["flash_prefill_bwd"] += 1
     _lib.check(rc, "flash_prefill_bwd")
     return dq, dk, dv
+
+
+def flash_tile_check(a, b, mode: int):
+    """The bf16 kernels' tile machinery (csrc/hopper.cuh) alone, one
+    warpgroup on one tile pair: mode 0, a and b [64,hd] bf16 -> a b^T
+    [64,64] fp32 (both operands K-major in shared memory, as S = Q K^T);
+    mode 1, a [64,64] fp32 and b [64,hd] bf16 -> a b [64,hd] fp32 (a as
+    hi + lo register fragments, b N-major, as P V). For tests and
+    chip_smoke.py: no path calls it."""
+    a, b = _aligned(a.contiguous()), _aligned(b.contiguous())
+    _lib.require_cuda(a, b)
+    hd = b.shape[-1]
+    want_a = (torch.bfloat16, (64, hd)) if mode == 0 \
+        else (torch.float32, (64, 64))
+    if mode not in (0, 1) or b.dtype != torch.bfloat16 or \
+            b.shape != (64, hd) or hd not in (64, 128, 256) or \
+            (a.dtype, tuple(a.shape)) != want_a:
+        raise ValueError(f"flash_tile_check mode {mode}: a {a.dtype} "
+                         f"{tuple(a.shape)}, b {b.dtype} {tuple(b.shape)}")
+    c = torch.empty((64, 64 if mode == 0 else hd), dtype=torch.float32,
+                    device=a.device)
+    rc = _lib.lib("flash_prefill").flash_tile_check(
+        a.data_ptr(), b.data_ptr(), c.data_ptr(), hd, mode,
+        _lib.stream_of(a))
+    _lib.check(rc, "flash_tile_check")
+    return c

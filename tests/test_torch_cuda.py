@@ -19,7 +19,10 @@ same tolerance (both sides compute in fp32 from the same bf16 values),
 its bf16 gradients one bf16 unit (rtol 1e-2, atol 1e-2 of the largest
 entry). The RG-LRU recurrence (K7) at rtol 1e-4 and an atol of 1e-4
 times each output's largest entry (da sums up to T products), its bf16
-gradients one bf16 unit (rtol 2^-7) more.
+gradients one bf16 unit (rtol 2^-7) more. K5's bf16 kernels run on the
+tensor cores with P and dS as bf16 hi + lo halves (16 bits), so they
+too round about once: the bf16 tolerance above. Their tile products
+and the bf16 training runs state their own bounds.
 """
 import copy
 
@@ -135,13 +138,21 @@ def test_prefill_kernels_match_plain(cuda, dtype, window, prior_only):
 @pytest.mark.parametrize("Bd,Td,Hd,KVd,hdd,window", [
     (2, 100, 8, 2, 64, None), (2, 100, 8, 2, 64, 16),
     (1, 130, 4, 4, 128, None), (1, 70, 4, 1, 128, 24),
-    (2, 100, 16, 1, 256, None), (1, 150, 16, 1, 256, 40)])
+    (2, 100, 16, 1, 256, None), (1, 150, 16, 1, 256, 40),
+    (2, 1, 8, 8, 128, None), (2, 63, 8, 1, 128, None),
+    (3, 65, 8, 2, 64, None), (2, 200, 16, 2, 128, 24),
+    (2, 65, 16, 1, 256, 40), (2, 200, 8, 1, 256, None)])
 def test_dense_flash_kernels_match_plain(cuda, dtype, Bd, Td, Hd, KVd, hdd,
                                          window):
-    """K5 forward and backward against their plain versions: ragged T,
-    rep 1, 4 and 16, windows, hd 64, 128 and 256 (RecurrentGemma's
-    multi-query local attention); the backward from the same
-    (out, lse), and through the autograd op (one launch of each)."""
+    """K5 forward and backward against their plain versions (fp32: the
+    CUDA-core kernels; bf16: the tensor-core kernels): T of 1, 63, 65,
+    70, 100, 130, 150 and 200, so that 64-row tiles are ragged and, with
+    B >= 2, a tile's rows would run into the next batch row; rep 1, 4, 8
+    and 16 (at hd 256 with one kv head the bf16 dK/dV kernel splits the
+    heads into groups of partial sums); windows of 16, 24 and 40 that cut
+    inside a 64-key tile; hd 64, 128 and 256. The backward from the same
+    (out, lse), and through the autograd op (one launch of each, the
+    same gradients to the bit: the backward has no atomics)."""
     rng = np.random.default_rng(1)
 
     def t(shape):
@@ -165,6 +176,34 @@ def test_dense_flash_kernels_match_plain(cuda, dtype, Bd, Td, Hd, KVd, hdd,
         torch.testing.assert_close(g, w, atol=0.0, rtol=0.0)
     assert _lib.LAUNCHES["flash_prefill"] == 1
     assert _lib.LAUNCHES["flash_prefill_bwd"] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_tile_products_match_matmul(cuda, hd):
+    """The bf16 K5 kernels' tile machinery (csrc/hopper.cuh) on one tile
+    pair against torch.matmul in fp32: a b^T with both operands K-major
+    in swizzled shared memory (S = Q K^T, dP = dO V^T), and a b with a
+    split into bf16 hi + lo register fragments and b N-major (P V, dS K,
+    P^T dO, dS^T Q). Each entry is held to a bound on its rounding: the
+    bf16 operands' products are exact in fp32, so a b^T may differ only
+    by fp32 summation, hd units of 2^-24 of sum |a||b|; hi + lo keeps 16
+    bits of a, so a b may differ by 2^-16 of sum |a||b| (twice the
+    splitting's 2^-17)."""
+    rng = np.random.default_rng(3)
+
+    def t(shape, dtype=torch.bfloat16):
+        return torch.from_numpy(rng.standard_normal(shape)).to(cuda, dtype)
+    a, b = t((64, hd)), t((64, hd))
+    got = fker.flash_tile_check(a, b, 0)
+    want = a.float() @ b.float().T
+    lim = (a.float().abs() @ b.float().abs().T) * hd * 2.0 ** -24
+    assert ((got - want).abs() <= lim).all()
+    a = t((64, 64), torch.float32)
+    got = fker.flash_tile_check(a, b, 1)
+    want = a @ b.float()
+    lim = (a.abs() @ b.float().abs()) * 2.0 ** -16
+    assert ((got - want).abs() <= lim).all()
 
 
 def _ssd_close(got, want):
@@ -329,6 +368,53 @@ def test_training_on_the_card_matches_the_cpu(cuda):
     assert _lib.LAUNCHES["flash_prefill_bwd"] == 3 * cfg.num_layers
     cpu = train(cfg, device="cpu", params=params, **kw)
     np.testing.assert_allclose(card.losses, cpu.losses, rtol=1e-4)
+
+
+def _reduced(arch):
+    """The reduced config of ``arch``; RecurrentGemma's with 4 layers,
+    so that a local-attention layer (K5 at hd 256) runs."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = get_config(arch).reduced()
+    if arch == "recurrentgemma-9b":
+        cfg = dataclasses.replace(cfg, num_layers=4)
+    return cfg
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama3-8b", "recurrentgemma-9b"])
+def test_bf16_training_on_the_card_matches_the_cpu(cuda, arch):
+    """Three bf16 steps of the reduced config (the bf16 K5 kernels) on
+    the card and on the CPU (the plain versions) from the same bf16
+    weights. Tolerance: the two runs round at different places (the
+    kernels' tiles and split fragments, cuBLAS against the CPU's
+    GEMMs), each by about as much as bf16 rounding moves a run from its
+    fp32 counterpart; so the card's losses may differ from the CPU's by
+    twice the CPU's own largest relative bf16-vs-fp32 drift over the
+    same steps from the same weights (measured in the test)."""
+    from repro_torch.launch.train import train
+    from repro_torch.models.model import build_model
+    from repro_torch.training.checkpoint import tree_map
+
+    cfg = _reduced(arch)
+    params = build_model(cfg, torch.bfloat16, "cpu").init(
+        torch.Generator().manual_seed(0))
+    kw = dict(steps=3, batch=4, seq=128, log=lambda s: 0)
+    _lib.reset_launches()
+    card = train(cfg, device="cuda", dtype=torch.bfloat16,
+                 params=tree_map(lambda x: x.to(cuda), params), **kw)
+    # every llama layer attends; RecurrentGemma's third layer does
+    n_attn = cfg.num_layers if arch == "llama3-8b" else 1
+    assert _lib.LAUNCHES["flash_prefill"] == 3 * 2 * n_attn
+    assert _lib.LAUNCHES["flash_prefill_bwd"] == 3 * n_attn
+    cpu = train(cfg, device="cpu", dtype=torch.bfloat16,
+                params=tree_map(lambda x: x.clone(), params), **kw)
+    f32 = train(cfg, device="cpu", dtype=torch.float32,
+                params=tree_map(lambda x: x.float(), params), **kw)
+    drift = max(abs(b - f) / abs(f) for b, f in zip(cpu.losses, f32.losses))
+    np.testing.assert_allclose(card.losses, cpu.losses, rtol=2 * drift,
+                               atol=0.0)
 
 
 @pytest.mark.gpu

@@ -399,3 +399,28 @@ def _launch_on_the_cpu(capsys, tmp_path, arch):
     out = capsys.readouterr().out
     assert "tok/s" in out and "ms/step" in out and "OK" in out
     assert ckpt.latest_step(path) == 8
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "recurrentgemma-9b"])
+def test_bf16_training_tracks_fp32_on_the_cpu(arch):
+    """The reduced config (RecurrentGemma's with 4 layers) trained three
+    bf16 steps and three fp32 steps on the CPU from the same bf16 weights
+    and batches: the losses part, so bf16 really rounds, and by less than
+    one bf16 unit (2^-8) relative. This drift is the yardstick of the
+    card's bf16 training check (``tests/test_torch_cuda.py``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+    from repro_torch.models.model import build_model
+
+    cfg = get_config(arch).reduced()
+    if arch == "recurrentgemma-9b":
+        cfg = dataclasses.replace(cfg, num_layers=4)
+    params = build_model(cfg, torch.bfloat16, "cpu").init(
+        torch.Generator().manual_seed(0))
+    kw = dict(steps=3, batch=4, seq=128, device="cpu", log=lambda s: 0)
+    b = train(cfg, dtype=torch.bfloat16,
+              params=ckpt.tree_map(lambda x: x.clone(), params), **kw)
+    f = train(cfg, dtype=torch.float32,
+              params=ckpt.tree_map(lambda x: x.float(), params), **kw)
+    drift = max(abs(x - y) / abs(y) for x, y in zip(b.losses, f.losses))
+    assert 0.0 < drift < 2.0 ** -8
