@@ -33,10 +33,16 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    op) at K6's tolerance, with no library call either; K5 and its
    backward at recurrentgemma-9b's attention shape (hd 256, 16 query
    heads on one kv head, window 2048) at batch 4 x 2048 and at batch
-   2 x 4096, where the window masks keys, timed against SDPA;
+   2 x 4096, where the window masks keys, timed against SDPA; K2 and K4
+   also at rep = H/KV of 7 (H 14, KV 2, hd 64) and 12 (H 96, KV 8, hd
+   128), with K2's split count and K4's blocks printed; K4's bf16 kernel
+   must show HGMMA instructions in its SASS;
 4. serve a small request trace with the reduced llama3-8b in fp32 on the
    card and on the CPU (plain versions): the greedy tokens and the phase
-   log must be identical;
+   log must be identical; then four requests over a 12-block pool, where
+   decode growth finds the pool full and the scheduler evicts and
+   recovers a request: tokens, phases and the recovered count (> 0)
+   must be identical;
 5. serve 8 seeded requests at the full width of llama3-8b in bf16
    through ``repro_torch.launch.serve`` (DynamicScheduler over
    FlyingEngine), with every kernel's launch count reset just before and
@@ -44,7 +50,8 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    every token must be in the vocab, K1-K4 must have launched,
    and no token may have been read back one at a time;
 6. serve the same trace again under torch.profiler and print the device
-   time by kernel class and the device's busy share of the wall time;
+   time by kernel class, the device's busy share of the wall time, and
+   K2's, K4's and the appends' launches and mean time a launch;
 7. train the reduced llama3-8b three fp32 steps on the card (K5 forward
    and backward) and on the CPU (their plain versions) from the same
    weights and batches: the losses must agree (rtol 1e-4); then three
@@ -289,6 +296,10 @@ def kernel_checks(torch, np):
     mask = (torch.arange(MB * page, device=dev)[None, :]
             < ctx[:, None].long())[:, None, None, :]
     q4 = q[:, :, None, :]
+    n_split, split_len = pk.decode_splits(B, KV, H // KV, MB * page, dev)
+    print(f"  paged_attention: {n_split} splits of {split_len} keys, "
+          f"{n_split * B * KV} blocks ({int(np.ceil(live / split_len).sum()) * KV}"
+          f" with live keys)")
     rows.append(dict(
         name="paged_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -334,6 +345,8 @@ def kernel_checks(torch, np):
             e = close(g, wnt, dtype, tag)
             if dtype == bf16:
                 errs.append(e)
+    print(f"  paged_flash_prefill: {fk.prefill_blocks(B, T, H, KV)} blocks "
+          f"of 64 packed rows")
     keys = prior_np.astype(np.int64) + T                 # keys per request
     pairs = int(sum(T * int(p) + T * (T + 1) // 2 for p in prior_np))
     nbytes = 2 * B * T * H * hd * 2 + int(keys.sum()) * KV * hd * 2 * 2 \
@@ -358,7 +371,8 @@ def kernel_checks(torch, np):
         bound_ms=bms, bound_by=by,
         library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kg, vg, attn_mask=mask), iters=5, windows=3)))
-    del kg, vg, mask
+    del kg, vg, mask, q, kp_, vp_
+    paged_rep_checks(torch, np, rng, gen, close)
 
     # -- K5: dense causal flash attention, forward and backward ----------
     tile_checks(torch, rng)
@@ -379,6 +393,76 @@ def kernel_checks(torch, np):
     _lib.reset_launches()
     torch.cuda.empty_cache()
     return rows
+
+
+def paged_rep_checks(torch, np, rng, gen, close) -> None:
+    """K2 and K4 at rep = H/KV of 7 (internvl2-1b's language model: H 14,
+    KV 2, hd 64) and 12 (mistral-large-123b: H 96, KV 8, hd 128) against
+    their plain versions, at phase 3's decode shape (B 8, contexts 1 to
+    4096) and prefill shape (B 4, T 512; T 256 at rep 12, where the plain
+    version's scores take 1.6 GB a copy): bf16 q over bf16 pools (K4 on
+    the tensor cores) and fp32 q over bf16 pools with lse (K4 on the CUDA
+    cores); the bf16 kernels' times are printed."""
+    from repro_torch.kernels.flash_prefill import kernel as fk
+    from repro_torch.kernels.flash_prefill import ref as fr
+    from repro_torch.kernels.paged_attention import kernel as pk
+    from repro_torch.kernels.paged_attention import ref as pr
+
+    dev = torch.device("cuda")
+    f32, bf16 = torch.float32, torch.bfloat16
+    page, nblk, MB = 16, 4096, 256
+
+    def t(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+    for H, KV, hd, Tp in ((14, 2, 64, 512), (96, 8, 128, 256)):
+        rep = H // KV
+        kp_, vp_ = (torch.randn((nblk, page, KV, hd), generator=gen,
+                                device=dev).to(bf16) for _ in range(2))
+        B = 8
+        ctx = t(np.concatenate([[1, MB * page], rng.integers(
+            2, MB * page, size=B - 2)]), torch.int32)
+        bt = t(rng.permutation(nblk - 1)[:B * MB].reshape(B, MB),
+               torch.int32)
+        q = torch.randn((B, H, hd), generator=gen, device=dev)
+        n_split, split_len = pk.decode_splits(B, KV, rep, MB * page, dev)
+        tag = f"paged_attention rep {rep} hd {hd}"
+        close(pk.paged_attention_kernel(q.to(bf16), kp_, vp_, bt, ctx),
+              pr.paged_attention_ref(q.to(bf16), kp_, vp_, bt, ctx), bf16,
+              f"{tag} bf16")
+        o, lse = pk.paged_attention_kernel(q, kp_, vp_, bt, ctx,
+                                           return_lse=True)
+        wo, wl = pr.paged_attention_with_lse_ref(q, kp_, vp_, bt, ctx)
+        close(lse, wl, f32, f"{tag} fp32 q (lse)")
+        close(o, wo, f32, f"{tag} fp32 q")
+        ms = time_ms(torch, lambda: pk.paged_attention_kernel(
+            q.to(bf16), kp_, vp_, bt, ctx))
+        print(f"  {tag}: {n_split} splits of {split_len} keys, "
+              f"{ms:.4f} ms (bf16)")
+        B = 4
+        prior = t(np.array([0, 1024, 2560, MB * page - Tp]), torch.int32)
+        bt = t(rng.permutation(nblk - 1)[:B * MB].reshape(B, MB),
+               torch.int32)
+        q = torch.randn((B, Tp, H, hd), generator=gen, device=dev)
+        tag = f"paged_flash_prefill rep {rep} hd {hd} T {Tp}"
+        for window in (None, 1024):
+            close(fk.paged_flash_prefill_kernel(q.to(bf16), kp_, vp_, bt,
+                                                prior, window=window),
+                  fr.paged_flash_prefill_ref(q.to(bf16), kp_, vp_, bt,
+                                             prior, window=window),
+                  bf16, f"{tag} bf16 window={window}")
+        o, lse = fk.paged_flash_prefill_kernel(q, kp_, vp_, bt, prior,
+                                               prior_only=True,
+                                               return_lse=True)
+        wo, wl = fr.paged_prefill_sweep_with_lse_ref(q, kp_, vp_, bt, prior,
+                                                     prior_only=True)
+        close(lse, wl, f32, f"{tag} fp32 q prior_only (lse)")
+        close(o, wo, f32, f"{tag} fp32 q prior_only")
+        ms = time_ms(torch, lambda: fk.paged_flash_prefill_kernel(
+            q.to(bf16), kp_, vp_, bt, prior))
+        print(f"  {tag}: {fk.prefill_blocks(B, Tp, H, KV)} blocks, "
+              f"{ms:.4f} ms (bf16)")
+        del kp_, vp_, q, o, wo
+        torch.cuda.empty_cache()
 
 
 def tile_checks(torch, rng):
@@ -416,7 +500,8 @@ def tile_checks(torch, rng):
 
 def print_hgmma() -> None:
     """HGMMA instructions in the SASS of each kernel of the flash_prefill
-    library (cuobjdump), where cuobjdump exists; printed, not gated."""
+    and paged_prefill libraries (cuobjdump), where cuobjdump exists;
+    printed, and K4's bf16 kernel (prefill_tc) must have some."""
     import re
     import shutil
 
@@ -426,19 +511,23 @@ def print_hgmma() -> None:
     if not Path(exe).exists():
         print("  HGMMA count: not measured (no cuobjdump)")
         return
-    sass = subprocess.run([exe, "-sass", str(_lib.build_all()[
-        "flash_prefill"])], capture_output=True, text=True).stdout
     counts: dict = {}
-    fn = None
-    for line in sass.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            fn = kernel_label(m.group(1))
-            counts[fn] = 0
-        elif fn and "HGMMA" in line:
-            counts[fn] += 1
+    for name in ("flash_prefill", "paged_prefill"):
+        sass = subprocess.run([exe, "-sass", str(_lib.build_all()[name])],
+                              capture_output=True, text=True).stdout
+        fn = None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = kernel_label(m.group(1))
+                counts[fn] = 0
+            elif fn and "HGMMA" in line:
+                counts[fn] += 1
     print("  HGMMA instructions in SASS: " + ", ".join(
         f"{k} {v}" for k, v in sorted(counts.items())))
+    for hd in (64, 128):
+        check(counts.get(f"prefill_tc<{hd}>", 0) > 0,
+              f"K4's bf16 kernel prefill_tc<{hd}> has no HGMMA")
 
 
 def ssd_close(torch, got, want, what):
@@ -794,28 +883,44 @@ def reference_check(torch):
             self.eng.mixed(*a)
             return 0.01
 
-    def serve(device):
-        geom = PoolGeometry(cfg, plan, num_blocks=64, block_base=4)
+    def serve(device, num_blocks, reqs):
+        geom = PoolGeometry(cfg, plan, num_blocks=num_blocks, block_base=4)
         eng = FlyingEngine(build_model(cfg, torch.float32, device), plan,
                            geom, params, batch_per_engine=2,
                            max_blocks_per_req=16, device=device)
         sched = DynamicScheduler(plan, geom, FixedClock(eng), SchedulerConfig(
             strategy="hard", max_batch_per_group=2, prefill_chunk=8))
-        sched.submit(Request(req_id="a", arrival=0.0, prompt_len=24,
-                             output_len=6))
-        sched.submit(Request(req_id="b", arrival=0.001, prompt_len=8,
-                             output_len=8))
-        sched.run(max_steps=200)
-        return ({rid: eng.generated_tokens(rid) for rid in ("a", "b")},
-                [l.phase for l in sched.log])
+        for r in reqs:
+            sched.submit(Request(**r))
+        sched.run(max_steps=400)
+        return ({r["req_id"]: eng.generated_tokens(r["req_id"])
+                 for r in reqs}, [l.phase for l in sched.log],
+                sched.preempt_stats["recovered"])
 
-    toks_gpu, ph_gpu = serve("cuda")
-    toks_cpu, ph_cpu = serve("cpu")
+    two = [dict(req_id="a", arrival=0.0, prompt_len=24, output_len=6),
+           dict(req_id="b", arrival=0.001, prompt_len=8, output_len=8)]
+    toks_gpu, ph_gpu, _ = serve("cuda", 64, two)
+    toks_cpu, ph_cpu, _ = serve("cpu", 64, two)
     print(f"reduced llama3-8b fp32, card vs CPU: tokens {toks_gpu} "
           f"phases {ph_gpu}")
     check(toks_gpu == toks_cpu, f"card tokens {toks_gpu} != CPU {toks_cpu}")
     check(ph_gpu == ph_cpu and "mixed" in ph_gpu,
           f"phase logs differ: {ph_gpu} vs {ph_cpu}")
+    # a 12-block pool: decode growth finds it full, and the scheduler
+    # evicts a resident and recovers it (its tokens pinned into its prompt)
+    four = [dict(req_id=f"r{i}", arrival=0.001 * i, prompt_len=12 + 4 * i,
+                 output_len=10) for i in range(4)]
+    toks_gpu, ph_gpu, rec_gpu = serve("cuda", 12, four)
+    toks_cpu, ph_cpu, rec_cpu = serve("cpu", 12, four)
+    print(f"reduced llama3-8b fp32, 12-block pool, card vs CPU: recovered "
+          f"{rec_gpu} and {rec_cpu}, tokens {toks_gpu}")
+    check(rec_gpu == rec_cpu > 0, f"recovered {rec_gpu} on the card, "
+                                  f"{rec_cpu} on the CPU")
+    check(toks_gpu == toks_cpu and ph_gpu == ph_cpu,
+          f"small-pool run: card tokens {toks_gpu} != CPU {toks_cpu} or "
+          f"phases differ")
+    check(all(len(v) == 10 for v in toks_gpu.values()),
+          f"small-pool run left a request short: {toks_gpu}")
 
 
 # ---------------------------------------------------------------------------
@@ -889,18 +994,21 @@ def serve_breakdown(torch):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, _, _, wall = run_offline(cfg, stack)
     print_breakdown("breakdown", prof, wall, (
-        ("paged_flash_prefill", "prefill_kernel"),
+        ("paged_flash_prefill", "prefill_tc"),
+        ("paged_flash_prefill fp32", "prefill_kernel"),
         ("paged_attention", "decode_kernel"),
         ("paged_append", "append_rows_kernel")))
 
 
 def print_breakdown(tag: str, prof, wall: float, classes) -> None:
     """Device time by kernel class (``classes``: (class, name pattern)
-    pairs, GEMM patterns added) and the device's busy share of ``wall``
-    seconds."""
+    pairs, GEMM patterns added), the device's busy share of ``wall``
+    seconds, and each of ``classes``' launches and mean time a launch."""
+    named = [c for c, _ in classes]
     classes = tuple(classes) + (("gemm", "gemm"), ("gemm", "nvjet"),
                                 ("gemm", "cutlass"), ("gemm", "xmma"))
     by: dict = {}
+    calls: dict = {}
     other: dict = {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0) \
@@ -909,6 +1017,7 @@ def print_breakdown(tag: str, prof, wall: float, classes) -> None:
             name = next((c for c, pat in classes if pat in e.key.lower()),
                         "other")
             by[name] = by.get(name, 0.0) + us / 1e3
+            calls[name] = calls.get(name, 0) + e.count
             if name == "other":
                 k = e.key[:60]
                 other[k] = other.get(k, 0.0) + us / 1e3
@@ -923,6 +1032,10 @@ def print_breakdown(tag: str, prof, wall: float, classes) -> None:
           f"busy {busy:.1f} ms = {busy / (wall * 1e3):.1%} of wall; {parts}")
     print(f"{tag}: largest 'other' kernels: " + "; ".join(
         f"{k} {v:.1f} ms" for k, v in top))
+    print(f"{tag}: per kernel class: " + "; ".join(
+        f"{k} {by[k]:.2f} ms over {calls[k]} launches, "
+        f"{by[k] / calls[k]:.4f} ms a launch"
+        for k in named if calls.get(k)))
 
 
 # ---------------------------------------------------------------------------
@@ -1266,6 +1379,10 @@ def main(argv=None) -> int:
           + ", ".join(f"{k}<{hd}> {smem(hd, i)} bytes"
                       for hd in (64, 128, 256)
                       for i, k in enumerate(("fwd_tc", "dq_tc", "dkdv_tc"))))
+    smem = _lib.lib("paged_prefill").paged_prefill_tc_smem
+    print("  paged_prefill.cu, dynamic shared memory of the bf16 kernel: "
+          + ", ".join(f"prefill_tc<{hd}> {smem(hd)} bytes"
+                      for hd in (64, 128)))
 
     rows = kernel_checks(torch, np)
     for r in rows:

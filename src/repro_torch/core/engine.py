@@ -8,9 +8,13 @@ per-engine allocators. Implements the scheduler's Backend protocol, so
 the same DynamicScheduler drives simulation and real execution.
 
 This slice serves ``ParallelPlan(1, 1, 1)``: one engine, merge 1, a
-paged pool. Rebinding to another layout, live cross-layout segments,
-sequence parallelism, fault injection and recovery arrive with the
-islands slice and raise ``NotImplementedError`` here.
+paged pool. A request evicted under KV backpressure (a full pool, or a
+scripted ``POOL_EXHAUST`` window of the ``FaultInjector``) is recovered
+as the reference recovers it: its island is drained, and the original
+prompt plus every token it produced is pinned as its new prompt.
+Rebinding to another layout, live cross-layout segments, sequence
+parallelism and the faults that need a launch gate or quarantine arrive
+with the islands slice and raise ``NotImplementedError`` here.
 
 Zero-sync hot path: steady-state decode performs no host
 synchronization and no per-token device->host transfer. Greedy sampling
@@ -37,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.communicator_pool import CommunicatorPool, bucket_pow2
+from repro_torch.core.faults import POOL_EXHAUST
 from repro_torch.core.kv_adaptor import (KVCacheAdaptor, PoolGeometry,
                                          bind_fleet, ragged_arange)
 from repro_torch.core.modes import FleetLayout, Island, ParallelPlan
@@ -122,7 +127,7 @@ class FlyingEngine:
                  params, *, batch_per_engine: int = 4,
                  max_blocks_per_req: int = 16, fused_sampling: bool = True,
                  async_window: int = 2, mixed_step: bool = True,
-                 device=None):
+                 injector=None, device=None):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model on {model.device}, engine on "
@@ -131,6 +136,12 @@ class FlyingEngine:
             raise NotImplementedError(
                 "the port serves ParallelPlan(1, 1, 1) on one card; "
                 "multi-rank islands are a later slice")
+        if injector is not None:
+            kinds = sorted({s.kind for s in injector.specs} - {POOL_EXHAUST})
+            if kinds:
+                raise NotImplementedError(
+                    f"fault kinds {kinds} need a launch gate or quarantine, "
+                    f"which are not ported; the port takes {POOL_EXHAUST}")
         model.check_serving()
         self.model = model
         self.cfg = model.cfg
@@ -153,8 +164,19 @@ class FlyingEngine:
             rt.island: rt for rt in self.islands}
         bind_fleet(self.adaptors, self.layout)
         self.sync_stats = SyncStats()
+        # scripted fault schedule (core/faults.py); the scheduler adopts
+        # it from here and applies its POOL_EXHAUST seizures itself
+        self.injector = injector
         self._token_buf: Dict[str, List[int]] = {}
+        # aborted requests: ids retired WITHOUT an island drain, whose
+        # tokens in-flight steps may still carry; harvests drop them.
+        # Cleared at the next fleet-wide drain.
+        self._retired: set = set()
         self._prompt_cache: Dict[str, np.ndarray] = {}
+        # recovery-folded prompts (orig prompt ++ harvested tokens): the
+        # seed-based regeneration knows nothing of folds, so they are
+        # pinned verbatim
+        self._pinned_prompts: Dict[str, np.ndarray] = {}
         self._bt_scratch: Optional[np.ndarray] = None
         self._host_bufs: Dict[Tuple, Dict[str, np.ndarray]] = {}
 
@@ -350,6 +372,8 @@ class FlyingEngine:
             self.sync_stats.d2h_batched += 1
             rt.stats.d2h_batched += 1
             for row, rid in row_reqs:
+                if rid in self._retired:
+                    continue    # aborted mid-flight: drop, don't buffer
                 self._token_buf.setdefault(rid, []).append(int(arr[row]))
         rt.pending.clear()
         rt.last_tok.clear()
@@ -369,6 +393,22 @@ class FlyingEngine:
         """Fleet-wide safe point (scheduler end-of-run, host readout)."""
         for rt in self.islands:
             self._drain_island(rt)
+        # no pending ring references any retired row anymore
+        self._retired.clear()
+
+    def abort_request(self, r: Request) -> None:
+        """Scheduler abort hook: retire one request's row WITHOUT
+        draining its island. Steps already launched may still carry the
+        row, so the retired id tombstones it and harvests drop its
+        tokens; the decode cache keys on batch membership, so the next
+        launch rebuilds without the row."""
+        rid = r.req_id
+        self._retired.add(rid)
+        self._token_buf.pop(rid, None)
+        self._prompt_cache.pop(rid, None)
+        self._pinned_prompts.pop(rid, None)
+        for rt in self.islands:
+            rt.last_tok.pop(rid, None)
 
     def _single_view(self, entries, isl: Island) -> None:
         """The port's steps read one mode view: every KV segment must be
@@ -666,6 +706,13 @@ class FlyingEngine:
 
     # ------------------------------------------------------------------
     def _prompt_tokens(self, r: Request) -> np.ndarray:
+        p = self._pinned_prompts.get(r.req_id)
+        if p is not None:
+            # recovery fold: orig ++ harvested tokens, which the req_id
+            # seed cannot regenerate
+            assert len(p) == r.prompt_len, \
+                (r.req_id, "pinned prompt out of sync", len(p), r.prompt_len)
+            return p
         p = self._prompt_cache.get(r.req_id)
         if p is None:
             if len(self._prompt_cache) >= 4096:
@@ -680,13 +727,34 @@ class FlyingEngine:
         return self._prompt_tokens(r)
 
     def recover_request(self, r: Request) -> int:
-        """Scheduler hook for re-admitting a request whose KV was dropped
-        (pool backpressure, quarantine). Re-prefilling it needs its
-        harvested tokens pinned into the prompt, which is not ported: a
-        prompt regenerated from the request's seed would silently differ,
-        so this raises."""
-        raise NotImplementedError(
-            "request recovery (KV backpressure, quarantine) is not ported")
+        """Scheduler recovery hook (KV backpressure): drain the request's
+        island so that every token it produced reaches the host, pin
+        orig prompt ++ those tokens as its prompt, and return how many
+        were kept. Called before the scheduler's fold bookkeeping, so
+        ``r`` still carries its pre-fold prompt and placement. An island
+        with a dead engine would lose its in-flight tokens instead;
+        that needs quarantine, which is not ported."""
+        rid = r.req_id
+        g = r.engine_group
+        if g >= 0:
+            rt = self._rt_of.get(self.layout.island_of(g))
+            if rt is not None:
+                dead = set(self.injector.dead_engines()) \
+                    if self.injector is not None else set()
+                if set(rt.island.engines()) & dead:
+                    raise NotImplementedError(
+                        "recovery from a dead island needs quarantine, "
+                        "which is not ported")
+                self._drain_island(rt)
+        orig = np.asarray(self._prompt_tokens(r)[:r.prompt_len],
+                          dtype=np.int64)
+        toks = self._token_buf.get(rid, [])
+        self._pinned_prompts[rid] = np.concatenate(
+            [orig, np.asarray(toks, dtype=np.int64)])
+        self._prompt_cache.pop(rid, None)
+        for rt in self.islands:
+            rt.last_tok.pop(rid, None)
+        return len(toks)
 
     def generated_tokens(self, req_id: str) -> List[int]:
         self.drain()

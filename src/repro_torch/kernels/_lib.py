@@ -48,11 +48,12 @@ _SIGNATURES = {
     "paged_append": {
         "paged_append_rows": [_P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _P]},
     "paged_attention": {
-        "paged_attention_decode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                   _I, _I, _I, _I, _F, _I, _I, _P]},
+        "paged_attention_decode": [_P] * 9 + [_I] * 7 + [_F] + [_I] * 4
+                                  + [_P]},
     "paged_prefill": {
         "paged_flash_prefill": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                _I, _I, _I, _I, _F, _I, _I, _I, _P]},
+                                _I, _I, _I, _I, _F, _I, _I, _I, _P],
+        "paged_prefill_tc_smem": [_I]},
     "flash_prefill": {
         "flash_prefill_fwd": [_P] * 5 + [_I] * 6 + [_F, _I, _P],
         "flash_prefill_bwd": [_P] * 11 + [_I] * 7 + [_F, _I, _P],
@@ -150,6 +151,12 @@ def require_cuda(*tensors: torch.Tensor) -> None:
             raise ValueError(f"tensors on {dev} and {t.device}")
         if not t.is_contiguous():
             raise ValueError("CUDA kernel needs contiguous tensors")
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it if its data does not start on 16 bytes (the
+    kernels that copy rows in 16-byte pieces need that)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def dtype_code(t: torch.Tensor) -> int:

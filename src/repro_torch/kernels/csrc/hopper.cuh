@@ -109,6 +109,33 @@ __device__ __forceinline__ void load_tile(uint32_t sm,
   }
 }
 
+// A tile whose rows lie at gathered addresses (a paged pool's rows through
+// a block table, the packed query heads of a kv head): NTHR threads share
+// the copy as in load_tile, so thread ``tid`` copies the 16-byte chunk tid
+// % CPR of rows row_slot(i, tid), i < ROW_SLOTS, and the caller gives
+// each of those rows' element offsets from ``g`` (negative: a zero row).
+template <int HD, int NTHR>
+constexpr int ROW_SLOTS = TR * (HD / 8) / NTHR;
+template <int HD, int NTHR>
+__device__ __forceinline__ int row_slot(int i, int tid) {
+  static_assert(NTHR % (HD / 8) == 0, "a thread keeps one chunk column");
+  return tid / (HD / 8) + i * (NTHR / (HD / 8));
+}
+template <int HD, int NTHR>
+__device__ __forceinline__ void load_tile_rows(
+    uint32_t sm, const __nv_bfloat16* g,
+    const long long (&off)[ROW_SLOTS<HD, NTHR>], int tid) {
+  constexpr int CPR = HD / 8;
+  const int c = tid % CPR;
+#pragma unroll
+  for (int i = 0; i < ROW_SLOTS<HD, NTHR>; ++i) {
+    const int r = row_slot<HD, NTHR>(i, tid);
+    const bool ok = off[i] >= 0;
+    cp_async16(sm + (c / 8) * Tile<HD>::ATOM + swizzle(r, c % 8),
+               ok ? g + off[i] + c * 8 : g, ok);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // wgmma descriptors and synchronisation
 // ---------------------------------------------------------------------------

@@ -23,8 +23,10 @@ def paged_flash_prefill_kernel(q, k_pool, v_pool, block_table, prior_len, *,
     the ragged last tile is masked in the kernel); pools
     [nblk,page,KV,hd] already holding the chunk's rows; block_table
     [B,MB]; prior_len [B] -> out [B,T,H,hd] in q's dtype (+ lse [B,H,T]
-    fp32)."""
-    q = q.contiguous()
+    fp32). Any H/KV; hd 64 or 128. bf16 q over bf16 pools runs on the
+    tensor cores, every other dtype pair on the CUDA cores in fp32."""
+    q = _lib.aligned(q.contiguous())
+    k_pool, v_pool = _lib.aligned(k_pool), _lib.aligned(v_pool)
     bt = block_table.to(torch.int32).contiguous()
     prior = prior_len.to(torch.int32).contiguous()
     _lib.require_cuda(q, k_pool, v_pool, bt, prior)
@@ -33,10 +35,9 @@ def paged_flash_prefill_kernel(q, k_pool, v_pool, block_table, prior_len, *,
     if hd_k != hd or v_pool.shape != k_pool.shape or H % KV:
         raise ValueError(f"paged_flash_prefill: q {tuple(q.shape)} vs "
                          f"pools {tuple(k_pool.shape)}")
-    if hd not in (64, 128) or 64 % (H // KV):
-        raise ValueError(f"paged_flash_prefill kernel takes hd 64 or 128 "
-                         f"and H/KV dividing 64, not hd={hd}, "
-                         f"H/KV={H // KV}")
+    if hd not in (64, 128):
+        raise ValueError(f"paged_flash_prefill kernel takes hd 64 or 128, "
+                         f"not {hd}")
     out = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device) \
         if return_lse else None
@@ -51,6 +52,12 @@ def paged_flash_prefill_kernel(q, k_pool, v_pool, block_table, prior_len, *,
     _lib.LAUNCHES["paged_flash_prefill"] += 1
     _lib.check(rc, "paged_flash_prefill")
     return (out, lse) if return_lse else out
+
+
+def prefill_blocks(B: int, T: int, H: int, KV: int) -> int:
+    """Blocks of the paged prefill kernel: one per 64 rows of each
+    (request, kv head)'s T * H/KV packed query rows."""
+    return B * KV * -(-T * (H // KV) // 64)
 
 
 def _dense_args(q, k, v):
@@ -74,12 +81,6 @@ def _dense_args(q, k, v):
     return B, T, H, KV, hd
 
 
-def _aligned(t):
-    """``t``, or a copy of it if its data does not start on 16 bytes (the
-    bf16 kernels copy rows in 16-byte pieces)."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def dkdv_groups(B: int, T: int, KV: int, rep: int, device) -> int:
     """Head groups of the bf16 dK/dV kernel: the rep query heads of a kv
     head are halved into groups until its blocks (one per batch row, kv
@@ -97,7 +98,7 @@ def flash_prefill_kernel(q, k, v, *, window: Optional[int] = None):
     """Dense causal attention: q [B,T,H,hd], k/v [B,T,KV,hd] (heads not
     repeated; any T) -> (out [B,T,H,hd] in q's dtype, lse [B,H,T]
     fp32)."""
-    q, k, v = (_aligned(x.contiguous()) for x in (q, k, v))
+    q, k, v = (_lib.aligned(x.contiguous()) for x in (q, k, v))
     B, T, H, KV, hd = _dense_args(q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
@@ -115,7 +116,7 @@ def flash_prefill_bwd_kernel(q, k, v, out, lse, dout, *,
     """Backward of ``flash_prefill_kernel``: the forward's inputs, its
     (out, lse) and dout [B,T,H,hd] -> (dq, dk, dv) in the inputs'
     dtype."""
-    q, k, v, out, dout = (_aligned(x.contiguous())
+    q, k, v, out, dout = (_lib.aligned(x.contiguous())
                           for x in (q, k, v, out, dout))
     lse = lse.contiguous()
     B, T, H, KV, hd = _dense_args(q, k, v)
@@ -150,7 +151,7 @@ def flash_tile_check(a, b, mode: int):
     mode 1, a [64,64] fp32 and b [64,hd] bf16 -> a b [64,hd] fp32 (a as
     hi + lo register fragments, b N-major, as P V). For tests and
     chip_smoke.py: no path calls it."""
-    a, b = _aligned(a.contiguous()), _aligned(b.contiguous())
+    a, b = _lib.aligned(a.contiguous()), _lib.aligned(b.contiguous())
     _lib.require_cuda(a, b)
     hd = b.shape[-1]
     want_a = (torch.bfloat16, (64, hd)) if mode == 0 \

@@ -22,7 +22,12 @@ times each output's largest entry (da sums up to T products), its bf16
 gradients one bf16 unit (rtol 2^-7) more. K5's bf16 kernels run on the
 tensor cores with P and dS as bf16 hi + lo halves (16 bits), so they
 too round about once: the bf16 tolerance above. Their tile products
-and the bf16 training runs state their own bounds.
+and the bf16 training runs state their own bounds. The paged decode (K2,
+split-K) and prefill (K4; bf16 on the tensor cores, every other dtype
+pair on the CUDA cores) kernels are held at rep = H/KV of 1, 4, 7 and
+12, hd 64 and 128, pages of 4, 16 and 128, all four q/pool dtype pairs:
+their outputs at the tolerance of q's dtype, their lse (from fp32 q, or
+from bf16 q with exact bf16 products) at the fp32 one.
 """
 import copy
 
@@ -131,6 +136,130 @@ def test_prefill_kernels_match_plain(cuda, dtype, window, prior_only):
     want = pref.paged_append_chunk_ref((c["kp"].clone(), c["vp"].clone()),
                                        c["newT"], slots)
     _same_rows(got, want)
+
+
+# rep = H/KV of 1, 4, 7 and 12 at hd 64 and 128: (H, KV)
+ANY_REP = {"rep1": (4, 4), "rep4": (8, 2), "rep7": (14, 2), "rep12": (24, 2)}
+DTYPE_PAIRS = {"f32-f32": (torch.float32, torch.float32),
+               "f32-bf16": (torch.float32, torch.bfloat16),
+               "bf16-f32": (torch.bfloat16, torch.float32),
+               "bf16-bf16": (torch.bfloat16, torch.bfloat16)}
+# pages and block-table widths: 160 to 384 key positions a request
+PAGES = ((4, 40), (16, 20), (128, 3))
+
+
+def _paged(dev, H_, KV_, hd, page, MB_, qdt, kvdt, T_=1, seed=2):
+    """Seeded pools (3 requests, disjoint tables), q [3,H,hd] and qT
+    [3,T,H,hd]."""
+    rng = np.random.default_rng(seed)
+    nblk = 3 * MB_ + 2
+
+    def t(shape, dtype):
+        return torch.from_numpy(rng.standard_normal(shape)).to(dev, dtype)
+    bt = rng.permutation(nblk - 1)[:3 * MB_].reshape(3, MB_)
+    return dict(kp=t((nblk, page, KV_, hd), kvdt),
+                vp=t((nblk, page, KV_, hd), kvdt), q1=t((3, H_, hd), qdt),
+                qT=t((3, T_, H_, hd), qdt),
+                bt=torch.from_numpy(bt.astype(np.int32)).to(dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pair", list(DTYPE_PAIRS))
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("heads", list(ANY_REP))
+def test_decode_any_rep_matches_plain(cuda, heads, hd, pair):
+    """K2 against its plain version: contexts 0, 1 and MB * page (the
+    whole table), with and without a window of 37, with lse, split as
+    the wrapper splits (several splits here) and unsplit."""
+    from repro_torch.kernels.paged_attention import kernel as pker
+    H_, KV_ = ANY_REP[heads]
+    qdt, kvdt = DTYPE_PAIRS[pair]
+    for page, MB_ in PAGES:
+        c = _paged(cuda, H_, KV_, hd, page, MB_, qdt, kvdt)
+        ctx = torch.tensor([0, 1, MB_ * page], dtype=torch.int32,
+                           device=cuda)
+        assert pker.decode_splits(3, KV_, H_ // KV_, MB_ * page,
+                                  cuda)[0] > 1
+        for window in (None, 37):
+            args = (c["q1"], c["kp"], c["vp"], c["bt"], ctx)
+            for splits in (None, 1):
+                got = pker.paged_attention_kernel(*args, window=window,
+                                                  splits=splits)
+                want = pref.paged_attention_ref(*args, window=window)
+                torch.testing.assert_close(got, want, **_tol(qdt))
+                assert float(got[0].abs().max()) == 0.0
+                o, lse = pker.paged_attention_kernel(
+                    *args, window=window, splits=splits, return_lse=True)
+                wo, wl = pref.paged_attention_with_lse_ref(
+                    c["q1"].float(), *args[1:], window=window)
+                torch.testing.assert_close(o.float(), wo, **_tol(qdt))
+                torch.testing.assert_close(lse, wl, **_tol(torch.float32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pair", list(DTYPE_PAIRS))
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("heads", list(ANY_REP))
+def test_prefill_any_rep_matches_plain(cuda, heads, hd, pair):
+    """K4 against its plain version at a ragged T of 70 (rep * 70 packed
+    rows: 70 to 840, never a multiple of 64), priors 0, 5 and MB * page
+    - T (the last request's context is the whole table): the causal
+    sweep, a window of 37, and prior_only (nothing to attend for the
+    first request), each with its lse."""
+    H_, KV_ = ANY_REP[heads]
+    qdt, kvdt = DTYPE_PAIRS[pair]
+    T_ = 70
+    for page, MB_ in PAGES:
+        c = _paged(cuda, H_, KV_, hd, page, MB_, qdt, kvdt, T_=T_)
+        prior = torch.tensor([0, 5, MB_ * page - T_], dtype=torch.int32,
+                             device=cuda)
+        args = (c["qT"], c["kp"], c["vp"], c["bt"], prior)
+        for window, prior_only in ((None, False), (37, False), (None, True)):
+            o, lse = fker.paged_flash_prefill_kernel(
+                *args, window=window, prior_only=prior_only,
+                return_lse=True)
+            wo, wl = fref.paged_prefill_sweep_with_lse_ref(
+                c["qT"].float(), *args[1:], window=window,
+                prior_only=prior_only)
+            assert o.dtype == qdt
+            torch.testing.assert_close(o.float(), wo, **_tol(qdt))
+            torch.testing.assert_close(lse, wl, **_tol(torch.float32))
+            if prior_only:
+                assert float(o[0].abs().max()) == 0.0
+                assert bool((lse[0] < -1e38).all())
+            else:
+                torch.testing.assert_close(
+                    fker.paged_flash_prefill_kernel(*args, window=window),
+                    fref.paged_flash_prefill_ref(*args, window=window),
+                    **_tol(qdt))
+
+
+@pytest.mark.gpu
+def test_paged_attention_kernels_are_deterministic(cuda):
+    """Two calls of each give the same bits: K2's split merge sums the
+    partials in split order, whichever block takes the last ticket, and
+    K4 has no atomics. K2's split and unsplit results agree to fp32
+    rounding."""
+    from repro_torch.kernels.paged_attention import kernel as pker
+    c = _paged(cuda, 32, 8, 128, 16, 24, torch.bfloat16, torch.bfloat16,
+               T_=100)
+    ctx = torch.tensor([383, 1, 170], dtype=torch.int32, device=cuda)
+    args = (c["q1"], c["kp"], c["vp"], c["bt"], ctx)
+    assert pker.decode_splits(3, 8, 4, 24 * 16, cuda)[0] > 1
+    a = pker.paged_attention_kernel(*args, return_lse=True)
+    b = pker.paged_attention_kernel(*args, return_lse=True)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    split = pker.paged_attention_kernel(c["q1"].float(), *args[1:],
+                                        return_lse=True)
+    whole = pker.paged_attention_kernel(c["q1"].float(), *args[1:],
+                                        return_lse=True, splits=1)
+    for x, y in zip(split, whole):
+        torch.testing.assert_close(x, y, **_tol(torch.float32))
+    prior = torch.tensor([0, 200, 284], dtype=torch.int32, device=cuda)
+    pargs = (c["qT"], c["kp"], c["vp"], c["bt"], prior)
+    a = fker.paged_flash_prefill_kernel(*pargs, return_lse=True)
+    b = fker.paged_flash_prefill_kernel(*pargs, return_lse=True)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 @pytest.mark.gpu

@@ -6,6 +6,11 @@ token streams, the phase log (mixed steps included), the runner key
 sets and the ``SyncStats`` counters must be identical. Backends are
 wrapped so every step reports the same fixed duration: the scheduler's
 clock, and so its phase decisions, then depend on nothing measured.
+Runs over a pool small enough that decode growth finds it full, and runs
+under a scripted ``POOL_EXHAUST`` window, take the scheduler's
+backpressure path: the evicted request is recovered with its produced
+tokens folded into its prompt, and both packages must recover the same
+requests and then stream the same tokens.
 
 The JAX engine needs its step meshes; on this jax (0.9) ``AbstractMesh``
 takes ``(axis_sizes, axis_names)`` where the JAX package passes
@@ -25,6 +30,8 @@ import jax.numpy as jnp
 
 from repro.configs import get_config as jax_config
 from repro.core.engine import FlyingEngine as JaxEngine
+from repro.core.faults import FaultInjector as JaxInjector
+from repro.core.faults import FaultSpec as JaxSpec
 from repro.core.kv_adaptor import PoolGeometry as JaxGeometry
 from repro.core.modes import ParallelPlan as JaxPlan
 from repro.core.scheduler import DynamicScheduler as JaxScheduler
@@ -34,6 +41,8 @@ from repro.models.model import build_model as jax_build
 from repro_torch.configs import get_config
 from repro_torch.convert import params_from_numpy
 from repro_torch.core.engine import FlyingEngine
+from repro_torch.core.faults import (KILL, POOL_EXHAUST, FaultInjector,
+                                     FaultSpec)
 from repro_torch.core.kv_adaptor import PoolGeometry
 from repro_torch.core.modes import ParallelPlan
 from repro_torch.core.scheduler import DynamicScheduler, SchedulerConfig
@@ -42,6 +51,8 @@ from repro_torch.models.model import build_model
 
 REPO = Path(__file__).resolve().parents[1]
 COUNTERS = ("steps", "host_argmax", "d2h_batched", "drains")
+# recovery runs: (pool blocks, POOL_EXHAUST window)
+RECOVERY = {"backpressure": (12, False), "pool_exhaust": (64, True)}
 
 
 class _PairAbstractMesh(jax.sharding.AbstractMesh):
@@ -95,11 +106,13 @@ def stacks():
     return {
         "jax": dict(model=jm, params=jp, Plan=JaxPlan, Geom=JaxGeometry,
                     Engine=JaxEngine, Sched=JaxScheduler,
-                    SConf=JaxSchedConfig, Req=JaxRequest, kw={}),
+                    SConf=JaxSchedConfig, Req=JaxRequest, Inj=JaxInjector,
+                    Spec=JaxSpec, kw={}),
         "torch": dict(model=tm, params=tp, Plan=ParallelPlan,
                       Geom=PoolGeometry, Engine=FlyingEngine,
                       Sched=DynamicScheduler, SConf=SchedulerConfig,
-                      Req=Request, kw=dict(device="cpu")),
+                      Req=Request, Inj=FaultInjector, Spec=FaultSpec,
+                      kw=dict(device="cpu")),
     }
 
 
@@ -132,6 +145,32 @@ def run_sched(s, *, mixed):
                 reqs=list(sched.pool.all.values()))
 
 
+def run_backpressure(s, *, num_blocks, fault):
+    """Four staggered requests (prompts 12-24, 10 tokens out) two at a
+    time over a ``num_blocks`` x 4-token pool; with ``fault``, every free
+    block is seized from tick 6 for 8 ticks."""
+    inj = s["Inj"]([s["Spec"](kind=POOL_EXHAUST, tick=6, blocks=-1,
+                              duration=8)]) if fault else None
+    plan, geom, eng = _engine(s, num_blocks=num_blocks, injector=inj)
+    sched = s["Sched"](plan, geom, _FixedClock(eng), s["SConf"](
+        strategy="hard", max_batch_per_group=2, prefill_chunk=8))
+    for i in range(4):
+        sched.submit(s["Req"](req_id=f"r{i}", arrival=0.001 * i,
+                              prompt_len=12 + 4 * i, output_len=10))
+    sched.run(max_steps=400)
+    reqs = sorted(sched.pool.all.values(), key=lambda r: r.req_id)
+    return dict(toks={r.req_id: eng.generated_tokens(r.req_id)
+                      for r in reqs},
+                phases=[l.phase for l in sched.log],
+                degraded=[l.degraded for l in sched.log],
+                recovered=sched.preempt_stats["recovered"],
+                incidents=[(i["tick"], i["kind"], i.get("req"),
+                            i.get("kept_tokens")) for i in sched.incidents],
+                folds={r.req_id: (r.state, r.prompt_len, r.folded)
+                       for r in reqs},
+                seized=dict(sched._seized), eng=eng)
+
+
 def chunked_prefill(s, prompt_len, chunk, decode_steps=2):
     """Mirror of tests/test_prefill_attention.py::chunked_prefill."""
     _, _, eng = _engine(s, block_base=16, max_blocks=64)
@@ -155,7 +194,9 @@ def jax_runs(stacks, jax_mesh_shim):
     s = stacks["jax"]
     return {"mixed": run_sched(s, mixed=True),
             "sequential": run_sched(s, mixed=False),
-            "chunk64": chunked_prefill(s, 512, 64)}
+            "chunk64": chunked_prefill(s, 512, 64),
+            **{v: run_backpressure(s, num_blocks=n, fault=f)
+               for v, (n, f) in RECOVERY.items()}}
 
 
 @pytest.mark.parametrize("variant", ["mixed", "sequential"])
@@ -168,6 +209,52 @@ def test_run_sched_matches_jax(stacks, jax_runs, variant):
     assert got["keys"] == want["keys"]
     assert got["stats"] == want["stats"]
     assert got["stats"]["host_argmax"] == 0
+
+
+@pytest.mark.parametrize("variant", ["backpressure", "pool_exhaust"])
+def test_recovery_matches_jax(stacks, jax_runs, variant):
+    """A full pool (12 blocks) and a POOL_EXHAUST window (64 blocks, all
+    seized for 8 ticks): decode growth evicts a resident, which is
+    recovered with its produced tokens pinned into its prompt. The
+    token streams, phases, degraded ticks, recoveries (with the tokens
+    each kept) and the folded prompts are the JAX engine's."""
+    want = jax_runs[variant]
+    n, fault = RECOVERY[variant]
+    got = run_backpressure(stacks["torch"], num_blocks=n, fault=fault)
+    assert got["recovered"] == want["recovered"] > 0
+    assert got["toks"] == want["toks"]
+    assert got["phases"] == want["phases"]
+    assert got["degraded"] == want["degraded"] and any(got["degraded"])
+    assert got["incidents"] == want["incidents"]
+    assert got["folds"] == want["folds"]
+    assert all(st == "done" and len(got["toks"][rid]) == 10
+               for rid, (st, _, _) in got["folds"].items())
+    assert got["seized"] == {}              # every seized block came back
+    eng = got["eng"]
+    for rid, (_, plen, folded) in got["folds"].items():
+        if folded:
+            pinned = eng._pinned_prompts[rid]
+            assert len(pinned) == plen
+            assert list(pinned[plen - folded:]) == got["toks"][rid][:folded]
+    assert eng.sync_stats.host_argmax == 0
+
+
+def test_abort_drops_the_pinned_prompt(stacks):
+    """The abort hook retires a recovered request's pinned prompt, its
+    prompt cache entry and its buffered tokens, as the reference's
+    does."""
+    got = run_backpressure(stacks["torch"], num_blocks=12, fault=False)
+    eng = got["eng"]
+    rid = next(r for r, (_, _, f) in got["folds"].items() if f)
+    r = Request(req_id=rid, arrival=0.0, prompt_len=got["folds"][rid][1],
+                output_len=10)
+    assert len(eng.prompt_tokens(r)) == r.prompt_len
+    eng.abort_request(r)
+    assert rid not in eng._pinned_prompts
+    assert rid not in eng._prompt_cache
+    assert eng._token_buf.get(rid) is None
+    eng.drain()
+    assert not eng._retired
 
 
 @pytest.mark.parametrize("variant", ["mixed", "sequential"])
@@ -308,7 +395,8 @@ def test_unported_engine_paths_raise(stacks):
     _, _, eng = _engine(stacks["torch"])
     assert eng.rebind(1) == 0.0
     with pytest.raises(NotImplementedError):
-        eng.recover_request(_reqs(1)[0])
+        _engine(stacks["torch"], injector=FaultInjector(
+            [FaultSpec(kind=KILL, tick=3, engines=(0,))]))
     with pytest.raises(NotImplementedError):
         FlyingEngine(eng.model, ParallelPlan(tp_base=2, data_rows=1),
                      eng.geom, eng.params, device="cpu")

@@ -6,7 +6,8 @@ in interpret mode, on the same numpy inputs: fp32, atol = rtol = 1e-5
 (summation order differs between the frameworks), appends exactly
 equal. Shapes are small (H=8, KV=2, hd=64), with pages of 4 and 16,
 ragged context lengths including 0, windows, LSE outputs, prior-only
-sweeps and parked slots. The dense causal kernel (K5) is held against
+sweeps and parked slots; the decode and prefill attentions also at rep =
+H/KV of 7 (H=14, KV=2, hd=64) and 12 (H=24, KV=2, hd=128), with T=11. The dense causal kernel (K5) is held against
 the JAX package's ``ops.flash_prefill`` (its Pallas kernel in interpret
 mode) and ``flash_prefill_ref`` at atol 1e-5, and its plain backward
 against ``jax.vjp`` of ``flash_prefill_ref`` at atol 1e-4 (gradients sum
@@ -36,7 +37,7 @@ H, KV, HD = 8, 2, 64
 TOL = dict(atol=1e-5, rtol=1e-5)
 
 
-def _case(page, B=3, MB=6, T=8, seed=0):
+def _case(page, B=3, MB=6, T=8, seed=0, H=H, KV=KV, HD=HD):
     """Seeded inputs: pools, disjoint block tables (the serving
     invariant), queries and new K/V rows."""
     rng = np.random.default_rng(seed)
@@ -152,6 +153,34 @@ def test_decode_attention_matches_jax(page, window):
     _close(got_l, ref_l)
 
 
+# rep = H/KV of 7 and 12: (H, KV, hd)
+REPS = {"rep7": (14, 2, 64), "rep12": (24, 2, 128)}
+
+
+@pytest.mark.parametrize("heads", list(REPS))
+@pytest.mark.parametrize("page", [4, 16])
+@pytest.mark.parametrize("window", [None, 5])
+def test_decode_attention_any_rep_matches_jax(heads, page, window):
+    Hr, KVr, hd = REPS[heads]
+    c = _case(page, T=11, seed=1, H=Hr, KV=KVr, HD=hd)
+    ctx = np.array([0, 1, c["MB"] * page], np.int32)   # 0, 1 and all
+    args = (c["q1"], c["kp"], c["vp"], c["bt"], ctx)
+    got = pops.paged_attention(*map(_t, args), window=window)
+    got_o, got_l = pops.paged_attention_with_lse(*map(_t, args),
+                                                 window=window)
+    ker_o, ker_l = jpk.paged_attention_kernel(
+        *map(jnp.asarray, args), window=window, return_lse=True,
+        interpret=True)
+    ref_o, ref_l = jpr.paged_attention_with_lse_ref(*map(jnp.asarray, args),
+                                                    window=window)
+    for o in (got, got_o):
+        _close(o, ker_o)
+        _close(o, ref_o)
+    assert float(got_o[0].abs().max()) == 0.0
+    _close(got_l, ker_l)
+    _close(got_l, ref_l)
+
+
 def test_decode_fused_append_matches_jax():
     c = _case(16)
     B, page = c["B"], 16
@@ -221,6 +250,34 @@ def test_prefill_prior_only_matches_jax(page):
         _close(g, k)
         _close(g, r)
     assert float(got_o[0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("heads", list(REPS))
+@pytest.mark.parametrize("page", [4, 16])
+@pytest.mark.parametrize("window,prior_only", [(None, False), (6, False),
+                                               (None, True)])
+def test_prefill_any_rep_matches_jax(heads, page, window, prior_only):
+    """Rep 7 and 12 at a T of 11: the port's sweep (and its plain causal
+    op) against the Pallas kernel in interpret mode and the jnp ref."""
+    Hr, KVr, hd = REPS[heads]
+    c = _case(page, T=11, seed=1, H=Hr, KV=KVr, HD=hd)
+    prior = np.array([0, 5, c["MB"] * page - c["T"]], np.int32)
+    args = (c["qT"], c["kp"], c["vp"], c["bt"], prior)
+    got = fops.paged_prefill_sweep_with_lse(*map(_t, args), window=window,
+                                            prior_only=prior_only)
+    ker = _jax_sweep(c, c["qT"], prior, window=window,
+                     prior_only=prior_only)
+    ref = jfr.paged_prefill_sweep_with_lse_ref(
+        *map(jnp.asarray, args), window=window, prior_only=prior_only)
+    for g, k, r in zip(got, ker, ref):
+        _close(g, k)
+        _close(g, r)
+    if prior_only:
+        assert float(got[0][0].abs().max()) == 0.0    # row 0: no prior
+    else:
+        _close(tfr.paged_flash_prefill_ref(*map(_t, args), window=window),
+               jfr.paged_flash_prefill_ref(*map(jnp.asarray, args),
+                                           window=window))
 
 
 def test_paged_flash_prefill_appends_then_sweeps():
