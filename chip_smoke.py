@@ -35,8 +35,10 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    heads on one kv head, window 2048) at batch 4 x 2048 and at batch
    2 x 4096, where the window masks keys, timed against SDPA; K2 and K4
    also at rep = H/KV of 7 (H 14, KV 2, hd 64) and 12 (H 96, KV 8, hd
-   128), with K2's split count and K4's blocks printed; K4's bf16 kernel
-   must show HGMMA instructions in its SASS;
+   128), with K2's split count and K4's blocks printed; K1's and K3's
+   device time a launch (torch.profiler) printed beside their events
+   time and ``index_copy_``'s; K4's bf16 kernel and K6's bf16 backward
+   kernels (dc_tc, dxb_tc) must show HGMMA instructions in their SASS;
 4. serve a small request trace with the reduced llama3-8b in fp32 on the
    card and on the CPU (plain versions): the greedy tokens and the phase
    log must be identical; then four requests over a 12-block pool, where
@@ -71,7 +73,8 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
 10. train mamba2-2.7b at full width and all 64 layers in bf16 (fp32
    AdamW moments), batch 4 x 2048 tokens, 20 steps, as phase 8: finite
    losses, the last below the first, and K6 launched 128 times forward
-   and 64 times backward per step; then two profiled steps;
+   and 64 times backward per step; then two profiled steps (the bf16
+   backward's four kernels by name);
 11. train the 4-layer RecurrentGemma test config (reduced
    recurrentgemma-9b with one whole super-layer and one more RG-LRU
    layer) three fp32 steps of 128 tokens on the card (K7, K5) and on
@@ -154,6 +157,27 @@ def time_ms(torch, fn, iters: int = 20, warm: int = 3,
         torch.cuda.synchronize()
         means.append(start.elapsed_time(end) / iters)
     return sorted(means)[windows // 2]
+
+
+def launch_device_ms(torch, fn, pattern: str, iters: int = 20) -> float:
+    """Mean device time of one launch of the kernels whose names hold
+    ``pattern``, over ``iters`` calls of ``fn`` under torch.profiler;
+    NaN where the profiler saw none."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = n = 0
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", 0) \
+            or getattr(e, "self_cuda_time_total", 0)
+        if t and pattern in e.key:
+            us += t
+            n += e.count
+    return us / n / 1e3 if n else float("nan")
 
 
 def bound(nbytes: float, flops: float):
@@ -246,13 +270,21 @@ def kernel_checks(torch, np):
                 f.index_copy_(0, idx, v)
         nbytes = 2 * n * w * (2 + 2) + 4 * n
         bms, by = bound(nbytes, 0.0)
-        rows.append(dict(
+        row = dict(
             name=name, route="cuda",
             source="src/repro_torch/kernels/csrc/paged_append.cu",
             replaces=replaces, max_abs_err=0.0,
             ms=time_ms(torch, lambda: kern(base, vals, slots)),
             plain_ms=time_ms(torch, lambda: plain(base, vals, slots)),
-            bound_ms=bms, bound_by=by, library_ms=time_ms(torch, library)))
+            bound_ms=bms, bound_by=by, library_ms=time_ms(torch, library))
+        rows.append(row)
+        dev_ms = launch_device_ms(torch, lambda: kern(base, vals, slots),
+                                  "append_rows")
+        lib_dev = launch_device_ms(torch, library, "index")
+        print(f"  {name} ({n} rows): events {row['ms']:.4f} ms a call, "
+              f"device {dev_ms:.4f} ms a launch (profiler); index_copy_ "
+              f"x2 events {row['library_ms']:.4f} ms, device "
+              f"{2 * lib_dev:.4f} ms")
 
     print("kernels against their plain versions:")
     append_row("token", "paged_append_token",
@@ -499,9 +531,10 @@ def tile_checks(torch, rng):
 
 
 def print_hgmma() -> None:
-    """HGMMA instructions in the SASS of each kernel of the flash_prefill
-    and paged_prefill libraries (cuobjdump), where cuobjdump exists;
-    printed, and K4's bf16 kernel (prefill_tc) must have some."""
+    """HGMMA instructions in the SASS of each kernel of the flash_prefill,
+    paged_prefill and ssd_scan libraries (cuobjdump), where cuobjdump
+    exists; printed, and K4's bf16 kernel (prefill_tc) and K6's bf16
+    backward kernels (dc_tc, dxb_tc) must have some."""
     import re
     import shutil
 
@@ -512,7 +545,7 @@ def print_hgmma() -> None:
         print("  HGMMA count: not measured (no cuobjdump)")
         return
     counts: dict = {}
-    for name in ("flash_prefill", "paged_prefill"):
+    for name in ("flash_prefill", "paged_prefill", "ssd_scan"):
         sass = subprocess.run([exe, "-sass", str(_lib.build_all()[name])],
                               capture_output=True, text=True).stdout
         fn = None
@@ -528,6 +561,12 @@ def print_hgmma() -> None:
     for hd in (64, 128):
         check(counts.get(f"prefill_tc<{hd}>", 0) > 0,
               f"K4's bf16 kernel prefill_tc<{hd}> has no HGMMA")
+    for k in ("dc_tc", "dxb_tc"):
+        for hd in (32, 64):
+            for S in (32, 128):
+                check(counts.get(f"{k}<{hd}, {S}>", 0) > 0,
+                      f"K6's bf16 backward kernel {k}<{hd}, {S}> has no "
+                      f"HGMMA")
 
 
 def ssd_close(torch, got, want, what):
@@ -997,7 +1036,7 @@ def serve_breakdown(torch):
         ("paged_flash_prefill", "prefill_tc"),
         ("paged_flash_prefill fp32", "prefill_kernel"),
         ("paged_attention", "decode_kernel"),
-        ("paged_append", "append_rows_kernel")))
+        ("paged_append", "append_rows")))
 
 
 def print_breakdown(tag: str, prof, wall: float, classes) -> None:
@@ -1200,8 +1239,12 @@ def train_mamba2(torch):
         train(cfg, steps=2, log=lambda s: None, **kw)
         wall = time.perf_counter() - t0
     print_breakdown("mamba2 breakdown", prof, wall, (
-        ("ssd_scan_bwd dC", "dc_kernel"),
-        ("ssd_scan_bwd scan", "bwd_scan_kernel"),
+        ("ssd_scan_bwd dC (bf16)", "dc_tc"),
+        ("ssd_scan_bwd carry (bf16)", "carry_kernel"),
+        ("ssd_scan_bwd dx dB (bf16)", "dxb_tc"),
+        ("ssd_scan_bwd group sums (bf16)", "sum_groups"),
+        ("ssd_scan_bwd dC (fp32)", "dc_kernel"),
+        ("ssd_scan_bwd scan (fp32)", "bwd_scan_kernel"),
         ("ssd_scan", "fwd_kernel"),
         ("elementwise", "elementwise"),
         ("reduction", "reduce_kernel")))
@@ -1372,14 +1415,13 @@ def main(argv=None) -> int:
     print(f"built {len(_lib.SOURCES)} kernel sources in "
           f"{time.perf_counter() - t0:.1f} s")
     for name in _lib.SOURCES:
-        _lib.lib(name)
         print_ptxas(name, _lib.BUILD_LOG.get(name, ""))
-    smem = _lib.lib("flash_prefill").flash_tc_smem
+    smem = _lib.func("flash_tc_smem")
     print("  flash_prefill.cu, dynamic shared memory of the bf16 kernels: "
           + ", ".join(f"{k}<{hd}> {smem(hd, i)} bytes"
                       for hd in (64, 128, 256)
                       for i, k in enumerate(("fwd_tc", "dq_tc", "dkdv_tc"))))
-    smem = _lib.lib("paged_prefill").paged_prefill_tc_smem
+    smem = _lib.func("paged_prefill_tc_smem")
     print("  paged_prefill.cu, dynamic shared memory of the bf16 kernel: "
           + ", ".join(f"prefill_tc<{hd}> {smem(hd)} bytes"
                       for hd in (64, 128)))

@@ -61,12 +61,15 @@ _SIGNATURES = {
         "flash_tc_smem": [_I, _I]},
     "ssd_scan": {
         "ssd_scan_fwd": [_P] * 8 + [_I] * 7 + [_P],
-        "ssd_scan_bwd": [_P] * 13 + [_I] * 7 + [_P]},
+        "ssd_scan_bwd": [_P] * 13 + [_I] * 7 + [_P],
+        "ssd_scan_bwd_tc": [_P] * 17 + [_I] * 7 + [_P]},
     "rglru_scan": {
         "rglru_scan_fwd": [_P] * 4 + [_I] * 4 + [_P],
         "rglru_scan_bwd": [_P] * 5 + [_I] * 4 + [_P]},
 }
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# every C function of every source by name, filled when the libraries load
+FUNCS: Dict[str, object] = {}
 
 
 def reset_launches() -> None:
@@ -118,18 +121,27 @@ def build_all(force: bool = False) -> Dict[str, Path]:
     return paths
 
 
-def lib(name: str) -> ctypes.CDLL:
-    """The loaded library of source ``name``, built at first use."""
-    if name not in _LIBS:
-        paths = build_all()
-        for n, path in paths.items():
-            cdll = ctypes.CDLL(str(path))
-            for fn, argtypes in _SIGNATURES[n].items():
-                f = getattr(cdll, fn)
-                f.argtypes = argtypes
-                f.restype = ctypes.c_int
-            _LIBS[n] = cdll
-    return _LIBS[name]
+def _load() -> None:
+    """Build what is missing and load every library."""
+    paths = build_all()
+    for n, path in paths.items():
+        cdll = ctypes.CDLL(str(path))
+        for fn, argtypes in _SIGNATURES[n].items():
+            f = getattr(cdll, fn)
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
+            FUNCS[fn] = f
+        _LIBS[n] = cdll
+
+
+def func(name: str):
+    """The C function ``name`` of any source, built and resolved at first
+    use; after that the launch path's lookup is one dictionary read."""
+    f = FUNCS.get(name)
+    if f is None:
+        _load()
+        f = FUNCS[name]
+    return f
 
 
 def check(rc: int, what: str) -> None:
@@ -139,17 +151,27 @@ def check(rc: int, what: str) -> None:
 
 
 def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current stream of ``t``'s device, without
+    building a ``torch.cuda.Stream`` as ``current_stream`` does.
+    ``torch._C._cuda_getCurrentRawStream`` is private API (Triton's
+    launcher uses it); ``tools/k6_k1_bench.py`` times it against
+    ``current_stream(device).cuda_stream``, which returns the same
+    handle."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def require_cuda(*tensors: torch.Tensor) -> None:
-    dev = tensors[0].device
-    if dev.type != "cuda":
-        raise ValueError(f"CUDA kernel called on a {dev} tensor")
+    """Raise unless every tensor is a contiguous tensor on the first one's
+    CUDA device; each tensor is looked at once (an int compare of its
+    device index, -1 on the CPU, and its contiguity)."""
+    first = tensors[0]
+    if not first.is_cuda:
+        raise ValueError(f"CUDA kernel called on a {first.device} tensor")
+    index = first.get_device()
     for t in tensors:
-        if t.device != dev:
-            raise ValueError(f"tensors on {dev} and {t.device}")
-        if not t.is_contiguous():
+        if t.get_device() != index or not t.is_contiguous():
+            if t.get_device() != index:
+                raise ValueError(f"tensors on {first.device} and {t.device}")
             raise ValueError("CUDA kernel needs contiguous tensors")
 
 

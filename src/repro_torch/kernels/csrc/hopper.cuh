@@ -349,4 +349,116 @@ __device__ __forceinline__ int acc_col(int i) {
   return 8 * (i >> 2) + 2 * (threadIdx.x % 4) + (i & 1);
 }
 
+// ---------------------------------------------------------------------------
+// Tall tiles (the SSD backward, ssd_scan.cu): RW = 64 or 128 rows of W
+// bf16 columns, stored as W/64 atoms of RW rows x 128 bytes, each with the
+// 128-byte swizzle above. A 64-row tall tile is a Tile<W>. With 128 rows
+// a K-major operand still advances 32 bytes a k step within an atom and
+// one atom per four, an N-major one 16 rows (2048 bytes) a k step, with
+// the atoms RW * 128 bytes apart; a 64-row A operand from rows 64..127
+// starts 8192 bytes into each atom.
+// ---------------------------------------------------------------------------
+template <int RW>
+__device__ __forceinline__ uint32_t tall_off(int r, int c) {  // c: chunk
+  return (c / 8) * RW * 128 + swizzle(r, c % 8);
+}
+template <int RW>
+__device__ __forceinline__ uint64_t desc_kt(uint32_t tile, int kk) {
+  return desc(tile + (kk / 4) * RW * 128 + (kk % 4) * 32, 16, 1024);
+}
+template <int RW>
+__device__ __forceinline__ uint64_t desc_nt(uint32_t tile, int kk) {
+  return desc(tile + kk * 16 * 128, RW * 128, 1024);
+}
+
+// Start the copy of rows [0, RW) x columns [0, W) of a bf16 matrix (row r
+// at g + r * ld elements) into a tall tile; rows at or past ``nrows`` and
+// columns at or past ``ncols`` (a multiple of 8) are zero.
+template <int RW, int W, int NTHR>
+__device__ __forceinline__ void load_tall(uint32_t sm, const __nv_bfloat16* g,
+                                          long long ld, int nrows, int ncols,
+                                          int tid) {
+  constexpr int CPR = W / 8;
+  for (int x = tid; x < RW * CPR; x += NTHR) {
+    const int r = x / CPR, c = x % CPR;
+    const bool ok = r < nrows && c * 8 < ncols;
+    cp_async16(sm + tall_off<RW>(r, c), ok ? g + r * ld + c * 8 : g, ok);
+  }
+}
+
+// D[64 x N] (+)= A[64 x 16] B[16 x N], both from shared memory, A
+// K-major, B K-major (TB 0) or N-major (TB 1, the transpose bit)
+template <int N, int TB> struct SS;
+template <int TB> struct SS<64, TB> {
+  static __device__ __forceinline__ void run(float (&d)[32], uint64_t da,
+                                             uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(acc), "n"(TB));
+  }
+};
+
+template <int TB> struct SS<128, TB> {
+  static __device__ __forceinline__ void run(float (&d)[64], uint64_t da,
+                                             uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+        "%60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(acc), "n"(TB));
+  }
+};
+
+template <int N, int TB>
+__device__ __forceinline__ void mma_ss_t(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int acc) {
+  SS<N, TB>::run(d, da, db, acc);
+}
+
+// hi = bf16(x), lo = bf16(x - hi) of a pair, packed as A-fragment words
+__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  hi = bf16x2_bits(h);
+  lo = bf16x2_bits(__floats2bfloat162_rn(x0 - __bfloat162float(h.x),
+                                         x1 - __bfloat162float(h.y)));
+}
+
 }  // namespace hop

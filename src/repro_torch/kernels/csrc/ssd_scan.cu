@@ -29,7 +29,10 @@
 //
 // Backward, with dxd_j the gradient of dt_j x_j, P(t,j) = (C_t.B_j)
 // e^{s_t-s_j} (dy_t.xd_j) for j <= t, and the carry R = sum over later
-// rows t of e^{s_t - s_end} dy_t C_t^T [hd,S]; two kernels on one stream:
+// rows t of e^{s_t - s_end} dy_t C_t^T [hd,S]. Two routes by dtype.
+//
+// fp32 (the bf16 tensor cores cannot hold fp32's rtol of 1e-4): two
+// kernels on one stream, their products on the CUDA cores in fp32:
 //  1. dc_kernel, one block per (chunk, head, batch row), from the
 //     forward's saved state h before the chunk:
 //       dC_t = sum_{j<=t} (dy_t.xd_j) e^{s_t-s_j} B_j + e^{s_t} h^T dy_t
@@ -55,12 +58,40 @@
 // each block writes its own fp32 part and the wrapper sums them, so the
 // result is deterministic; no atomics.
 //
+// bf16 x, B and C (the training path): chunk-parallel kernels on the
+// tensor cores (namespace tc; hopper.cuh's tiles, cp.async copies and
+// wgmma), one block per (chunk, batch row, group of heads), four
+// launches on one stream:
+//  1. dc_tc: per head, dC_t = sum_{j<=t} N L dt_j B_j + e^{s_t} h^T dy_t
+//     with N = dy x^T, u_t (as above), and the chunk's contribution to
+//     the carry, D_c = sum_t e^{s_t} dy_t C_t^T [hd,S];
+//  2. carry_kernel: the reverse pass over the chunks, R_{c-1} =
+//     e^{s_end(c)} R_c + D_c, elementwise in place of D (R_last = 0);
+//  3. dxb_tc: G = C B^T once for all heads of the group, then per head
+//     dxd, dx, dB (as in bwd_scan_kernel, from G and R_c), the four
+//     parts of dloga, ddt and the chunk's part of dA. Inside the chunk
+//     dloga_k is the exclusive prefix sum over k of (sum_{t>k} P(t,k) -
+//     sum_{j<k} P(k,j)), each pair counted once per k it spans: the
+//     terms cancel only within the 128 rows of a chunk, not over the
+//     sequence;
+//  4. sum_groups: dB and dC from the groups' fp32 parts, in group order.
+// x, B and C enter the products as exact bf16 operands; dy, e^s dy, h
+// and R as bf16 hi + lo halves, and so do the masked, decayed products
+// that feed a second product from registers (G o L, N o L dt); the
+// per-row fp32 factors (dt_j, e^{s_t}, e^{s_end - s_j}) multiply the
+// fp32 accumulators. Deterministic: fixed-order sums, no atomics.
+//
 // Bound on the H100 at the training shape (Bs 4, T 2048, H 80, hd 64,
 // S 128): bytes. The forward moves about 0.27 GB (y in fp32 is most of
-// it) for about 54 GFLOP; this kernel runs its products on the CUDA
-// cores in fp32, where that work, not the bytes, is its limit. A C.B^T
-// shared by all heads and wgmma tiles are the later steps.
+// it) for about 54 GFLOP; fwd_kernel runs its products on the CUDA cores
+// in fp32, where that work, not the bytes, is its limit. The backward's
+// about 140 GFLOP sit above its bytes at the bf16 tensor-core rate (0.141
+// ms); its bf16 route runs them on the tensor cores, and its time goes
+// to staging each head's dy, states and x from device memory, which
+// waits on the loads (no copy of the next head overlaps this one's
+// products yet).
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -693,6 +724,692 @@ dc_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 backward on the tensor cores (hopper.cuh's tall tiles, cp.async
+// copies and wgmma; the head comment gives the algebra)
+// ---------------------------------------------------------------------------
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int NTB = 256;  // two warpgroups: rows 0-63 and 64-127
+constexpr int CP = 128;   // chunk rows of a tile (zero past the chunk)
+
+template <int S> struct Pad {
+  static constexpr int SP = S <= 64 ? 64 : 128;  // S padded with zeros
+  static constexpr int BC = CP * SP * 2;         // bytes of a B or C tile
+  static constexpr int ST = 64 * SP * 2;         // of a state tile
+};
+constexpr int XB = CP * 64 * 2;                  // of an x or dy tile
+
+// Element (r, c) of a 128-row tall tile at shared address ``tile``
+// (``gen`` + address is its generic pointer).
+__device__ __forceinline__ float tile_at(const uint8_t* gen, uint32_t tile,
+                                         int r, int c) {
+  return __bfloat162float(*reinterpret_cast<const bf16*>(
+      gen + tile + hop::tall_off<CP>(r, c / 8) + (c % 8) * 2));
+}
+
+__device__ __forceinline__ void split8(const float (&v)[8], uint4& hi,
+                                       uint4& lo) {
+  hop::split2(v[0], v[1], hi.x, lo.x);
+  hop::split2(v[2], v[3], hi.y, lo.y);
+  hop::split2(v[4], v[5], hi.z, lo.z);
+  hop::split2(v[6], v[7], hi.w, lo.w);
+}
+
+__device__ __forceinline__ void load8(float (&v)[8], const float* p) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+// dy rows [0, ch) of one head (row r at dy + base + r * ld, HD floats)
+// into the hi and lo tiles at shared addresses dh, dl (128 x 64, zero
+// past ch and past HD). Every load is issued before the first store.
+// Ends with a barrier; returns whether any lo half is nonzero (none is
+// on the training path, whose dy holds bf16 values).
+template <int HD>
+__device__ bool stage_dy(uint8_t* gen, uint32_t dh, uint32_t dl,
+                         const float* __restrict__ dy, long long base,
+                         long long ld, int ch, int tid) {
+  constexpr int IT = CP * 8 / NTB;
+  float v[IT][8];
+#pragma unroll
+  for (int k = 0; k < IT; ++k) {
+    const int r = (tid + k * NTB) / 8, c = (tid + k * NTB) % 8;
+    if (r < ch && c * 8 < HD) {
+      load8(v[k], dy + base + r * ld + c * 8);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 8; ++q) v[k][q] = 0.f;
+    }
+  }
+  bool any = false;
+#pragma unroll
+  for (int k = 0; k < IT; ++k) {
+    const int r = (tid + k * NTB) / 8, c = (tid + k * NTB) % 8;
+    uint4 hi, lo;
+    split8(v[k], hi, lo);
+    any |= (lo.x | lo.y | lo.z | lo.w) != 0u;
+    const uint32_t off = hop::tall_off<CP>(r, c);
+    *reinterpret_cast<uint4*>(gen + dh + off) = hi;
+    *reinterpret_cast<uint4*>(gen + dl + off) = lo;
+  }
+  return __syncthreads_or(any) != 0;
+}
+
+// An [HD, S] fp32 state (row-major) into the hi and lo tiles at th, tl (64
+// x SP, zero past HD and S), every load before the first store; with
+// DOT, ``dot`` gains this thread's part of <src, other>.
+template <int HD, int S, bool DOT>
+__device__ void stage_state(uint8_t* gen, uint32_t th, uint32_t tl,
+                            const float* __restrict__ src,
+                            const float* __restrict__ other, float& dot,
+                            int tid) {
+  constexpr int CPR = Pad<S>::SP / 8, IT = 64 * CPR / NTB;
+  float v[IT][8], o[DOT ? IT : 1][8];
+#pragma unroll
+  for (int k = 0; k < IT; ++k) {
+    const int r = (tid + k * NTB) / CPR, c = (tid + k * NTB) % CPR;
+    if (r < HD && c * 8 < S) {
+      load8(v[k], src + r * S + c * 8);
+      if (DOT) load8(o[DOT ? k : 0], other + r * S + c * 8);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 8; ++q) v[k][q] = o[DOT ? k : 0][q] = 0.f;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < IT; ++k) {
+    const int r = (tid + k * NTB) / CPR, c = (tid + k * NTB) % CPR;
+    if (DOT) {
+#pragma unroll
+      for (int q = 0; q < 8; ++q) dot += v[k][q] * o[DOT ? k : 0][q];
+    }
+    uint4 hi, lo;
+    split8(v[k], hi, lo);
+    const uint32_t off = hop::tall_off<64>(r, c);
+    *reinterpret_cast<uint4*>(gen + th + off) = hi;
+    *reinterpret_cast<uint4*>(gen + tl + off) = lo;
+  }
+}
+
+// Dynamic shared memory: B, C, x, dy hi + lo, a state hi + lo, then
+// dc_tc's three vectors, or dxb_tc's G^T, eight vectors, the column sums
+// of P of each warp and eight partial sums; 1024 bytes of alignment slack.
+template <int S> constexpr int dc_smem() {
+  return 2 * Pad<S>::BC + 3 * XB + 2 * Pad<S>::ST + 3 * CP * 4 + 1024;
+}
+template <int S> constexpr int dxb_smem() {
+  return 2 * Pad<S>::BC + 3 * XB + 2 * Pad<S>::ST + 64 * NTB * 4 +
+         16 * CP * 4 + 8 * 4 + 1024;
+}
+
+// dC, u and the carry's D_c. One block per (chunk, batch row, head
+// group), warpgroup w owning the chunk's rows t in [64w, 64w + 64); B and
+// C staged once, then per head x, dt, dy (hi + lo) and the saved state h
+// (hi + lo):
+//   Z = dy h (SS; h N-major): u_t = e^{s_t} C_t.Z_t, dC += e^{s_t} Z;
+//   N = dy x^T (SS), Nd = N o L dt_j in the registers, dC += Nd B (Nd
+//   from registers as hi + lo, B N-major; the k steps of j past this
+//   warpgroup's rows skipped);
+//   D_c = (e^s dy)^T C (A from registers, hi + lo, made from dy in device
+//   memory; warpgroup w the columns [64w, 64w + 64) of S).
+// dC sums over the group's heads in registers; the block writes it as
+// its group's fp32 part. ``send`` gets the chunk's s_end of each head.
+template <int HD, int S>
+__global__ void __launch_bounds__(NTB, 1)
+dc_tc(const bf16* __restrict__ x, const float* __restrict__ dt,
+      const float* __restrict__ A, const bf16* __restrict__ Bm,
+      const bf16* __restrict__ Cm, const float* __restrict__ states,
+      const float* __restrict__ dy, float* __restrict__ dCp,
+      float* __restrict__ ub, float* __restrict__ Dc,
+      float* __restrict__ send, int Bs, int Tn, int H, int ch, int group) {
+  constexpr int SP = Pad<S>::SP;
+  extern __shared__ uint8_t smraw[];
+  const uint32_t sm = hop::smem_base(smraw);
+  uint8_t* gen = smraw - hop::smem_u32(smraw);  // gen + address: generic
+  const uint32_t bt = sm, ct = bt + Pad<S>::BC, xt = ct + Pad<S>::BC;
+  const uint32_t dh = xt + XB, dl = dh + XB, hh = dl + XB;
+  const uint32_t hl = hh + Pad<S>::ST;
+  float* dtv = reinterpret_cast<float*>(gen + hl + Pad<S>::ST);
+  float* sv = dtv + CP;
+  float* es = sv + CP;
+
+  const int c = blockIdx.x, b = blockIdx.y, g = blockIdx.z;
+  const int nc = Tn / ch;
+  const int h0 = g * group, h1 = min(H, h0 + group);
+  const int tid = threadIdx.x, wg = tid / 128, warp = tid / 32,
+            lane = tid % 32;
+  const uint32_t arow = wg * 64 * 128;  // this warpgroup's rows of a tile
+  const long long row0 = (long long)b * Tn + (long long)c * ch;
+  const long long xld = (long long)H * HD;
+  hop::load_tall<CP, SP, NTB>(bt, Bm + row0 * S, S, ch, S, tid);
+  hop::load_tall<CP, SP, NTB>(ct, Cm + row0 * S, S, ch, S, tid);
+  hop::cp_commit();
+
+  float dC[SP / 2];
+#pragma unroll
+  for (int i = 0; i < SP / 2; ++i) dC[i] = 0.f;
+  const int nk = min(4 * (wg + 1), (ch + 15) / 16);  // live k steps of j
+
+  for (int h = h0; h < h1; ++h) {
+    __syncthreads();  // the previous head's tiles are consumed
+    hop::load_tall<CP, 64, NTB>(xt, x + row0 * xld + h * HD, xld, ch, HD,
+                                tid);
+    hop::cp_commit();
+    if (tid < CP) {
+      dtv[tid] = tid < ch ? dt[(row0 + tid) * H + h] : 0.f;
+      sv[tid] = 0.f;
+      es[tid] = 0.f;
+    }
+    const long long sidx = ((long long)b * H + h) * nc + c;
+    float unused = 0.f;
+    stage_state<HD, S, false>(gen, hh, hl, states + sidx * HD * S, nullptr,
+                              unused, tid);
+    const bool lo = stage_dy<HD>(gen, dh, dl, dy, row0 * xld + h * HD, xld,
+                                 ch, tid);
+    if (warp == 0) {
+      chunk_decays(dtv, sv, es, nullptr, ch, A[h]);
+      if (lane == 0) send[sidx] = sv[ch - 1];
+    }
+    hop::cp_wait<0>();
+    hop::fence_async_smem();
+    __syncthreads();
+
+    float acc[64];
+    {  // Z = dy h: u and the state part of dC
+      float(&z)[SP / 2] = *reinterpret_cast<float(*)[SP / 2]>(acc);
+#pragma unroll
+      for (int i = 0; i < SP / 2; ++i) z[i] = 0.f;
+      hop::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        hop::mma_ss_t<SP, 1>(z, hop::desc_kt<CP>(dh + arow, kk),
+                             hop::desc_nt<64>(hh, kk), 1);
+        hop::mma_ss_t<SP, 1>(z, hop::desc_kt<CP>(dh + arow, kk),
+                             hop::desc_nt<64>(hl, kk), 1);
+        if (lo)
+          hop::mma_ss_t<SP, 1>(z, hop::desc_kt<CP>(dl + arow, kk),
+                               hop::desc_nt<64>(hh, kk), 1);
+      }
+      hop::wg_commit();
+      hop::wg_wait<0>();
+      hop::fence_regs(z);
+      float u[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < SP / 2; ++i) {
+        const int t = wg * 64 + hop::acc_row(i);
+        u[(i >> 1) & 1] += tile_at(gen, ct, t, hop::acc_col(i)) * z[i];
+        dC[i] += es[t] * z[i];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        u[r] += __shfl_xor_sync(FULL, u[r], 1);
+        u[r] += __shfl_xor_sync(FULL, u[r], 2);
+        const int t = wg * 64 + hop::acc_row(2 * r);
+        if (lane % 4 == 0 && t < ch) ub[(row0 + t) * H + h] = es[t] * u[r];
+      }
+    }
+    // N = dy x^T, then Nd = N o L dt_j
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    hop::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      hop::mma_ss_t<128, 0>(acc, hop::desc_kt<CP>(dh + arow, kk),
+                            hop::desc_kt<CP>(xt, kk), 1);
+      if (lo)
+        hop::mma_ss_t<128, 0>(acc, hop::desc_kt<CP>(dl + arow, kk),
+                              hop::desc_kt<CP>(xt, kk), 1);
+    }
+    hop::wg_commit();
+    hop::wg_wait<0>();
+    hop::fence_regs(acc);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int t = wg * 64 + hop::acc_row(i), j = hop::acc_col(i);
+      acc[i] = (j <= t && t < ch) ? acc[i] * expf(sv[t] - sv[j]) * dtv[j]
+                                  : 0.f;
+    }
+    hop::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      if (kk < nk) {
+        uint32_t fh[4], fl[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          hop::split2(acc[8 * kk + 2 * e], acc[8 * kk + 2 * e + 1], fh[e],
+                      fl[e]);
+        hop::mma_rs<SP>(dC, fh, hop::desc_nt<CP>(bt, kk));
+        hop::mma_rs<SP>(dC, fl, hop::desc_nt<CP>(bt, kk));
+      }
+    }
+    hop::wg_commit();
+    hop::wg_wait<0>();
+    hop::fence_regs(dC);
+
+    if (SP == 128 || wg == 0) {  // D_c, columns [64 wg, 64 wg + 64) of S
+      // A = (e^s dy)^T from device memory, every load before the first
+      // product; rows d of A are dims of dy, its k steps rows t
+      float raw[64], dacc[32];
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        const int d = hop::acc_row(i), t = hop::acc_col(i);
+        raw[i] = (d < HD && t < ch)
+                     ? es[t] * dy[(row0 + t) * xld + h * HD + d] : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dacc[i] = 0.f;
+      const uint32_t cw = ct + wg * CP * 128;
+      hop::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        if (kk < (ch + 15) / 16) {
+          uint32_t fh[4], fl[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            hop::split2(raw[8 * kk + 2 * e], raw[8 * kk + 2 * e + 1], fh[e],
+                        fl[e]);
+          hop::mma_rs<64>(dacc, fh, hop::desc_nt<CP>(cw, kk));
+          hop::mma_rs<64>(dacc, fl, hop::desc_nt<CP>(cw, kk));
+        }
+      }
+      hop::wg_commit();
+      hop::wg_wait<0>();
+      hop::fence_regs(dacc);
+      float* out = Dc + sidx * HD * S;
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int d = hop::acc_row(i), n = wg * 64 + hop::acc_col(i);
+        if (d < HD && n < S)
+          *reinterpret_cast<float2*>(out + d * S + n) =
+              make_float2(dacc[i], dacc[i + 1]);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = wg * 64 + hop::acc_row(2 * r);
+    if (t >= ch) continue;
+    float* dst = dCp + ((long long)g * Bs * Tn + row0 + t) * S;
+#pragma unroll
+    for (int q = 0; q < SP / 8; ++q) {
+      const int i = 4 * q + 2 * r, n = hop::acc_col(i);
+      if (n < S)
+        *reinterpret_cast<float2*>(dst + n) = make_float2(dC[i], dC[i + 1]);
+    }
+  }
+}
+
+// The reverse carry, in place: Dc holds D_c per (batch row, head, chunk)
+// and is left holding R_c, the carry from the later chunks (R_last = 0,
+// R_{c-1} = e^{s_end(c)} R_c + D_c). Elementwise and bytes-bound: one
+// thread per four elements of [HD, S] of a (batch row, head), which
+// loads the D_c of CB chunks before it stores any, so that each thread
+// keeps CB 16-byte loads in flight.
+__global__ void carry_kernel(float* __restrict__ Dc,
+                             const float* __restrict__ send, long long per,
+                             long long n, int nc) {
+  constexpr int CB = 8;
+  const long long e = (blockIdx.x * (long long)blockDim.x + threadIdx.x) * 4;
+  if (e >= n) return;
+  const long long bh = e / per, r = e % per;
+  float4 carry = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int c1 = nc; c1 > 0; c1 -= CB) {  // chunks [c1 - CB, c1), backwards
+    float4 d[CB];
+    float f[CB];
+#pragma unroll
+    for (int k = 0; k < CB; ++k) {
+      const int c = c1 - 1 - k;
+      if (c >= 0) {
+        d[k] = *reinterpret_cast<const float4*>(Dc + (bh * nc + c) * per + r);
+        f[k] = expf(send[bh * nc + c]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < CB; ++k) {
+      const int c = c1 - 1 - k;
+      if (c >= 0) {
+        *reinterpret_cast<float4*>(Dc + (bh * nc + c) * per + r) = carry;
+        carry.x = f[k] * carry.x + d[k].x;
+        carry.y = f[k] * carry.y + d[k].y;
+        carry.z = f[k] * carry.z + d[k].z;
+        carry.w = f[k] * carry.w + d[k].w;
+      }
+    }
+  }
+}
+
+// dx, ddt, dA and dB. One block per (chunk, batch row, head group),
+// warpgroup w owning the chunk's rows j in [64w, 64w + 64). Once per
+// block: G^T = B C^T (SS), kept in shared memory in register order. Per
+// head, with R = R_c (hi + lo):
+//   X1 = B R^T (SS): v_j = w_j dt_j x_j.X1_j, dxd = w_j X1;
+//   X2 = x R (SS; R N-major): dB += w_j dt_j X2;
+//   N^T = x dy^T (SS); then per k step of t: M^T = G^T o L and Nd^T =
+//   N^T o L dt_j in registers (hi + lo), the row and column sums of P =
+//   G^T o Nd^T over t > j, dxd += M^T dy and dB += Nd^T C (RS; dy and C
+//   N-major), the k steps of t before this warpgroup's rows skipped;
+//   dx = dt dxd; then dloga from its four parts, ddt = A dloga + x.dxd
+//   and this chunk's part of dA, sum_k dt_k dloga_k.
+// dB sums over the group's heads in registers; the block writes it as
+// its group's fp32 part.
+template <int HD, int S>
+__global__ void __launch_bounds__(NTB, 1)
+dxb_tc(const bf16* __restrict__ x, const float* __restrict__ dt,
+       const float* __restrict__ A, const bf16* __restrict__ Bm,
+       const bf16* __restrict__ Cm, const float* __restrict__ states,
+       const float* __restrict__ dy, const float* __restrict__ Rc,
+       const float* __restrict__ ub, bf16* __restrict__ dx,
+       float* __restrict__ ddt, float* __restrict__ dAp,
+       float* __restrict__ dBp, int Bs, int Tn, int H, int ch, int group) {
+  constexpr int SP = Pad<S>::SP;
+  extern __shared__ uint8_t smraw[];
+  const uint32_t sm = hop::smem_base(smraw);
+  uint8_t* gen = smraw - hop::smem_u32(smraw);
+  const uint32_t bt = sm, ct = bt + Pad<S>::BC, xt = ct + Pad<S>::BC;
+  const uint32_t dh = xt + XB, dl = dh + XB, rh = dl + XB;
+  const uint32_t rl = rh + Pad<S>::ST;
+  float* gs = reinterpret_cast<float*>(gen + rl + Pad<S>::ST);  // [64][NTB]
+  float* dtv = gs + 64 * NTB;
+  float* sv = dtv + CP;
+  float* es = sv + CP;
+  float* wv = es + CP;
+  float* uv = wv + CP;
+  float* colv = uv + CP;
+  float* vv = colv + CP;
+  float* xdot = vv + CP;
+  float* rowpart = xdot + CP;     // [8 warps][CP]
+  float* red = rowpart + 8 * CP;  // [8]
+
+  const int c = blockIdx.x, b = blockIdx.y, g = blockIdx.z;
+  const int nc = Tn / ch;
+  const int h0 = g * group, h1 = min(H, h0 + group);
+  const int tid = threadIdx.x, wg = tid / 128, warp = tid / 32,
+            lane = tid % 32;
+  const uint32_t arow = wg * 64 * 128;
+  const long long row0 = (long long)b * Tn + (long long)c * ch;
+  const long long xld = (long long)H * HD;
+  hop::load_tall<CP, SP, NTB>(bt, Bm + row0 * S, S, ch, S, tid);
+  hop::load_tall<CP, SP, NTB>(ct, Cm + row0 * S, S, ch, S, tid);
+  hop::cp_commit();
+  hop::cp_wait<0>();
+  hop::fence_async_smem();
+  __syncthreads();
+  {  // G^T = B C^T, shared by the heads
+    float gacc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) gacc[i] = 0.f;
+    hop::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < S / 16; ++kk)
+      hop::mma_ss_t<128, 0>(gacc, hop::desc_kt<CP>(bt + arow, kk),
+                            hop::desc_kt<CP>(ct, kk), 1);
+    hop::wg_commit();
+    hop::wg_wait<0>();
+    hop::fence_regs(gacc);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) gs[i * NTB + tid] = gacc[i];
+  }
+
+  float dB[SP / 2];
+#pragma unroll
+  for (int i = 0; i < SP / 2; ++i) dB[i] = 0.f;
+  const int kmin = 4 * wg, kmax = (ch + 15) / 16;  // live k steps of t
+
+  for (int h = h0; h < h1; ++h) {
+    __syncthreads();  // the previous head's tiles and vectors are consumed
+    hop::load_tall<CP, 64, NTB>(xt, x + row0 * xld + h * HD, xld, ch, HD,
+                                tid);
+    hop::cp_commit();
+    if (tid < CP) {
+      dtv[tid] = tid < ch ? dt[(row0 + tid) * H + h] : 0.f;
+      uv[tid] = tid < ch ? ub[(row0 + tid) * H + h] : 0.f;
+      sv[tid] = 0.f;
+      es[tid] = 0.f;
+      wv[tid] = 0.f;
+    }
+    const long long sidx = ((long long)b * H + h) * nc + c;
+    float rh_dot = 0.f;  // this thread's part of <R_c, h_c>
+    stage_state<HD, S, true>(gen, rh, rl, Rc + sidx * HD * S,
+                             states + sidx * HD * S, rh_dot, tid);
+    rh_dot = warp_sum(rh_dot);
+    if (lane == 0) red[warp] = rh_dot;
+    const bool lo = stage_dy<HD>(gen, dh, dl, dy, row0 * xld + h * HD, xld,
+                                 ch, tid);
+    if (warp == 0) chunk_decays(dtv, sv, es, wv, ch, A[h]);
+    hop::cp_wait<0>();
+    hop::fence_async_smem();
+    __syncthreads();
+
+    float acc[64], ax[32];
+    float(&z)[SP / 2] = *reinterpret_cast<float(*)[SP / 2]>(acc);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) ax[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < SP / 2; ++i) z[i] = 0.f;
+    hop::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < S / 16; ++kk) {  // X1 = B R^T
+      hop::mma_ss_t<64, 0>(ax, hop::desc_kt<CP>(bt + arow, kk),
+                           hop::desc_kt<64>(rh, kk), 1);
+      hop::mma_ss_t<64, 0>(ax, hop::desc_kt<CP>(bt + arow, kk),
+                           hop::desc_kt<64>(rl, kk), 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {  // X2 = x R
+      hop::mma_ss_t<SP, 1>(z, hop::desc_kt<CP>(xt + arow, kk),
+                           hop::desc_nt<64>(rh, kk), 1);
+      hop::mma_ss_t<SP, 1>(z, hop::desc_kt<CP>(xt + arow, kk),
+                           hop::desc_nt<64>(rl, kk), 1);
+    }
+    hop::wg_commit();
+    hop::wg_wait<0>();
+    hop::fence_regs(ax);
+    hop::fence_regs(z);
+    {
+      float v[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int j = wg * 64 + hop::acc_row(i);
+        v[(i >> 1) & 1] += tile_at(gen, xt, j, hop::acc_col(i)) * ax[i];
+        ax[i] *= wv[j];
+      }
+#pragma unroll
+      for (int i = 0; i < SP / 2; ++i) {
+        const int j = wg * 64 + hop::acc_row(i);
+        dB[i] += wv[j] * dtv[j] * z[i];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        v[r] += __shfl_xor_sync(FULL, v[r], 1);
+        v[r] += __shfl_xor_sync(FULL, v[r], 2);
+        const int j = wg * 64 + hop::acc_row(2 * r);
+        if (lane % 4 == 0 && j < ch) vv[j] = wv[j] * dtv[j] * v[r];
+      }
+    }
+    // N^T = x dy^T
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    hop::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      hop::mma_ss_t<128, 0>(acc, hop::desc_kt<CP>(xt + arow, kk),
+                            hop::desc_kt<CP>(dh, kk), 1);
+      if (lo)
+        hop::mma_ss_t<128, 0>(acc, hop::desc_kt<CP>(xt + arow, kk),
+                              hop::desc_kt<CP>(dl, kk), 1);
+    }
+    hop::wg_commit();
+    hop::wg_wait<0>();
+    hop::fence_regs(acc);
+
+    float colr[2] = {0.f, 0.f};  // sums over t > j of P(t, j), two rows j
+    float rp[32];                // sums over this thread's rows j < t
+#pragma unroll
+    for (int q = 0; q < 32; ++q) rp[q] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      if (kk < kmin || kk >= kmax) continue;
+      uint32_t mh[4], ml[4], nh[4], nl[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float mv[2], nv[2];
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int i = 8 * kk + 2 * e + q;
+          const int j = wg * 64 + hop::acc_row(i), t = hop::acc_col(i);
+          const float L = (j <= t && t < ch) ? expf(sv[t] - sv[j]) : 0.f;
+          const float gv = gs[i * NTB + tid];
+          mv[q] = gv * L;
+          nv[q] = acc[i] * L * dtv[j];
+          if (t > j) {
+            const float p = gv * nv[q];
+            colr[(i >> 1) & 1] += p;
+            rp[(i >> 2) * 2 + (i & 1)] += p;
+          }
+        }
+        hop::split2(mv[0], mv[1], mh[e], ml[e]);
+        hop::split2(nv[0], nv[1], nh[e], nl[e]);
+      }
+      hop::wg_fence();
+      hop::mma_rs<64>(ax, mh, hop::desc_nt<CP>(dh, kk));
+      hop::mma_rs<64>(ax, ml, hop::desc_nt<CP>(dh, kk));
+      if (lo) hop::mma_rs<64>(ax, mh, hop::desc_nt<CP>(dl, kk));
+      hop::mma_rs<SP>(dB, nh, hop::desc_nt<CP>(ct, kk));
+      hop::mma_rs<SP>(dB, nl, hop::desc_nt<CP>(ct, kk));
+      hop::wg_commit();
+      hop::wg_wait<0>();
+      hop::fence_regs(ax);
+      hop::fence_regs(dB);
+    }
+    // the column sums of P over this warp's 16 rows: a row of rowpart
+#pragma unroll
+    for (int q = 0; q < 32; ++q) {
+      float s = rp[q];
+      s += __shfl_xor_sync(FULL, s, 4);
+      s += __shfl_xor_sync(FULL, s, 8);
+      s += __shfl_xor_sync(FULL, s, 16);
+      if (lane < 4) rowpart[warp * CP + 8 * (q >> 1) + 2 * lane + (q & 1)] = s;
+    }
+    {  // dx, x.dxd and the row sums of P
+      float xs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int j = wg * 64 + hop::acc_row(i);
+        xs[(i >> 1) & 1] += tile_at(gen, xt, j, hop::acc_col(i)) * ax[i];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+#pragma unroll
+        for (int o = 1; o <= 2; o <<= 1) {
+          xs[r] += __shfl_xor_sync(FULL, xs[r], o);
+          colr[r] += __shfl_xor_sync(FULL, colr[r], o);
+        }
+        const int j = wg * 64 + hop::acc_row(2 * r);
+        if (j >= ch) continue;
+        if (lane % 4 == 0) {
+          xdot[j] = xs[r];
+          colv[j] = colr[r];
+        }
+        const float dtj = dtv[j];
+        bf16* dst = dx + (row0 + j) * xld + h * HD;
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const int i = 4 * q + 2 * r, d = hop::acc_col(i);
+          if (d < HD)
+            *reinterpret_cast<__nv_bfloat162*>(dst + d) =
+                __floats2bfloat162_rn(dtj * ax[i], dtj * ax[i + 1]);
+        }
+      }
+    }
+    __syncthreads();
+    if (warp == 0) {
+      // dloga_k: inside the chunk, the exclusive prefix sum of (sum_{t>k}
+      // P(t,k) - sum_{j<k} P(k,j)); t here and j before (u, a suffix
+      // sum); j here and t after (v, an exclusive prefix sum); j before
+      // and t after (e^{s_end} <R, h>). Each sum in a fixed order.
+      for (int k = lane; k < ch; k += 32) {
+        float rs = 0.f;
+#pragma unroll
+        for (int w = 0; w < 8; ++w) rs += rowpart[w * CP + k];
+        colv[k] -= rs;
+      }
+      __syncwarp();
+      warp_cumsum(colv, ch, false);
+      warp_cumsum(uv, ch, true);
+      warp_cumsum(vv, ch, false);
+      float rhs = 0.f;
+#pragma unroll
+      for (int w = 0; w < 8; ++w) rhs += red[w];
+      const float across = es[ch - 1] * rhs;
+      const float a = A[h];
+      float da = 0.f;
+      for (int k = lane; k < ch; k += 32) {
+        const float dl = (k > 0 ? colv[k - 1] + vv[k - 1] : 0.f) + uv[k] +
+                         across;
+        ddt[(row0 + k) * H + h] = a * dl + xdot[k];
+        da += dtv[k] * dl;
+      }
+      da = warp_sum(da);
+      if (lane == 0) dAp[sidx] = da;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int j = wg * 64 + hop::acc_row(2 * r);
+    if (j >= ch) continue;
+    float* dst = dBp + ((long long)g * Bs * Tn + row0 + j) * S;
+#pragma unroll
+    for (int q = 0; q < SP / 8; ++q) {
+      const int i = 4 * q + 2 * r, n = hop::acc_col(i);
+      if (n < S)
+        *reinterpret_cast<float2*>(dst + n) = make_float2(dB[i], dB[i + 1]);
+    }
+  }
+}
+
+// dB and dC from the groups' fp32 parts, summed in group order: one
+// thread per four elements, the loads of GB groups issued together.
+__global__ void sum_groups(const float* __restrict__ dBp,
+                           const float* __restrict__ dCp,
+                           bf16* __restrict__ dB, bf16* __restrict__ dC,
+                           long long nel, int groups) {
+  constexpr int GB = 4;
+  const long long i = (blockIdx.x * (long long)blockDim.x + threadIdx.x) * 4;
+  if (i >= nel) return;
+  float sb[4] = {0.f, 0.f, 0.f, 0.f}, sc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int g0 = 0; g0 < groups; g0 += GB) {
+    float4 b[GB], c[GB];
+#pragma unroll
+    for (int k = 0; k < GB; ++k) {
+      if (g0 + k < groups) {
+        b[k] = *reinterpret_cast<const float4*>(dBp + (g0 + k) * nel + i);
+        c[k] = *reinterpret_cast<const float4*>(dCp + (g0 + k) * nel + i);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < GB; ++k) {
+      if (g0 + k < groups) {
+        sb[0] += b[k].x; sb[1] += b[k].y; sb[2] += b[k].z; sb[3] += b[k].w;
+        sc[0] += c[k].x; sc[1] += c[k].y; sc[2] += c[k].z; sc[3] += c[k].w;
+      }
+    }
+  }
+  *reinterpret_cast<__nv_bfloat162*>(dB + i) =
+      __floats2bfloat162_rn(sb[0], sb[1]);
+  *reinterpret_cast<__nv_bfloat162*>(dB + i + 2) =
+      __floats2bfloat162_rn(sb[2], sb[3]);
+  *reinterpret_cast<__nv_bfloat162*>(dC + i) =
+      __floats2bfloat162_rn(sc[0], sc[1]);
+  *reinterpret_cast<__nv_bfloat162*>(dC + i + 2) =
+      __floats2bfloat162_rn(sc[2], sc[3]);
+}
+
+}  // namespace tc
+
 template <typename K>
 cudaError_t allow_smem(K kernel, int bytes) {
   return cudaFuncSetAttribute(kernel,
@@ -736,6 +1453,42 @@ cudaError_t launch_bwd(const void* x, const void* dt, const void* A,
       (const T*)C, (const float*)states, (const float*)dy,
       (const float*)ub, (T*)dx, (float*)ddt, (float*)dAp, (float*)dBp, Tn,
       H, ch);
+  return cudaGetLastError();
+}
+
+template <int HD, int S>
+cudaError_t launch_bwd_tc(const void* x, const void* dt, const void* A,
+                          const void* B, const void* C, const void* states,
+                          const void* dy, void* dx, void* ddt, void* dAp,
+                          void* dB, void* dC, void* dBp, void* dCp, void* ub,
+                          void* Dc, void* send, int Bs, int Tn, int H,
+                          int ch, int group, cudaStream_t st) {
+  using tc::bf16;
+  const int nc = Tn / ch, groups = (H + group - 1) / group;
+  constexpr int s1 = tc::dc_smem<S>(), s2 = tc::dxb_smem<S>();
+  cudaError_t e = allow_smem(tc::dc_tc<HD, S>, s1);
+  if (e == cudaSuccess) e = allow_smem(tc::dxb_tc<HD, S>, s2);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(nc, Bs, groups);
+  tc::dc_tc<HD, S><<<grid, tc::NTB, s1, st>>>(
+      (const bf16*)x, (const float*)dt, (const float*)A, (const bf16*)B,
+      (const bf16*)C, (const float*)states, (const float*)dy, (float*)dCp,
+      (float*)ub, (float*)Dc, (float*)send, Bs, Tn, H, ch, group);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  const long long per = (long long)HD * S, n = (long long)Bs * H * per;
+  tc::carry_kernel<<<(unsigned)((n / 4 + 255) / 256), 256, 0, st>>>(
+      (float*)Dc, (const float*)send, per, n, nc);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  tc::dxb_tc<HD, S><<<grid, tc::NTB, s2, st>>>(
+      (const bf16*)x, (const float*)dt, (const float*)A, (const bf16*)B,
+      (const bf16*)C, (const float*)states, (const float*)dy,
+      (const float*)Dc, (const float*)ub, (bf16*)dx, (float*)ddt,
+      (float*)dAp, (float*)dBp, Bs, Tn, H, ch, group);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  const long long nel = (long long)Bs * Tn * S;
+  tc::sum_groups<<<(unsigned)((nel / 4 + 255) / 256), 256, 0, st>>>(
+      (const float*)dBp, (const float*)dCp, (bf16*)dB, (bf16*)dC, nel,
+      groups);
   return cudaGetLastError();
 }
 
@@ -800,4 +1553,32 @@ extern "C" int ssd_scan_bwd(const void* x, const void* dt, const void* A,
   SSD_DISPATCH(dtype, hd, S, (launch_bwd<T_, HD, S_>(
       x, dt, A, B, C, states, dy, dx, ddt, dAp, dBp, dCp, ub, Bs, T, H,
       chunk, st)));
+}
+
+// The bf16 route (tensor cores): the forward's inputs and states, dy
+// [Bs,T,H,hd] fp32 -> dx [Bs,T,H,hd] bf16, ddt [Bs,T,H] fp32, dAp
+// [Bs,H,T/chunk] fp32 (the caller sums it), dB and dC [Bs,T,S] bf16.
+// Scratch, all fp32: dBp and dCp [ceil(H/group),Bs,T,S], ub [Bs,T,H], Dc
+// [Bs,H,T/chunk,hd,S], send [Bs,H,T/chunk].
+extern "C" int ssd_scan_bwd_tc(const void* x, const void* dt, const void* A,
+                               const void* B, const void* C,
+                               const void* states, const void* dy, void* dx,
+                               void* ddt, void* dAp, void* dB, void* dC,
+                               void* dBp, void* dCp, void* ub, void* Dc,
+                               void* send, int Bs, int T, int H, int hd,
+                               int S, int chunk, int group, void* stream) {
+  if (bad_shape(Bs, T, H, chunk) || group <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+#define SSD_TC(HD_, S_)                                                    \
+  if (hd == HD_ && S == S_)                                                \
+    return (int)launch_bwd_tc<HD_, S_>(x, dt, A, B, C, states, dy, dx, ddt, \
+                                      dAp, dB, dC, dBp, dCp, ub, Dc, send, \
+                                      Bs, T, H, chunk, group, st);
+  SSD_TC(32, 32)
+  SSD_TC(32, 128)
+  SSD_TC(64, 32)
+  SSD_TC(64, 128)
+#undef SSD_TC
+  return (int)cudaErrorInvalidValue;
 }

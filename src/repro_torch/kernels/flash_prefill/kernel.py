@@ -42,7 +42,7 @@ def paged_flash_prefill_kernel(q, k_pool, v_pool, block_table, prior_len, *,
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device) \
         if return_lse else None
     scale = softmax_scale if softmax_scale is not None else hd ** -0.5
-    rc = _lib.lib("paged_prefill").paged_flash_prefill(
+    rc = _lib.func("paged_flash_prefill")(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), bt.data_ptr(),
         prior.data_ptr(), out.data_ptr(),
         lse.data_ptr() if lse is not None else None,
@@ -102,7 +102,7 @@ def flash_prefill_kernel(q, k, v, *, window: Optional[int] = None):
     B, T, H, KV, hd = _dense_args(q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    rc = _lib.lib("flash_prefill").flash_prefill_fwd(
+    rc = _lib.func("flash_prefill_fwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), B, T, H, KV, hd, window or 0, hd ** -0.5,
         _lib.dtype_code(q), _lib.stream_of(q))
@@ -132,7 +132,7 @@ def flash_prefill_bwd_kernel(q, k, v, out, lse, dout, *,
         if q.dtype == torch.bfloat16 else 1
     part = torch.empty((2, groups, B, T, KV, hd), dtype=torch.float32,
                        device=q.device) if groups > 1 else None
-    rc = _lib.lib("flash_prefill").flash_prefill_bwd(
+    rc = _lib.func("flash_prefill_bwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(),
@@ -163,7 +163,7 @@ def flash_tile_check(a, b, mode: int):
                          f"{tuple(a.shape)}, b {b.dtype} {tuple(b.shape)}")
     c = torch.empty((64, 64 if mode == 0 else hd), dtype=torch.float32,
                     device=a.device)
-    rc = _lib.lib("flash_prefill").flash_tile_check(
+    rc = _lib.func("flash_tile_check")(
         a.data_ptr(), b.data_ptr(), c.data_ptr(), hd, mode,
         _lib.stream_of(a))
     _lib.check(rc, "flash_tile_check")

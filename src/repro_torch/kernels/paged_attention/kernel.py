@@ -13,19 +13,22 @@ from repro_torch.kernels import _lib
 
 def _append_rows(pools, vals, slots, n_rows: int, what: str):
     kp, vp = pools
-    kv, vv = (v.contiguous() for v in vals)
-    slots = slots.to(torch.int32).contiguous()
+    kv, vv = vals[0].contiguous(), vals[1].contiguous()
+    if slots.dtype != torch.int32:
+        slots = slots.to(torch.int32)
+    slots = slots.contiguous()
     _lib.require_cuda(kp, vp, kv, vv, slots)
-    nblk, page = kp.shape[0], kp.shape[1]
-    w = kp[0, 0].numel()
-    if vp.shape != kp.shape or kv.shape != vv.shape \
+    shape = kp.shape
+    rows = shape[0] * shape[1]
+    w = kp.numel() // rows
+    if vp.shape != shape or kv.shape != vv.shape \
             or kv.numel() != n_rows * w or vp.dtype != kp.dtype:
-        raise ValueError(f"{what}: pools {tuple(kp.shape)} vs values "
+        raise ValueError(f"{what}: pools {tuple(shape)} vs values "
                          f"{tuple(kv.shape)}")
-    rc = _lib.lib("paged_append").paged_append_rows(
+    rc = _lib.func("paged_append_rows")(
         kv.data_ptr(), vv.data_ptr(), kp.data_ptr(), vp.data_ptr(),
-        slots.data_ptr(), n_rows, nblk * page - 1, w,
-        _lib.dtype_code(kv), _lib.dtype_code(kp), _lib.stream_of(kp))
+        slots.data_ptr(), n_rows, rows - 1, w, _lib.dtype_code(kv),
+        _lib.dtype_code(kp), _lib.stream_of(kp))
     _lib.LAUNCHES[what] += 1
     _lib.check(rc, what)
     return pools
@@ -112,7 +115,7 @@ def paged_attention_kernel(q, k_pool, v_pool, block_table, context_len, *,
     lse = torch.empty((B, H), dtype=torch.float32, device=q.device) \
         if return_lse else None
     scale = softmax_scale if softmax_scale is not None else hd ** -0.5
-    rc = _lib.lib("paged_attention").paged_attention_decode(
+    rc = _lib.func("paged_attention_decode")(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), bt.data_ptr(),
         ctx.data_ptr(), out.data_ptr(),
         lse.data_ptr() if lse is not None else None,

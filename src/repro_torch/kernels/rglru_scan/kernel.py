@@ -38,7 +38,7 @@ def rglru_scan_kernel(a, g):
                         f"{g.dtype}")
     y = torch.empty((B, T, C), dtype=torch.float32, device=a.device)
     hT = torch.empty((B, C), dtype=torch.float32, device=a.device)
-    rc = _lib.lib("rglru_scan").rglru_scan_fwd(
+    rc = _lib.func("rglru_scan_fwd")(
         a.data_ptr(), g.data_ptr(), y.data_ptr(), hT.data_ptr(), B, T, C,
         _lib.dtype_code(a), _lib.stream_of(a))
     _lib.LAUNCHES["rglru_scan"] += 1
@@ -55,7 +55,7 @@ def rglru_scan_bwd_kernel(a, y, dy):
     if y.dtype != torch.float32:
         raise TypeError(f"rglru_scan_bwd: y fp32, not {y.dtype}")
     da, dg = torch.empty_like(a), torch.empty_like(a)
-    rc = _lib.lib("rglru_scan").rglru_scan_bwd(
+    rc = _lib.func("rglru_scan_bwd")(
         a.data_ptr(), y.data_ptr(), dy.data_ptr(), da.data_ptr(),
         dg.data_ptr(), B, T, C, _lib.dtype_code(a), _lib.stream_of(a))
     _lib.LAUNCHES["rglru_scan_bwd"] += 1

@@ -14,7 +14,8 @@ GFLOP would take 0.054 ms at the bf16 tensor-core rate. The kernels run
 those products on the CUDA cores in fp32, one block per (head, batch
 row) sweeping the chunks with the state in shared memory, so they are
 bound by that arithmetic instead; the head file of ssd_scan.cu says how
-the work is tiled.
+the work is tiled. The backward of bf16 inputs runs chunk-parallel
+kernels on the tensor cores instead, with C·Bᵀ made once per head group.
 """
 from __future__ import annotations
 
@@ -61,7 +62,7 @@ def ssd_scan_kernel(x, dt, A, B, C, *, chunk: int):
     hT = torch.empty((Bs, H, hd, S), dtype=torch.float32, device=x.device)
     states = torch.empty((Bs, H, T // chunk, hd, S), dtype=torch.float32,
                          device=x.device)
-    rc = _lib.lib("ssd_scan").ssd_scan_fwd(
+    rc = _lib.func("ssd_scan_fwd")(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
         C.data_ptr(), y.data_ptr(), hT.data_ptr(), states.data_ptr(), Bs, T,
         H, hd, S, chunk, _lib.dtype_code(x), _lib.stream_of(x))
@@ -70,27 +71,74 @@ def ssd_scan_kernel(x, dt, A, B, C, *, chunk: int):
     return y, hT, states
 
 
-def ssd_scan_bwd_kernel(x, dt, A, B, C, states, dy, *, chunk: int):
+_SMS = {}
+MAX_GROUP = 10      # heads of a head group of the bf16 backward
+
+
+def bwd_group(Bs: int, nc: int, H: int, device) -> int:
+    """Heads per block of the bf16 backward kernels, one block per (chunk,
+    batch row, head group) and one block on an SM at a time. A block's
+    time is about one head's work for each head of its group plus one for
+    its set-up (B and C staged, G = C B^T, one fp32 part of dB and dC
+    written), so the group size of at most ``MAX_GROUP`` whose waves of
+    blocks cost the least (waves x (group + 1)) wins, the larger group
+    on a tie."""
+    sms = _SMS.get(device)
+    if sms is None:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        _SMS[device] = sms
+    best = (None, 1)
+    for g in range(1, min(H, MAX_GROUP) + 1):
+        cost = -(-Bs * nc * -(-H // g) // sms) * (g + 1)
+        if best[0] is None or cost <= best[0]:
+            best = (cost, g)
+    return best[1]
+
+
+def ssd_scan_bwd_kernel(x, dt, A, B, C, states, dy, *, chunk: int,
+                        group=None):
     """Backward of ``ssd_scan_kernel`` for a gradient ``dy`` of y: the
     forward's inputs and states -> (dx, ddt, dA, dB, dC), each in its
-    input's dtype. The per-block parts of dB and dC (one per head) and of
-    dA (one per batch row) are summed here."""
+    input's dtype. Two routes by dtype, one launch count: bf16 x, B, C run
+    the tensor-core kernels (``group`` heads a block, ``bwd_group``'s
+    choice unless given: tests only), whose per-chunk parts of dA are
+    summed here; fp32 runs the CUDA-core kernels, whose per-head parts of
+    dB and dC and per-row parts of dA are summed here."""
     x, dt, A, B, C = (t.contiguous() for t in (x, dt, A, B, C))
     states, dy = states.contiguous(), dy.float().contiguous()
     Bs, T, H, hd, S = _args(x, dt, A, B, C, chunk)
     _lib.require_cuda(x, states, dy)
-    if dy.shape != x.shape or states.shape != (Bs, H, T // chunk, hd, S) \
+    nc = T // chunk
+    if dy.shape != x.shape or states.shape != (Bs, H, nc, hd, S) \
             or states.dtype != torch.float32:
         raise ValueError("ssd_scan_bwd: dy must be [Bs,T,H,hd], states "
                          "[Bs,H,T/chunk,hd,S] fp32")
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     ddt = torch.empty((Bs, T, H), **f32)
+    ub = torch.empty((Bs, T, H), **f32)
+    if x.dtype == torch.bfloat16:
+        g = group or bwd_group(Bs, nc, H, x.device)
+        groups = -(-H // g)
+        dAp = torch.empty((Bs, H, nc), **f32)
+        dB, dC = torch.empty_like(B), torch.empty_like(C)
+        dBp = torch.empty((groups, Bs, T, S), **f32)
+        dCp = torch.empty((groups, Bs, T, S), **f32)
+        Dc = torch.empty((Bs, H, nc, hd, S), **f32)
+        send = torch.empty((Bs, H, nc), **f32)
+        rc = _lib.func("ssd_scan_bwd_tc")(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), states.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+            ddt.data_ptr(), dAp.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+            dBp.data_ptr(), dCp.data_ptr(), ub.data_ptr(), Dc.data_ptr(),
+            send.data_ptr(), Bs, T, H, hd, S, chunk, g, _lib.stream_of(x))
+        _lib.LAUNCHES["ssd_scan_bwd"] += 1
+        _lib.check(rc, "ssd_scan_bwd")
+        return dx, ddt, dAp.sum((0, 2)), dB, dC
     dAp = torch.empty((Bs, H), **f32)
     dBp = torch.empty((Bs, H, T, S), **f32)
     dCp = torch.empty((Bs, H, T, S), **f32)
-    ub = torch.empty((Bs, T, H), **f32)
-    rc = _lib.lib("ssd_scan").ssd_scan_bwd(
+    rc = _lib.func("ssd_scan_bwd")(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
         C.data_ptr(), states.data_ptr(), dy.data_ptr(), dx.data_ptr(),
         ddt.data_ptr(), dAp.data_ptr(), dBp.data_ptr(), dCp.data_ptr(),

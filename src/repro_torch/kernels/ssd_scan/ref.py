@@ -101,3 +101,95 @@ def ssd_scan_ref(x, dt, A, B, C, h0):
             "bh,bhd,bs->bhds", dt[:, t], xf[:, t], Bf[:, t])
         ys.append(torch.einsum("bs,bhds->bhd", Cf[:, t], h))
     return torch.stack(ys, dim=1), h
+
+
+def ssd_scan_bwd_chunks_ref(x, dt, A, B, C, dy, *, chunk: int,
+                            group: int = 8):
+    """The bf16 backward kernels' algebra in plain PyTorch (fp32), step
+    by step as csrc/ssd_scan.cu computes it; the same function as
+    ``ssd_scan_bwd_ref``, for the tests. Per (batch row, chunk c, head),
+    with s the chunk's cumsum of dt * A, L[t,j] = e^{s_t-s_j} (j <= t)
+    and h_c the forward's state before the chunk:
+
+    - D_c = sum_t e^{s_t} dy_t C_t^T, and the reverse carry R_c (the
+      gradient of the state after chunk c): R_{c-1} = e^{s_end} R_c +
+      D_c, R_last = 0;
+    - G = C B^T of the chunk, one for every head;
+    - dxd_j = sum_t G L dy_t + e^{s_end-s_j} R_c B_j, dx = dt dxd;
+    - dB_j = sum_t N L dt_j C_t + e^{s_end-s_j} dt_j R_c^T x_j and dC_t
+      = sum_j N L dt_j B_j + e^{s_t} h_c^T dy_t, with N = dy x^T, each
+      summed over the ``group`` heads of a head group, then over the
+      groups in order;
+    - dloga_k, the sum of P(t,j) = G L N dt_j over the pairs j < k <= t,
+      in four parts: inside the chunk, the exclusive prefix sum over k of
+      (sum_{t>k} P(t,k) - sum_{j<k} P(k,j)); t here and j before (a
+      suffix sum of u_t = e^{s_t} C_t.(h_c^T dy_t)); j here and t after
+      (a prefix sum of v_j = e^{s_end-s_j} dt_j x_j.(R_c B_j)); j before
+      and t after (e^{s_end} <R_c, h_c>);
+    - ddt = A dloga + x.dxd, dA = sum dt dloga.
+
+    Returns (dx, ddt, dA, dB, dC), each in its input's dtype."""
+    Bs, T, H, hd = x.shape
+    S = B.shape[-1]
+    nc = T // chunk
+    f = torch.float32
+    _, _, states = ssd_scan_fwd_ref(x, dt, A, B, C, chunk=chunk)
+    hs = states.transpose(1, 2)                       # [B,nc,H,hd,S]
+    xs = x.reshape(Bs, nc, chunk, H, hd).to(f)
+    dts = dt.reshape(Bs, nc, chunk, H).to(f)
+    Bc = B.reshape(Bs, nc, chunk, S).to(f)
+    Cc = C.reshape(Bs, nc, chunk, S).to(f)
+    dys = dy.reshape(Bs, nc, chunk, H, hd).to(f)
+    s = torch.cumsum(dts * A.to(f), dim=2)            # [B,nc,c,H]
+    s_end = s[:, :, -1]                               # [B,nc,H]
+    es, w = torch.exp(s), torch.exp(s_end[:, :, None] - s)
+
+    # the carry: D_c, then the reverse pass over the chunks
+    D = torch.einsum("bnth,bnthd,bnts->bnhds", es, dys, Cc)
+    R = torch.empty_like(D)
+    carry = torch.zeros_like(D[:, 0])
+    for c in range(nc - 1, -1, -1):
+        R[:, c] = carry
+        carry = torch.exp(s_end[:, c])[..., None, None] * carry + D[:, c]
+
+    G = torch.einsum("bnts,bnjs->bntj", Cc, Bc)       # shared by the heads
+    ar = torch.arange(chunk, device=x.device)
+    tri = (ar[:, None] >= ar[None, :])[None, None, :, :, None]
+    li = torch.where(tri, s[:, :, :, None, :] - s[:, :, None, :, :], 0.0)
+    L = torch.where(tri, torch.exp(li), 0.0)          # [B,nc,t,j,H]
+    M = G[..., None] * L
+    N = torch.einsum("bnthd,bnjhd->bntjh", dys, xs)
+    Nd = N * L * dts[:, :, None]                      # dt_j on column j
+
+    RB = torch.einsum("bnhds,bnjs->bnjhd", R, Bc)
+    dxd = torch.einsum("bntjh,bnthd->bnjhd", M, dys) + w[..., None] * RB
+    RX = torch.einsum("bnhds,bnjhd->bnjhs", R, xs)
+    dB_h = torch.einsum("bntjh,bnts->bnjhs", Nd, Cc) \
+        + (w * dts)[..., None] * RX
+    hdy = torch.einsum("bnhds,bnthd->bnths", hs, dys)
+    dC_h = torch.einsum("bntjh,bnjs->bnths", Nd, Bc) + es[..., None] * hdy
+    groups = -(-H // group)
+    dB = sum(dB_h[:, :, :, g * group:(g + 1) * group].sum(3)
+             for g in range(groups))
+    dC = sum(dC_h[:, :, :, g * group:(g + 1) * group].sum(3)
+             for g in range(groups))
+
+    P = G[..., None] * Nd                             # [B,nc,t,j,H]
+    strict = (ar[:, None] > ar[None, :])[None, None, :, :, None]
+    P = torch.where(strict, P, 0.0)
+    col = P.sum(2)                                    # sum_{t>k} P(t,k)
+    row = P.sum(3)                                    # sum_{j<k} P(k,j)
+    intra = torch.cumsum(col - row, dim=2) - (col - row)
+    u = es * (Cc[:, :, :, None] * hdy).sum(-1)
+    usuf = torch.flip(torch.cumsum(torch.flip(u, [2]), 2), [2])
+    v = w * dts * (xs * RB).sum(-1)
+    vpre = torch.cumsum(v, 2) - v
+    across = torch.exp(s_end) * (R * hs).sum((-1, -2))
+    dloga = intra + usuf + vpre + across[:, :, None]
+
+    ddt = A.to(f) * dloga + (xs * dxd).sum(-1)
+    dA = (dts * dloga).sum((0, 1, 2))
+    dx = (dts[..., None] * dxd).reshape(Bs, T, H, hd)
+    return (dx.to(x.dtype), ddt.reshape(Bs, T, H).to(dt.dtype),
+            dA.to(A.dtype), dB.reshape(Bs, T, S).to(B.dtype),
+            dC.reshape(Bs, T, S).to(C.dtype))

@@ -385,6 +385,94 @@ def test_ssd_kernels_match_plain(cuda, dtype, Bs, T, H, hd, S, chunk):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("Bs,T,H,hd,S,chunk,group", [
+    (2, 512, 12, 64, 128, 128, 4), (1, 384, 7, 32, 32, 128, 3),
+    (2, 200, 5, 64, 32, 100, 2), (1, 256, 6, 32, 128, 64, None)])
+def test_ssd_bf16_backward_matches_plain(cuda, Bs, T, H, hd, S, chunk,
+                                         group):
+    """K6's bf16 backward (the tensor-core kernels) at several chunks and
+    head groups, a ragged head group among them, against autograd
+    through the chunked form and against the plain mirror of its own
+    algebra (``ssd_scan_bwd_chunks_ref``), at ``_ssd_close``; dy in fp32
+    (its lo halves nonzero) and in bf16 values (none), as in training."""
+    rng = np.random.default_rng(11)
+
+    def t(shape, scale=1.0, dt_=torch.bfloat16):
+        return torch.from_numpy(rng.standard_normal(shape) * scale).to(
+            cuda, dt_)
+    x, B, C = t((Bs, T, H, hd)), t((Bs, T, S), 0.5), t((Bs, T, S), 0.5)
+    dt = torch.nn.functional.softplus(t((Bs, T, H), dt_=torch.float32))
+    A = -torch.exp(t((H,), dt_=torch.float32))
+    for dy in (t((Bs, T, H, hd), dt_=torch.float32),
+               t((Bs, T, H, hd)).float()):
+        _, _, st = sker.ssd_scan_kernel(x, dt, A, B, C, chunk=chunk)
+        got = sker.ssd_scan_bwd_kernel(x, dt, A, B, C, st, dy, chunk=chunk,
+                                       group=group)
+        want = sref.ssd_scan_bwd_ref(x, dt, A, B, C, dy, chunk=chunk)
+        mirror = sref.ssd_scan_bwd_chunks_ref(x, dt, A, B, C, dy,
+                                              chunk=chunk, group=group or 8)
+        for g, w, m, src in zip(got, want, mirror, (x, dt, A, B, C)):
+            assert g.dtype == src.dtype and g.shape == src.shape
+            _ssd_close(g, w)
+            _ssd_close(g, m)
+
+
+@pytest.mark.gpu
+def test_ssd_bf16_backward_is_deterministic(cuda):
+    """Two calls of K6's bf16 backward give the same bits: dB and dC sum
+    the head groups' parts in group order, dA the chunks' parts in a
+    fixed order; no atomics."""
+    rng = np.random.default_rng(12)
+    Bs, T, H, hd, S = 2, 512, 10, 64, 128
+
+    def t(shape, dt_=torch.bfloat16):
+        return torch.from_numpy(rng.standard_normal(shape)).to(cuda, dt_)
+    x, B, C = t((Bs, T, H, hd)), t((Bs, T, S)), t((Bs, T, S))
+    dt = torch.nn.functional.softplus(t((Bs, T, H), torch.float32))
+    A = -torch.exp(t((H,), torch.float32))
+    dy = t((Bs, T, H, hd), torch.float32)
+    _, _, st = sker.ssd_scan_kernel(x, dt, A, B, C, chunk=128)
+    a = sker.ssd_scan_bwd_kernel(x, dt, A, B, C, st, dy, chunk=128, group=3)
+    b = sker.ssd_scan_bwd_kernel(x, dt, A, B, C, st, dy, chunk=128, group=3)
+    assert all(torch.equal(p, q) for p, q in zip(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("vdt,pdt", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("KV_,hd_", [(2, 64), (8, 128), (3, 12)])
+def test_appends_bit_exact_at_odd_rows(cuda, vdt, pdt, KV_, hd_):
+    """K1 and K3 at odd row counts (7 tokens; 3 x 5 chunk rows) with
+    parked rows, every value/pool dtype pair (the casts round as torch's
+    ``.to``), rows of 128 elements (several rows a block), of 1024 and of
+    36 (not a multiple of a 16-byte vector: the scalar route): bit-exact
+    against the plain versions, but for the scratch row."""
+    from repro_torch.kernels.paged_attention import kernel as pker
+    rng = np.random.default_rng(13)
+    nblk, page = 9, 4
+    w = KV_ * hd_
+
+    def t(shape, dtype):
+        return torch.from_numpy(rng.standard_normal(shape)).to(cuda, dtype)
+    for kern, plain, shape in (
+            (pker.paged_append_token_kernel, pref.paged_append_token_ref,
+             (7,)),
+            (pker.paged_append_chunk_kernel, pref.paged_append_chunk_ref,
+             (3, 5))):
+        n = int(np.prod(shape))
+        s = rng.choice((nblk - 1) * page, size=n, replace=False)
+        s[[1, n - 2]] = -1                                  # parked rows
+        slots = torch.from_numpy(s.reshape(shape).astype(np.int32)).to(cuda)
+        vals = (t(shape + (KV_, hd_), vdt), t(shape + (KV_, hd_), vdt))
+        base = (t((nblk, page, KV_, hd_), pdt), t((nblk, page, KV_, hd_), pdt))
+        got = kern(tuple(p.clone() for p in base), vals, slots)
+        want = plain(tuple(p.clone() for p in base), vals, slots)
+        for g, wt in zip(got, want):
+            assert torch.equal(g.view(-1, w)[:-1], wt.view(-1, w)[:-1])
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,T,C,near_one", [
     (2, 64, 128, False), (1, 100, 96, False), (2, 300, 200, True),

@@ -112,6 +112,49 @@ def test_plain_backward_matches_jax(Bs, T, H, hd, S, chunk):
                                    err_msg=f"d{name}")
 
 
+@pytest.mark.parametrize("Bs,T,H,hd,S,chunk,group", [
+    (2, 64, 4, 32, 32, 32, 8), (1, 96, 10, 64, 128, 32, 4),
+    (2, 128, 8, 64, 32, 64, 3), (1, 256, 5, 32, 128, 128, 2),
+    (2, 100, 3, 32, 32, 32, 2)])                          # last: ragged
+def test_chunk_parallel_backward_algebra(Bs, T, H, hd, S, chunk, group):
+    """``ssd_scan_bwd_chunks_ref``, the bf16 backward kernels' algebra
+    (the reverse carry, G = C B^T shared by a head group, dloga in its
+    four pair parts), against autograd through the chunked form and
+    against ``jax.grad`` of the JAX model's chunked form, on inputs
+    padded as the op pads them; the tolerance of the gradients above."""
+    ins = _inputs(Bs, T, H, hd, S, seed=3)
+    w = np.random.default_rng(4).standard_normal(
+        (Bs, T, H, hd)).astype(np.float32)
+
+    def jloss(*a):
+        return jnp.sum(_jax_chunked(*a, chunk)[0] * w)
+    jax_grads = jax.grad(jloss, argnums=tuple(range(5)))(
+        *map(jnp.asarray, ins))
+    ch = min(chunk, T)
+    pad = (-T) % ch
+
+    def padded(a):
+        a = torch.from_numpy(a)
+        return torch.nn.functional.pad(a, (0, 0) * (a.dim() - 2) + (0, pad)) \
+            if a.dim() > 1 else a
+    x, dt, A, B, C = map(padded, ins)
+    dy = padded(w)
+    got = sref.ssd_scan_bwd_chunks_ref(x, dt, A, B, C, dy, chunk=ch,
+                                       group=group)
+    want = sref.ssd_scan_bwd_ref(x, dt, A, B, C, dy, chunk=ch)
+    for name, g, wt, jg, src in zip(("x", "dt", "A", "B", "C"), got, want,
+                                    jax_grads, (x, dt, A, B, C)):
+        assert g.shape == src.shape and g.dtype == src.dtype
+        np.testing.assert_allclose(g.numpy(), wt.numpy(), rtol=1e-4,
+                                   atol=1e-4 * float(wt.abs().max()),
+                                   err_msg=f"d{name} vs autograd")
+        g = g[:, :T] if g.dim() > 1 else g
+        jg = np.asarray(jg)
+        np.testing.assert_allclose(g.numpy(), jg, rtol=1e-4,
+                                   atol=1e-4 * np.abs(jg).max(),
+                                   err_msg=f"d{name} vs jax.grad")
+
+
 def test_chunked_form_keeps_an_initial_state():
     """``ssd_chunked`` with h0 != 0 is the JAX model's (the serving
     slice will carry one)."""
