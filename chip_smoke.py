@@ -37,8 +37,12 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    also at rep = H/KV of 7 (H 14, KV 2, hd 64) and 12 (H 96, KV 8, hd
    128), with K2's split count and K4's blocks printed; K1's and K3's
    device time a launch (torch.profiler) printed beside their events
-   time and ``index_copy_``'s; K4's bf16 kernel and K6's bf16 backward
-   kernels (dc_tc, dxb_tc) must show HGMMA instructions in their SASS;
+   time and ``index_copy_``'s, and so is the device time a call of each
+   of K6's three bf16 forward kernels (chunk_state_tc, state_pass,
+   chunk_scan_tc) beside the forward's events time; K4's bf16 kernel and
+   K6's bf16 tensor-core kernels (forward chunk_state_tc and
+   chunk_scan_tc, backward dc_tc and dxb_tc) must show HGMMA
+   instructions in the SASS of every instance;
 4. serve a small request trace with the reduced llama3-8b in fp32 on the
    card and on the CPU (plain versions): the greedy tokens and the phase
    log must be identical; then four requests over a 12-block pool, where
@@ -74,7 +78,7 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    AdamW moments), batch 4 x 2048 tokens, 20 steps, as phase 8: finite
    losses, the last below the first, and K6 launched 128 times forward
    and 64 times backward per step; then two profiled steps (the bf16
-   backward's four kernels by name);
+   forward's three kernels and the bf16 backward's four by name);
 11. train the 4-layer RecurrentGemma test config (reduced
    recurrentgemma-9b with one whole super-layer and one more RG-LRU
    layer) three fp32 steps of 128 tokens on the card (K7, K5) and on
@@ -112,6 +116,8 @@ SERVE_KERNELS = ("paged_append_token", "paged_attention",
                  "paged_append_chunk", "paged_flash_prefill")
 TRAIN_KERNELS = ("flash_prefill", "flash_prefill_bwd")
 MAMBA_KERNELS = ("ssd_scan", "ssd_scan_bwd")
+# K6's bf16 forward kernels, in launch order
+SSD_FWD_TC = ("chunk_state_tc", "state_pass", "chunk_scan_tc")
 MAMBA_STEPS = 20
 # the bf16 K5 kernels' classes in the profiled breakdowns
 FLASH_CLASSES = (("flash_prefill_bwd dq", "dq_tc"),
@@ -534,7 +540,8 @@ def print_hgmma() -> None:
     """HGMMA instructions in the SASS of each kernel of the flash_prefill,
     paged_prefill and ssd_scan libraries (cuobjdump), where cuobjdump
     exists; printed, and K4's bf16 kernel (prefill_tc) and K6's bf16
-    backward kernels (dc_tc, dxb_tc) must have some."""
+    tensor-core kernels (forward chunk_state_tc, chunk_scan_tc; backward
+    dc_tc, dxb_tc) must have some in every instance."""
     import re
     import shutil
 
@@ -561,12 +568,11 @@ def print_hgmma() -> None:
     for hd in (64, 128):
         check(counts.get(f"prefill_tc<{hd}>", 0) > 0,
               f"K4's bf16 kernel prefill_tc<{hd}> has no HGMMA")
-    for k in ("dc_tc", "dxb_tc"):
+    for k in ("chunk_state_tc", "chunk_scan_tc", "dc_tc", "dxb_tc"):
         for hd in (32, 64):
             for S in (32, 128):
                 check(counts.get(f"{k}<{hd}, {S}>", 0) > 0,
-                      f"K6's bf16 backward kernel {k}<{hd}, {S}> has no "
-                      f"HGMMA")
+                      f"K6's bf16 kernel {k}<{hd}, {S}> has no HGMMA")
 
 
 def ssd_close(torch, got, want, what):
@@ -592,8 +598,10 @@ def ssd_rows(torch, gen):
     """K6 forward and backward against their plain versions at the
     training shape of mamba2-2.7b (batch 4 x 2048 tokens, 80 heads of
     64, d_state 128, chunk 128) and at a small ragged shape through the
-    autograd op, in fp32 and with bf16 x, B and C; then timed in bf16 at
-    the training shape."""
+    autograd op, in fp32 and with bf16 x, B and C (the tensor-core
+    routes; the backward is fed the forward's states); then timed in
+    bf16 at the training shape, with each bf16 forward kernel's device
+    time a call."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.ssd_scan import kernel as sk
@@ -674,13 +682,15 @@ def ssd_rows(torch, gen):
     # and dy (fp32) in, their five gradients out
     fwd_b = bound(xb + dtb + H * 4 + bcb + yb + htb, fwd_f)
     bwd_b = bound(2 * (xb + dtb + H * 4 + bcb) + yb, bwd_f)
+
+    def fwd():
+        sk.ssd_scan_kernel(*ins, chunk=ch)
     rows = [dict(
         name="ssd_scan", route="cuda",
         source="src/repro_torch/kernels/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan/kernel.py:67",
         max_abs_err=max(errs["fwd"]),
-        ms=time_ms(torch, lambda: sk.ssd_scan_kernel(*ins, chunk=ch),
-                   iters=5),
+        ms=time_ms(torch, fwd, iters=5),
         plain_ms=time_ms(torch, lambda: sr.ssd_scan_fwd_ref(*ins, chunk=ch),
                          iters=3, warm=1, windows=3),
         bound_ms=fwd_b[0], bound_by=fwd_b[1], library_ms=None), dict(
@@ -693,6 +703,11 @@ def ssd_rows(torch, gen):
         plain_ms=time_ms(torch, lambda: sr.ssd_scan_bwd_ref(
             *ins, dy, chunk=ch), iters=2, warm=1, windows=3),
         bound_ms=bwd_b[0], bound_by=bwd_b[1], library_ms=None)]
+    dev = {k: launch_device_ms(torch, fwd, k, iters=5) for k in SSD_FWD_TC}
+    print(f"  ssd_scan bf16 [{Bs},{T},{H},{hd}] S={S}: events "
+          f"{rows[0]['ms']:.4f} ms a call; device a call (profiler): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in dev.items())
+          + f" (sum {sum(dev.values()):.4f} ms)")
     del ins, dy, y, hT, st
     return rows
 
@@ -1239,13 +1254,16 @@ def train_mamba2(torch):
         train(cfg, steps=2, log=lambda s: None, **kw)
         wall = time.perf_counter() - t0
     print_breakdown("mamba2 breakdown", prof, wall, (
+        ("ssd_scan states (bf16)", "chunk_state_tc"),
+        ("ssd_scan pass (bf16)", "state_pass"),
+        ("ssd_scan y (bf16)", "chunk_scan_tc"),
+        ("ssd_scan (fp32)", "fwd_kernel"),
         ("ssd_scan_bwd dC (bf16)", "dc_tc"),
         ("ssd_scan_bwd carry (bf16)", "carry_kernel"),
         ("ssd_scan_bwd dx dB (bf16)", "dxb_tc"),
         ("ssd_scan_bwd group sums (bf16)", "sum_groups"),
         ("ssd_scan_bwd dC (fp32)", "dc_kernel"),
         ("ssd_scan_bwd scan (fp32)", "bwd_scan_kernel"),
-        ("ssd_scan", "fwd_kernel"),
         ("elementwise", "elementwise"),
         ("reduction", "reduce_kernel")))
     gc_collect(torch)

@@ -61,6 +61,7 @@ _SIGNATURES = {
         "flash_tc_smem": [_I, _I]},
     "ssd_scan": {
         "ssd_scan_fwd": [_P] * 8 + [_I] * 7 + [_P],
+        "ssd_scan_fwd_tc": [_P] * 9 + [_I] * 7 + [_P],
         "ssd_scan_bwd": [_P] * 13 + [_I] * 7 + [_P],
         "ssd_scan_bwd_tc": [_P] * 17 + [_I] * 7 + [_P]},
     "rglru_scan": {

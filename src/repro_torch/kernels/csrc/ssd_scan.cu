@@ -13,7 +13,10 @@
 //   y_i = sum_{j<=i} (C_i.B_j) e^{s_i-s_j} dt_j x_j  +  e^{s_i} C_i h
 //   h  <- e^{s_last} h + sum_j e^{s_last-s_j} dt_j x_j B_j^T
 //
-// Forward (fwd_kernel): blocks run in no order on Hopper, so the chunk
+// Forward, two routes by dtype.
+//
+// fp32 (fwd_kernel, the CUDA cores, which alone hold fp32's rtol of
+// 1e-4): blocks run in no order on Hopper, so the chunk
 // loop lives inside the block: one block per (head, batch row) sweeps
 // the chunks in order with the fp32 state in shared memory. Per chunk it
 // stages B and dt*x in fp32, then walks the rows in tiles of 32: each
@@ -26,6 +29,24 @@
 // kernel, though every head of a row reads the same B and C. The state
 // before each chunk is written out for the backward (168 MB at the
 // training shape, about 0.05 ms of bandwidth).
+//
+// bf16 x, B and C (the training path): chunk-parallel kernels on the
+// tensor cores (namespace tc), one block per (chunk, batch row, group of
+// heads) where a block works on chunks, three launches on one stream:
+//  1. chunk_state_tc: per head the chunk's own state S_c = sum_j
+//     e^{s_end-s_j} dt_j x_j B_j^T [hd,S] (the shape of the backward's
+//     D_c), written into the states slot of chunk c+1 (hT for the last
+//     chunk), and s_end into a scratch row;
+//  2. state_pass: the forward pass over the chunks in place, h_0 = 0,
+//     h_{c+1} = e^{s_end(c)} h_c + S_c, which leaves each slot holding the
+//     state before its chunk and hT the final state;
+//  3. chunk_scan_tc: G = C B^T once for all heads of the group, then per
+//     head y_t = sum_{j<=t} (G o L)_{tj} dt_j x_j + e^{s_t} C_t.h_c.
+// x, B and C enter the products as exact bf16 operands; w dt x, h_c and
+// the masked, decayed G o L dt as bf16 hi + lo halves; e^{s_t}
+// multiplies the fp32 accumulator rows. Each block stages the next
+// head's x (cp.async) and state (into registers) while this head's
+// products run. Deterministic: fixed-order sums, no atomics.
 //
 // Backward, with dxd_j the gradient of dt_j x_j, P(t,j) = (C_t.B_j)
 // e^{s_t-s_j} (dy_t.xd_j) for j <= t, and the carry R = sum over later
@@ -84,7 +105,9 @@
 // Bound on the H100 at the training shape (Bs 4, T 2048, H 80, hd 64,
 // S 128): bytes. The forward moves about 0.27 GB (y in fp32 is most of
 // it) for about 54 GFLOP; fwd_kernel runs its products on the CUDA cores
-// in fp32, where that work, not the bytes, is its limit. The backward's
+// in fp32, where that work, not the bytes, is its limit. The bf16 route
+// runs them on the tensor cores and moves about 1.0 GB (x twice, the
+// states written, passed and read, y), at least 0.30 ms. The backward's
 // about 140 GFLOP sit above its bytes at the bf16 tensor-core rate (0.141
 // ms); its bf16 route runs them on the tensor cores, and its time goes
 // to staging each head's dy, states and x from device memory, which
@@ -799,40 +822,65 @@ __device__ bool stage_dy(uint8_t* gen, uint32_t dh, uint32_t dl,
   return __syncthreads_or(any) != 0;
 }
 
-// An [HD, S] fp32 state (row-major) into the hi and lo tiles at th, tl (64
-// x SP, zero past HD and S), every load before the first store; with
-// DOT, ``dot`` gains this thread's part of <src, other>.
-template <int HD, int S, bool DOT>
-__device__ void stage_state(uint8_t* gen, uint32_t th, uint32_t tl,
-                            const float* __restrict__ src,
-                            const float* __restrict__ other, float& dot,
-                            int tid) {
-  constexpr int CPR = Pad<S>::SP / 8, IT = 64 * CPR / NTB;
-  float v[IT][8], o[DOT ? IT : 1][8];
+// This thread's IT x 8 entries of an [HD, S] fp32 state (row-major, zero
+// past HD and S) as a 64 x SP tile: load_state reads them from device
+// memory (loads only), store_state writes them into the hi and lo tiles
+// at th, tl.
+template <int S> struct StateFrag {
+  static constexpr int CPR = Pad<S>::SP / 8, IT = 64 * CPR / NTB;
+};
+template <int HD, int S>
+__device__ __forceinline__ void load_state(
+    float (&v)[StateFrag<S>::IT][8], const float* __restrict__ src,
+    int tid) {
+  constexpr int CPR = StateFrag<S>::CPR;
 #pragma unroll
-  for (int k = 0; k < IT; ++k) {
+  for (int k = 0; k < StateFrag<S>::IT; ++k) {
     const int r = (tid + k * NTB) / CPR, c = (tid + k * NTB) % CPR;
     if (r < HD && c * 8 < S) {
       load8(v[k], src + r * S + c * 8);
-      if (DOT) load8(o[DOT ? k : 0], other + r * S + c * 8);
     } else {
 #pragma unroll
-      for (int q = 0; q < 8; ++q) v[k][q] = o[DOT ? k : 0][q] = 0.f;
+      for (int q = 0; q < 8; ++q) v[k][q] = 0.f;
     }
   }
+}
+template <int S>
+__device__ __forceinline__ void store_state(
+    uint8_t* gen, uint32_t th, uint32_t tl,
+    const float (&v)[StateFrag<S>::IT][8], int tid) {
+  constexpr int CPR = StateFrag<S>::CPR;
 #pragma unroll
-  for (int k = 0; k < IT; ++k) {
+  for (int k = 0; k < StateFrag<S>::IT; ++k) {
     const int r = (tid + k * NTB) / CPR, c = (tid + k * NTB) % CPR;
-    if (DOT) {
-#pragma unroll
-      for (int q = 0; q < 8; ++q) dot += v[k][q] * o[DOT ? k : 0][q];
-    }
     uint4 hi, lo;
     split8(v[k], hi, lo);
     const uint32_t off = hop::tall_off<64>(r, c);
     *reinterpret_cast<uint4*>(gen + th + off) = hi;
     *reinterpret_cast<uint4*>(gen + tl + off) = lo;
   }
+}
+
+// An [HD, S] fp32 state into the hi and lo tiles at th, tl, every load
+// before the first store; with DOT, ``dot`` gains this thread's part of
+// <src, other>.
+template <int HD, int S, bool DOT>
+__device__ void stage_state(uint8_t* gen, uint32_t th, uint32_t tl,
+                            const float* __restrict__ src,
+                            const float* __restrict__ other, float& dot,
+                            int tid) {
+  constexpr int IT = StateFrag<S>::IT;
+  float v[IT][8];
+  load_state<HD, S>(v, src, tid);
+  if constexpr (DOT) {
+    float o[IT][8];
+    load_state<HD, S>(o, other, tid);
+#pragma unroll
+    for (int k = 0; k < IT; ++k)
+#pragma unroll
+      for (int q = 0; q < 8; ++q) dot += v[k][q] * o[k][q];
+  }
+  store_state<S>(gen, th, tl, v, tid);
 }
 
 // Dynamic shared memory: B, C, x, dy hi + lo, a state hi + lo, then
@@ -1408,6 +1456,355 @@ __global__ void sum_groups(const float* __restrict__ dBp,
       __floats2bfloat162_rn(sc[2], sc[3]);
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 forward on the tensor cores (the head comment gives the algebra)
+// ---------------------------------------------------------------------------
+
+// Warp 0: this lane's dt of head h over the chunk's rows lane + 32k (zero
+// past ch); loads only, so that they fly during the products.
+__device__ __forceinline__ void load_dt(float (&d)[4],
+                                        const float* __restrict__ dt,
+                                        long long row0, int H, int h, int ch,
+                                        int lane) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int i = lane + 32 * k;
+    d[k] = i < ch ? dt[(row0 + i) * H + h] : 0.f;
+  }
+}
+
+// Warp 0: a head's dt (from load_dt) into dtv, then sv, es and (given) wv
+// as chunk_decays fills them, every entry past ch zero.
+__device__ void head_decays(const float (&d)[4], float* dtv, float* sv,
+                            float* es, float* wv, int ch, float a) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int i = lane + 32 * k;
+    dtv[i] = d[k];
+    sv[i] = es[i] = 0.f;
+    if (wv) wv[i] = 0.f;
+  }
+  __syncwarp();
+  chunk_decays(dtv, sv, es, wv, ch, a);
+}
+
+// Dynamic shared memory: chunk_state_tc's B, two x tiles and two sets of
+// four vectors; chunk_scan_tc's B, C, two x tiles, two states hi + lo and
+// two sets of three vectors; 1024 bytes of alignment slack.
+template <int S> constexpr int state_smem() {
+  return Pad<S>::BC + 2 * XB + 2 * 4 * CP * 4 + 1024;
+}
+template <int S> constexpr int scan_smem() {
+  return 2 * Pad<S>::BC + 2 * XB + 4 * Pad<S>::ST + 2 * 3 * CP * 4 + 1024;
+}
+
+// The chunks' own states. One block per (chunk, batch row, head group),
+// two blocks an SM (at most 128 registers), so that one block's copies
+// overlap the other's products: B staged once, then per head S_c = (w dt
+// x)^T B with w_j = e^{s_end - s_j}: A from registers as hi + lo (rows d,
+// k steps j, made from x's tile one k step at a time), B N-major;
+// warpgroup w the columns [64w, 64w + 64) of S. S_c goes into the states
+// slot of chunk c + 1 (hT for the last chunk), s_end into ``send``. The
+// next head's x tile (cp.async) and dt (warp 0) are in flight during
+// this head's products.
+template <int HD, int S>
+__global__ void __launch_bounds__(NTB, 2)
+chunk_state_tc(const bf16* __restrict__ x, const float* __restrict__ dt,
+               const float* __restrict__ A, const bf16* __restrict__ Bm,
+               float* __restrict__ states, float* __restrict__ hT,
+               float* __restrict__ send, int Tn, int H, int ch, int group) {
+  constexpr int SP = Pad<S>::SP;
+  extern __shared__ uint8_t smraw[];
+  const uint32_t sm = hop::smem_base(smraw);
+  uint8_t* gen = smraw - hop::smem_u32(smraw);
+  const uint32_t bt = sm, xt0 = bt + Pad<S>::BC;  // x tile k at xt0 + k XB
+  float* vec0 = reinterpret_cast<float*>(gen + xt0 + 2 * XB);  // [2][4][CP]
+
+  const int c = blockIdx.x, b = blockIdx.y, g = blockIdx.z;
+  const int nc = Tn / ch;
+  const int h0 = g * group, h1 = min(H, h0 + group);
+  const int tid = threadIdx.x, wg = tid / 128, warp = tid / 32,
+            lane = tid % 32;
+  const long long row0 = (long long)b * Tn + (long long)c * ch;
+  const long long xld = (long long)H * HD;
+  const int nk = (ch + 15) / 16;  // live k steps of j
+  // Warp 0: a head's vectors into set k, wv then holding w dt; its s_end
+  // into send.
+  auto decays = [&](const float(&d)[4], int k, int h, float a) {
+    float* v = vec0 + k * 4 * CP;
+    head_decays(d, v, v + CP, v + 2 * CP, v + 3 * CP, ch, a);
+    for (int i = lane; i < ch; i += 32) v[3 * CP + i] *= v[i];
+    if (lane == 0) send[((long long)b * H + h) * nc + c] = v[CP + ch - 1];
+  };
+  hop::load_tall<CP, SP, NTB>(bt, Bm + row0 * S, S, ch, S, tid);
+  hop::load_tall<CP, 64, NTB>(xt0, x + row0 * xld + h0 * HD, xld, ch, HD,
+                              tid);
+  hop::cp_commit();
+  float dnext[4];
+  if (warp == 0) {
+    load_dt(dnext, dt, row0, H, h0, ch, lane);
+    decays(dnext, 0, h0, A[h0]);
+  }
+
+  for (int h = h0; h < h1; ++h) {
+    const int buf = (h - h0) & 1;
+    const uint32_t xt = xt0 + buf * XB;
+    const float* wd = vec0 + buf * 4 * CP + 3 * CP;  // w_j dt_j
+    hop::cp_wait<0>();
+    hop::fence_async_smem();
+    __syncthreads();  // this head's tile and vectors are in; the previous
+                      // head's are consumed
+    float anext = 0.f;
+    if (h + 1 < h1) {
+      hop::load_tall<CP, 64, NTB>(xt0 + (buf ^ 1) * XB,
+                                  x + row0 * xld + (h + 1) * HD, xld, ch,
+                                  HD, tid);
+      hop::cp_commit();
+      if (warp == 0) {
+        load_dt(dnext, dt, row0, H, h + 1, ch, lane);
+        anext = A[h + 1];
+      }
+    }
+    if (SP == 128 || wg == 0) {
+      float acc[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+      const uint32_t bw = bt + wg * CP * 128;
+      hop::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        if (kk < nk) {
+          // k step kk of A = (w dt x)^T: rows d are dims of x, columns j
+          uint32_t fh[4], fl[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float v[2];
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+              const int i = 8 * kk + 2 * e + q;
+              const int d = hop::acc_row(i), j = hop::acc_col(i);
+              v[q] = (d < HD && j < ch) ? wd[j] * tile_at(gen, xt, j, d)
+                                        : 0.f;
+            }
+            hop::split2(v[0], v[1], fh[e], fl[e]);
+          }
+          hop::mma_rs<64>(acc, fh, hop::desc_nt<CP>(bw, kk));
+          hop::mma_rs<64>(acc, fl, hop::desc_nt<CP>(bw, kk));
+        }
+      }
+      hop::wg_commit();
+      hop::wg_wait<0>();
+      hop::fence_regs(acc);
+      const long long bh = (long long)b * H + h;
+      float* out = c + 1 < nc ? states + (bh * nc + c + 1) * HD * S
+                              : hT + bh * HD * S;
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int d = hop::acc_row(i), n = wg * 64 + hop::acc_col(i);
+        if (d < HD && n < S)
+          *reinterpret_cast<float2*>(out + d * S + n) =
+              make_float2(acc[i], acc[i + 1]);
+      }
+    }
+    if (warp == 0 && h + 1 < h1) decays(dnext, buf ^ 1, h + 1, anext);
+  }
+}
+
+// The forward pass over the chunks, in place: the states slot of chunk
+// c + 1 holds S_c (hT S_last) and is left holding h_{c+1} = e^{s_end(c)}
+// h_c + S_c, slot 0 h_0 = 0, hT the final state. Elementwise and
+// bytes-bound, as carry_kernel: one thread per four elements of [HD, S]
+// of a (batch row, head), loading the S_c of CB chunks before it stores
+// any.
+__global__ void state_pass(float* states, float* hT,
+                           const float* __restrict__ send, long long per,
+                           long long n, int nc) {
+  constexpr int CB = 8;
+  const long long e = (blockIdx.x * (long long)blockDim.x + threadIdx.x) * 4;
+  if (e >= n) return;
+  const long long bh = e / per, r = e % per;
+  float4* last = reinterpret_cast<float4*>(hT + bh * per + r);
+  float4 carry = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int c0 = 0; c0 < nc; c0 += CB) {  // chunks [c0, c0 + CB)
+    float4 d[CB];
+    float f[CB];
+#pragma unroll
+    for (int k = 0; k < CB; ++k) {
+      const int c = c0 + k;
+      if (c < nc) {
+        d[k] = c + 1 < nc ? *reinterpret_cast<const float4*>(
+                                states + (bh * nc + c + 1) * per + r)
+                          : *last;
+        f[k] = expf(send[bh * nc + c]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < CB; ++k) {
+      const int c = c0 + k;
+      if (c < nc) {
+        *reinterpret_cast<float4*>(states + (bh * nc + c) * per + r) = carry;
+        carry.x = f[k] * carry.x + d[k].x;
+        carry.y = f[k] * carry.y + d[k].y;
+        carry.z = f[k] * carry.z + d[k].z;
+        carry.w = f[k] * carry.w + d[k].w;
+      }
+    }
+  }
+  *last = carry;
+}
+
+// y. One block per (chunk, batch row, head group), warpgroup w owning the
+// chunk's rows t in [64w, 64w + 64). Once per block: G = C B^T (SS), kept
+// in the registers. Per head, with h_c the state before the chunk (hi +
+// lo):
+//   y = C h_c^T (SS; the state K-major), its rows times e^{s_t};
+//   y += (G o L dt_j) x (G o L dt_j from registers as hi + lo, x N-major;
+//   the k steps of j past this warpgroup's rows skipped).
+// The next head's x tile (cp.async), state (into registers, split and
+// stored after the products) and dt (warp 0) are in flight during this
+// head's products.
+template <int HD, int S>
+__global__ void __launch_bounds__(NTB, 1)
+chunk_scan_tc(const bf16* __restrict__ x, const float* __restrict__ dt,
+              const float* __restrict__ A, const bf16* __restrict__ Bm,
+              const bf16* __restrict__ Cm, const float* __restrict__ states,
+              float* __restrict__ y, int Tn, int H, int ch, int group) {
+  constexpr int SP = Pad<S>::SP, ST = Pad<S>::ST;
+  extern __shared__ uint8_t smraw[];
+  const uint32_t sm = hop::smem_base(smraw);
+  uint8_t* gen = smraw - hop::smem_u32(smraw);
+  const uint32_t bt = sm, ct = bt + Pad<S>::BC, xt0 = ct + Pad<S>::BC;
+  const uint32_t st0 = xt0 + 2 * XB;  // state k: hi at st0 + 2k ST, lo + ST
+  float* vec0 = reinterpret_cast<float*>(gen + st0 + 4 * ST);  // [2][3][CP]
+
+  const int c = blockIdx.x, b = blockIdx.y, g = blockIdx.z;
+  const int nc = Tn / ch;
+  const int h0 = g * group, h1 = min(H, h0 + group);
+  const int tid = threadIdx.x, wg = tid / 128, warp = tid / 32,
+            lane = tid % 32;
+  const uint32_t arow = wg * 64 * 128;  // this warpgroup's rows of a tile
+  const long long row0 = (long long)b * Tn + (long long)c * ch;
+  const long long xld = (long long)H * HD;
+  const int nk = min(4 * (wg + 1), (ch + 15) / 16);  // live k steps of j
+  hop::load_tall<CP, SP, NTB>(bt, Bm + row0 * S, S, ch, S, tid);
+  hop::load_tall<CP, SP, NTB>(ct, Cm + row0 * S, S, ch, S, tid);
+  hop::load_tall<CP, 64, NTB>(xt0, x + row0 * xld + h0 * HD, xld, ch, HD,
+                              tid);
+  hop::cp_commit();
+  float hv[StateFrag<S>::IT][8], dnext[4];
+  load_state<HD, S>(hv, states + (((long long)b * H + h0) * nc + c) * HD * S,
+                    tid);
+  store_state<S>(gen, st0, st0 + ST, hv, tid);
+  if (warp == 0) {
+    load_dt(dnext, dt, row0, H, h0, ch, lane);
+    head_decays(dnext, vec0, vec0 + CP, vec0 + 2 * CP, nullptr, ch, A[h0]);
+  }
+  hop::cp_wait<0>();
+  hop::fence_async_smem();
+  __syncthreads();
+  float gacc[64];  // G = C B^T: rows t of this warpgroup, columns j
+#pragma unroll
+  for (int i = 0; i < 64; ++i) gacc[i] = 0.f;
+  hop::wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < S / 16; ++kk)
+    hop::mma_ss_t<128, 0>(gacc, hop::desc_kt<CP>(ct + arow, kk),
+                          hop::desc_kt<CP>(bt, kk), 1);
+  hop::wg_commit();
+  hop::wg_wait<0>();
+  hop::fence_regs(gacc);
+
+  for (int h = h0; h < h1; ++h) {
+    const int buf = (h - h0) & 1;
+    const uint32_t xt = xt0 + buf * XB, sh = st0 + 2 * buf * ST,
+                   sl = sh + ST;
+    const float* dtv = vec0 + buf * 3 * CP;
+    const float* sv = dtv + CP;
+    const float* es = sv + CP;
+    if (h > h0) {
+      hop::cp_wait<0>();
+      hop::fence_async_smem();
+      __syncthreads();  // this head's tiles and vectors are in; the
+                        // previous head's are consumed
+    }
+    float anext = 0.f;
+    if (h + 1 < h1) {
+      hop::load_tall<CP, 64, NTB>(xt0 + (buf ^ 1) * XB,
+                                  x + row0 * xld + (h + 1) * HD, xld, ch,
+                                  HD, tid);
+      hop::cp_commit();
+      load_state<HD, S>(
+          hv, states + (((long long)b * H + h + 1) * nc + c) * HD * S, tid);
+      if (warp == 0) {
+        load_dt(dnext, dt, row0, H, h + 1, ch, lane);
+        anext = A[h + 1];
+      }
+    }
+    float yacc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) yacc[i] = 0.f;
+    hop::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < S / 16; ++kk) {  // C h_c^T
+      hop::mma_ss_t<64, 0>(yacc, hop::desc_kt<CP>(ct + arow, kk),
+                           hop::desc_kt<64>(sh, kk), 1);
+      hop::mma_ss_t<64, 0>(yacc, hop::desc_kt<CP>(ct + arow, kk),
+                           hop::desc_kt<64>(sl, kk), 1);
+    }
+    hop::wg_commit();
+    hop::wg_wait<0>();
+    hop::fence_regs(yacc);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) yacc[i] *= es[wg * 64 + hop::acc_row(i)];
+    hop::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      if (kk < nk) {
+        uint32_t mh[4], ml[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float mv[2];
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int i = 8 * kk + 2 * e + q;
+            const int t = wg * 64 + hop::acc_row(i), j = hop::acc_col(i);
+            mv[q] = (j <= t && t < ch)
+                        ? gacc[i] * expf(sv[t] - sv[j]) * dtv[j] : 0.f;
+          }
+          hop::split2(mv[0], mv[1], mh[e], ml[e]);
+        }
+        hop::mma_rs<64>(yacc, mh, hop::desc_nt<CP>(xt, kk));
+        hop::mma_rs<64>(yacc, ml, hop::desc_nt<CP>(xt, kk));
+      }
+    }
+    hop::wg_commit();
+    hop::wg_wait<0>();
+    hop::fence_regs(yacc);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int t = wg * 64 + hop::acc_row(2 * r);
+      if (t >= ch) continue;
+      float* dst = y + (row0 + t) * xld + h * HD;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int i = 4 * q + 2 * r, d = hop::acc_col(i);
+        if (d < HD)
+          *reinterpret_cast<float2*>(dst + d) =
+              make_float2(yacc[i], yacc[i + 1]);
+      }
+    }
+    if (h + 1 < h1) {
+      store_state<S>(gen, st0 + 2 * (buf ^ 1) * ST,
+                     st0 + 2 * (buf ^ 1) * ST + ST, hv, tid);
+      if (warp == 0) {
+        float* nv = vec0 + (buf ^ 1) * 3 * CP;
+        head_decays(dnext, nv, nv + CP, nv + 2 * CP, nullptr, ch, anext);
+      }
+    }
+  }
+}
+
 }  // namespace tc
 
 template <typename K>
@@ -1492,6 +1889,32 @@ cudaError_t launch_bwd_tc(const void* x, const void* dt, const void* A,
   return cudaGetLastError();
 }
 
+template <int HD, int S>
+cudaError_t launch_fwd_tc(const void* x, const void* dt, const void* A,
+                          const void* B, const void* C, void* y, void* hT,
+                          void* states, void* send, int Bs, int Tn, int H,
+                          int ch, int group, cudaStream_t st) {
+  using tc::bf16;
+  const int nc = Tn / ch, groups = (H + group - 1) / group;
+  constexpr int s1 = tc::state_smem<S>(), s3 = tc::scan_smem<S>();
+  cudaError_t e = allow_smem(tc::chunk_state_tc<HD, S>, s1);
+  if (e == cudaSuccess) e = allow_smem(tc::chunk_scan_tc<HD, S>, s3);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(nc, Bs, groups);
+  tc::chunk_state_tc<HD, S><<<grid, tc::NTB, s1, st>>>(
+      (const bf16*)x, (const float*)dt, (const float*)A, (const bf16*)B,
+      (float*)states, (float*)hT, (float*)send, Tn, H, ch, group);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  const long long per = (long long)HD * S, n = (long long)Bs * H * per;
+  tc::state_pass<<<(unsigned)((n / 4 + 255) / 256), 256, 0, st>>>(
+      (float*)states, (float*)hT, (const float*)send, per, n, nc);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  tc::chunk_scan_tc<HD, S><<<grid, tc::NTB, s3, st>>>(
+      (const bf16*)x, (const float*)dt, (const float*)A, (const bf16*)B,
+      (const bf16*)C, (const float*)states, (float*)y, Tn, H, ch, group);
+  return cudaGetLastError();
+}
+
 // Runs CALL with T_, HD and S_ bound to the dtype code, head dim and
 // state size, or returns cudaErrorInvalidValue from the enclosing
 // function.
@@ -1536,6 +1959,29 @@ extern "C" int ssd_scan_fwd(const void* x, const void* dt, const void* A,
   cudaStream_t st = (cudaStream_t)stream;
   SSD_DISPATCH(dtype, hd, S, (launch_fwd<T_, HD, S_>(
       x, dt, A, B, C, y, hT, states, Bs, T, H, chunk, st)));
+}
+
+// The bf16 route (tensor cores): the forward's inputs and outputs, with
+// bf16 x, B and C; ``group`` heads a block; send [Bs,H,T/chunk] fp32 is
+// scratch.
+extern "C" int ssd_scan_fwd_tc(const void* x, const void* dt, const void* A,
+                               const void* B, const void* C, void* y,
+                               void* hT, void* states, void* send, int Bs,
+                               int T, int H, int hd, int S, int chunk,
+                               int group, void* stream) {
+  if (bad_shape(Bs, T, H, chunk) || group <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+#define SSD_TC(HD_, S_)                                                    \
+  if (hd == HD_ && S == S_)                                                \
+    return (int)launch_fwd_tc<HD_, S_>(x, dt, A, B, C, y, hT, states, send, \
+                                      Bs, T, H, chunk, group, st);
+  SSD_TC(32, 32)
+  SSD_TC(32, 128)
+  SSD_TC(64, 32)
+  SSD_TC(64, 128)
+#undef SSD_TC
+  return (int)cudaErrorInvalidValue;
 }
 
 // The forward's inputs and states, and dy [Bs,T,H,hd] fp32. Writes dx

@@ -10,12 +10,13 @@ chunk) whose chunk axis ran in order with the state in VMEM scratch; the
 backward has no TPU counterpart (XLA autodiff in the JAX package). On
 the H100 the training shape (Bs 4, T 2048, H 80, hd 64, S 128) is
 bytes-bound, at about 0.08 ms for the forward's 0.27 GB, while its 54
-GFLOP would take 0.054 ms at the bf16 tensor-core rate. The kernels run
-those products on the CUDA cores in fp32, one block per (head, batch
-row) sweeping the chunks with the state in shared memory, so they are
-bound by that arithmetic instead; the head file of ssd_scan.cu says how
-the work is tiled. The backward of bf16 inputs runs chunk-parallel
-kernels on the tensor cores instead, with C·Bᵀ made once per head group.
+GFLOP would take 0.054 ms at the bf16 tensor-core rate. Both directions
+dispatch by dtype. fp32 runs kernels whose products are on the CUDA
+cores in fp32 (the forward one block per (head, batch row) sweeping the
+chunks with the state in shared memory), bound by that arithmetic; bf16
+x, B and C run chunk-parallel kernels on the tensor cores, one block per
+(chunk, batch row, head group), with C·Bᵀ made once per head group. The
+head file of ssd_scan.cu says how the work is tiled.
 """
 from __future__ import annotations
 
@@ -52,37 +53,49 @@ def _args(x, dt, A, B, C, chunk: int):
     return Bs, T, H, hd, S
 
 
-def ssd_scan_kernel(x, dt, A, B, C, *, chunk: int):
+def ssd_scan_kernel(x, dt, A, B, C, *, chunk: int, group=None):
     """h0 = 0. Returns (y [Bs,T,H,hd] fp32, hT [Bs,H,hd,S] fp32, the state
     before each chunk [Bs,H,T/chunk,hd,S] fp32, which the backward
-    reads)."""
+    reads). Two routes by dtype, one launch count: bf16 x, B, C run the
+    tensor-core kernels (``group`` heads a block, ``head_group``'s choice
+    unless given: tests only); fp32 runs the CUDA-core kernel."""
     x, dt, A, B, C = (t.contiguous() for t in (x, dt, A, B, C))
     Bs, T, H, hd, S = _args(x, dt, A, B, C, chunk)
-    y = torch.empty((Bs, T, H, hd), dtype=torch.float32, device=x.device)
-    hT = torch.empty((Bs, H, hd, S), dtype=torch.float32, device=x.device)
-    states = torch.empty((Bs, H, T // chunk, hd, S), dtype=torch.float32,
-                         device=x.device)
-    rc = _lib.func("ssd_scan_fwd")(
-        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-        C.data_ptr(), y.data_ptr(), hT.data_ptr(), states.data_ptr(), Bs, T,
-        H, hd, S, chunk, _lib.dtype_code(x), _lib.stream_of(x))
+    nc = T // chunk
+    f32 = dict(dtype=torch.float32, device=x.device)
+    y = torch.empty((Bs, T, H, hd), **f32)
+    hT = torch.empty((Bs, H, hd, S), **f32)
+    states = torch.empty((Bs, H, nc, hd, S), **f32)
+    if x.dtype == torch.bfloat16:
+        send = torch.empty((Bs, H, nc), **f32)
+        rc = _lib.func("ssd_scan_fwd_tc")(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), y.data_ptr(), hT.data_ptr(), states.data_ptr(),
+            send.data_ptr(), Bs, T, H, hd, S, chunk,
+            group or head_group(Bs, nc, H, x.device), _lib.stream_of(x))
+    else:
+        rc = _lib.func("ssd_scan_fwd")(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), y.data_ptr(), hT.data_ptr(), states.data_ptr(),
+            Bs, T, H, hd, S, chunk, _lib.dtype_code(x), _lib.stream_of(x))
     _lib.LAUNCHES["ssd_scan"] += 1
     _lib.check(rc, "ssd_scan")
     return y, hT, states
 
 
 _SMS = {}
-MAX_GROUP = 10      # heads of a head group of the bf16 backward
+MAX_GROUP = 10      # heads of a head group of the bf16 kernels
 
 
-def bwd_group(Bs: int, nc: int, H: int, device) -> int:
-    """Heads per block of the bf16 backward kernels, one block per (chunk,
-    batch row, head group) and one block on an SM at a time. A block's
-    time is about one head's work for each head of its group plus one for
-    its set-up (B and C staged, G = C B^T, one fp32 part of dB and dC
-    written), so the group size of at most ``MAX_GROUP`` whose waves of
-    blocks cost the least (waves x (group + 1)) wins, the larger group
-    on a tie."""
+def head_group(Bs: int, nc: int, H: int, device) -> int:
+    """Heads per block of the bf16 kernels (forward and backward), one
+    block per (chunk, batch row, head group), counted as one block on an
+    SM at a time (the forward's ``chunk_state_tc`` fits two). A block's
+    time is about one head's work for each head of its group plus one
+    for its set-up (B and C staged, G = C B^T; in the backward one fp32
+    part of dB and dC written), so the group size of at most
+    ``MAX_GROUP`` whose waves of blocks cost the least (waves x (group +
+    1)) wins, the larger group on a tie."""
     sms = _SMS.get(device)
     if sms is None:
         sms = torch.cuda.get_device_properties(device).multi_processor_count
@@ -100,7 +113,7 @@ def ssd_scan_bwd_kernel(x, dt, A, B, C, states, dy, *, chunk: int,
     """Backward of ``ssd_scan_kernel`` for a gradient ``dy`` of y: the
     forward's inputs and states -> (dx, ddt, dA, dB, dC), each in its
     input's dtype. Two routes by dtype, one launch count: bf16 x, B, C run
-    the tensor-core kernels (``group`` heads a block, ``bwd_group``'s
+    the tensor-core kernels (``group`` heads a block, ``head_group``'s
     choice unless given: tests only), whose per-chunk parts of dA are
     summed here; fp32 runs the CUDA-core kernels, whose per-head parts of
     dB and dC and per-row parts of dA are summed here."""
@@ -118,7 +131,7 @@ def ssd_scan_bwd_kernel(x, dt, A, B, C, states, dy, *, chunk: int,
     ddt = torch.empty((Bs, T, H), **f32)
     ub = torch.empty((Bs, T, H), **f32)
     if x.dtype == torch.bfloat16:
-        g = group or bwd_group(Bs, nc, H, x.device)
+        g = group or head_group(Bs, nc, H, x.device)
         groups = -(-H // g)
         dAp = torch.empty((Bs, H, nc), **f32)
         dB, dC = torch.empty_like(B), torch.empty_like(C)

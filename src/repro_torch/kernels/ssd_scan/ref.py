@@ -7,7 +7,8 @@ masked ``C·Bᵀ`` products, an inter-chunk ``[hd, S]`` state carry) with
 function (``h0 = 0``, also returning the state before each chunk), and
 ``ssd_scan_bwd_ref`` the backward kernel's: autograd through the chunked
 form. ``ssd_scan_ref`` is the sequential recurrence, the oracle of the
-tests.
+tests. ``ssd_scan_fwd_chunks_ref`` and ``ssd_scan_bwd_chunks_ref`` mirror
+the bf16 kernels' algebra step by step, for the tests.
 """
 from __future__ import annotations
 
@@ -101,6 +102,64 @@ def ssd_scan_ref(x, dt, A, B, C, h0):
             "bh,bhd,bs->bhds", dt[:, t], xf[:, t], Bf[:, t])
         ys.append(torch.einsum("bs,bhds->bhd", Cf[:, t], h))
     return torch.stack(ys, dim=1), h
+
+
+def ssd_scan_fwd_chunks_ref(x, dt, A, B, C, *, chunk: int, group: int = 8):
+    """The bf16 forward kernels' algebra in plain PyTorch (fp32), step by
+    step as csrc/ssd_scan.cu computes it; the same function as
+    ``ssd_scan_fwd_ref``, for the tests. Per (batch row, chunk c, head),
+    with s the chunk's cumsum of dt * A and L[t,j] = e^{s_t-s_j} (j <= t):
+
+    1. the chunk's own state S_c = sum_j e^{s_end-s_j} dt_j x_j B_j^T
+       goes into the states slot of chunk c+1, hT for the last chunk;
+    2. the forward pass, in place: slot 0 = 0, slot c+1 = e^{s_end(c)}
+       (slot c) + S_c, hT the final state;
+    3. G = C B^T, made once per head group of ``group`` heads; per head
+       y_t = sum_{j<=t} (G o L)_{tj} dt_j x_j + e^{s_t} C_t.h_c.
+
+    Returns (y [Bs,T,H,hd], hT [Bs,H,hd,S], the state before each chunk
+    [Bs,H,T/chunk,hd,S]), all fp32."""
+    Bs, T, H, hd = x.shape
+    S = B.shape[-1]
+    nc = T // chunk
+    f = torch.float32
+    xs = x.reshape(Bs, nc, chunk, H, hd).to(f)
+    dts = dt.reshape(Bs, nc, chunk, H).to(f)
+    Bc = B.reshape(Bs, nc, chunk, S).to(f)
+    Cc = C.reshape(Bs, nc, chunk, S).to(f)
+    s = torch.cumsum(dts * A.to(f), dim=2)            # [B,nc,c,H]
+    s_end = s[:, :, -1]                               # [B,nc,H]
+    w = torch.exp(s_end[:, :, None] - s)
+
+    # 1. each chunk's own state, into the next chunk's slot
+    Sc = torch.einsum("bnjh,bnjhd,bnjs->bhnds", w * dts, xs, Bc)
+    states = torch.empty((Bs, H, nc, hd, S), dtype=f, device=x.device)
+    states[:, :, 1:] = Sc[:, :, :-1]
+    hT = Sc[:, :, -1].clone()
+    # 2. the forward pass, in place
+    carry = torch.zeros_like(hT)
+    for c in range(nc):
+        own = states[:, :, c + 1].clone() if c + 1 < nc else hT
+        states[:, :, c] = carry
+        carry = torch.exp(s_end[:, c])[..., None, None] * carry + own
+    hT = carry
+
+    # 3. the chunk scan, G once per head group
+    ar = torch.arange(chunk, device=x.device)
+    tri = (ar[:, None] >= ar[None, :])[None, None, :, :, None]
+    li = torch.where(tri, s[:, :, :, None, :] - s[:, :, None, :, :], 0.0)
+    L = torch.where(tri, torch.exp(li), 0.0)          # [B,nc,t,j,H]
+    hs = states.transpose(1, 2)                       # [B,nc,H,hd,S]
+    y = torch.empty((Bs, nc, chunk, H, hd), dtype=f, device=x.device)
+    for h0 in range(0, H, group):
+        hg = slice(h0, h0 + group)
+        G = torch.einsum("bnts,bnjs->bntj", Cc, Bc)
+        M = G[..., None] * L[..., hg] * dts[:, :, None, :, hg]
+        y[:, :, :, hg] = torch.einsum("bntjh,bnjhd->bnthd", M,
+                                      xs[:, :, :, hg]) \
+            + torch.exp(s[..., hg])[..., None] * torch.einsum(
+                "bnts,bnhds->bnthd", Cc, hs[:, :, hg])
+    return y.reshape(Bs, T, H, hd), hT, states
 
 
 def ssd_scan_bwd_chunks_ref(x, dt, A, B, C, dy, *, chunk: int,

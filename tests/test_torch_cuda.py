@@ -418,6 +418,58 @@ def test_ssd_bf16_backward_matches_plain(cuda, Bs, T, H, hd, S, chunk,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("Bs,T,H,hd,S,chunk,group", [
+    (2, 512, 12, 64, 128, 128, 4), (1, 384, 7, 32, 32, 128, 3),
+    (2, 200, 5, 64, 32, 100, 2), (1, 256, 6, 32, 128, 64, None)])
+def test_ssd_bf16_forward_matches_plain(cuda, Bs, T, H, hd, S, chunk,
+                                        group):
+    """K6's bf16 forward (the tensor-core kernels) at several chunks and
+    head groups, a ragged head group among them: y, hT and the per-chunk
+    states against the chunked form and against the plain mirror of its
+    own algebra (``ssd_scan_fwd_chunks_ref``), at ``_ssd_close``; then the
+    bf16 backward fed those states, against autograd."""
+    rng = np.random.default_rng(13)
+
+    def t(shape, scale=1.0, dt_=torch.bfloat16):
+        return torch.from_numpy(rng.standard_normal(shape) * scale).to(
+            cuda, dt_)
+    x, B, C = t((Bs, T, H, hd)), t((Bs, T, S), 0.5), t((Bs, T, S), 0.5)
+    dt = torch.nn.functional.softplus(t((Bs, T, H), dt_=torch.float32))
+    A = -torch.exp(t((H,), dt_=torch.float32))
+    dy = t((Bs, T, H, hd), dt_=torch.float32)
+    got = sker.ssd_scan_kernel(x, dt, A, B, C, chunk=chunk, group=group)
+    want = sref.ssd_scan_fwd_ref(x, dt, A, B, C, chunk=chunk)
+    mirror = sref.ssd_scan_fwd_chunks_ref(x, dt, A, B, C, chunk=chunk,
+                                          group=group or 8)
+    for g, w, m in zip(got, want, mirror):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        _ssd_close(g, w)
+        _ssd_close(g, m)
+    grads = sker.ssd_scan_bwd_kernel(x, dt, A, B, C, got[2], dy,
+                                     chunk=chunk, group=group)
+    wants = sref.ssd_scan_bwd_ref(x, dt, A, B, C, dy, chunk=chunk)
+    for g, w in zip(grads, wants):
+        _ssd_close(g, w)
+
+
+@pytest.mark.gpu
+def test_ssd_bf16_forward_is_deterministic(cuda):
+    """Two calls of K6's bf16 forward give the same bits: every sum in a
+    fixed order, no atomics."""
+    rng = np.random.default_rng(14)
+    Bs, T, H, hd, S = 2, 512, 10, 64, 128
+
+    def t(shape, dt_=torch.bfloat16):
+        return torch.from_numpy(rng.standard_normal(shape)).to(cuda, dt_)
+    x, B, C = t((Bs, T, H, hd)), t((Bs, T, S)), t((Bs, T, S))
+    dt = torch.nn.functional.softplus(t((Bs, T, H), torch.float32))
+    A = -torch.exp(t((H,), torch.float32))
+    a = sker.ssd_scan_kernel(x, dt, A, B, C, chunk=128, group=3)
+    b = sker.ssd_scan_kernel(x, dt, A, B, C, chunk=128, group=3)
+    assert all(torch.equal(p, q) for p, q in zip(a, b))
+
+
+@pytest.mark.gpu
 def test_ssd_bf16_backward_is_deterministic(cuda):
     """Two calls of K6's bf16 backward give the same bits: dB and dC sum
     the head groups' parts in group order, dA the chunks' parts in a

@@ -155,6 +155,42 @@ def test_chunk_parallel_backward_algebra(Bs, T, H, hd, S, chunk, group):
                                    err_msg=f"d{name} vs jax.grad")
 
 
+@pytest.mark.parametrize("Bs,T,H,hd,S,chunk,group", [
+    (2, 64, 4, 32, 32, 32, 8), (1, 96, 10, 64, 128, 32, 4),
+    (2, 128, 7, 64, 32, 64, 3), (1, 256, 5, 32, 128, 128, 2),
+    (2, 96, 6, 32, 32, 16, 4)])
+def test_chunk_parallel_forward_algebra(Bs, T, H, hd, S, chunk, group):
+    """``ssd_scan_fwd_chunks_ref``, the bf16 forward kernels' algebra
+    (each chunk's own state written a slot ahead, the forward pass in
+    place, G = C B^T once per head group, ragged groups among them),
+    against JAX's sequential ``ssd_scan_ref`` and the Pallas kernel in
+    interpret mode: y and hT of the whole sequence, and the state before
+    each chunk as their final state after the chunks before it; the
+    tolerance of ``test_plain_forward_matches_jax``."""
+    ins = _inputs(Bs, T, H, hd, S, seed=8)
+    y, hT, states = sref.ssd_scan_fwd_chunks_ref(
+        *map(torch.from_numpy, ins), chunk=chunk, group=group)
+    nc = T // chunk
+    assert y.shape == (Bs, T, H, hd) and hT.shape == (Bs, H, hd, S)
+    assert states.shape == (Bs, H, nc, hd, S)
+    assert torch.equal(states[:, :, 0], torch.zeros(Bs, H, hd, S))
+
+    def jax_runs(n):
+        """(y, hT) of the first n rows by the JAX oracle and the Pallas
+        kernel."""
+        part = [jnp.asarray(a[:, :n] if a.ndim > 1 else a) for a in ins]
+        h0 = jnp.zeros((Bs, H, hd, S), jnp.float32)
+        return [jax_ssd_ref(*part, h0), jax_ssd_scan(*part, chunk=chunk)]
+    for wy, wh in jax_runs(T):
+        np.testing.assert_allclose(y.numpy(), np.asarray(wy), **TOL)
+        np.testing.assert_allclose(hT.numpy(), np.asarray(wh), **TOL)
+    for c in range(1, nc):
+        for _, wh in jax_runs(c * chunk):
+            np.testing.assert_allclose(states[:, :, c].numpy(),
+                                       np.asarray(wh), **TOL,
+                                       err_msg=f"state before chunk {c}")
+
+
 def test_chunked_form_keeps_an_initial_state():
     """``ssd_chunked`` with h0 != 0 is the JAX model's (the serving
     slice will carry one)."""

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time K6's backward (bf16, mamba2-2.7b's training shape) and K1's
-paged append (llama3-8b's decode shape) on one card, two ways each.
+"""Time K6's forward and backward (bf16, mamba2-2.7b's training shape)
+and K1's paged append (llama3-8b's decode shape) on one card, two ways
+each.
 
     python3 tools/k6_k1_bench.py [--src DIR] [--tag NAME] [--skip-k6]
 
@@ -16,7 +17,8 @@ K and V pools (two calls), and the host time of the two ways to read the
 current stream's handle. Shapes: K6 backward Bs 4, T 2048, H 80, hd 64,
 S 128, chunk 128, bf16 x, B, C, fp32 dy holding bf16 values (as in
 training); K1 B 8 rows of KV 8 x hd 128 into a 4096 x 16 bf16 pool, two
-rows parked. The last line is one JSON object.
+rows parked; K6 forward the backward's inputs. The last line is one
+JSON object.
 """
 from __future__ import annotations
 
@@ -136,6 +138,12 @@ def main() -> int:
                F.silu(rnd((Bs, T, S))).to(torch.bfloat16),
                F.silu(rnd((Bs, T, S))).to(torch.bfloat16))
         dy = rnd((Bs, T, H, hd)).to(torch.bfloat16).float()
+
+        def k6f():
+            sk.ssd_scan_kernel(*ins, chunk=ch)
+        out["k6_fwd_events_ms"] = event_ms(torch, k6f, iters=5)
+        out["k6_fwd_device_ms"], out["k6_fwd_kernels"] = device_ms(
+            torch, k6f, iters=3)
         _, _, st = sk.ssd_scan_kernel(*ins, chunk=ch)
 
         def k6b():
