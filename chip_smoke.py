@@ -50,14 +50,33 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    recovers a request: tokens, phases and the recovered count (> 0)
    must be identical;
 5. serve 8 seeded requests at the full width of llama3-8b in bf16
-   through ``repro_torch.launch.serve`` (DynamicScheduler over
-   FlyingEngine), with every kernel's launch count reset just before and
+   through ``repro_torch.launch.serve`` (its real path: DynamicScheduler
+   over FlyingEngine under the layout policy), each step's duration
+   logged for phase 13, with every kernel's launch count reset just
+   before and
    read just after: every request must finish with its full output,
    every token must be in the vocab, K1-K4 must have launched,
    and no token may have been read back one at a time;
 6. serve the same trace again under torch.profiler and print the device
    time by kernel class, the device's busy share of the wall time, and
    K2's, K4's and the appends' launches and mean time a launch;
+13. (run right after phase 6, on phase 5's trace) serve llama3-8b at
+   full width in bf16 over HTTP: ``FrontDoor`` -> ``AsyncServeLoop``
+   (wall pace, tokens harvested as ``--serve`` harvests them) ->
+   ``ServeHTTP`` on 127.0.0.1, the trace replayed by
+   ``loadgen.drive_http``: every stream must end done with exactly its
+   output length in the vocab, K1-K4 must have launched and ``GET
+   /metrics`` must serve the rolling tier report; client-side TTFT p50
+   and p99, the TPOT median (the server's clock, which tracks the wall
+   at wall pace) and the wall tok/s are printed beside the card's name
+   and power limit, as smoke readings of 8 requests (their p99 is in
+   effect their maximum; ``tools/http_bench.py`` serves a few hundred
+   requests for a tail). Then the trace in
+   process at virtual pace, with phase 5's step durations replayed so
+   the schedule (and bf16 batching) is phase 5's: the streamed greedy
+   tokens must equal phase 5's; and at temperature 0.8, top-k 50,
+   per-request seeds, the streamed tokens must equal an offline run's
+   on the same schedule;
 7. train the reduced llama3-8b three fp32 steps on the card (K5 forward
    and backward) and on the CPU (their plain versions) from the same
    weights and batches: the losses must agree (rtol 1e-4); then three
@@ -108,8 +127,6 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
-BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16, NVIDIA data sheet
 F32_TOL = dict(atol=1e-4, rtol=0.0)
 BF16_TOL = dict(atol=1e-3, rtol=1e-2)
 SERVE_KERNELS = ("paged_append_token", "paged_attention",
@@ -187,8 +204,11 @@ def launch_device_ms(torch, fn, pattern: str, iters: int = 20) -> float:
 
 
 def bound(nbytes: float, flops: float):
-    t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_f = flops / BF16_FLOPS_PER_S * 1e3
+    """The card's least time (ms) for ``nbytes`` moved and ``flops``
+    done, at the H100's data-sheet HBM rate and dense bf16 peak."""
+    from repro_torch.serving.hardware import H100
+    t_b = nbytes / H100.hbm_bw * 1e3
+    t_f = flops / H100.peak_flops_bf16 * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
@@ -981,18 +1001,65 @@ def reference_check(torch):
 # phase 5: full-width serving
 # ---------------------------------------------------------------------------
 
-def serve_config():
+def serve_config(**kw):
     from repro_torch.launch.serve import ServeConfig
-    return ServeConfig(arch="llama3-8b", requests=8, seed=0,
-                       num_blocks=4096, block_base=16, batch_per_engine=8,
-                       max_blocks_per_req=256, prefill_chunk=512,
-                       prompt_range=(256, 2048), output_range=(32, 64),
-                       rate=20.0)
+    return ServeConfig(**{**dict(
+        arch="llama3-8b", real=True, requests=8, seed=0, num_blocks=4096,
+        block_base=16, batch_per_engine=8, max_blocks_per_req=256,
+        prefill_chunk=512, prompt_range=(256, 2048), output_range=(32, 64),
+        arrival="poisson", rate=20.0), **kw})
+
+
+class StepClock:
+    """Backend proxy that logs each step (kind, request ids, the
+    duration the engine measured) and returns that duration: the
+    scheduler, and so its batching, runs as it would without it."""
+
+    def __init__(self, eng):
+        self.eng = eng
+        self.log = []
+
+    def __getattr__(self, k):
+        return getattr(self.eng, k)
+
+    def _step(self, kind, reqs, *a):
+        dt = getattr(self.eng, kind)(*a)
+        self.log.append((kind, reqs, dt))
+        return dt
+
+    def prefill(self, reqs, *a):
+        return self._step("prefill", [r.req_id for r in reqs], reqs, *a)
+
+    def decode(self, reqs, *a):
+        return self._step("decode", [r.req_id for r in reqs], reqs, *a)
+
+    def mixed(self, pre, dec, *a):
+        return self._step("mixed", [[r.req_id for r in pre],
+                                    [r.req_id for r in dec]], pre, dec, *a)
+
+
+class ReplayClock(StepClock):
+    """Backend proxy that reports a logged run's step durations in
+    order, so that a second run over the same trace (the async loop in
+    virtual pace) schedules exactly as the logged one; it fails the
+    phase as soon as a step differs from the log's."""
+
+    def __init__(self, eng, log):
+        super().__init__(eng)
+        self.want = list(log)
+
+    def _step(self, kind, reqs, *a):
+        i = len(self.log)
+        super()._step(kind, reqs, *a)
+        check(i < len(self.want) and self.want[i][:2] == (kind, reqs),
+              f"replayed step {i} is {kind} {reqs}, the log has "
+              f"{self.want[i][:2] if i < len(self.want) else 'no step'}")
+        return self.want[i][2]
 
 
 def serve_full_width(torch):
     from repro_torch.kernels import _lib
-    from repro_torch.launch.serve import build_stack, run_offline
+    from repro_torch.launch.serve import build_stack, replay
 
     cfg = serve_config()
     t0 = time.perf_counter()
@@ -1001,9 +1068,12 @@ def serve_full_width(torch):
     print(f"serve: built llama3-8b (bf16, 32 layers) and a "
           f"{cfg.num_blocks}x{cfg.block_base}-token pool in "
           f"{time.perf_counter() - t0:.1f} s")
+    engine = stack[0].backend
+    clock = StepClock(engine)
+    stack[0].backend = clock
     torch.cuda.reset_peak_memory_stats()
     _lib.reset_launches()
-    sched, engine, summary, wall = run_offline(cfg, stack)
+    sched, wall = replay(cfg, stack)
     launches = dict(_lib.LAUNCHES)
     reqs = list(sched.pool.all.values())
     vocab = engine.cfg.vocab_size
@@ -1033,7 +1103,9 @@ def serve_full_width(torch):
     for k in SERVE_KERNELS:
         check(launches[k] > 0, f"kernel {k} never launched on the serving "
                                f"path")
-    return {k: launches[k] for k in SERVE_KERNELS}
+    offline = dict(tokens={r.req_id: engine.generated_tokens(r.req_id)
+                           for r in reqs}, log=clock.log)
+    return {k: launches[k] for k in SERVE_KERNELS}, offline
 
 
 def serve_breakdown(torch):
@@ -1041,17 +1113,218 @@ def serve_breakdown(torch):
     same trace (the first run's wall time stays unprofiled)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.launch.serve import build_stack, run_offline
+    from repro_torch.launch.serve import build_stack, replay
 
     cfg = serve_config()
     stack = build_stack(cfg)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _, _, _, wall = run_offline(cfg, stack)
+        _, wall = replay(cfg, stack)
     print_breakdown("breakdown", prof, wall, (
         ("paged_flash_prefill", "prefill_tc"),
         ("paged_flash_prefill fp32", "prefill_kernel"),
         ("paged_attention", "decode_kernel"),
         ("paged_append", "append_rows")))
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the HTTP server at full width
+# ---------------------------------------------------------------------------
+
+def http_wall_run(torch, smi: str, base, weights=None):
+    """The trace of config ``base`` (phase 5's, here) over HTTP at wall
+    pace: the engine behind FrontDoor -> AsyncServeLoop -> ServeHTTP on
+    127.0.0.1, as ``--serve`` builds them, the requests sent by
+    ``loadgen.drive_http`` from a process of their own. Every stream
+    must end done with exactly its output length in the vocab, K1-K4
+    must launch, ``/metrics`` must serve the rolling tier report; prints
+    client TTFT, TPOT and tok/s. Builds the weights from ``base.seed``
+    unless ``weights`` gives them. Returns the weights and the run's
+    readings (client TTFTs, the front door's requests, wall seconds,
+    tokens, steps)."""
+    import asyncio
+    import copy
+    import dataclasses
+    import multiprocessing
+
+    import numpy as np
+
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.serve import build_door, build_loop, build_stack
+    from repro_torch.serving.metrics import summarize
+    from repro_torch.serving.server import ServeHTTP
+    from repro_torch.serving.workload import generate
+
+    wall = dataclasses.replace(base, pace="wall", serve=True)
+    t0 = time.perf_counter()
+    sched, spec, _ = build_stack(wall, weights)
+    eng = sched.backend
+    vocab = eng.cfg.vocab_size
+    torch.cuda.synchronize()
+    print(f"http: built {base.arch} ({base.dtype}) and a "
+          f"{base.num_blocks}x{base.block_base}-token pool in "
+          f"{time.perf_counter() - t0:.1f} s")
+    door = build_door(wall, sched)
+    loop = build_loop(wall, door)
+    reqs = [copy.deepcopy(r) for r in generate(spec)]
+
+    async def over_http():
+        srv = await ServeHTTP(loop).start("127.0.0.1", 0)   # starts loop
+        _lib.reset_launches()
+        # the client runs in a process of its own, as a remote client
+        # would: on the server's loop (or a thread sharing its
+        # interpreter lock) each engine step would hold its clock too
+        ctx = multiprocessing.get_context("spawn")
+        recv, send = ctx.Pipe(duplex=False)
+        client = ctx.Process(target=http_client, args=(srv.port, reqs, send))
+        client.start()
+        send.close()
+        try:
+            while client.is_alive() and not recv.poll():
+                await asyncio.sleep(0.005)
+            check(recv.poll(), "http: the client process failed")
+            box = {"out": recv.recv()}
+        finally:
+            client.join(timeout=60)
+            if client.is_alive():
+                client.terminate()
+                client.join()
+        torch.cuda.synchronize()
+        launches = dict(_lib.LAUNCHES)
+        r, w = await asyncio.open_connection("127.0.0.1", srv.port)
+        w.write(b"GET /metrics HTTP/1.1\r\nHost: smoke\r\n\r\n")
+        await w.drain()
+        raw = await r.read()
+        w.close()
+        await srv.stop()
+        return box["out"], launches, raw
+
+    out, launches, raw = asyncio.run(over_http())
+    recs = {rec["req_id"]: rec for rec in out["records"]}
+    for q in reqs:
+        rec = recs[q.req_id]
+        check(rec["state"] == "done" and rec["n_tokens"] == q.output_len,
+              f"http {q.req_id}: state {rec['state']}, {rec['n_tokens']}"
+              f"/{q.output_len} tokens")
+        check(all(0 <= t < vocab for t in rec["tokens"]),
+              f"http {q.req_id}: token outside the vocab")
+    for k in SERVE_KERNELS:
+        check(launches.get(k, 0) > 0, f"http: kernel {k} never launched")
+    check(eng.sync_stats.host_argmax == 0,
+          "http: tokens were read back one at a time")
+    metrics = json.loads(raw.split(b"\r\n\r\n", 1)[1])
+    row = metrics.get("tiers", {}).get("standard", {})
+    check(row.get("done") == len(reqs) and "p99_ttft_s" in row,
+          f"http: /metrics tier report {metrics.get('tiers')}")
+    ttft = np.array([recs[q.req_id]["ttft_wall_s"] for q in reqs])
+    n_tok = sum(rec["n_tokens"] for rec in recs.values())
+    m = summarize(list(door.requests.values()))
+    print(f"http: {len(reqs)} streams over 127.0.0.1 at wall pace "
+          f"(Poisson {base.rate}/s), harvests every {eng.harvest_limit} "
+          f"steps, {n_tok} tokens in {eng.sync_stats.steps} steps, "
+          f"launches { {k: launches[k] for k in SERVE_KERNELS} }")
+    print(f"http: client TTFT p50 {np.percentile(ttft, 50) * 1e3:.1f} ms, "
+          f"p99 {np.percentile(ttft, 99) * 1e3:.1f} ms over {len(ttft)} "
+          f"requests (server clock: mean {m.mean_ttft * 1e3:.1f} ms); "
+          f"TPOT median {m.median_tpot * 1e3:.2f} ms (server clock at "
+          f"wall pace); {n_tok / out['wall_s']:.1f} tok/s over "
+          f"{out['wall_s']:.3f} s wall, {loop.ticks} loop ticks; {smi}")
+    print(f"http: /metrics standard tier {json.dumps(row, sort_keys=True)}")
+    return (eng.model, eng.params), dict(
+        ttft=ttft, requests=list(door.requests.values()),
+        wall_s=out["wall_s"], tokens=n_tok, steps=eng.sync_stats.steps)
+
+
+def http_client(port: int, reqs, conn) -> None:
+    """``loadgen.drive_http`` of ``reqs`` against 127.0.0.1:``port``,
+    its result sent over ``conn`` (run in a process of its own)."""
+    import asyncio
+
+    from repro_torch.serving.loadgen import drive_http
+    conn.send(asyncio.run(drive_http("127.0.0.1", port, reqs,
+                                     collect_tokens=True)))
+    conn.close()
+
+
+def serve_http_full_width(torch, smi: str, offline):
+    """llama3-8b at full width in bf16 (seed 0, phase 5's geometry): phase
+    5's trace over HTTP at wall pace (``http_wall_run``), then streamed
+    in process at virtual pace with phase 5's step durations replayed
+    (the offline schedule): greedy tokens equal to phase 5's, and at
+    temperature 0.8, top-k 50, per-request seeds equal to an offline
+    run's. ``offline`` is phase 5's tokens and step log."""
+    import asyncio
+    import copy
+    import dataclasses
+
+    from repro_torch.launch.serve import (build_door, build_loop,
+                                          build_stack, replay)
+    from repro_torch.serving.loadgen import drive_inprocess
+    from repro_torch.serving.workload import generate
+
+    base = serve_config()
+    hot = dict(temperature=0.8, top_k=50, seed_mode="request")
+    t_phase = time.perf_counter()
+    gc_collect(torch)
+    weights, _ = http_wall_run(torch, smi, base)
+    print("http: the readings above are smoke readings of 8 requests "
+          "(their p99 is in effect their maximum); tools/http_bench.py "
+          "serves a few hundred for a tail")
+    vocab = weights[0].cfg.vocab_size
+    gc_collect(torch)
+
+    def stream_virtual(c, log, **engine):
+        """``c``'s trace through the async loop at virtual pace, with
+        ``log``'s step durations replayed, the engine built with the
+        ``engine`` keywords; the streamed tokens."""
+        st, sp, _ = build_stack(c, weights, **engine)
+        e = st.backend
+        st.backend = ReplayClock(e, log)
+        lp = build_loop(dataclasses.replace(c, pace="virtual"),
+                        build_door(c, st))
+        res = asyncio.run(drive_inprocess(
+            lp, [copy.deepcopy(r) for r in generate(sp)],
+            collect_tokens=True))
+        check(len(st.backend.log) == len(log),
+              f"virtual pace ran {len(st.backend.log)} steps, the log "
+              f"{len(log)}")
+        check(e.sync_stats.host_argmax == 0,
+              "virtual pace: tokens were read back one at a time")
+        return {rec["req_id"]: rec["tokens"] for rec in res["records"]}
+
+    # virtual pace, greedy: phase 5's schedule, phase 5's tokens
+    got = stream_virtual(base, offline["log"])
+    check(got == offline["tokens"],
+          f"virtual-pace greedy streams differ from phase 5's offline "
+          f"tokens: {got} vs {offline['tokens']}")
+    print(f"http: virtual-pace greedy streams equal phase 5's offline "
+          f"tokens ({sum(map(len, got.values()))} tokens, "
+          f"{len(offline['log'])} steps replayed)")
+    gc_collect(torch)
+
+    # temperature 0.8, top-k 50, per-request seeds: offline vs streamed
+    stack = build_stack(base, weights, **hot)
+    clock = StepClock(stack[0].backend)
+    stack[0].backend = clock
+    sched, _ = replay(base, stack)
+    check(all(r.state == "done" for r in sched.pool.all.values()),
+          "temperature run: a request did not finish")
+    want = {r.req_id: clock.eng.generated_tokens(r.req_id)
+            for r in sched.pool.all.values()}
+    del sched, stack
+    gc_collect(torch)
+    got = stream_virtual(base, clock.log, **hot)
+    check(got == want, f"temperature 0.8 streams differ from the offline "
+                       f"run: {got} vs {want}")
+    check(all(0 <= t < vocab for v in got.values() for t in v),
+          "temperature run: token outside the vocab")
+    check(got != offline["tokens"],
+          "temperature 0.8 drew the greedy tokens")
+    print(f"http: temperature 0.8, top-k 50, request seeds: virtual-pace "
+          f"streams equal the offline run ({sum(map(len, got.values()))} "
+          f"tokens, {len(clock.log)} steps replayed)")
+    del weights, clock
+    gc_collect(torch)
+    print(f"http: phase 13 took {time.perf_counter() - t_phase:.1f} s")
 
 
 def print_breakdown(tag: str, prof, wall: float, classes) -> None:
@@ -1409,6 +1682,7 @@ def main(argv=None) -> int:
                     help="stop after the kernel checks")
     args = ap.parse_args(argv)
 
+    t_start = time.perf_counter()
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -1443,7 +1717,6 @@ def main(argv=None) -> int:
     print("  paged_prefill.cu, dynamic shared memory of the bf16 kernel: "
           + ", ".join(f"prefill_tc<{hd}> {smem(hd)} bytes"
                       for hd in (64, 128)))
-
     rows = kernel_checks(torch, np)
     for r in rows:
         lib_ms = "none" if r["library_ms"] is None \
@@ -1456,9 +1729,11 @@ def main(argv=None) -> int:
         launches = {r["name"]: None for r in rows}
     else:
         reference_check(torch)
-        launches = serve_full_width(torch)
+        launches, offline = serve_full_width(torch)
         serve_breakdown(torch)
         gc_collect(torch)
+        serve_http_full_width(torch, smi, offline)
+        del offline
         train_reference_check(torch, np, "llama3-8b", bf16=True)
         launches.update(train_full_width(torch))
         train_reference_check(torch, np, "mamba2-2.7b")
@@ -1471,6 +1746,7 @@ def main(argv=None) -> int:
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(f"device: {smi}")
     print(json.dumps({"ok": True, "device": {

@@ -30,10 +30,12 @@ def bucket_pow2(n: int, lo: int = 1) -> int:
 class CommunicatorPool:
     """Step functions keyed by island shape, phase and buckets."""
 
-    def __init__(self, model, plan: ParallelPlan, geom: PoolGeometry):
+    def __init__(self, model, plan: ParallelPlan, geom: PoolGeometry,
+                 sample: Tuple[float, int] = (0.0, 0)):
         self.model = model
         self.plan = plan
         self.geom = geom
+        self.sample = sample  # (temperature, top_k) for sampled runners
         self._runners: Dict[Tuple, Callable] = {}
 
     def runner(self, island: Island, phase: str, *, sampled: bool = False,
@@ -41,15 +43,15 @@ class CommunicatorPool:
                seq_bucket: Optional[int] = None,
                mb_bucket: Optional[int] = None) -> Callable:
         """Step fn for (island shape, phase, variant). ``sampled`` fuses
-        greedy sampling into the step. The key's ``donate`` slot is always
-        True (the port updates the pools in place, as the JAX package's
-        donated steps do) and its ``live`` slot None (no live cross-layout
-        reads yet)."""
+        the pool's ``sample=(temperature, top_k)`` into the step. The
+        key's ``donate`` slot is always True (the port updates the pools
+        in place, as the JAX package's donated steps do) and its ``live``
+        slot None (no live cross-layout reads yet)."""
         key = (island.merge, phase, sampled, True, batch_bucket,
                seq_bucket, mb_bucket, island.n_engines, None, island.sp)
         if key not in self._runners:
             run, _ = build_serve_step(
                 self.model, island_mode(self.plan, island), self.geom,
-                phase=phase, sampled=sampled)
+                phase=phase, sample=self.sample if sampled else None)
             self._runners[key] = run
         return self._runners[key]

@@ -17,13 +17,17 @@ parallelism and the faults that need a launch gate or quarantine arrive
 with the islands slice and raise ``NotImplementedError`` here.
 
 Zero-sync hot path: steady-state decode performs no host
-synchronization and no per-token device->host transfer. Greedy sampling
-is fused into the step (device-resident ``[B]`` token ids feed straight
-back into the next step), the KV pools update in place, host batch prep
-is vectorized numpy over persistent staging buffers, and steps run ahead
-of the host inside a bounded in-flight window (a CUDA event per step).
-Tokens surface only at drain points (``generated_tokens``, ``drain``) as
-batched transfers. ``sync_stats`` counts every class of host crossing.
+synchronization and no per-token device->host transfer. Sampling
+(greedy, or temperature and top-k with per-row seeds, drawn as the
+reference draws them) is fused into the step (device-resident ``[B]``
+token ids feed straight back into the next step), the KV pools update in
+place, host batch prep is vectorized numpy over persistent staging
+buffers, and steps run ahead of the host inside a bounded in-flight
+window (a CUDA event per step). Tokens surface only at harvests (every
+``harvest_limit`` steps) and drain points (``generated_tokens``,
+``drain``) as batched transfers; ``harvested_tokens`` peeks at what has
+surfaced without draining. ``sync_stats`` counts every class of host
+crossing.
 
 Prefill is chunked: long prompts stream through ``prefill_chunk``-sized
 slices with absolute positions and per-request prior lengths, and when
@@ -110,10 +114,6 @@ class _IslandRT:
         self.steady: Optional[_DecodeCache] = None
 
 
-# pending token steps an island may hold before a harvest frees them
-_HARVEST_LIMIT = 512
-
-
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
@@ -126,8 +126,10 @@ class FlyingEngine:
     def __init__(self, model: Model, plan: ParallelPlan, geom: PoolGeometry,
                  params, *, batch_per_engine: int = 4,
                  max_blocks_per_req: int = 16, fused_sampling: bool = True,
-                 async_window: int = 2, mixed_step: bool = True,
-                 injector=None, device=None):
+                 async_window: int = 2, temperature: float = 0.0,
+                 top_k: int = 0, harvest_limit: int = 512,
+                 mixed_step: bool = True, injector=None,
+                 seed_mode: str = "fleet", device=None):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model on {model.device}, engine on "
@@ -151,9 +153,19 @@ class FlyingEngine:
         self.max_blocks = max_blocks_per_req
         self.fused = fused_sampling
         self.window = max(int(async_window), 0)
+        self.temperature = temperature
+        # pending token steps an island may hold before a harvest frees
+        # them to the host token buffer
+        self.harvest_limit = max(int(harvest_limit), 1)
         self.mixed_step = mixed_step
+        assert seed_mode in ("fleet", "request"), seed_mode
+        self.seed_mode = seed_mode
+        assert fused_sampling or temperature <= 0.0, \
+            "the legacy host path samples greedily; temperature/top_k " \
+            "need fused_sampling=True"
 
-        self.pool = CommunicatorPool(model, plan, geom)
+        self.pool = CommunicatorPool(model, plan, geom,
+                                     sample=(temperature, top_k))
         self.params = _tree_to(params, self.device)
         self.adaptors = [KVCacheAdaptor(geom)
                          for _ in range(plan.dp_engines * plan.pods)]
@@ -179,6 +191,8 @@ class FlyingEngine:
         self._pinned_prompts: Dict[str, np.ndarray] = {}
         self._bt_scratch: Optional[np.ndarray] = None
         self._host_bufs: Dict[Tuple, Dict[str, np.ndarray]] = {}
+        self._seed_iota: Dict[int, torch.Tensor] = {}
+        self._seed_cursor = 0
 
     # ------------------------------------------------------------------
     @property
@@ -354,7 +368,7 @@ class FlyingEngine:
             self._wait(rt.pending[-self.window - 1])
             self.sync_stats.window_waits += 1
             rt.stats.window_waits += 1
-        if len(rt.pending) >= _HARVEST_LIMIT:
+        if len(rt.pending) >= self.harvest_limit:
             self._harvest(rt)
 
     @staticmethod
@@ -409,6 +423,46 @@ class FlyingEngine:
         self._pinned_prompts.pop(rid, None)
         for rt in self.islands:
             rt.last_tok.pop(rid, None)
+
+    # -- sampling seeds -------------------------------------------------
+    def _seeds(self, B: int) -> Optional[torch.Tensor]:
+        """Per-row sampling seeds without per-step host uploads: the [B]
+        iota is a cached device tensor per batch size; each step adds
+        only the scalar cursor on the device (the same uint32 values as
+        ``base + arange`` mod 2**32)."""
+        if self.temperature <= 0.0:
+            return None
+        iota = self._seed_iota.get(B)
+        if iota is None:
+            iota = torch.arange(B, dtype=torch.int64, device=self.device)
+            self._seed_iota[B] = iota
+        # a fleet-wide cursor advanced by each draw's OWN batch size, so
+        # launches of different batch sizes get disjoint seed ranges
+        base = self._seed_cursor
+        self._seed_cursor = (base + B) & 0xFFFFFFFF
+        return (iota + base) & 0xFFFFFFFF
+
+    def _sample_seeds(self, B: int, reqs: Sequence[Request], rows,
+                      phase: str) -> Optional[torch.Tensor]:
+        """Per-launch sampling seeds. ``seed_mode='fleet'`` (default) is
+        the cursor draw above: cheapest, but the stream depends on how
+        many launches preceded this one. ``'request'`` derives each row's
+        seed from (req_id, output index), so token streams do not depend
+        on batching nor on how much prefill ran (a prefix-cache hit skips
+        launches, which would shift the cursor). The scheduler promotes
+        (generated += 1) BEFORE launching, so a final prefill chunk
+        samples index ``generated - 1`` (== 0) and decode rows sample
+        ``generated``, alike on the mixed and sequential paths."""
+        if self.temperature <= 0.0:
+            return None
+        if self.seed_mode != "request":
+            return self._seeds(B)
+        host = np.zeros((B,), np.int64)
+        for r, row in zip(reqs, rows):
+            idx = max(r.generated - 1, 0) if phase == "prefill" \
+                else r.generated
+            host[int(row)] = abs(hash((r.req_id, int(idx)))) & 0xFFFFFFFF
+        return self._h2d(host)
 
     def _single_view(self, entries, isl: Island) -> None:
         """The port's steps read one mode view: every KV segment must be
@@ -497,6 +551,9 @@ class FlyingEngine:
         rt = self._resolve(island)
         t0 = time.perf_counter()
         batch, rows, final, T, mb = self._stage_prefill(rt, reqs)
+        seeds = self._sample_seeds(rt.B, reqs, rows, "prefill")
+        if seeds is not None:
+            batch["sample_seeds"] = seeds
         runner = self.pool.runner(
             rt.island, "prefill", sampled=self.fused,
             batch_bucket=rt.B, seq_bucket=T, mb_bucket=mb)
@@ -591,6 +648,13 @@ class FlyingEngine:
             "d_context_len": self._h2d(bufs["ctxl"]),
             "d_src_rows": self._h2d(src),
         })
+        # two seed draws mirror the sequential two-launch assignment, so
+        # stochastic sampling stays token-identical across the fusion
+        p_seeds = self._sample_seeds(B, prefills, prows, "prefill")
+        d_seeds = self._sample_seeds(B, decodes, drows, "decode")
+        if p_seeds is not None:
+            batch["p_sample_seeds"] = p_seeds
+            batch["d_sample_seeds"] = d_seeds
         runner = self.pool.runner(
             rt.island, "mixed", sampled=True,
             batch_bucket=B, seq_bucket=T, mb_bucket=mb)
@@ -691,6 +755,9 @@ class FlyingEngine:
             "block_table": self._h2d(bufs["btab"]),
             "context_len": self._h2d(bufs["ctxl"]),
         }
+        seeds = self._sample_seeds(rt.B, reqs, c.rows, "decode")
+        if seeds is not None:
+            batch["sample_seeds"] = seeds
         runner = self.pool.runner(
             rt.island, "decode", sampled=self.fused,
             batch_bucket=rt.B, seq_bucket=1, mb_bucket=c.mb)
@@ -759,3 +826,12 @@ class FlyingEngine:
     def generated_tokens(self, req_id: str) -> List[int]:
         self.drain()
         return self._token_buf.get(req_id, [])
+
+    def harvested_tokens(self, req_id: str) -> List[int]:
+        """Non-draining peek at the tokens already surfaced for one
+        request (streaming). The async serve loop polls this every tick:
+        it must never force a safe point, so it sees only the tokens that
+        harvests have already moved to the host; the terminal flush
+        (``generated_tokens``) drains for the rest once the request
+        finishes."""
+        return list(self._token_buf.get(req_id, []))

@@ -11,6 +11,8 @@ unchanged.
 """
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 
 from repro_torch.core.kv_adaptor import PoolGeometry
@@ -22,7 +24,8 @@ from repro_torch.models.transformer import gather_vocab, sample_tokens
 
 
 def build_serve_step(model: Model, mode: FlyingMode, geom: PoolGeometry, *,
-                     phase: str, sampled: bool = False):
+                     phase: str,
+                     sample: Optional[Tuple[float, int]] = None):
     """Build the step fn ``run(params, states, batch)`` for (mode, phase).
 
     ``phase`` is 'prefill' (one chunked-prefill launch), 'decode', or
@@ -31,9 +34,13 @@ def build_serve_step(model: Model, mode: FlyingMode, geom: PoolGeometry, *,
     finished prefill in this step, the prefill row whose sampled token is
     their input, -1 otherwise).
 
-    ``sampled`` fuses greedy sampling into the step: it returns
-    device-resident ``[B]`` int32 token ids (a pair for 'mixed');
-    otherwise full-vocab fp32 logits of each row's last position."""
+    ``sample=(temperature, top_k)`` fuses token sampling into the step:
+    it returns device-resident ``[B]`` int32 token ids (a pair for
+    'mixed'). Greedy (temperature <= 0) is the argmax; stochastic
+    sampling reads per-row seeds from ``batch['sample_seeds']``
+    (``p_sample_seeds`` and ``d_sample_seeds`` for 'mixed').
+    ``sample=None`` returns full-vocab fp32 logits of each row's last
+    position instead."""
     if phase not in ("prefill", "decode", "mixed"):
         raise ValueError(phase)
     cfg = model.cfg
@@ -41,9 +48,15 @@ def build_serve_step(model: Model, mode: FlyingMode, geom: PoolGeometry, *,
                            mode.plan.tp_base)
     merge = mode.merge
 
-    def finish(logits):
-        if sampled:
-            return sample_tokens(cfg, logits[:, -1], ctx)
+    temp, top_k = sample if sample is not None else (0.0, 0)
+
+    def draw(logits, seeds):
+        return sample_tokens(cfg, logits[:, -1], ctx, temperature=temp,
+                             top_k=top_k, seeds=seeds)
+
+    def finish(logits, seeds):
+        if sample is not None:
+            return draw(logits, seeds)
         return gather_vocab(cfg, logits[:, -1], ctx)
 
     def prefill(params, sts, batch, pre=""):
@@ -70,12 +83,14 @@ def build_serve_step(model: Model, mode: FlyingMode, geom: PoolGeometry, *,
     def run(params, states, batch):
         sts = _view_states(model, states, geom, merge)
         if phase == "prefill":
-            out = finish(prefill(params, sts, batch))
+            out = finish(prefill(params, sts, batch),
+                         batch.get("sample_seeds"))
         elif phase == "decode":
-            out = finish(decode(params, sts, batch, batch["tokens"]))
+            out = finish(decode(params, sts, batch, batch["tokens"]),
+                         batch.get("sample_seeds"))
         else:
             logits_p = prefill(params, sts, batch, "p_")
-            p_toks = sample_tokens(cfg, logits_p[:, -1], ctx)
+            p_toks = draw(logits_p, batch.get("p_sample_seeds"))
             # decode rows promoted out of THIS step's prefill read their
             # input token from the prefill output row, on device
             src = batch["d_src_rows"]
@@ -83,8 +98,10 @@ def build_serve_step(model: Model, mode: FlyingMode, geom: PoolGeometry, *,
                 src[:, None] >= 0,
                 p_toks[src.clamp_min(0).long()][:, None].to(torch.int32),
                 batch["d_tokens"])
-            out = (p_toks if sampled else finish(logits_p),
-                   finish(decode(params, sts, batch, d_in, "d_")))
+            out = (p_toks if sample is not None
+                   else gather_vocab(cfg, logits_p[:, -1], ctx),
+                   finish(decode(params, sts, batch, d_in, "d_"),
+                          batch.get("d_sample_seeds")))
         return out, states
 
     return run, ctx

@@ -26,6 +26,7 @@ from repro_torch.models import ffn as ffn_mod
 from repro_torch.models.common import init_embedding, init_linear, rms_norm
 from repro_torch.models.mamba2 import init_mamba2, mamba2_layer
 from repro_torch.models.rglru import init_rglru, rglru_block
+from repro_torch.serving.sampling import sample
 
 Kind = Tuple[str, str]  # (mixer, ffn)
 
@@ -200,11 +201,14 @@ def tp_argmax(cfg, logits_local, ctx: TPContext):
 
 def sample_tokens(cfg, logits_local, ctx: TPContext, *,
                   temperature: float = 0.0, top_k: int = 0, seeds=None):
-    """In-step sampling [B, V] -> [B] int32. Greedy only in this slice:
-    token identity with the JAX package at temperature > 0 needs its
-    threefry bits, which a later slice brings."""
-    if temperature > 0.0:
-        raise NotImplementedError(
-            "temperature sampling is not ported yet (needs threefry for "
-            "token identity with the JAX package)")
-    return tp_argmax(cfg, logits_local, ctx)
+    """In-step sampling [B, V] -> [B] int32.
+
+    temperature <= 0: greedy (``tp_argmax``). temperature > 0: gather the
+    vocab, apply optional top-k truncation, and draw categorically with
+    row ``b``'s seed ``seeds[b]``, bit for bit as the JAX package's
+    ``jax.random.categorical(jax.random.PRNGKey(seed), row)``
+    (``serving/sampling.py``)."""
+    if temperature <= 0.0:
+        return tp_argmax(cfg, logits_local, ctx)
+    return sample(gather_vocab(cfg, logits_local, ctx), seeds=seeds,
+                  temperature=temperature, top_k=top_k)

@@ -734,3 +734,130 @@ def test_engine_on_the_card_matches_the_cpu(cuda):
     assert all(_lib.LAUNCHES[k] > 0 for k in serving)
     assert stats.host_argmax == 0 and stats.d2h_batched == 0
     assert on_card == serve("cpu")[0]
+
+
+def _serve_reduced(device, params, *, stream=False, **kw):
+    """Requests 'a' (24-token prompt) and 'b' through the scheduler over
+    the reduced llama3-8b in fp32 on ``device``, steps reporting a fixed
+    10 ms (so both devices schedule alike); offline, or streamed through
+    the async loop in virtual pace. Returns (tokens, sync stats)."""
+    import asyncio
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import FlyingEngine
+    from repro_torch.core.kv_adaptor import PoolGeometry
+    from repro_torch.core.modes import ParallelPlan
+    from repro_torch.core.scheduler import DynamicScheduler, SchedulerConfig
+    from repro_torch.core.task_pool import Request
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.asyncloop import AsyncServeLoop
+    from repro_torch.serving.frontdoor import FrontDoor, FrontDoorConfig
+    from repro_torch.serving.loadgen import drive_inprocess
+
+    cfg = get_config("llama3-8b").reduced()
+    plan = ParallelPlan(engine_rows=1, tp_base=1, data_rows=1)
+    geom = PoolGeometry(cfg, plan, num_blocks=64, block_base=4)
+    eng = FlyingEngine(build_model(cfg, torch.float32, device), plan, geom,
+                       params, batch_per_engine=2, max_blocks_per_req=16,
+                       device=device, **kw)
+
+    class FixedClock:
+        def __getattr__(self, k):
+            return getattr(eng, k)
+
+        def prefill(self, *a):
+            eng.prefill(*a)
+            return 0.01
+
+        def decode(self, *a):
+            eng.decode(*a)
+            return 0.01
+
+        def mixed(self, *a):
+            eng.mixed(*a)
+            return 0.01
+
+    sched = DynamicScheduler(plan, geom, FixedClock(), SchedulerConfig(
+        strategy="hard", max_batch_per_group=2, prefill_chunk=8))
+    reqs = [Request(req_id="a", arrival=0.0, prompt_len=24, output_len=6),
+            Request(req_id="b", arrival=0.001, prompt_len=8, output_len=8)]
+    if stream:
+        loop = AsyncServeLoop(FrontDoor(sched, FrontDoorConfig()),
+                              pace="virtual")
+        out = asyncio.run(drive_inprocess(loop, reqs, collect_tokens=True))
+        toks = {rec["req_id"]: rec["tokens"] for rec in out["records"]}
+    else:
+        for r in reqs:
+            sched.submit(r)
+        sched.run(max_steps=400)
+        toks = {r.req_id: eng.generated_tokens(r.req_id) for r in reqs}
+    return toks, copy.copy(eng.sync_stats)
+
+
+def _reduced_params():
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    cfg = get_config("llama3-8b").reduced()
+    return build_model(cfg, torch.float32, "cpu").init(
+        torch.Generator().manual_seed(0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("V", (1000, 128256))
+def test_sampling_on_the_card_matches_the_cpu(cuda, V):
+    """threefry's bits on the card equal the CPU's; the Gumbel noise
+    agrees within 2 fp32 ulps of max(|g|, 1) (each device's own log);
+    the draws on the same logits are the same tokens."""
+    from repro_torch.serving import sampling
+    seeds = torch.tensor([0, 1, 7, 2**31, 2**32 - 1] + list(range(11, 38)),
+                         dtype=torch.int64)
+    assert torch.equal(sampling.random_bits(seeds.to(cuda), V).cpu(),
+                       sampling.random_bits(seeds, V))
+    g_card = sampling.gumbel(seeds.to(cuda), V).cpu().double()
+    g_cpu = sampling.gumbel(seeds, V).double()
+    scale = torch.from_numpy(np.spacing(np.maximum(
+        np.abs(g_cpu.numpy()), 1.0).astype(np.float32)).astype(np.float64))
+    assert ((g_card - g_cpu).abs() <= 2 * scale).all()
+    logits = torch.from_numpy(np.random.default_rng(V).standard_normal(
+        (len(seeds), V)).astype(np.float32) * 4)
+    for top_k in (0, 20):
+        on_card = sampling.sample(logits.to(cuda), seeds=seeds.to(cuda),
+                                  temperature=0.8, top_k=top_k)
+        assert on_card.is_cuda
+        assert torch.equal(on_card.cpu(), sampling.sample(
+            logits, seeds=seeds, temperature=0.8, top_k=top_k))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed_mode", ("fleet", "request"))
+def test_temperature_serving_on_the_card_matches_the_cpu(cuda, seed_mode):
+    """A seeded fp32 reduced run at temperature 0.8 (top-k 20) samples
+    the same tokens on the card (K1-K4, sampling in the step) and on the
+    CPU, with no token read back one at a time."""
+    params = _reduced_params()
+    kw = dict(temperature=0.8, top_k=20, seed_mode=seed_mode)
+    _lib.reset_launches()
+    on_card, stats = _serve_reduced("cuda", params, **kw)
+    assert all(_lib.LAUNCHES[k] > 0 for k in (
+        "paged_append_token", "paged_attention", "paged_append_chunk",
+        "paged_flash_prefill"))
+    assert stats.host_argmax == 0
+    on_cpu, _ = _serve_reduced("cpu", params, **kw)
+    assert on_card == on_cpu
+    assert on_card != _serve_reduced("cpu", params)[0]
+
+
+@pytest.mark.gpu
+def test_async_stream_on_the_card_matches_offline(cuda):
+    """The async loop (virtual pace) streams the card engine's greedy
+    tokens: the offline run's, the CPU's, with no extra host reads
+    (``host_argmax`` 0) while tokens are harvested every 2 steps."""
+    params = _reduced_params()
+    offline, _ = _serve_reduced("cuda", params)
+    _lib.reset_launches()
+    streamed, stats = _serve_reduced("cuda", params, stream=True,
+                                     harvest_limit=2)
+    assert _lib.LAUNCHES["paged_attention"] > 0
+    assert streamed == offline == _serve_reduced("cpu", params)[0]
+    assert all(len(v) > 0 for v in streamed.values())
+    assert stats.host_argmax == 0 and stats.d2h_batched > 0

@@ -126,10 +126,11 @@ def _engine(s, *, num_blocks=64, block_base=4, max_blocks=16, **kw):
     return plan, geom, eng
 
 
-def run_sched(s, *, mixed):
+def run_sched(s, *, mixed, **kw):
     """Mirror of tests/test_prefill_attention.py::run_sched: staggered
-    requests 'a' (24-token prompt, chunk 8, 6 out) and 'b'."""
-    plan, geom, eng = _engine(s, mixed_step=mixed)
+    requests 'a' (24-token prompt, chunk 8, 6 out) and 'b'. ``kw`` goes
+    to the engine (sampling knobs)."""
+    plan, geom, eng = _engine(s, mixed_step=mixed, **kw)
     sched = s["Sched"](plan, geom, _FixedClock(eng), s["SConf"](
         strategy="hard", max_batch_per_group=2, prefill_chunk=8))
     sched.submit(s["Req"](req_id="a", arrival=0.0, prompt_len=24,
@@ -280,9 +281,9 @@ def test_workload_matches_jax(seed):
     from repro.serving.workload import generate as jax_generate
     from repro_torch.serving.workload import WorkloadSpec, generate
     kw = dict(n_requests=50, seed=seed, prompt_range=(256, 2048),
-              output_range=(32, 64), rate=20.0)
+              output_range=(32, 64), rate=20.0, arrival="poisson")
     got = generate(WorkloadSpec(**kw))
-    want = jax_generate(JaxSpec(arrival="poisson", **kw))
+    want = jax_generate(JaxSpec(**kw))
     assert [(r.req_id, r.arrival, r.prompt_len, r.output_len)
             for r in got] == \
         [(r.req_id, r.arrival, r.prompt_len, r.output_len) for r in want]
@@ -414,6 +415,178 @@ def test_launcher_serves_on_the_cpu_when_asked(capsys):
     assert "host_argmax=0" in out
 
 
+# sampling knobs of the temperature runs: (temperature, top_k, seed_mode)
+SAMPLED = {f"t0.8-k{k}-{m}": dict(temperature=0.8, top_k=k, seed_mode=m)
+           for k in (0, 20) for m in ("fleet", "request")}
+
+
+def run_prefix(s, *, cache):
+    """Mirror of tests/test_prefix_cache.py::run_sched: two requests
+    with the same 8-token prefix, one after the other, so that with the
+    cache on the second attaches the first's committed prefix blocks."""
+    plan, geom, eng = _engine(s, seed_mode="request")
+    sched = s["Sched"](plan, geom, _FixedClock(eng), s["SConf"](
+        strategy="hard", max_batch_per_group=2, prefill_chunk=8,
+        fixed_merge=1, prefix_cache=cache))
+    for rid in ("cold", "warm"):
+        sched.submit(s["Req"](req_id=rid, arrival=0.0, prompt_len=12,
+                              output_len=5, prefix_seed=99, prefix_len=8))
+        sched.run()
+    return dict(toks={rid: eng.generated_tokens(rid)
+                      for rid in ("cold", "warm")},
+                log=[(l.phase, l.n_running, l.n_queued, l.prefix_hits,
+                      l.prefix_misses, l.prefix_evictions)
+                     for l in sched.log],
+                stats=dict(sched.prefix_cache.stats) if cache else None,
+                keys=set(eng.pool._runners), eng=eng)
+
+
+def run_stream(s, *, pace_tokens):
+    """Mirror of tests/test_async_serving.py::
+    test_real_engine_stream_token_identity: requests 'a' and 'b' offline
+    (``pace_tokens`` False) or streamed through the async loop in
+    virtual pace, the package's own front door and loop; harvests every
+    2 steps so that tokens stream before the terminal flush."""
+    import asyncio
+    import importlib
+    pkg = "repro" if s is not None and s["Engine"] is JaxEngine \
+        else "repro_torch"
+    fd = importlib.import_module(pkg + ".serving.frontdoor")
+    al = importlib.import_module(pkg + ".serving.asyncloop")
+    lg = importlib.import_module(pkg + ".serving.loadgen")
+    plan, geom, eng = _engine(s, harvest_limit=2)
+    sched = s["Sched"](plan, geom, _FixedClock(eng), s["SConf"](
+        strategy="hard", max_batch_per_group=2, prefill_chunk=8))
+    reqs = [s["Req"](req_id="a", arrival=0.0, prompt_len=24, output_len=6),
+            s["Req"](req_id="b", arrival=0.001, prompt_len=8,
+                     output_len=8)]
+    if not pace_tokens:
+        for r in reqs:
+            sched.submit(r)
+        sched.run(max_steps=400)
+        return {r.req_id: eng.generated_tokens(r.req_id) for r in reqs}, \
+            eng, None
+    tiers = (fd.SLOClass("priority", priority=1), fd.SLOClass("standard"),
+             fd.SLOClass("background", sheddable=True))
+    door = fd.FrontDoor(sched, fd.FrontDoorConfig(tiers=tiers))
+    loop = al.AsyncServeLoop(door, pace="virtual")
+    streamed = {}
+    peek = eng.harvested_tokens
+
+    def spy(rid):
+        toks = peek(rid)
+        if toks:
+            streamed[rid] = max(streamed.get(rid, 0), len(toks))
+        return toks
+    eng.harvested_tokens = spy
+    out = asyncio.run(lg.drive_inprocess(loop, reqs, collect_tokens=True))
+    return {rec["req_id"]: rec["tokens"] for rec in out["records"]}, eng, \
+        streamed
+
+
+@pytest.fixture(scope="module")
+def jax_sampled_runs(stacks, jax_mesh_shim):
+    s = stacks["jax"]
+    out = {v: run_sched(s, mixed=True, **kw) for v, kw in SAMPLED.items()}
+    out["prefix"] = run_prefix(s, cache=True)
+    out["stream"] = run_stream(s, pace_tokens=False)[0]
+    return out
+
+
+@pytest.mark.parametrize("variant", list(SAMPLED))
+def test_temperature_sampling_matches_jax(stacks, jax_sampled_runs,
+                                          variant):
+    """Temperature 0.8, top-k off and 20, cursor ('fleet') and
+    (req_id, index) ('request') seeds: the port draws the JAX engine's
+    tokens, over the same phases, without a host read per token; the
+    draws are not the greedy stream."""
+    want = jax_sampled_runs[variant]
+    got = run_sched(stacks["torch"], mixed=True, **SAMPLED[variant])
+    assert got["toks"] == want["toks"]
+    assert got["phases"] == want["phases"]
+    assert got["stats"] == want["stats"]
+    assert got["stats"]["host_argmax"] == 0
+    greedy = run_sched(stacks["torch"], mixed=True)["toks"]
+    assert got["toks"] != greedy
+    vocab = stacks["torch"]["model"].cfg.vocab_size
+    assert all(0 <= t < vocab for v in got["toks"].values() for t in v)
+
+
+def test_request_seeds_do_not_depend_on_batching(stacks):
+    """``seed_mode='request'`` seeds each draw from (req_id, index): the
+    mixed and the sequential schedules sample the same tokens."""
+    kw = SAMPLED["t0.8-k20-request"]
+    mixed = run_sched(stacks["torch"], mixed=True, **kw)
+    seq = run_sched(stacks["torch"], mixed=False, **kw)
+    assert mixed["phases"] != seq["phases"]
+    assert mixed["toks"] == seq["toks"]
+
+
+def test_prefix_cache_hits_match_jax(stacks, jax_sampled_runs):
+    """A prefix-cache hit on the port's engine (the warm request attaches
+    the cold one's committed 8-token prefix and prefills only its tail):
+    the JAX engine's tokens, step log, cache counters and runner keys,
+    and the tokens of a run without the cache."""
+    want = jax_sampled_runs["prefix"]
+    got = run_prefix(stacks["torch"], cache=True)
+    assert got["toks"] == want["toks"]
+    assert got["log"] == want["log"]
+    assert got["stats"] == want["stats"]
+    assert got["stats"]["hit_requests"] == 1
+    assert got["stats"]["hit_tokens"] == 8
+    assert got["keys"] == want["keys"]
+    assert got["toks"] == run_prefix(stacks["torch"], cache=False)["toks"]
+    assert all(len(v) == 5 for v in got["toks"].values())
+    assert got["eng"].sync_stats.host_argmax == 0
+
+
+def test_stream_tokens_match_offline_and_jax(stacks, jax_sampled_runs):
+    """The async loop in virtual pace streams the port engine's greedy
+    tokens: the same as the offline run reads back, and the JAX
+    engine's; tokens stream before the terminal flush (harvested every
+    2 steps), and nothing is read back one token at a time."""
+    want = jax_sampled_runs["stream"]
+    offline, _, _ = run_stream(stacks["torch"], pace_tokens=False)
+    got, eng, streamed = run_stream(stacks["torch"], pace_tokens=True)
+    assert offline == want
+    assert got == want
+    assert all(len(v) > 0 for v in got.values())
+    assert streamed and all(n > 0 for n in streamed.values())
+    assert eng.sync_stats.host_argmax == 0
+
+
+def test_real_launcher_never_rebinds(monkeypatch):
+    """``--real`` builds one engine at ``ParallelPlan(1, 1, 1)`` under
+    the layout policy: with priority traffic and the forecast policy it
+    still never rebinds, and every request finishes; a pinned merge
+    wider than the one engine is refused."""
+    from repro_torch.launch import serve
+    calls = []
+    orig = FlyingEngine.rebind
+
+    def rebind(self, layout):
+        calls.append(layout)
+        return orig(self, layout)
+    monkeypatch.setattr(FlyingEngine, "rebind", rebind)
+    cfg = serve.parse_config([
+        "--real", "--reduced", "--device", "cpu", "--dtype", "float32",
+        "--requests", "4", "--num-blocks", "128", "--prompt-range", "16",
+        "48", "--output-range", "3", "6", "--prefill-chunk", "16",
+        "--max-blocks-per-req", "16", "--priority-frac", "0.5",
+        "--forecast", "--frontdoor", "--arrival", "poisson"])
+    stack = serve.build_stack(cfg)
+    sched, _ = serve.replay(cfg, stack, serve.build_door(cfg, stack[0]))
+    assert sched.switches == 0
+    assert calls == []
+    assert sched.layout.describe() == sched.backend.layout.describe()
+    assert all(r.state == "done" for r in sched.pool.all.values())
+    assert sum(r.priority > 0 for r in sched.pool.all.values()) > 0
+    with pytest.raises(ValueError):
+        serve.build_stack(serve.parse_config([
+            "--real", "--reduced", "--device", "cpu", "--dtype",
+            "float32", "--fixed-merge", "2"]))
+
+
 def _imports(path: Path):
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
@@ -424,11 +597,18 @@ def _imports(path: Path):
 
 
 def test_port_is_self_contained():
-    """Nothing in the port, nor chip_smoke.py, imports jax or the JAX
-    package (``repro``)."""
+    """Nothing in the port, nor chip_smoke.py and the tools that run on
+    the card, imports jax or the JAX package (``repro``)."""
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
-    files.append(REPO / "chip_smoke.py")
+    port = {f.relative_to(REPO / "src" / "repro_torch").as_posix()
+            for f in files}
+    files += [REPO / "chip_smoke.py", *sorted((REPO / "tools").glob("*.py"))]
     assert len(files) > 20
+    assert (REPO / "tools" / "http_bench.py") in files
+    assert {"core/policy.py", "launch/serve.py"} | {
+        f"serving/{m}.py" for m in (
+            "hardware", "simulator", "workload", "metrics", "frontdoor",
+            "asyncloop", "server", "loadgen", "sampling")} <= port
     bad = [(f.relative_to(REPO).as_posix(), m) for f in files
            for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]

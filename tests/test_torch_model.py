@@ -147,8 +147,11 @@ def test_entry_points_run_on_the_card_unless_asked():
 
 def test_unported_paths_raise():
     from repro_torch.models.transformer import sample_tokens
-    with pytest.raises(NotImplementedError):
+    # temperature sampling is ported; it refuses to draw without seeds
+    with pytest.raises(ValueError):
         sample_tokens(None, torch.zeros(1, 4), SINGLE, temperature=0.7)
+    assert sample_tokens(None, torch.zeros(1, 4), SINGLE, temperature=0.7,
+                         seeds=torch.tensor([3])).shape == (1,)
     for arch in ("deepseek-v2-236b", "phi3.5-moe-42b-a6.6b"):  # MLA, MoE
         with pytest.raises(NotImplementedError):
             build_model(get_config(arch).reduced(), torch.float32,

@@ -417,5 +417,5 @@ def test_serving_refuses_the_hybrid_stack(hybrid):
                                             block_base=4), tp,
                      device="cpu")
     with pytest.raises(NotImplementedError):
-        build_stack(ServeConfig(arch=ARCH, reduced=True, device="cpu",
-                                dtype="float32"))
+        build_stack(ServeConfig(arch=ARCH, real=True, reduced=True,
+                                device="cpu", dtype="float32"))

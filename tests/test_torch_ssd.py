@@ -407,5 +407,6 @@ def test_serving_refuses_ssm(mamba):
                                             block_base=4), tp,
                      device="cpu")
     with pytest.raises(NotImplementedError):
-        build_stack(ServeConfig(arch="mamba2-2.7b", reduced=True,
-                                device="cpu", dtype="float32"))
+        build_stack(ServeConfig(arch="mamba2-2.7b", real=True,
+                                reduced=True, device="cpu",
+                                dtype="float32"))
