@@ -108,12 +108,35 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    20 steps, as phase 8: finite losses, the last below the first, K7
    launched 8 times forward and 4 times backward per step (four RG-LRU
    layers), K5 4 and 2 (two local-attention layers); then two profiled
-   steps.
+   steps;
+14. (run after phase 12, with this process's card memory freed) two
+   rank processes share the one card, joined over gloo (NCCL refuses two
+   ranks on one card; the backend is printed, and no time here measures
+   TP on two cards): (a) the reduced llama3-8b in fp32 at
+   ``ParallelPlan(1, 1, 2)``, 8 requests with the merge scripted DP ->
+   TP2 -> DP, on the card and on the CPU in each rank: streams and
+   schedules equal, on both ranks; (c) K2's ``return_lse`` partials over
+   two halves of each request's pages, one half a rank, merged by
+   ``TPContext.lse_merge`` across the ranks, against one whole K2 call
+   (fp32 tolerance); (b) llama3-8b at full width and depth in bf16
+   serving phase 5's 8 requests with the merge scripted 1 -> 2 -> 1:
+   every request done with its full output in the vocab, every rebind's
+   weight and pool ``data_ptr``s unchanged; then fleet decode ticks of 16
+   requests at merge 1 and at merge 2, with K1-K4's launches at the
+   merge-2 view (pages of 32 tokens, 4 of the 8 KV heads a rank) counted
+   from zero and required, and every greedy token of both ticks held
+   against a dense one-rank forward of the whole model fed the same
+   tokens (K5, the full vocab, no pool and no collective): its argmax, or
+   a near-tie (a margin of at most NEAR_TIE_SD of the row's deviation),
+   whose margin is printed; rebind ms,
+   the pool's group build ms against its lookup us, TP collectives a
+   step and each rank's peak memory are printed.
 
 Each kernel's launch count in the JSON record comes from the path that
 runs it: K1-K4 from phase 5, K5 and its backward at hd 128 from phase 8
 and at hd 256 from phase 12, K6 and its backward from phase 10, K7 and
-its backward from phase 12. The line
+its backward from phase 12 (phase 14 prints its own K1-K4 counts, in
+its rank processes). The line
 before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -129,6 +152,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 F32_TOL = dict(atol=1e-4, rtol=0.0)
 BF16_TOL = dict(atol=1e-3, rtol=1e-2)
+# phase 14 (b): the largest logit margin, in standard deviations of the
+# row over the vocab, at which a greedy token may differ from a dense
+# one-rank forward's argmax (a near-tie)
+NEAR_TIE_SD = 0.25
 SERVE_KERNELS = ("paged_append_token", "paged_attention",
                  "paged_append_chunk", "paged_flash_prefill")
 TRAIN_KERNELS = ("flash_prefill", "flash_prefill_bwd")
@@ -455,7 +482,9 @@ def kernel_checks(torch, np):
 
 def paged_rep_checks(torch, np, rng, gen, close) -> None:
     """K2 and K4 at rep = H/KV of 7 (internvl2-1b's language model: H 14,
-    KV 2, hd 64) and 12 (mistral-large-123b: H 96, KV 8, hd 128) against
+    KV 2, hd 64) and 12 (mistral-large-123b: H 96, KV 8, hd 128), and at
+    the view one rank of a merge-2 llama3-8b island reads (H 16, KV 4,
+    hd 128, pages of 32 tokens; K1 and K3 there too, bit-exact), against
     their plain versions, at phase 3's decode shape (B 8, contexts 1 to
     4096) and prefill shape (B 4, T 512; T 256 at rep 12, where the plain
     version's scores take 1.6 GB a copy): bf16 q over bf16 pools (K4 on
@@ -468,14 +497,34 @@ def paged_rep_checks(torch, np, rng, gen, close) -> None:
 
     dev = torch.device("cuda")
     f32, bf16 = torch.float32, torch.bfloat16
-    page, nblk, MB = 16, 4096, 256
+    nblk, MB = 4096, 256
 
     def t(a, dtype):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
-    for H, KV, hd, Tp in ((14, 2, 64, 512), (96, 8, 128, 256)):
+    for H, KV, hd, Tp, page in ((14, 2, 64, 512, 16), (96, 8, 128, 256, 16),
+                                (16, 4, 128, 512, 32)):
         rep = H // KV
         kp_, vp_ = (torch.randn((nblk, page, KV, hd), generator=gen,
                                 device=dev).to(bf16) for _ in range(2))
+        if page != 16:
+            for kern, plain, shape in (
+                    (pk.paged_append_token_kernel, pr.paged_append_token_ref,
+                     (8,)),
+                    (pk.paged_append_chunk_kernel, pr.paged_append_chunk_ref,
+                     (4, Tp))):
+                n = int(np.prod(shape))
+                s = rng.choice((nblk - 1) * page, size=n, replace=False)
+                slots = t(s.reshape(shape), torch.int32)
+                vals = tuple(torch.randn(shape + (KV, hd), generator=gen,
+                                         device=dev).to(bf16)
+                             for _ in range(2))
+                got = kern((kp_.clone(), vp_.clone()), vals, slots)
+                want = plain((kp_.clone(), vp_.clone()), vals, slots)
+                check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                      f"{kern.__name__} at page {page}, KV {KV} is not "
+                      f"bit-exact")
+                print(f"  {kern.__name__} page {page} KV {KV} "
+                      f"{tuple(shape)}: bit-exact")
         B = 8
         ctx = t(np.concatenate([[1, MB * page], rng.integers(
             2, MB * page, size=B - 2)]), torch.int32)
@@ -483,7 +532,7 @@ def paged_rep_checks(torch, np, rng, gen, close) -> None:
                torch.int32)
         q = torch.randn((B, H, hd), generator=gen, device=dev)
         n_split, split_len = pk.decode_splits(B, KV, rep, MB * page, dev)
-        tag = f"paged_attention rep {rep} hd {hd}"
+        tag = f"paged_attention rep {rep} hd {hd} page {page}"
         close(pk.paged_attention_kernel(q.to(bf16), kp_, vp_, bt, ctx),
               pr.paged_attention_ref(q.to(bf16), kp_, vp_, bt, ctx), bf16,
               f"{tag} bf16")
@@ -501,7 +550,7 @@ def paged_rep_checks(torch, np, rng, gen, close) -> None:
         bt = t(rng.permutation(nblk - 1)[:B * MB].reshape(B, MB),
                torch.int32)
         q = torch.randn((B, Tp, H, hd), generator=gen, device=dev)
-        tag = f"paged_flash_prefill rep {rep} hd {hd} T {Tp}"
+        tag = f"paged_flash_prefill rep {rep} hd {hd} T {Tp} page {page}"
         for window in (None, 1024):
             close(fk.paged_flash_prefill_kernel(q.to(bf16), kp_, vp_, bt,
                                                 prior, window=window),
@@ -922,6 +971,33 @@ def flash_rows(torch, gen, close, suffix: str, H: int, KV: int, hd: int,
 # phase 4: the whole path on the card against the plain path on the CPU
 # ---------------------------------------------------------------------------
 
+class FixedClock:
+    """Backend proxy whose steps and rebinds report a fixed duration, so
+    two runs see the same scheduler clock."""
+
+    def __init__(self, eng):
+        self.eng = eng
+
+    def __getattr__(self, k):
+        return getattr(self.eng, k)
+
+    def prefill(self, *a):
+        self.eng.prefill(*a)
+        return 0.01
+
+    def decode(self, *a):
+        self.eng.decode(*a)
+        return 0.01
+
+    def mixed(self, *a):
+        self.eng.mixed(*a)
+        return 0.01
+
+    def rebind(self, layout):
+        self.eng.rebind(layout)
+        return 0.01
+
+
 def reference_check(torch):
     from repro_torch.configs import get_config
     from repro_torch.core.engine import FlyingEngine
@@ -935,27 +1011,6 @@ def reference_check(torch):
     plan = ParallelPlan(engine_rows=1, tp_base=1, data_rows=1)
     params = build_model(cfg, torch.float32, "cpu").init(
         torch.Generator().manual_seed(0))
-
-    class FixedClock:
-        """Backend proxy whose steps report a fixed duration, so both
-        runs see the same scheduler clock."""
-        def __init__(self, eng):
-            self.eng = eng
-
-        def __getattr__(self, k):
-            return getattr(self.eng, k)
-
-        def prefill(self, *a):
-            self.eng.prefill(*a)
-            return 0.01
-
-        def decode(self, *a):
-            self.eng.decode(*a)
-            return 0.01
-
-        def mixed(self, *a):
-            self.eng.mixed(*a)
-            return 0.01
 
     def serve(device, num_blocks, reqs):
         geom = PoolGeometry(cfg, plan, num_blocks=num_blocks, block_base=4)
@@ -1619,6 +1674,363 @@ def train_recurrentgemma(torch):
     return {row: launches[k] for row, k in HYBRID_ROWS.items()}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: two ranks on the one card over gloo
+# ---------------------------------------------------------------------------
+
+class ScriptedMerge:
+    """Layout policy that binds both engines into one TP2 island once, at
+    the first tick from ``bind`` on, and dissolves any TP island once,
+    at the first tick from ``release`` on; on every other tick it keeps
+    the layout the scheduler holds (the scheduler itself restores the
+    DP groups of the requests a HARD bind paused once their engines are
+    idle)."""
+
+    def __init__(self, bind: int, release: int):
+        self.bind, self.release = bind, release
+        self.bound = self.released = False
+
+    def decide(self, sched):
+        tick = len(sched.log)
+        if not self.bound and tick >= self.bind:
+            self.bound = True
+            return 2
+        if not self.released and tick >= self.release:
+            self.released = True
+            return 1
+        return sched.layout
+
+
+def islands_trace(torch, device) -> dict:
+    """Phase 14 (a): the reduced llama3-8b in fp32 (weights seeded on the
+    CPU) at ``ParallelPlan(1, 1, 2)`` on ``device``, 8 staggered
+    requests under HARD with the merge scripted 1 -> 2 -> 1 and a fixed
+    clock; every rebind zero-copy checked. Returns the streams and the
+    schedule."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import FlyingEngine
+    from repro_torch.core.kv_adaptor import PoolGeometry
+    from repro_torch.core.modes import ParallelPlan
+    from repro_torch.core.scheduler import DynamicScheduler, SchedulerConfig
+    from repro_torch.core.task_pool import Request
+    from repro_torch.models.model import build_model
+
+    cfg = get_config("llama3-8b").reduced()
+    plan = ParallelPlan(engine_rows=1, tp_base=1, data_rows=2)
+    params = build_model(cfg, torch.float32, "cpu").init(
+        torch.Generator().manual_seed(0))
+    geom = PoolGeometry(cfg, plan, num_blocks=64, block_base=4)
+    eng = FlyingEngine(build_model(cfg, torch.float32, device), plan, geom,
+                       params, batch_per_engine=2, max_blocks_per_req=16,
+                       device=device, check_zero_copy=True)
+    sched = DynamicScheduler(plan, geom, FixedClock(eng), SchedulerConfig(
+        strategy="hard", max_batch_per_group=2, prefill_chunk=8),
+        policy=ScriptedMerge(4, 24))
+    for i in range(8):
+        sched.submit(Request(req_id=f"r{i}", arrival=0.004 * i,
+                             prompt_len=8 + 4 * (i % 4), output_len=6))
+    sched.run(max_steps=400)
+    reqs = sorted(sched.pool.all.values(), key=lambda r: r.req_id)
+    return {"toks": {r.req_id: list(map(int, eng.generated_tokens(
+                r.req_id))) for r in reqs},
+            "done": sum(r.state == "done" for r in reqs),
+            "phases": [l.phase for l in sched.log],
+            "merges": [l.merge for l in sched.log],
+            "switches": sched.switches, "rebinds": len(eng.switch_log),
+            "backend": eng.pool.describe()}
+
+
+def islands_trace_rank(rank: int, world: int, out: str) -> None:
+    """One rank of phase 14 (a): the trace on the card, then on the
+    CPU; writes ``{out}.{rank}.json``."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(4)
+    res = {dev: islands_trace(torch, dev) for dev in ("cuda", "cpu")}
+    with open(f"{out}.{rank}.json", "w") as f:
+        json.dump(res, f)
+
+
+def check_islands_trace(runs) -> dict:
+    """Phase 14 (a)'s verdict over every rank's result: the card's streams
+    and schedule equal the CPU's, the same on each rank, through both
+    rebinds, every request done."""
+    def run(x):
+        return {k: v for k, v in x.items() if k != "backend"}
+    got = runs[0]["cuda"]
+    for r, res in enumerate(runs):
+        check(run(res["cuda"]) == run(res["cpu"]),
+              f"rank {r}: card streams {res['cuda']['toks']} != CPU "
+              f"{res['cpu']['toks']}")
+        check(run(res["cuda"]) == run(got),
+              f"rank {r} ran another schedule than rank 0")
+    check(got["done"] == 8 and all(len(t) == 6 for t in got["toks"].values()),
+          f"islands trace: {got['done']}/8 done")
+    check(2 in got["merges"] and got["merges"][-1] == 1 and
+          got["rebinds"] == 2,
+          f"islands trace did not go DP -> TP2 -> DP: merges "
+          f"{got['merges']}, {got['rebinds']} rebinds")
+    return got
+
+
+def lse_merge_check(torch, eng) -> float:
+    """Phase 14 (c): K2's ``return_lse`` partials over two halves of each
+    request's pages, one half on each rank (llama3-8b's per-rank shape at
+    merge 2: H 16, KV 4, hd 128, page 32; fp32 q over bf16 pools), merged
+    by ``TPContext.lse_merge`` over the two ranks, against one whole K2
+    call. Returns the max abs error."""
+    from repro_torch.core.views import make_serving_ctx
+    from repro_torch.kernels.paged_attention import kernel as pk
+    ctx = make_serving_ctx(2, 1, 1, group=eng.pool.seat(
+        eng.layout.islands[0]).comm)
+    dev = eng.device
+    gen = torch.Generator(device=dev).manual_seed(14)
+    Bq, H, KV, hd, page, nblk, mb = 8, 16, 4, 128, 32, 1024, 64
+    kp, vp = (torch.randn((nblk, page, KV, hd), generator=gen,
+                          device=dev).to(torch.bfloat16) for _ in range(2))
+    q = torch.randn((Bq, H, hd), generator=gen, device=dev)
+    bt = torch.randperm(nblk - 1, generator=gen, device=dev)[
+        :Bq * mb].reshape(Bq, mb).to(torch.int32)
+    half = mb // 2
+    ctxl = torch.randint(half * page + 1, mb * page + 1, (Bq,),
+                         generator=gen, device=dev).to(torch.int32)
+    r = ctx.view_rank()
+    part_bt = bt[:, r * half:(r + 1) * half].contiguous()
+    part_len = ctxl.clamp(max=half * page) if r == 0 \
+        else ctxl - half * page
+    o, lse = pk.paged_attention_kernel(q, kp, vp, part_bt, part_len,
+                                       return_lse=True)
+    merged = ctx.lse_merge(o, torch.ones_like(lse), lse)
+    whole = pk.paged_attention_kernel(q, kp, vp, bt, ctxl)
+    torch.cuda.synchronize()
+    err = float((merged - whole.float()).abs().max())
+    check(torch.allclose(merged, whole.float(), **F32_TOL),
+          f"lse_merge of split K2 partials is off one K2 call by {err:.3e}")
+    return err
+
+
+def decode_tick_ms(torch, eng, merge: int, steps: int = 10,
+                   prompt: int = 512) -> dict:
+    """Fleet decode ticks at one uniform merge: 2 x bpe requests of
+    ``prompt`` tokens prefilled, two warm ticks, then ``steps`` ticks
+    timed on the host clock to the end of a drain (which syncs every
+    rank): the mean ms a tick, the slowest rank's. Returns the tick ms,
+    the K1-K4 launches and the TP collectives of this rank over the
+    prefill and the ticks."""
+    from repro_torch.core.task_pool import Request
+    from repro_torch.kernels import _lib
+    eng.rebind(merge)
+    isl = eng.layout.islands[0]
+    reqs = []
+    for i in range(2 * eng.bpe):
+        r = Request(req_id=f"m{merge}_{i}", arrival=0.0, prompt_len=prompt,
+                    output_len=1 << 30)
+        r.engine_group = 0 if merge == 2 else i % 2
+        reqs.append(r)
+    _lib.reset_launches()
+    coll0 = eng.pool.stats.collectives
+    for r in reqs:
+        eng.adaptors[r.engine_group].append_slots(r.req_id, prompt)
+    eng.prefill(reqs, isl, prompt)
+    t0 = 0.0
+    for k in range(steps + 2):
+        if k == 2:
+            eng.drain()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        for r in reqs:
+            eng.adaptors[r.engine_group].append_slots(r.req_id, 1)
+        eng.decode(reqs, isl)
+    eng.drain()
+    torch.cuda.synchronize()
+    ms = eng.pool.host_max((time.perf_counter() - t0) * 1e3 / steps)
+    launches = {k: _lib.LAUNCHES[k] for k in SERVE_KERNELS}
+    for r in reqs:
+        check(len(eng.generated_tokens(r.req_id)) == steps + 3,
+              f"merge {merge}: {r.req_id} short of tokens")
+    greedy = greedy_margins(torch, eng, reqs)
+    for r in reqs:
+        eng.adaptors[r.engine_group].release(r.req_id)
+    return {"ms": ms, "launches": launches,
+            "collectives": eng.pool.stats.collectives - coll0,
+            "steps": steps + 3, "greedy": greedy}
+
+
+def greedy_margins(torch, eng, reqs) -> dict:
+    """Holds every greedy token the engine streamed for ``reqs`` against
+    one dense forward of the whole model on this rank (K5 and the full
+    vocab, no pool, no collective), fed the prompt and the streamed
+    tokens: each token must be the dense argmax, or a near-tie whose
+    margin (dense top logit less the streamed token's) is at most
+    NEAR_TIE_SD of the row's standard deviation over the vocab. bf16
+    rounding moves a logit by a few hundredths of that; a token read
+    from a wrong head or vocab slice lies some 4 deviations below the
+    top. Returns the token count, the flips, their margins and the
+    largest margin / bound."""
+    import numpy as np
+
+    from repro_torch.core.views import SINGLE
+    from repro_torch.models.cache import TrainBackend
+    n = flips = 0
+    worst = 0.0
+    margins = []
+    for r in reqs:
+        gen = eng.generated_tokens(r.req_id)
+        seq = np.concatenate([np.asarray(eng.prompt_tokens(r)[:r.prompt_len],
+                                         dtype=np.int64),
+                              np.asarray(gen[:-1], dtype=np.int64)])
+        with torch.no_grad():
+            logits, _, _ = eng.model.forward(
+                eng.params, SINGLE, mode="train", backend=TrainBackend(),
+                tokens=torch.as_tensor(seq, device=eng.device)[None])
+        rows = logits[0, r.prompt_len - 1:].float()
+        got = torch.as_tensor(gen, device=eng.device)
+        top = rows.max(-1).values
+        margin = top - rows.gather(1, got[:, None])[:, 0]
+        bound = NEAR_TIE_SD * rows.std(-1)
+        n += len(gen)
+        flips += int((margin > 0).sum())
+        worst = max(worst, float((margin / bound).max()))
+        margins += [float(m) for m in margin[margin > 0]]
+    return {"tokens": n, "flips": flips, "worst": worst,
+            "margins": margins}
+
+
+def islands_rank(rank: int, world: int, out: str) -> None:
+    """One rank of phase 14: (a) the reduced trace on the card and the
+    CPU, (b) llama3-8b at full width and depth in bf16 serving phase 5's
+    8 requests at
+    ``ParallelPlan(1, 1, 2)`` with the merge scripted 1 -> 2 -> 1, every
+    rebind zero-copy checked, then fleet decode ticks at merge 1 and at
+    merge 2, (c) the lse_merge of split K2 partials. Writes
+    ``{out}.{rank}.json``."""
+    import torch
+
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.serve import build_stack, replay
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(4)
+    res = {"a": {dev: islands_trace(torch, dev) for dev in ("cuda", "cpu")}}
+
+    cfg = serve_config(num_blocks=2048, ranks=2)
+    t0 = time.perf_counter()
+    stack = build_stack(cfg, check_zero_copy=True)
+    sched, eng = stack[0], stack[0].backend
+    sched.policy = ScriptedMerge(2, 400)
+    torch.cuda.synchronize()
+    res["build_s"] = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launches()
+    sched, wall = replay(cfg, stack)
+    trace_launches = {k: _lib.LAUNCHES[k] for k in SERVE_KERNELS}
+    reqs = list(sched.pool.all.values())
+    res["b"] = {
+        "done": sum(r.state == "done" and len(eng.generated_tokens(
+            r.req_id)) == r.output_len for r in reqs),
+        "n": len(reqs),
+        "tokens": sum(len(eng.generated_tokens(r.req_id)) for r in reqs),
+        "in_vocab": all(0 <= x < eng.cfg.vocab_size for r in reqs
+                        for x in eng.generated_tokens(r.req_id)),
+        "wall_s": wall, "merges": [l.merge for l in sched.log],
+        "phases": [l.phase for l in sched.log],
+        "rebind_ms": [dt * 1e3 for dt in eng.switch_log],
+        "launches": trace_launches,
+        "host_argmax": eng.sync_stats.host_argmax,
+        "sync": str(eng.sync_stats),
+        "collectives": [eng.pool.stats.collectives,
+                        eng.pool.stats.host_collectives]}
+    res["tick1"] = decode_tick_ms(torch, eng, 1)
+    res["tick2"] = decode_tick_ms(torch, eng, 2)
+    res["c_err"] = lse_merge_check(torch, eng)
+    st = eng.pool.stats
+    res["pool"] = {"describe": eng.pool.describe(),
+                   "build_ms": st.group_build_s * 1e3,
+                   "lookup_us": st.lookup_s / max(st.lookups, 1) * 1e6,
+                   "lookups": st.lookups}
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    res["rebind_ms"] = [dt * 1e3 for dt in eng.switch_log]
+    with open(f"{out}.{rank}.json", "w") as f:
+        json.dump(res, f)
+
+
+def serve_islands(torch, smi: str) -> None:
+    """Phase 14: spawn two rank processes on the one card (gloo), run
+    ``islands_rank`` in each, and check and print what they found."""
+    import tempfile
+
+    from repro_torch.launch.ranks import spawn
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        out = str(Path(d) / "isl")
+        spawn(islands_rank, 2, (out,), device_type="cuda",
+              timeout=900)
+        runs = []
+        for r in range(2):
+            with open(f"{out}.{r}.json") as f:
+                runs.append(json.load(f))
+    a = check_islands_trace([res["a"] for res in runs])
+    print(f"islands: {a['backend']}; two ranks share this card over gloo, "
+          f"host-staged: no number here measures TP on two cards")
+    print(f"islands (a): reduced llama3-8b fp32, DP -> TP2 -> DP "
+          f"({a['rebinds']} rebinds, merges by tick {a['merges']}): card "
+          f"streams equal the CPU ranks', {a['done']}/8 done")
+    b = runs[0]["b"]
+    for r, res in enumerate(runs):
+        check(res["b"]["done"] == res["b"]["n"] == 8 and res["b"]["in_vocab"]
+              and res["b"]["host_argmax"] == 0,
+              f"rank {r}: full-width trace {res['b']['done']}/"
+              f"{res['b']['n']} done")
+        check(res["b"]["merges"] == b["merges"],
+              f"rank {r} scheduled another merge sequence")
+        for k in SERVE_KERNELS:
+            check(res["tick2"]["launches"][k] > 0,
+                  f"rank {r}: {k} never launched at merge 2")
+        for m in (1, 2):
+            g = res[f"tick{m}"]["greedy"]
+            check(g["worst"] <= 1.0,
+                  f"rank {r}: a merge-{m} greedy token is off the dense "
+                  f"one-rank forward's argmax by {g['worst']:.2f}x the "
+                  f"near-tie bound (margins {g['margins']})")
+    check(2 in b["merges"] and b["merges"][-1] == 1,
+          f"full-width trace did not go 1 -> 2 -> 1: {b['merges']}")
+    print(f"islands (b): llama3-8b bf16, 32 layers, phase 5's 8 "
+          f"requests at ParallelPlan(1, 1, 2) with merge 1 -> 2 -> 1: "
+          f"{b['done']}/8 done, {b['tokens']} tokens in {b['wall_s']:.3f} s "
+          f"({b['phases'].count('mixed')} mixed, {b['phases'].count('decode')}"
+          f" decode ticks, {sum(m == 2 for m in b['merges'])} of "
+          f"{len(b['merges'])} ticks at merge 2); weight and pool "
+          f"data_ptrs unchanged over every rebind")
+    print(f"islands (b): {b['sync']}; {b['collectives'][0]} TP and "
+          f"{b['collectives'][1]} host collectives on rank 0 (each gloo "
+          f"collective also waits for the card)")
+    for r, res in enumerate(runs):
+        print(f"islands (b) rank {r}: rebinds "
+              f"{', '.join(f'{x:.2f}' for x in res['rebind_ms'])} ms; "
+              f"pool {res['pool']['build_ms']:.1f} ms to build its groups, "
+              f"{res['pool']['lookup_us']:.2f} us a lookup "
+              f"({res['pool']['lookups']} lookups); trace launches "
+              f"{res['b']['launches']}; peak memory {res['peak_gib']:.2f} "
+              f"GiB; weights built in {res['build_s']:.1f} s")
+    for m in (1, 2):
+        t = runs[0][f"tick{m}"]
+        g = t["greedy"]
+        print(f"islands (b): decode tick at merge {m} (16 requests of 512 "
+              f"tokens): {t['ms']:.2f} ms (the slower rank's), "
+              f"{t['collectives'] / t['steps']:.1f} TP collectives a step "
+              f"on rank 0; K1-K4 launches "
+              f"{[res[f'tick{m}']['launches'] for res in runs]}; greedy "
+              f"tokens against a dense one-rank forward: {g['flips']} of "
+              f"{g['tokens']} are near-ties off its argmax (margins "
+              f"{[f'{x:.3g}' for x in g['margins']]}, at most "
+              f"{g['worst']:.2f}x the bound of {NEAR_TIE_SD} row "
+              f"deviations)")
+    print(f"islands (c): lse_merge of K2's split partials vs one K2 call: "
+          f"max_abs_err {max(res['c_err'] for res in runs):.3e}")
+    print(f"islands: {smi}; phase 14 took {time.perf_counter() - t0:.1f} s")
+
+
 def gc_collect(torch) -> None:
     import gc
     gc.collect()
@@ -1741,6 +2153,8 @@ def main(argv=None) -> int:
         train_reference_check(torch, np, "recurrentgemma-9b", layers=4,
                               bf16=True)
         launches.update(train_recurrentgemma(torch))
+        gc_collect(torch)
+        serve_islands(torch, smi)
     for r in rows:
         r["launches"] = launches[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches",

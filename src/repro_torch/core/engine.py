@@ -1,33 +1,56 @@
-"""FlyingEngine: real-execution runtime of one island on one CUDA card.
+"""FlyingEngine: real-execution runtime over a fleet of ranks, one
+process per rank.
 
-Binds the substrate pieces on the device: the canonical-layout weights
-(at one rank the parameters are the canonical tensors themselves, so
-there is no weights manager yet), invariant flat KV pools (KV Cache
-Adaptor), the per-key step functions (Communicator Pool), and the
-per-engine allocators. Implements the scheduler's Backend protocol, so
-the same DynamicScheduler drives simulation and real execution.
+Binds the substrate pieces on the rank's device: its storage shard of
+the canonical-layout weights (Model Weights Manager), its invariant flat
+KV pools (KV Cache Adaptor), the eager TP groups and per-key step
+functions (Communicator Pool), and the per-engine allocators. Implements
+the scheduler's Backend protocol, so the same DynamicScheduler drives
+simulation and real execution.
 
-This slice serves ``ParallelPlan(1, 1, 1)``: one engine, merge 1, a
-paged pool. A request evicted under KV backpressure (a full pool, or a
-scripted ``POOL_EXHAUST`` window of the ``FaultInjector``) is recovered
-as the reference recovers it: its island is drained, and the original
-prompt plus every token it produced is pinned as its new prompt.
-Rebinding to another layout, live cross-layout segments, sequence
-parallelism and the faults that need a launch gate or quarantine arrive
-with the islands slice and raise ``NotImplementedError`` here.
+The fleet runs a ``FleetLayout``: an ordered partition of the engine
+tiles into contiguous pow2-aligned islands, each with its OWN merge.
+Every island holds a zero-copy *view* of the canonical params and of
+the rank's state pools, plus its own async token ring, decode cache and
+sync counters. ``rebind(layout)`` drains ONLY the islands it reshapes,
+at the step boundary, and re-scopes their params and pools by view
+(under ``check_zero_copy`` every weight and pool ``data_ptr`` is
+asserted unchanged); islands present in both layouts keep their
+in-flight windows and decode caches, and their ``island_sync_stats``
+do not move.
+
+The process model is SPMD: every rank runs the same host program (the
+same scheduler, the same engine bookkeeping), as the JAX package's one
+controller runs one SPMD program. A rank launches only the steps of the
+islands that hold it, on its DP group's rows of the island's batch, and
+its TP group's collectives join the ranks of the group. Host state stays
+identical on every rank: each island's harvested tokens are summed over
+the world from each DP group's lead rank, and each step's duration is
+the max over the ranks (one CPU all_reduce), so every rank's scheduler
+makes the same decisions. ``ParallelPlan(1, 1, 1)`` is one rank with no
+process group.
+
+A request evicted under KV backpressure (a full pool, or a scripted
+``POOL_EXHAUST`` window of the ``FaultInjector``) is recovered as the
+reference recovers it: its island is drained, and the original prompt
+plus every token it produced is pinned as its new prompt. Live
+cross-layout segments, sequence parallelism and the faults that need a
+launch gate or quarantine raise ``NotImplementedError``.
 
 Zero-sync hot path: steady-state decode performs no host
 synchronization and no per-token device->host transfer. Sampling
 (greedy, or temperature and top-k with per-row seeds, drawn as the
-reference draws them) is fused into the step (device-resident ``[B]``
-token ids feed straight back into the next step), the KV pools update in
-place, host batch prep is vectorized numpy over persistent staging
-buffers, and steps run ahead of the host inside a bounded in-flight
-window (a CUDA event per step). Tokens surface only at harvests (every
+reference draws them) is fused into the step (device-resident token ids
+feed straight back into the next step), the KV pools update in place,
+host batch prep is vectorized numpy over persistent staging buffers,
+and steps run ahead of the host inside a bounded in-flight window (a
+CUDA event per step). Tokens surface only at harvests (every
 ``harvest_limit`` steps) and drain points (``generated_tokens``,
-``drain``) as batched transfers; ``harvested_tokens`` peeks at what has
-surfaced without draining. ``sync_stats`` counts every class of host
-crossing.
+``drain``, rebinds) as batched transfers; ``harvested_tokens`` peeks at
+what has surfaced without draining. ``sync_stats`` counts every class
+of host crossing. At tp > 1 every collective also meets the group's
+other ranks, and gloo's synchronize the host with the card: the pool
+counts them (``pool.stats``).
 
 Prefill is chunked: long prompts stream through ``prefill_chunk``-sized
 slices with absolute positions and per-request prior lengths, and when
@@ -44,12 +67,14 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.core.communicator_pool import CommunicatorPool, bucket_pow2
+from repro_torch.core.communicator_pool import (CommunicatorPool, Seat,
+                                                bucket_pow2)
 from repro_torch.core.faults import POOL_EXHAUST
 from repro_torch.core.kv_adaptor import (KVCacheAdaptor, PoolGeometry,
                                          bind_fleet, ragged_arange)
 from repro_torch.core.modes import FleetLayout, Island, ParallelPlan
 from repro_torch.core.task_pool import Request, prompt_token_ids
+from repro_torch.core.weights_manager import WeightsManager, _ptrs
 from repro_torch.device import resolve_device
 from repro_torch.models.model import Model
 
@@ -93,20 +118,27 @@ class _DecodeCache:
 
 
 class _IslandRT:
-    """Per-island runtime: the island's parameters and state pools plus
-    everything the hot path keeps warm between steps."""
-    __slots__ = ("island", "params", "states", "B", "stats", "pending",
-                 "last_tok", "last_src", "last_key", "steady")
+    """Per-island runtime: the island's view of the parameters and state
+    pools on this rank (None where the island does not hold the rank)
+    plus everything the hot path keeps warm between steps. Untouched by
+    rebinds of OTHER islands: the partial-drain contract rides on this
+    isolation."""
+    __slots__ = ("island", "seat", "params", "states", "B", "stats",
+                 "pending", "last_tok", "last_src", "last_key", "steady")
 
-    def __init__(self, island: Island, params, states, B: int):
+    def __init__(self, island: Island, seat: Optional[Seat], params, states,
+                 B: int):
         self.island = island
+        self.seat = seat        # this rank's rows and TP group, or None
         self.params = params
         self.states = states    # per group, per kind: flat (k, v) pools
         self.B = B              # island batch rows = n_engines * bpe
         self.stats = SyncStats()
-        # async token ring: device token tensors not yet harvested, each
-        # with the rows it holds and the event that marks its completion
-        self.pending: List[Tuple[torch.Tensor, Tuple[Tuple[int, str], ...],
+        # async token ring: this rank's device token tensors not yet
+        # harvested (None on a rank the island does not hold), each with
+        # the island rows it holds and the event that marks its completion
+        self.pending: List[Tuple[Optional[torch.Tensor],
+                                 Tuple[Tuple[int, str], ...],
                                  Optional[torch.cuda.Event]]] = []
         self.last_tok: Dict[str, Tuple[torch.Tensor, int]] = {}
         self.last_src: Optional[torch.Tensor] = None
@@ -114,12 +146,12 @@ class _IslandRT:
         self.steady: Optional[_DecodeCache] = None
 
 
-def _tree_to(tree, device):
-    if isinstance(tree, dict):
-        return {k: _tree_to(v, device) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_to(v, device) for v in tree)
-    return tree.to(device)
+def _rank_device(device: torch.device, rank: int) -> torch.device:
+    """``cuda`` without an index means the rank's card: ``cuda:(rank %
+    device_count)``."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", rank % torch.cuda.device_count())
+    return device
 
 
 class FlyingEngine:
@@ -129,28 +161,41 @@ class FlyingEngine:
                  async_window: int = 2, temperature: float = 0.0,
                  top_k: int = 0, harvest_limit: int = 512,
                  mixed_step: bool = True, injector=None,
-                 seed_mode: str = "fleet", device=None):
-        self.device = resolve_device(device)
-        if model.device != self.device:
-            raise ValueError(f"model on {model.device}, engine on "
-                             f"{self.device}")
-        if plan.pods * plan.data_rows * plan.tp_base != 1:
-            raise NotImplementedError(
-                "the port serves ParallelPlan(1, 1, 1) on one card; "
-                "multi-rank islands are a later slice")
+                 seed_mode: str = "fleet", device=None,
+                 layout: Optional[FleetLayout] = None,
+                 check_zero_copy: bool = False):
+        """``params`` is the full parameter tree (the JAX package's, or a
+        seeded one); each rank keeps its storage shard of it. Under
+        ``torch.distributed`` the world is the plan's ranks and this
+        process is one of them; without a process group the plan must be
+        ``ParallelPlan(1, 1, 1)``."""
         if injector is not None:
             kinds = sorted({s.kind for s in injector.specs} - {POOL_EXHAUST})
             if kinds:
                 raise NotImplementedError(
                     f"fault kinds {kinds} need a launch gate or quarantine, "
-                    f"which are not ported; the port takes {POOL_EXHAUST}")
+                    f"which come with the next islands slice (LIVE lanes, "
+                    f"SP, quarantine); the port takes {POOL_EXHAUST}")
         model.check_serving()
+        self.pool = CommunicatorPool(model, plan, geom,
+                                     sample=(temperature, top_k),
+                                     batch_per_engine=batch_per_engine)
+        self.rank, self.world = self.pool.rank, self.pool.world
+        self.device = _rank_device(resolve_device(device), self.rank)
+        if _rank_device(model.device, self.rank) != self.device:
+            raise ValueError(f"model on {model.device}, engine on "
+                             f"{self.device}")
+        if self.world > 1 and not fused_sampling:
+            raise NotImplementedError(
+                "the legacy host-argmax path reads logits of one rank; "
+                "multi-rank serving samples in the step")
         self.model = model
         self.cfg = model.cfg
         self.plan = plan
         self.geom = geom
         self.bpe = batch_per_engine
         self.max_blocks = max_blocks_per_req
+        self.check_zero_copy = check_zero_copy
         self.fused = fused_sampling
         self.window = max(int(async_window), 0)
         self.temperature = temperature
@@ -164,17 +209,30 @@ class FlyingEngine:
             "the legacy host path samples greedily; temperature/top_k " \
             "need fused_sampling=True"
 
-        self.pool = CommunicatorPool(model, plan, geom,
-                                     sample=(temperature, top_k))
-        self.params = _tree_to(params, self.device)
+        self.wm = WeightsManager(self.cfg, plan)
+        tile = plan.engine_rows * plan.tp_base
+        # canonical placement: this rank's storage shard; every island
+        # holding the rank views these tensors
+        self.params = self.wm.storage_shard(params, self.rank % tile,
+                                            self.device)
+        # the rank's flat pools: one set, viewed by whichever island
+        # holds the rank under every layout
+        self._pools = self._fresh_states()
+        # what check_zero_copy holds every island's views to
+        self._resident = (_ptrs(self.params), _ptrs(self._pools))
         self.adaptors = [KVCacheAdaptor(geom)
                          for _ in range(plan.dp_engines * plan.pods)]
-        self.layout = FleetLayout.uniform(plan, 1)
+        self.layout = layout or FleetLayout.uniform(plan, 1)
+        if self.layout.plan != plan:
+            raise ValueError(f"layout of {self.layout.plan}, engine of "
+                             f"{plan}")
+        self._check_islands(self.layout)
         self.islands: List[_IslandRT] = [
             self._make_rt(isl) for isl in self.layout.islands]
         self._rt_of: Dict[Island, _IslandRT] = {
             rt.island: rt for rt in self.islands}
         bind_fleet(self.adaptors, self.layout)
+        self.switch_log: List[float] = []
         self.sync_stats = SyncStats()
         # scripted fault schedule (core/faults.py); the scheduler adopts
         # it from here and applies its POOL_EXHAUST seizures itself
@@ -199,6 +257,11 @@ class FlyingEngine:
     def n_engines(self) -> int:
         return self.plan.dp_engines * self.plan.pods
 
+    def island_sync_stats(self, island: Island) -> SyncStats:
+        """Per-island host-crossing counters: the partial-rebind contract
+        surface (an untouched island's ``drains`` must not move)."""
+        return self._rt_of[island].stats
+
     def _global_batch(self) -> int:
         return self.n_engines * self.bpe
 
@@ -215,10 +278,12 @@ class FlyingEngine:
         return self.islands[0]
 
     # ------------------------------------------------------------------
-    def _fresh_states(self, isl: Island):
-        """Per group, per kind: the flat (k, v) pools ``[n_layers,
-        num_blocks, block_elems]`` on the device, zeroed. The step views
-        them in the island's mode and writes them in place."""
+    # island views: zero-copy params and pools
+    # ------------------------------------------------------------------
+    def _fresh_states(self):
+        """Per group, per kind: the rank's flat (k, v) pools ``[n_layers,
+        num_blocks, block_elems]`` on the device, zeroed. Each step views
+        them in its island's mode and writes them in place."""
         shape = tuple(self.geom.flat_shape())
         return [tuple({"mixer": tuple(
             torch.zeros((n,) + shape, dtype=self.model.dtype,
@@ -226,17 +291,73 @@ class FlyingEngine:
             for _ in kind_seq)
             for kind_seq, n in self.model.plan]
 
+    @staticmethod
+    def _check_islands(layout: FleetLayout) -> None:
+        if any(isl.sp > 1 for isl in layout.islands):
+            raise NotImplementedError(
+                "sequence-parallel islands come with the next islands "
+                "slice (LIVE lanes, SP, quarantine)")
+
     def _make_rt(self, isl: Island) -> _IslandRT:
-        return _IslandRT(isl, self.params, self._fresh_states(isl),
+        seat = self.pool.seat(isl)
+        params = states = None
+        if seat is not None:
+            params = self.wm.island_view(self.params)
+            states = self._pools
+        return _IslandRT(isl, seat, params, states,
                          isl.n_engines * self.bpe)
 
+    # ------------------------------------------------------------------
+    # the bind/release primitive: partial rebind
+    # ------------------------------------------------------------------
     def rebind(self, layout: Union[FleetLayout, int]) -> float:
+        """Transition to another fleet layout, draining ONLY the islands
+        it reshapes. Untouched islands (same start, size and merge) keep
+        their in-flight windows, decode caches and device token rings;
+        reshaped islands hit the step-boundary safe point, then their
+        param and pool views re-scope over the tensors the rank already
+        holds (asserted under ``check_zero_copy``: every ``data_ptr``
+        unchanged). Returns the duration, the max over the ranks."""
         if isinstance(layout, int):
             layout = FleetLayout.uniform(self.plan, layout)
+        assert layout.plan == self.plan
         if layout == self.layout:
             return 0.0
-        raise NotImplementedError("layout rebinds arrive with the islands "
-                                  "slice")
+        self._check_islands(layout)
+        t0 = time.perf_counter()
+        new_set = set(layout.islands)
+        for rt in self.islands:
+            if rt.island not in new_set:
+                self._drain_island(rt)
+        keep = self._rt_of
+        self.islands = [keep.get(isl) or self._make_rt(isl)
+                        for isl in layout.islands]
+        self._rt_of = {rt.island: rt for rt in self.islands}
+        self.layout = layout
+        bind_fleet(self.adaptors, layout)
+        # staging buffers are keyed per island: drop dead islands' so
+        # layout churn doesn't grow host memory without bound
+        self._host_bufs = {k: v for k, v in self._host_bufs.items()
+                           if k[1] in new_set}
+        if self.check_zero_copy:
+            # every island holding this rank views the buffers bound at
+            # construction
+            w, p = self._resident
+            assert all(_ptrs(rt.params) == w and _ptrs(rt.states) == p
+                       for rt in self.islands if rt.seat is not None), \
+                "rebind moved bytes!"
+        dt = self.pool.host_max(time.perf_counter() - t0)
+        self.switch_log.append(dt)
+        return dt
+
+    def switch(self, old: int, new: int) -> float:
+        """Uniform transition: rebind to the uniform layout of ``new`` (a
+        whole-fleet reshape: everything drains)."""
+        if old == new:
+            return 0.0
+        assert self.layout.uniform_merge == old, \
+            f"switch({old},...) vs live layout {self.layout.describe()}"
+        return self.rebind(FleetLayout.uniform(self.plan, new))
 
     # ------------------------------------------------------------------
     # batched execution over the scheduler's request lists
@@ -289,6 +410,16 @@ class FlyingEngine:
         return min(bucket_pow2(max(int(max_need_blocks), 1)),
                    self.max_blocks)
 
+    def _up(self, rt: _IslandRT, buf: np.ndarray) -> Optional[torch.Tensor]:
+        """Upload this rank's rows ``[lo, hi)`` of an island-wide staging
+        buffer (None on a rank the island does not hold)."""
+        seat = rt.seat
+        if seat is None:
+            return None
+        if seat.lo or seat.hi != buf.shape[0]:
+            buf = buf[seat.lo:seat.hi]
+        return self._h2d(buf)
+
     def _h2d(self, buf: np.ndarray) -> torch.Tensor:
         """Upload a snapshot of a REUSED staging buffer. The host copy is
         taken before this returns (into fresh pinned memory on the card's
@@ -321,19 +452,24 @@ class FlyingEngine:
     # -- device token ring ---------------------------------------------
     def _tokens_in(self, rt: _IslandRT, reqs: Sequence[Request],
                    rows: np.ndarray, key, host: np.ndarray) -> torch.Tensor:
-        """Previous-token batch input [B,1] without any device->host
-        read: rows whose last token is still device-resident are gathered
-        on device from the producing step's output; rows already
-        harvested come from the host token buffer."""
-        B = host.shape[0]
+        """Previous-token input of this rank's rows [hi - lo, 1] without
+        any device->host read: rows whose last token is still
+        device-resident are gathered on device from the producing step's
+        output; rows already harvested come from the host token buffer.
+        None on a rank the island does not hold."""
+        seat = rt.seat
+        if seat is None:
+            return None
         if key is not None and key == rt.last_key \
                 and rt.last_src is not None:
-            # unchanged membership: the previous step's [B] output IS
-            # this step's input — feed it straight back
-            return rt.last_src.reshape(B, 1)
+            # unchanged membership: the previous step's output IS this
+            # step's input — feed it straight back
+            return rt.last_src.reshape(-1, 1)
         host.fill(0)
         per_src: Dict[int, Tuple[torch.Tensor, List[int], List[int]]] = {}
         for r, row in zip(reqs, rows):
+            if not seat.lo <= row < seat.hi:
+                continue            # another DP group's row
             ent = rt.last_tok.get(r.req_id)
             if ent is None:
                 buf = self._token_buf.get(r.req_id)
@@ -342,18 +478,19 @@ class FlyingEngine:
             else:
                 src, srow = ent
                 rec = per_src.setdefault(id(src), (src, [], []))
-                rec[1].append(srow)
-                rec[2].append(int(row))
-        tok = self._h2d(host)
+                rec[1].append(srow - seat.lo)
+                rec[2].append(int(row) - seat.lo)
+        tok = self._up(rt, host)
         for src, srows, drows in per_src.values():
             tok[self._h2d(np.asarray(drows, np.int64)), 0] = \
                 src[self._h2d(np.asarray(srows, np.int64))]
         return tok
 
-    def _note_tokens(self, rt: _IslandRT, key, toks_dev: torch.Tensor,
+    def _note_tokens(self, rt: _IslandRT, key,
+                     toks_dev: Optional[torch.Tensor],
                      row_reqs: Tuple[Tuple[int, str], ...]) -> None:
         ev = None
-        if toks_dev.is_cuda:
+        if toks_dev is not None and toks_dev.is_cuda:
             ev = torch.cuda.Event()
             ev.record(torch.cuda.current_stream(toks_dev.device))
         rt.pending.append((toks_dev, row_reqs, ev))
@@ -380,9 +517,12 @@ class FlyingEngine:
     def _harvest(self, rt: _IslandRT) -> None:
         """Move one island's pending device token tensors into the host
         token buffer (one batched [B] transfer per step harvested, never
-        per-token)."""
-        for toks_dev, row_reqs, _ in rt.pending:
-            arr = toks_dev.cpu().numpy()
+        per-token; over several ranks, one world sum for them all)."""
+        if self.world > 1:
+            arrs = list(self._island_tokens(rt))
+        else:
+            arrs = [t.cpu().numpy() for t, _, _ in rt.pending]
+        for arr, (_, row_reqs, _) in zip(arrs, rt.pending):
             self.sync_stats.d2h_batched += 1
             rt.stats.d2h_batched += 1
             for row, rid in row_reqs:
@@ -391,6 +531,19 @@ class FlyingEngine:
                 self._token_buf.setdefault(rid, []).append(int(arr[row]))
         rt.pending.clear()
         rt.last_tok.clear()
+
+    def _island_tokens(self, rt: _IslandRT) -> np.ndarray:
+        """[n_pending, B] token ids of one island, the same on every rank:
+        each DP group's lead rank puts its rows' tokens in, every other
+        rank zeros, and one all_reduce over the world sums them. Every
+        rank harvests the same island at the same point of the same host
+        program, so the collective always meets."""
+        buf = torch.zeros((len(rt.pending), rt.B), dtype=torch.int64)
+        seat = rt.seat
+        if seat is not None and seat.lead and rt.pending:
+            buf[:, seat.lo:seat.hi] = torch.stack(
+                [t for t, _, _ in rt.pending]).cpu()
+        return self.pool.host_sum(buf).numpy()
 
     def _drain_island(self, rt: _IslandRT) -> None:
         """Safe-point synchronization of ONE island: surface its
@@ -425,24 +578,28 @@ class FlyingEngine:
             rt.last_tok.pop(rid, None)
 
     # -- sampling seeds -------------------------------------------------
-    def _seeds(self, B: int) -> Optional[torch.Tensor]:
-        """Per-row sampling seeds without per-step host uploads: the [B]
-        iota is a cached device tensor per batch size; each step adds
+    def _seeds(self, rt: _IslandRT) -> Optional[torch.Tensor]:
+        """Per-row sampling seeds without per-step host uploads: the iota
+        of this rank's rows is a cached device tensor; each step adds
         only the scalar cursor on the device (the same uint32 values as
-        ``base + arange`` mod 2**32)."""
+        ``base + arange(B)`` mod 2**32, rows ``[lo, hi)`` of them)."""
         if self.temperature <= 0.0:
             return None
-        iota = self._seed_iota.get(B)
-        if iota is None:
-            iota = torch.arange(B, dtype=torch.int64, device=self.device)
-            self._seed_iota[B] = iota
         # a fleet-wide cursor advanced by each draw's OWN batch size, so
         # launches of different batch sizes get disjoint seed ranges
         base = self._seed_cursor
-        self._seed_cursor = (base + B) & 0xFFFFFFFF
+        self._seed_cursor = (base + rt.B) & 0xFFFFFFFF
+        seat = rt.seat
+        if seat is None:
+            return None
+        iota = self._seed_iota.get((seat.lo, seat.hi))
+        if iota is None:
+            iota = torch.arange(seat.lo, seat.hi, dtype=torch.int64,
+                                device=self.device)
+            self._seed_iota[(seat.lo, seat.hi)] = iota
         return (iota + base) & 0xFFFFFFFF
 
-    def _sample_seeds(self, B: int, reqs: Sequence[Request], rows,
+    def _sample_seeds(self, rt: _IslandRT, reqs: Sequence[Request], rows,
                       phase: str) -> Optional[torch.Tensor]:
         """Per-launch sampling seeds. ``seed_mode='fleet'`` (default) is
         the cursor draw above: cheapest, but the stream depends on how
@@ -456,21 +613,22 @@ class FlyingEngine:
         if self.temperature <= 0.0:
             return None
         if self.seed_mode != "request":
-            return self._seeds(B)
-        host = np.zeros((B,), np.int64)
+            return self._seeds(rt)
+        host = np.zeros((rt.B,), np.int64)
         for r, row in zip(reqs, rows):
             idx = max(r.generated - 1, 0) if phase == "prefill" \
                 else r.generated
             host[int(row)] = abs(hash((r.req_id, int(idx)))) & 0xFFFFFFFF
-        return self._h2d(host)
+        return self._up(rt, host)
 
     def _single_view(self, entries, isl: Island) -> None:
         """The port's steps read one mode view: every KV segment must be
         tagged with the island's merge (no live cross-layout riders)."""
         tags = {s.tag for e in entries for s in e.segments}
-        if isl.sp > 1 or not tags <= {isl.merge}:
+        if not tags <= {isl.merge}:
             raise NotImplementedError(
-                "live cross-layout segments are not ported yet")
+                "live cross-layout segments come with the next islands "
+                "slice (LIVE lanes, SP, quarantine)")
 
     # ------------------------------------------------------------------
     def _stage_prefill(self, rt: _IslandRT, reqs: Sequence[Request],
@@ -537,12 +695,12 @@ class FlyingEngine:
         posb[:] = np.arange(T, dtype=np.int32)[None]
         posb[rows] += prior[:, None].astype(np.int32)
         batch = {
-            "tokens": self._h2d(toks),
-            "positions": self._h2d(posb),
-            "slots": self._h2d(slots),
-            "last_pos": self._h2d(lastp),
-            "block_table": self._h2d(btab),
-            "prior_len": self._h2d(priorb),
+            "tokens": self._up(rt, toks),
+            "positions": self._up(rt, posb),
+            "slots": self._up(rt, slots),
+            "last_pos": self._up(rt, lastp),
+            "block_table": self._up(rt, btab),
+            "prior_len": self._up(rt, priorb),
         }
         return batch, rows, final, T, mb
 
@@ -551,7 +709,7 @@ class FlyingEngine:
         rt = self._resolve(island)
         t0 = time.perf_counter()
         batch, rows, final, T, mb = self._stage_prefill(rt, reqs)
-        seeds = self._sample_seeds(rt.B, reqs, rows, "prefill")
+        seeds = self._sample_seeds(rt, reqs, rows, "prefill")
         if seeds is not None:
             batch["sample_seeds"] = seeds
         runner = self.pool.runner(
@@ -559,7 +717,7 @@ class FlyingEngine:
             batch_bucket=rt.B, seq_bucket=T, mb_bucket=mb)
         self.sync_stats.steps += 1
         rt.stats.steps += 1
-        out, rt.states = runner(rt.params, rt.states, batch)
+        out = self._launch(rt, runner, batch)
         if self.fused:
             # only FINAL chunks emit a token; mid-prompt chunks leave the
             # device token ring (and its decode feed-back key) untouched
@@ -573,7 +731,24 @@ class FlyingEngine:
             for r, row, f in zip(reqs, rows, final):
                 if f:
                     self._host_token(rt, r, out[row])
-        return time.perf_counter() - t0
+        return self._elapsed(t0)
+
+    def _launch(self, rt: _IslandRT, runner, batch):
+        """Run one step of ``rt``'s island on this rank's rows (nothing on
+        a rank the island does not hold); returns its output."""
+        seat = rt.seat
+        if seat is None:
+            return None
+        args = (rt.params, rt.states, batch)
+        if seat.comm is not None:
+            args += (seat.comm,)
+        out, rt.states = runner(*args)
+        return out
+
+    def _elapsed(self, t0: float) -> float:
+        """A step's duration: the slowest rank's, so that every rank's
+        scheduler clock advances alike."""
+        return self.pool.host_max(time.perf_counter() - t0)
 
     def _host_token(self, rt: _IslandRT, r: Request,
                     logits_row: torch.Tensor) -> None:
@@ -642,16 +817,16 @@ class FlyingEngine:
         batch = {"p_" + k: v for k, v in pbatch.items()}
         batch.update({
             "d_tokens": tokens,
-            "d_positions": self._h2d(bufs["pos"]),
-            "d_slots": self._h2d(bufs["slots"]),
-            "d_block_table": self._h2d(bufs["btab"]),
-            "d_context_len": self._h2d(bufs["ctxl"]),
-            "d_src_rows": self._h2d(src),
+            "d_positions": self._up(rt, bufs["pos"]),
+            "d_slots": self._up(rt, bufs["slots"]),
+            "d_block_table": self._up(rt, bufs["btab"]),
+            "d_context_len": self._up(rt, bufs["ctxl"]),
+            "d_src_rows": self._up(rt, src),
         })
         # two seed draws mirror the sequential two-launch assignment, so
         # stochastic sampling stays token-identical across the fusion
-        p_seeds = self._sample_seeds(B, prefills, prows, "prefill")
-        d_seeds = self._sample_seeds(B, decodes, drows, "decode")
+        p_seeds = self._sample_seeds(rt, prefills, prows, "prefill")
+        d_seeds = self._sample_seeds(rt, decodes, drows, "decode")
         if p_seeds is not None:
             batch["p_sample_seeds"] = p_seeds
             batch["d_sample_seeds"] = d_seeds
@@ -660,13 +835,13 @@ class FlyingEngine:
             batch_bucket=B, seq_bucket=T, mb_bucket=mb)
         self.sync_stats.steps += 1  # ONE step for the island's tick
         rt.stats.steps += 1
-        (p_toks, d_toks), rt.states = runner(rt.params, rt.states, batch)
+        p_toks, d_toks = self._launch(rt, runner, batch) or (None, None)
         prow_reqs = tuple((int(row), r.req_id)
                           for row, r, f in zip(prows, prefills, final) if f)
         if prow_reqs:
             self._note_tokens(rt, None, p_toks, prow_reqs)
         self._note_tokens(rt, c.key, d_toks, c.row_reqs)
-        return time.perf_counter() - t0
+        return self._elapsed(t0)
 
     # ------------------------------------------------------------------
     def _decode_cache(self, rt: _IslandRT, reqs: Sequence[Request],
@@ -750,12 +925,12 @@ class FlyingEngine:
         bufs = c.bufs
         batch = {
             "tokens": self._stage_decode(rt, reqs, c),
-            "positions": self._h2d(bufs["pos"]),
-            "slots": self._h2d(bufs["slots"]),
-            "block_table": self._h2d(bufs["btab"]),
-            "context_len": self._h2d(bufs["ctxl"]),
+            "positions": self._up(rt, bufs["pos"]),
+            "slots": self._up(rt, bufs["slots"]),
+            "block_table": self._up(rt, bufs["btab"]),
+            "context_len": self._up(rt, bufs["ctxl"]),
         }
-        seeds = self._sample_seeds(rt.B, reqs, c.rows, "decode")
+        seeds = self._sample_seeds(rt, reqs, c.rows, "decode")
         if seeds is not None:
             batch["sample_seeds"] = seeds
         runner = self.pool.runner(
@@ -763,13 +938,13 @@ class FlyingEngine:
             batch_bucket=rt.B, seq_bucket=1, mb_bucket=c.mb)
         self.sync_stats.steps += 1
         rt.stats.steps += 1
-        out, rt.states = runner(rt.params, rt.states, batch)
+        out = self._launch(rt, runner, batch)
         if self.fused:
             self._note_tokens(rt, c.key, out, c.row_reqs)
         else:
             for r, row in zip(reqs, c.rows):
                 self._host_token(rt, r, out[row])
-        return time.perf_counter() - t0
+        return self._elapsed(t0)
 
     # ------------------------------------------------------------------
     def _prompt_tokens(self, r: Request) -> np.ndarray:

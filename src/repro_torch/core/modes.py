@@ -29,15 +29,22 @@ tag 1). ``group_of`` returns ``(lead, group_merge, shard)`` so callers
 can address the shard ring, and ``changed_engines`` treats an
 SP-degree change like any other reshape.
 
-The port serves one card: the plan is ``ParallelPlan(1, 1, 1)`` and the
-only layout is the single merge-1 island. The layout algebra is kept
-whole because the scheduler reasons in it; the device meshes of the
-multi-rank islands come with the islands slice.
+The port runs one process per device (a *rank*). Where the JAX package
+reshapes ``jax.devices()`` into a mode mesh over ``MODE_AXES``, the port
+reshapes the world ranks ``0 .. n-1`` the same way (``mode_ranks``,
+``island_ranks``): rank ``r`` is the JAX package's device ``r``, so the
+same rank holds the same storage shard under every mode, and a rank's
+position on the mesh axes gives its TP rank arithmetic
+(``core/views.py``).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Iterator, Optional, Sequence, Tuple
+
+import numpy as np
+
+MODE_AXES = ("pod", "dp", "merge", "ed", "model")
 
 @dataclass(frozen=True)
 class ParallelPlan:
@@ -350,6 +357,41 @@ def island_plan(plan: ParallelPlan, island: Island) -> ParallelPlan:
 
 def island_mode(plan: ParallelPlan, island: Island) -> FlyingMode:
     return FlyingMode(island_plan(plan, island), island.merge)
+
+
+def mode_ranks(mode: FlyingMode) -> np.ndarray:
+    """World ranks in the mode mesh's device order: the flat rank order
+    reshaped row-major over ``MODE_AXES`` (the JAX package's
+    ``mode_mesh`` over ``jax.devices()``), identical across modes."""
+    n = mode.plan.pods * mode.plan.devices_per_pod
+    return np.arange(n).reshape(mode.mesh_shape)
+
+
+def island_ranks(plan: ParallelPlan, island: Island) -> np.ndarray:
+    """World ranks of one island, shaped ``(1, groups, merge, engine_rows,
+    tp_base)`` over ``MODE_AXES`` (the JAX package's ``island_mesh``): a
+    contiguous slice of the flat rank order. ``[0, g]`` flattened is DP
+    group ``g``'s TP group, in TP rank order ('merge', 'ed', 'model')."""
+    tile = plan.engine_rows * plan.tp_base
+    ranks = np.arange(island.start * tile, island.stop * tile)
+    return ranks.reshape(1, island.groups, island.merge, plan.engine_rows,
+                         plan.tp_base)
+
+
+def tp_group_ranks(plan: ParallelPlan) -> Tuple[Tuple[int, ...], ...]:
+    """Every TP group any layout of this plan can hold: for each pow2
+    merge ``m``, each buddy-aligned run of ``m`` engines with its
+    ('ed', 'model') ranks, in a fixed order (merge, then position). A
+    rank sits in one group per merge."""
+    tile = plan.engine_rows * plan.tp_base
+    total = plan.pods * plan.dp_engines
+    out = []
+    m = 1
+    while m <= total:
+        for start in range(0, total, m):
+            out.append(tuple(range(start * tile, (start + m) * tile)))
+        m *= 2
+    return tuple(out)
 
 
 def enumerate_layouts(plan: ParallelPlan) -> Tuple[FleetLayout, ...]:

@@ -2,12 +2,15 @@
 key.
 
 ``build_serve_step`` returns the step function for one (mode, phase) at
-one rank: plain eager PyTorch over the canonical parameters, no
-shard_map and nothing to compile. The JAX package donated the state
-pytree so that XLA could update the KV pools in place; the port updates
-them in place: the step writes through a view of each flat per-layer
-pool and returns the very tensors it was given, their ``data_ptr()``
-unchanged.
+one rank: plain eager PyTorch over the rank's storage shard of the
+parameters, nothing to compile. Where the JAX package's shard_map hands
+each device its DP group's rows of the batch, the engine hands the step
+only this rank's group rows (``bpe * merge`` of them) and the group's
+TP collectives (``comm``), bound into the mode's ``TPContext`` at call
+time. The JAX package donated the state pytree so that XLA could update
+the KV pools in place; the port updates them in place: the step writes
+through a view of each flat per-layer pool and returns the very tensors
+it was given, their ``data_ptr()`` unchanged.
 """
 from __future__ import annotations
 
@@ -26,7 +29,9 @@ from repro_torch.models.transformer import gather_vocab, sample_tokens
 def build_serve_step(model: Model, mode: FlyingMode, geom: PoolGeometry, *,
                      phase: str,
                      sample: Optional[Tuple[float, int]] = None):
-    """Build the step fn ``run(params, states, batch)`` for (mode, phase).
+    """Build the step fn ``run(params, states, batch, comm=None)`` for
+    (mode, phase); ``comm`` is the island group's ``RankGroup`` (None at
+    tp 1).
 
     ``phase`` is 'prefill' (one chunked-prefill launch), 'decode', or
     'mixed' (prefill chunk rows ``p_*`` and the decode batch ``d_*`` in
@@ -44,22 +49,22 @@ def build_serve_step(model: Model, mode: FlyingMode, geom: PoolGeometry, *,
     if phase not in ("prefill", "decode", "mixed"):
         raise ValueError(phase)
     cfg = model.cfg
-    ctx = make_serving_ctx(mode.merge, mode.plan.engine_rows,
-                           mode.plan.tp_base)
+    mode_ctx = make_serving_ctx(mode.merge, mode.plan.engine_rows,
+                                mode.plan.tp_base)
     merge = mode.merge
 
     temp, top_k = sample if sample is not None else (0.0, 0)
 
-    def draw(logits, seeds):
+    def draw(ctx, logits, seeds):
         return sample_tokens(cfg, logits[:, -1], ctx, temperature=temp,
                              top_k=top_k, seeds=seeds)
 
-    def finish(logits, seeds):
+    def finish(ctx, logits, seeds):
         if sample is not None:
-            return draw(logits, seeds)
+            return draw(ctx, logits, seeds)
         return gather_vocab(cfg, logits[:, -1], ctx)
 
-    def prefill(params, sts, batch, pre=""):
+    def prefill(ctx, params, sts, batch, pre=""):
         backend = PrefillBackend(slots=batch[pre + "slots"],
                                  prior_len=batch[pre + "prior_len"],
                                  block_table=batch[pre + "block_table"])
@@ -69,7 +74,7 @@ def build_serve_step(model: Model, mode: FlyingMode, geom: PoolGeometry, *,
             states=sts, last_pos=batch.get(pre + "last_pos"))
         return logits
 
-    def decode(params, sts, batch, tokens, pre=""):
+    def decode(ctx, params, sts, batch, tokens, pre=""):
         backend = DecodeBackend(slots=batch[pre + "slots"],
                                 block_table=batch[pre + "block_table"],
                                 context_len=batch[pre + "context_len"])
@@ -80,17 +85,19 @@ def build_serve_step(model: Model, mode: FlyingMode, geom: PoolGeometry, *,
         return logits
 
     @torch.no_grad()
-    def run(params, states, batch):
+    def run(params, states, batch, comm=None):
+        ctx = mode_ctx.bind(comm)
         sts = _view_states(model, states, geom, merge)
         if phase == "prefill":
-            out = finish(prefill(params, sts, batch),
+            out = finish(ctx, prefill(ctx, params, sts, batch),
                          batch.get("sample_seeds"))
         elif phase == "decode":
-            out = finish(decode(params, sts, batch, batch["tokens"]),
+            out = finish(ctx, decode(ctx, params, sts, batch,
+                                     batch["tokens"]),
                          batch.get("sample_seeds"))
         else:
-            logits_p = prefill(params, sts, batch, "p_")
-            p_toks = draw(logits_p, batch.get("p_sample_seeds"))
+            logits_p = prefill(ctx, params, sts, batch, "p_")
+            p_toks = draw(ctx, logits_p, batch.get("p_sample_seeds"))
             # decode rows promoted out of THIS step's prefill read their
             # input token from the prefill output row, on device
             src = batch["d_src_rows"]
@@ -100,11 +107,11 @@ def build_serve_step(model: Model, mode: FlyingMode, geom: PoolGeometry, *,
                 batch["d_tokens"])
             out = (p_toks if sample is not None
                    else gather_vocab(cfg, logits_p[:, -1], ctx),
-                   finish(decode(params, sts, batch, d_in, "d_"),
+                   finish(ctx, decode(ctx, params, sts, batch, d_in, "d_"),
                           batch.get("d_sample_seeds")))
         return out, states
 
-    return run, ctx
+    return run, mode_ctx
 
 
 def _view_states(model: Model, states, geom: PoolGeometry, merge: int):

@@ -1,0 +1,82 @@
+"""One process per rank: spawn a world of ranks and join it.
+
+``spawn(fn, world, args)`` starts ``world`` fresh interpreters
+(``torch.multiprocessing``, the spawn method), joins each to one
+``torch.distributed`` world through a ``FileStore`` in a temporary
+directory, and runs ``fn(rank, world, *args)`` in each: the same host
+program on every rank (SPMD). The backend is chosen by topology
+(``communicator_pool.world_backend``). Every rank starts with one
+``PYTHONHASHSEED``, since prompts and request seeds come from Python's
+salted ``hash`` of the request id. The join has a deadline: a rank that
+misses a collective hangs its group, so a run that outlives ``timeout``
+is killed and raises ``TimeoutError`` instead of hanging its caller.
+"""
+from __future__ import annotations
+
+import os
+import shutil
+import tempfile
+import time
+from typing import Callable, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from repro_torch.core.communicator_pool import world_backend
+
+
+def _entry(rank: int, fn: Callable, world: int, init_method: str,
+           device_type: str, threads: Optional[int], args: tuple) -> None:
+    """A rank's process: join the world (on the card, as ``cuda:(rank %
+    device_count)``), run ``fn``, leave."""
+    if threads:
+        torch.set_num_threads(threads)
+    device = torch.device(device_type)
+    if device.type == "cuda":
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    dist.init_process_group(world_backend(device, world),
+                            init_method=init_method, rank=rank,
+                            world_size=world)
+    try:
+        fn(rank, world, *args)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn(fn: Callable, world: int, args: Sequence = (), *,
+          device_type: str = "cpu", timeout: Optional[float] = 600.0,
+          hash_seed: str = "0", threads: Optional[int] = None) -> None:
+    """Run ``fn(rank, world, *args)`` on ``world`` spawned ranks and wait
+    for all of them. ``fn`` must be importable by the children (a
+    module-level function). Raises if a rank raises, and
+    ``TimeoutError`` (after killing every rank) past ``timeout``
+    seconds (None: no deadline)."""
+    tmp = tempfile.mkdtemp(prefix="ranks-")
+    init = "file://" + os.path.join(tmp, "store")
+    saved = os.environ.get("PYTHONHASHSEED")
+    os.environ["PYTHONHASHSEED"] = hash_seed
+    try:
+        ctx = mp.start_processes(
+            _entry, args=(fn, world, init, device_type, threads,
+                          tuple(args)),
+            nprocs=world, join=False, start_method="spawn")
+    finally:
+        if saved is None:
+            os.environ.pop("PYTHONHASHSEED", None)
+        else:
+            os.environ["PYTHONHASHSEED"] = saved
+    deadline = None if timeout is None else time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=None if deadline is None else
+                           max(deadline - time.monotonic(), 0.0)):
+            if deadline is not None and time.monotonic() >= deadline:
+                raise TimeoutError(
+                    f"{world} ranks still running after {timeout:.0f} s "
+                    f"(a missed collective?)")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join(timeout=10)
+        shutil.rmtree(tmp, ignore_errors=True)

@@ -1,11 +1,19 @@
 """Serving launcher of the port.
 
 Modes:
-  --real (default): actual execution on one CUDA card: ``FlyingEngine``
-         at ``ParallelPlan(1, 1, 1)`` (one engine, merge 1, a paged pool,
+  --real (default): actual execution: ``FlyingEngine`` (a paged pool,
          fused sampling, chunked prefill with mixed steps), weights
-         random from ``--seed``. Without a card and without ``--device
-         cpu`` it raises instead of falling back to the CPU.
+         random from ``--seed``. With ``--ranks 1`` (the default) one
+         process on one CUDA card at ``ParallelPlan(1, 1, 1)``; with
+         ``--ranks N --tp-base T`` the launcher spawns N rank processes,
+         one per device (``launch/ranks.py``: NCCL when each has a card
+         of its own, gloo when they share one or run on the CPU), at
+         ``ParallelPlan(1, T, N // T)``: N // T engines of T ranks, which
+         the layout policy merges into TP islands and dissolves again.
+         Every rank runs the same scheduler (SPMD) under one
+         ``PYTHONHASHSEED`` (the launcher's own, else 0); rank 0 alone
+         prints. Without a card and without ``--device cpu`` it raises
+         instead of falling back to the CPU.
   --sim: full-scale discrete-event run on the roofline cost model: the
          production mesh geometry, any arch, paper workloads. Its cost
          model is the TPU v5e's (``serving/hardware.py``), as in the JAX
@@ -28,20 +36,28 @@ from a JSON file (``--config serve.json``) with CLI flags as overrides:
       --device cpu --dtype float32 --requests 4 --num-blocks 256 \\
       --prompt-range 16 96 --output-range 4 12 --prefill-chunk 32 \\
       --max-blocks-per-req 16
+  # ... on 8 CPU ranks, the JAX package's --real plan ParallelPlan(1, 2, 4)
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced \\
+      --device cpu --dtype float32 --ranks 8 --tp-base 2 --requests 8 \\
+      --num-blocks 64 --block-base 4 --batch-per-engine 2 \\
+      --prompt-range 8 24 --output-range 4 8 --prefill-chunk 8 \\
+      --max-blocks-per-req 16 --priority-frac 0.25
   PYTHONPATH=src python -m repro_torch.launch.serve --sim --serve \\
       --port 8000 --pace virtual --forecast
   curl -N localhost:8000/v1/completions -d \\
       '{"prompt": "hello", "max_tokens": 16, "stream": true}'
 
-At one engine the layout policy has nothing to merge: a real run
+At one engine the layout policy has nothing to merge: a one-rank run
 never rebinds, and the scheduler refuses a ``--fixed-merge`` other than 1
-(a merge wider than its one engine).
+(a merge wider than its one engine). ``--serve`` runs one rank: HTTP
+requests reach one process, and the SPMD ranks must all see them.
 """
 from __future__ import annotations
 
 import argparse
 import copy
 import json
+import os
 import sys
 import time
 from dataclasses import dataclass, field, fields, replace
@@ -87,7 +103,9 @@ class ServeConfig:
     stream_buf: int = 256                    # per-stream token buffer
     wall_dilation: float = 1.0               # virtual s per wall s
     metrics_window: float = 60.0             # rolling /metrics window
-    # --real: the port's engine on one device
+    # --real: the port's engine, one process per device
+    ranks: int = 1                           # rank processes (devices)
+    tp_base: int = 1                         # ranks per engine tile
     reduced: bool = False                    # the config's smoke variant
     device: str = ""                         # "" = the CUDA card
     dtype: str = "bfloat16"                  # bfloat16|float32
@@ -127,6 +145,15 @@ class ServeConfig:
             v = getattr(self, name)
             if v not in opts:
                 raise SystemExit(f"config: {name}={v!r} not in {opts}")
+        engines = self.ranks // max(self.tp_base, 1)
+        if self.tp_base < 1 or self.ranks % self.tp_base \
+                or engines & (engines - 1):
+            raise SystemExit(f"config: ranks={self.ranks} must be a "
+                             f"power-of-two count of tp_base="
+                             f"{self.tp_base}-rank engines")
+        if self.ranks > 1 and (self.serve or not self.real):
+            raise SystemExit("config: --ranks > 1 replays a trace on the "
+                             "real engine (not --serve, not --sim)")
 
     def policy(self):
         """The layout policy this config asks for (None = pinned)."""
@@ -215,6 +242,7 @@ def build_stack(cfg: ServeConfig, weights=None, **engine):
         from repro_torch.core.engine import FlyingEngine
         from repro_torch.device import resolve_device
         from repro_torch.models.model import build_model
+        # plain ``cuda``: the engine resolves it to the rank's card
         device = resolve_device(cfg.device or None)
         mcfg = get_config(cfg.arch)
         if cfg.reduced:
@@ -225,7 +253,8 @@ def build_stack(cfg: ServeConfig, weights=None, **engine):
                 torch.Generator(device=device).manual_seed(cfg.seed))
         else:
             model, params = weights
-        plan = ParallelPlan(engine_rows=1, tp_base=1, data_rows=1)
+        plan = ParallelPlan(engine_rows=1, tp_base=cfg.tp_base,
+                            data_rows=cfg.ranks // cfg.tp_base)
         geom = PoolGeometry(mcfg, plan, num_blocks=cfg.num_blocks,
                             block_base=cfg.block_base)
         backend = FlyingEngine(
@@ -444,6 +473,12 @@ def run_offline(cfg: ServeConfig) -> None:
               f"({toks / max(wall, 1e-9):.1f} tok/s; the times above are "
               f"the scheduler's host clock)")
         print(f"  sync stats    : {eng.sync_stats}")
+        if eng.world > 1:
+            st = eng.pool.stats
+            print(f"  ranks         : {eng.pool.describe()}; "
+                  f"{len(eng.switch_log)} rebinds; "
+                  f"{st.collectives} TP collectives on rank 0, "
+                  f"{st.host_collectives} host collectives")
     if frontdoor is not None:
         print(f"  lifecycle     : {sched.lifecycle} "
               f"rejected={frontdoor.counters['rejected']}")
@@ -462,9 +497,32 @@ def run_offline(cfg: ServeConfig) -> None:
         write_diag(sched._diagnostic().to_dict())
 
 
+def _rank_main(rank: int, world: int, cfg: ServeConfig) -> None:
+    """One rank of a ``--ranks N`` run: the whole offline replay, as
+    every other rank runs it; rank 0 alone prints."""
+    if rank:
+        sys.stdout = open(os.devnull, "w")
+    try:
+        run_offline(cfg)
+    finally:
+        if rank:
+            sys.stdout.close()
+            sys.stdout = sys.__stdout__
+
+
 def main(argv=None):
     cfg = parse_config(argv)
-    if cfg.serve:
+    if cfg.ranks > 1:
+        from repro_torch.launch.ranks import spawn
+        cpu = cfg.device == "cpu"
+        # CPU ranks split the cores: oversubscribed OpenMP threads spin
+        # while their rank waits in a collective
+        spawn(_rank_main, cfg.ranks, (cfg,),
+              device_type="cpu" if cpu else "cuda", timeout=None,
+              hash_seed=os.environ.get("PYTHONHASHSEED", "0"),
+              threads=max((os.cpu_count() or 1) // cfg.ranks, 1)
+              if cpu else None)
+    elif cfg.serve:
         serve_http(cfg)
     else:
         run_offline(cfg)

@@ -142,31 +142,70 @@ def init_embed(generator, cfg: ArchConfig, dtype, device):
     return p
 
 
+def vocab_offset(cfg, ctx: TPContext) -> Tuple[int, int]:
+    """(first vocab id, width) of this rank's vocab slice; the slice
+    choice mirrors ``TPContext.activate``'s."""
+    V = cfg.vocab_size
+    if ctx.tp == 1:
+        return 0, V
+    shard = ctx.compute_shards(V)
+    Vl = V // shard
+    stored = ctx.stored_shards(V)
+    if stored == 1:
+        idx = (ctx.storage_major_rank() * shard) // ctx.tp
+    else:
+        rep = ctx.tp // shard
+        idx = ctx.storage_rank() * (shard // stored) + ctx.view_rank() // rep
+    return idx * Vl, Vl
+
+
 def embed_tokens(cfg, p, tokens, ctx: TPContext):
-    x = p["tok"][tokens.long()]
+    """Vocab-sharded embedding lookup: masked local gather + one psum."""
+    if ctx.tp == 1:
+        x = p["tok"][tokens.long()]
+    else:
+        emb = ctx.activate(p["tok"], 0, cfg.vocab_size)
+        off, Vl = vocab_offset(cfg, ctx)
+        local = tokens.long() - off
+        ok = (local >= 0) & (local < Vl)
+        x = torch.where(ok[..., None], emb[local.clamp(0, Vl - 1)],
+                        torch.zeros((), dtype=emb.dtype, device=emb.device))
+        x = ctx.psum(x, cfg.vocab_size)
     if cfg.hybrid is not None:
         x = x * math.sqrt(cfg.d_model)
     return x
 
 
 def lm_head(cfg, p, x, ctx: TPContext):
-    """fp32 logits [.., V]. A bf16 head is upcast a slice of vocab
-    columns at a time, so the products are fp32 without an fp32 copy of
-    the whole head."""
-    w = p["tok"].t() if cfg.tie_embeddings else p["head"]
+    """fp32 logits of this rank's vocab slice [.., Vl] (the whole vocab at
+    tp 1). A bf16 head is upcast a slice of vocab columns at a time, so
+    the products are fp32 without an fp32 copy of the whole head."""
+    V = cfg.vocab_size
+    if cfg.tie_embeddings:
+        w = ctx.activate(p["tok"], 0, V).t()
+    else:
+        w = ctx.activate(p["head"], 1, V)
     x = x.float()
     if w.dtype == torch.float32:
         return x @ w
-    V = w.shape[1]
-    out = x.new_empty(x.shape[:-1] + (V,))
-    for i in range(0, V, _HEAD_CHUNK):
+    Vl = w.shape[1]
+    out = x.new_empty(x.shape[:-1] + (Vl,))
+    for i in range(0, Vl, _HEAD_CHUNK):
         out[..., i:i + _HEAD_CHUNK] = x @ w[:, i:i + _HEAD_CHUNK].float()
     return out
 
 
 def gather_vocab(cfg, logits_local, ctx: TPContext):
-    """Full-vocab logits from the local shard: the whole vocab at tp=1."""
-    return logits_local
+    """Full-vocab logits from the local slices: masked placement + one
+    psum (replication-safe). [.., Vl] -> [.., V] fp32, the same on every
+    rank of the group."""
+    if ctx.tp == 1:
+        return logits_local
+    off, Vl = vocab_offset(cfg, ctx)
+    full = logits_local.new_zeros(logits_local.shape[:-1]
+                                  + (cfg.vocab_size,), dtype=torch.float32)
+    full[..., off:off + Vl] = logits_local
+    return ctx.psum_scaled(full, ctx.replication(cfg.vocab_size))
 
 
 def tp_cross_entropy(cfg, logits_local, labels, ctx: TPContext, mask=None):
@@ -179,6 +218,9 @@ def tp_cross_entropy(cfg, logits_local, labels, ctx: TPContext, mask=None):
     one: ``amax``'s backward would count ties in an int64 copy of the
     whole [tokens, vocab] mask, 16.8 GB at 8192 tokens of a 256000-word
     vocab."""
+    if ctx.tp != 1:
+        raise NotImplementedError("sharded training is not ported: the "
+                                  "cross entropy takes the whole vocab")
     V = logits_local.shape[-1]
     m = logits_local.detach().amax(dim=-1)
     denom = torch.exp(logits_local - m[..., None]).sum(dim=-1)
@@ -194,18 +236,30 @@ def tp_cross_entropy(cfg, logits_local, labels, ctx: TPContext, mask=None):
 
 
 def tp_argmax(cfg, logits_local, ctx: TPContext):
-    """Greedy token ids [..] int32 (first index among ties, as
-    ``jnp.argmax``)."""
-    return torch.argmax(logits_local, dim=-1).to(torch.int32)
+    """Greedy token ids [..] int32 over vocab-sharded logits [.., Vl],
+    the same on every rank of the group, without gathering the vocab.
+    Ties break as ``jnp.argmax`` over the gathered logits: each slice
+    proposes its first-occurrence global index, losers propose V, and a
+    pmin picks the lowest winner."""
+    if ctx.tp == 1:
+        return torch.argmax(logits_local, dim=-1).to(torch.int32)
+    off, _ = vocab_offset(cfg, ctx)
+    local_max = logits_local.amax(dim=-1)
+    local_arg = torch.argmax(logits_local, dim=-1).to(torch.int32) + off
+    m = ctx.pmax(local_max)
+    cand = torch.where(local_max == m, local_arg,
+                       torch.full_like(local_arg, cfg.vocab_size))
+    return ctx.pmin(cand)
 
 
 def sample_tokens(cfg, logits_local, ctx: TPContext, *,
                   temperature: float = 0.0, top_k: int = 0, seeds=None):
-    """In-step sampling [B, V] -> [B] int32.
+    """In-step sampling over vocab-sharded logits [B, Vl] -> [B] int32.
 
     temperature <= 0: greedy (``tp_argmax``). temperature > 0: gather the
-    vocab, apply optional top-k truncation, and draw categorically with
-    row ``b``'s seed ``seeds[b]``, bit for bit as the JAX package's
+    vocab (the same on every rank of the group, so every rank draws the
+    same token), apply optional top-k truncation, and draw categorically
+    with row ``b``'s seed ``seeds[b]``, bit for bit as the JAX package's
     ``jax.random.categorical(jax.random.PRNGKey(seed), row)``
     (``serving/sampling.py``)."""
     if temperature <= 0.0:

@@ -861,3 +861,29 @@ def test_async_stream_on_the_card_matches_offline(cuda):
     assert streamed == offline == _serve_reduced("cpu", params)[0]
     assert all(len(v) > 0 for v in streamed.values())
     assert stats.host_argmax == 0 and stats.d2h_batched > 0
+
+
+@pytest.mark.gpu
+def test_island_trace_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """Two ranks share the one card over gloo (``chip_smoke.py`` phase 14
+    (a)): the reduced llama3-8b in fp32 served by ``ParallelPlan(1, 1,
+    2)`` through DP -> TP2 -> DP rebinds, every rebind zero-copy checked,
+    streams the same tokens, on the same schedule, on the card as on the
+    CPU, on both ranks, and finishes every request."""
+    import json
+    import sys
+    from pathlib import Path
+
+    from repro_torch.launch.ranks import spawn
+    root = Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root))
+    import chip_smoke
+    out = str(tmp_path / "trace")
+    spawn(chip_smoke.islands_trace_rank, 2, (out,), device_type="cuda",
+          timeout=300)
+    runs = []
+    for r in range(2):
+        with open(f"{out}.{r}.json") as f:
+            runs.append(json.load(f))
+    got = chip_smoke.check_islands_trace(runs)
+    assert got["rebinds"] == 2 and "gloo" in got["backend"]

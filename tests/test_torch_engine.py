@@ -398,7 +398,7 @@ def test_unported_engine_paths_raise(stacks):
     with pytest.raises(NotImplementedError):
         _engine(stacks["torch"], injector=FaultInjector(
             [FaultSpec(kind=KILL, tick=3, engines=(0,))]))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="spans 2 ranks"):
         FlyingEngine(eng.model, ParallelPlan(tp_base=2, data_rows=1),
                      eng.geom, eng.params, device="cpu")
     assert eng.live_readable() is False
@@ -605,7 +605,9 @@ def test_port_is_self_contained():
     files += [REPO / "chip_smoke.py", *sorted((REPO / "tools").glob("*.py"))]
     assert len(files) > 20
     assert (REPO / "tools" / "http_bench.py") in files
-    assert {"core/policy.py", "launch/serve.py"} | {
+    assert {"core/policy.py", "launch/serve.py", "launch/ranks.py",
+            "core/weights_manager.py", "core/communicator_pool.py",
+            "core/views.py"} | {
         f"serving/{m}.py" for m in (
             "hardware", "simulator", "workload", "metrics", "frontdoor",
             "asyncloop", "server", "loadgen", "sampling")} <= port
