@@ -130,13 +130,31 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    a near-tie (a margin of at most NEAR_TIE_SD of the row's deviation),
    whose margin is printed; rebind ms,
    the pool's group build ms against its lookup us, TP collectives a
-   step and each rank's peak memory are printed.
+   step and each rank's peak memory are printed; (d) the reduced
+   llama3-8b with 2 KV heads (its one KV head is readable at no merge
+   above 1) in fp32, card against CPU in each rank: 8 requests under
+   LIVE with the merge scripted DP -> TP2 while decodes and a chunked
+   prefill are in flight (riders carried, nothing paused or
+   recomputed), a pure-SP island ``Island(0, 2, 2, sp=2)`` serving a
+   context over one engine's pool (tokens equal to a big pool's), and a
+   KILL of engine 1 mid-decode recovered onto engine 0 (the fault-free
+   stream, no block leaked): streams and schedules equal, on both ranks;
+   (e) llama3-8b at full width and depth in bf16 over the same weights:
+   phase 5's 8 requests under LIVE with the merge scripted 1 -> 2 while
+   decodes and a chunked prefill are in flight (every request done,
+   nothing paused or recomputed, ``data_ptr``s unchanged, K2's and K4's
+   LSE launches, the live lanes' sweeps, counted from zero and
+   required, the riders' greedy tokens held against the dense one-rank
+   forward), a decode tick of 16 tag-1 riders at merge 2 timed beside
+   (b)'s plain merge-2 tick (lanes and collectives a tick printed), and
+   one 3072-token request on a pure-SP island whose pool is cut to 24
+   blocks of 128 tokens a rank (its greedy tokens held the same way).
 
 Each kernel's launch count in the JSON record comes from the path that
 runs it: K1-K4 from phase 5, K5 and its backward at hd 128 from phase 8
 and at hd 256 from phase 12, K6 and its backward from phase 10, K7 and
-its backward from phase 12 (phase 14 prints its own K1-K4 counts, in
-its rank processes). The line
+its backward from phase 12 (phase 14 prints its own K1-K4 counts, and
+K2's and K4's LSE launches, in its rank processes). The line
 before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -1897,14 +1915,370 @@ def greedy_margins(torch, eng, reqs) -> dict:
             "margins": margins}
 
 
+class MergeWhenMixed:
+    """Layout policy for the LIVE traces: binds both engines into one TP2
+    island once, at the first tick where a request decodes while another
+    is part-way through its chunked prefill, and records the riders (the
+    requests decoding then); on every other tick it keeps the layout."""
+
+    def __init__(self):
+        self.riders = None
+
+    def decide(self, sched):
+        if self.riders is None and sched.running and any(
+                0 < r.prefilled < r.prompt_len for r in sched.waiting):
+            self.riders = sorted(r.req_id for r in sched.running)
+            return 2
+        return sched.layout
+
+
+def live_config():
+    """The reduced llama3-8b with 2 KV heads (rep 2). The reduced config
+    has one KV head, which no merge above 1 can read in place
+    (``PoolGeometry.live_readable``: MQA never qualifies), so its LIVE
+    merge-up would pause instead of ride."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("llama3-8b").reduced(),
+                               num_kv_heads=2)
+
+
+def _lane_keys(eng) -> list:
+    """The lane tuples of the live steps the engine ran (runner keys)."""
+    return sorted({str(k[8]) for k in eng.pool._runners if k[8]})
+
+
+def _start(eng, reqs, island):
+    """Prefill each request's whole prompt in one step and allocate its
+    first decode slot (the scheduler's cadence)."""
+    for r in reqs:
+        eng.adaptors[r.engine_group].append_slots(r.req_id, r.prompt_len)
+    eng.prefill(reqs, island, max(r.prompt_len for r in reqs))
+    for r in reqs:
+        eng.adaptors[r.engine_group].append_slots(r.req_id, 1)
+
+
+def _decode_steps(eng, reqs, island, steps: int) -> None:
+    for _ in range(steps):
+        eng.decode(reqs, island)
+        for r in reqs:
+            eng.adaptors[r.engine_group].append_slots(r.req_id, 1)
+
+
+def _request(rid: str, group: int, prompt: int):
+    from repro_torch.core.task_pool import Request
+    r = Request(req_id=rid, arrival=0.0, prompt_len=prompt,
+                output_len=1 << 30)
+    r.engine_group = group
+    return r
+
+
+def _sp_serve(eng, prompt: int, steps: int, rid: str = "long") -> dict:
+    """One request on engine 0's island, prefilled a block a chunk (an SP
+    island's chunk stays within one block), then ``steps`` decodes."""
+    ad = eng.adaptors[0]
+    cap = eng.geom.capacity(1)
+    r = _request(rid, 0, prompt)
+    isl = eng.layout.island_of(0)
+    for lo in range(0, prompt, cap):
+        ad.append_slots_batch([rid], [min(cap, prompt - lo)])
+        r.prefilled = lo
+        eng.prefill([r], isl, cap)
+    r.prefilled = prompt
+    ad.append_slots(rid, 1)
+    _decode_steps(eng, [r], isl, steps)
+    shards = sorted({min(o.engine_id for o in s.owners)
+                     for s in ad.table[rid].segments})
+    return {"req": r, "toks": list(map(int, eng.generated_tokens(rid))),
+            "shards": shards, "one_pool": ad.max_context_tokens(1),
+            "context": prompt + steps + 1}
+
+
+def live_runs(torch, device) -> dict:
+    """Phase 14 (d) on ``device``: live_config() in fp32 (weights seeded
+    on the CPU) at ``ParallelPlan(1, 1, 2)``, every rebind and step
+    zero-copy checked. (1) 8 staggered requests under LIVE on a fixed
+    clock, the merge scripted 1 -> 2 while decodes and a chunked prefill
+    are in flight (``MergeWhenMixed``); (2) a pure-SP island
+    ``Island(0, 2, 2, sp=2)`` serving a 45-token context over pools of 28
+    usable tokens, beside the same request at merge 1 from a big pool;
+    (3) engine 1 killed mid-decode: its launch raises ``EngineFault``, the
+    request is recovered from its harvested tokens onto engine 0, beside
+    the fault-free run. Returns what the check compares."""
+    from repro_torch.core.engine import FlyingEngine
+    from repro_torch.core.faults import (KILL, EngineFault, FaultInjector,
+                                         FaultSpec)
+    from repro_torch.core.kv_adaptor import PoolGeometry
+    from repro_torch.core.modes import FleetLayout, Island, ParallelPlan
+    from repro_torch.core.scheduler import DynamicScheduler, SchedulerConfig
+    from repro_torch.core.task_pool import Request
+    from repro_torch.models.model import build_model
+
+    cfg = live_config()
+    plan = ParallelPlan(engine_rows=1, tp_base=1, data_rows=2)
+    params = build_model(cfg, torch.float32, "cpu").init(
+        torch.Generator().manual_seed(0))
+    model = build_model(cfg, torch.float32, device)
+
+    def engine(nb=64, **kw):
+        return FlyingEngine(model, plan, PoolGeometry(
+            cfg, plan, num_blocks=nb, block_base=4), params,
+            batch_per_engine=2, max_blocks_per_req=16, device=device,
+            check_zero_copy=True, **kw)
+
+    out = {}
+    eng = engine()
+    policy = MergeWhenMixed()
+    sched = DynamicScheduler(plan, eng.geom, FixedClock(eng), SchedulerConfig(
+        strategy="live", max_batch_per_group=2, prefill_chunk=8),
+        policy=policy)
+    for i in range(8):
+        sched.submit(Request(req_id=f"r{i}", arrival=0.004 * i,
+                             prompt_len=8 + 4 * (i % 4), output_len=6))
+    sched.run(max_steps=400)
+    reqs = sorted(sched.pool.all.values(), key=lambda r: r.req_id)
+    out["live"] = {
+        "toks": {r.req_id: list(map(int, eng.generated_tokens(r.req_id)))
+                 for r in reqs},
+        "done": sum(r.state == "done" for r in reqs),
+        "phases": [l.phase for l in sched.log],
+        "merges": [l.merge for l in sched.log],
+        "riders": policy.riders, "preempt": dict(sched.preempt_stats),
+        "lanes": _lane_keys(eng), "host_argmax": eng.sync_stats.host_argmax}
+
+    sp_eng = engine(8, layout=FleetLayout(plan, (Island(0, 2, 2, sp=2),)))
+    sp = _sp_serve(sp_eng, 32, 12)
+    big = _sp_serve(engine(layout=FleetLayout.uniform(plan, 1)), 32, 12)
+    out["sp"] = {k: sp[k] for k in ("toks", "shards", "one_pool",
+                                    "context")}
+    out["sp"]["lanes"] = _lane_keys(sp_eng)
+    out["sp_big"] = big["toks"]
+
+    dp = FleetLayout.of(plan, [(1, 1), (1, 1)])
+
+    def kill_run(inj):
+        eng = engine(layout=dp, injector=inj)
+        v, bg = _request("v", 1, 9), _request("b", 0, 9)
+        isl_v, isl_b = dp.island_of(1), dp.island_of(0)
+        free = eng.adaptors[1].free_blocks()
+        _start(eng, [v], isl_v)
+        _start(eng, [bg], isl_b)
+        _decode_steps(eng, [v], isl_v, 3)
+        _decode_steps(eng, [bg], isl_b, 3)
+        if inj is None:
+            _decode_steps(eng, [v], isl_v, 5)
+            _decode_steps(eng, [bg], isl_b, 6)
+            return {r.req_id: list(map(int, eng.generated_tokens(
+                r.req_id))) for r in (v, bg)}
+        # harvest v's island: 4 tokens reach the host; the next 2 stay on
+        # the card and die with engine 1
+        eng._drain_island(eng._rt_of[isl_v])
+        _decode_steps(eng, [v], isl_v, 2)
+        inj.advance(1)
+        fault = None
+        try:
+            eng.decode([v], isl_v)
+        except EngineFault as ex:
+            fault = sorted(ex.engines)
+        kept = eng.recover_request(v)
+        v.prompt_len = v.prompt_len - v.folded + kept
+        v.folded = kept
+        v.prefilled = 0
+        eng.adaptors[1].drop_for_recompute("v")
+        leaked = free - eng.adaptors[1].free_blocks()
+        eng.rebind(eng.layout.quarantine({1}))
+        v.engine_group = 0
+        _start(eng, [v], isl_b)
+        _decode_steps(eng, [v], isl_b, 4)
+        _decode_steps(eng, [bg], isl_b, 6)
+        drains = eng.island_sync_stats(isl_b).drains
+        return {"toks": {r.req_id: list(map(int, eng.generated_tokens(
+                    r.req_id))) for r in (v, bg)},
+                "fault": fault, "kept": kept, "leaked": leaked,
+                "b_drains": drains,
+                "layout": eng.layout.describe()}
+
+    out["kill"] = kill_run(FaultInjector(
+        [FaultSpec(kind=KILL, tick=1, engines=(1,))]))
+    out["kill_free"] = kill_run(None)
+    return out
+
+
+def live_runs_rank(rank: int, world: int, out: str) -> None:
+    """One rank of phase 14 (d): the runs on the card, then on the CPU;
+    writes ``{out}.{rank}.json``."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(4)
+    res = {dev: live_runs(torch, dev) for dev in ("cuda", "cpu")}
+    with open(f"{out}.{rank}.json", "w") as f:
+        json.dump(res, f)
+
+
+def check_live_runs(runs) -> dict:
+    """Phase 14 (d)'s verdict over every rank's result: the card's streams
+    and schedules equal the CPU's, the same on each rank; the LIVE
+    merge-up rode its riders with nothing paused or recomputed; the SP
+    island served a context over one engine's pool as the big pool did;
+    the killed engine's request recovered to the fault-free stream with
+    no block leaked."""
+    got = runs[0]["cuda"]
+    for r, res in enumerate(runs):
+        check(res["cuda"] == res["cpu"],
+              f"rank {r}: card runs differ from the CPU's: "
+              f"{ {k: (res['cuda'][k], res['cpu'][k]) for k in res['cuda'] if res['cuda'][k] != res['cpu'][k]} }")
+        check(res["cuda"] == got, f"rank {r} ran another schedule than "
+              f"rank 0")
+    live, sp, kill = got["live"], got["sp"], got["kill"]
+    p = live["preempt"]
+    check(live["done"] == 8 and all(len(t) == 6
+                                    for t in live["toks"].values()),
+          f"live trace: {live['done']}/8 done")
+    check(2 in live["merges"] and bool(live["riders"]) and
+          p["live_riders"] > 0 and p["paused"] == 0 and
+          p["recomputed_tokens"] == 0 and live["host_argmax"] == 0,
+          f"live trace did not ride its merge-up: riders {live['riders']}, "
+          f"{p}")
+    check(any("1, 2" in k for k in live["lanes"]),
+          f"live trace ran no lanes of tags (1, 2): {live['lanes']}")
+    check(sp["context"] > sp["one_pool"] and sp["shards"] == [0, 1] and
+          sp["toks"] == got["sp_big"] and sp["lanes"] == ["(1, 1)"],
+          f"SP island: shards {sp['shards']}, lanes {sp['lanes']}, tokens "
+          f"{sp['toks']} vs the big pool's {got['sp_big']}")
+    check(kill["fault"] == [1] and kill["kept"] == 4 and
+          kill["leaked"] == 0 and kill["toks"] == got["kill_free"] and
+          kill["b_drains"] == 0,
+          f"kill: {kill} vs fault-free {got['kill_free']}")
+    return got
+
+
+def live_full_width(torch, stack, cfg) -> dict:
+    """Phase 14 (e)'s LIVE trace: phase 5's 8 requests replayed through
+    ``stack`` (llama3-8b in bf16 at ``ParallelPlan(1, 1, 2)``, every
+    rebind and step zero-copy checked) under LIVE, the merge scripted 1
+    -> 2 while decodes and a chunked prefill are in flight, K1-K4's
+    launches and K2's and K4's LSE launches (the live lanes' sweeps)
+    counted from zero; the riders' greedy tokens held against the dense
+    one-rank forward."""
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.serve import replay
+    sched, eng = stack[0], stack[0].backend
+    policy = MergeWhenMixed()
+    sched.policy = policy
+    _lib.reset_launches()
+    coll0 = eng.pool.stats.collectives
+    sched, wall = replay(cfg, stack)
+    launches = {k: _lib.LAUNCHES[k] for k in SERVE_KERNELS}
+    lse = dict(_lib.LSE_LAUNCHES)
+    reqs = list(sched.pool.all.values())
+    riders = [r for r in reqs if r.req_id in (policy.riders or ())]
+    return {
+        "done": sum(r.state == "done" and len(eng.generated_tokens(
+            r.req_id)) == r.output_len for r in reqs),
+        "n": len(reqs), "riders": policy.riders,
+        "preempt": dict(sched.preempt_stats), "wall_s": wall,
+        "merges": [l.merge for l in sched.log],
+        "phases": [l.phase for l in sched.log],
+        "launches": launches, "lse": lse, "lanes": _lane_keys(eng),
+        "steps": eng.sync_stats.steps,
+        "collectives": eng.pool.stats.collectives - coll0,
+        "host_argmax": eng.sync_stats.host_argmax,
+        "greedy": greedy_margins(torch, eng, riders)}
+
+
+def live_tick_ms(torch, eng, steps: int = 10, prompt: int = 512) -> dict:
+    """Phase 14 (e): a fleet decode tick of 16 rows at merge 2 whose KV is
+    tag 1: 2 x bpe requests of ``prompt`` tokens prefilled and decoded
+    twice at merge 1 (each rank's 8 rows), a LIVE rebind to merge 2
+    (their pending slots retagged), two warm ticks, then ``steps`` ticks
+    timed as ``decode_tick_ms`` times them. Returns the tick ms, K1-K4's
+    launches and K2's LSE launches over the 12 live ticks (one a lane a
+    layer a tick), their lanes, the TP collectives a tick and the greedy
+    check of every token."""
+    from repro_torch.kernels import _lib
+    eng.rebind(1)
+    reqs = [_request(f"tick{i}", i % 2, prompt) for i in range(2 * eng.bpe)]
+    _start(eng, reqs, eng.layout.islands[0])
+    _decode_steps(eng, reqs, eng.layout.islands[0], 2)
+    eng.rebind(2)
+    for r in reqs:
+        eng.adaptors[r.engine_group].retag_tail(r.req_id)
+    isl = eng.layout.islands[0]
+    _lib.reset_launches()
+    coll0 = eng.pool.stats.collectives
+    t0 = 0.0
+    for k in range(steps + 2):
+        if k == 2:
+            eng.drain()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        _decode_steps(eng, reqs, isl, 1)
+    eng.drain()
+    torch.cuda.synchronize()
+    ms = eng.pool.host_max((time.perf_counter() - t0) * 1e3 / steps)
+    launches = {k: _lib.LAUNCHES[k] for k in SERVE_KERNELS}
+    lse = dict(_lib.LSE_LAUNCHES)
+    for r in reqs:
+        check(len(eng.generated_tokens(r.req_id)) == steps + 5,
+              f"live tick: {r.req_id} short of tokens")
+    greedy = greedy_margins(torch, eng, reqs)
+    for r in reqs:
+        eng.adaptors[r.engine_group].release(r.req_id)
+    return {"ms": ms, "launches": launches, "lse": lse,
+            "lanes": _lane_keys(eng),
+            "collectives": (eng.pool.stats.collectives - coll0)
+            / (steps + 2), "steps": steps + 2, "greedy": greedy}
+
+
+SP_BLOCKS, SP_PAGE, SP_PROMPT, SP_STEPS = 24, 128, 3072, 16
+
+
+def sp_full_width(torch, weights) -> dict:
+    """Phase 14 (e)'s SP run: llama3-8b in bf16 sharing ``weights`` (the
+    (b) engine's model and parameters), a pool cut to SP_BLOCKS blocks
+    of SP_PAGE tokens a rank (2944 usable), one SP_PROMPT-token request
+    on a pure-SP island ``Island(0, 2, 2, sp=2)``, prefilled a block a
+    chunk, then SP_STEPS decodes: its context exceeds one rank's pool;
+    its greedy tokens held against the dense one-rank forward."""
+    from repro_torch.core.engine import FlyingEngine
+    from repro_torch.core.kv_adaptor import PoolGeometry
+    from repro_torch.core.modes import FleetLayout, Island, ParallelPlan
+    from repro_torch.kernels import _lib
+    model, params = weights
+    plan = ParallelPlan(engine_rows=1, tp_base=1, data_rows=2)
+    geom = PoolGeometry(model.cfg, plan, num_blocks=SP_BLOCKS,
+                        block_base=SP_PAGE)
+    eng = FlyingEngine(model, plan, geom, params, batch_per_engine=1,
+                       max_blocks_per_req=16, device=model.device,
+                       check_zero_copy=True,
+                       layout=FleetLayout(plan, (Island(0, 2, 2, sp=2),)))
+    _lib.reset_launches()
+    t0 = time.perf_counter()
+    res = _sp_serve(eng, SP_PROMPT, SP_STEPS)
+    eng.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lse = dict(_lib.LSE_LAUNCHES)
+    return {"context": res["context"], "one_pool": res["one_pool"],
+            "shards": res["shards"], "tokens": len(res["toks"]),
+            "wall_s": wall, "lse": lse, "lanes": _lane_keys(eng),
+            "greedy": greedy_margins(torch, eng, [res["req"]])}
+
+
 def islands_rank(rank: int, world: int, out: str) -> None:
     """One rank of phase 14: (a) the reduced trace on the card and the
-    CPU, (b) llama3-8b at full width and depth in bf16 serving phase 5's
-    8 requests at
-    ``ParallelPlan(1, 1, 2)`` with the merge scripted 1 -> 2 -> 1, every
-    rebind zero-copy checked, then fleet decode ticks at merge 1 and at
-    merge 2, (c) the lse_merge of split K2 partials. Writes
-    ``{out}.{rank}.json``."""
+    CPU, (d) the LIVE, SP and KILL runs on the card and the CPU, (b)
+    llama3-8b at full width and depth in bf16 serving phase 5's 8
+    requests at ``ParallelPlan(1, 1, 2)`` with the merge scripted 1 -> 2
+    -> 1, every rebind zero-copy checked, then fleet decode ticks at
+    merge 1 and at merge 2, (c) the lse_merge of split K2 partials, (e)
+    phase 5's requests under LIVE with the merge scripted 1 -> 2, a
+    decode tick of tag-1 riders at merge 2 and a context over one rank's
+    pool on an SP island. Writes ``{out}.{rank}.json``."""
+    import gc
+
     import torch
 
     from repro_torch.kernels import _lib
@@ -1912,15 +2286,19 @@ def islands_rank(rank: int, world: int, out: str) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_num_threads(4)
+    t0 = time.perf_counter()
     res = {"a": {dev: islands_trace(torch, dev) for dev in ("cuda", "cpu")}}
+    t1 = time.perf_counter()
+    res["d"] = {dev: live_runs(torch, dev) for dev in ("cuda", "cpu")}
+    res["d_s"] = time.perf_counter() - t1
 
     cfg = serve_config(num_blocks=2048, ranks=2)
-    t0 = time.perf_counter()
+    t1 = time.perf_counter()
     stack = build_stack(cfg, check_zero_copy=True)
     sched, eng = stack[0], stack[0].backend
     sched.policy = ScriptedMerge(2, 400)
     torch.cuda.synchronize()
-    res["build_s"] = time.perf_counter() - t0
+    res["build_s"] = time.perf_counter() - t1
     torch.cuda.reset_peak_memory_stats()
     _lib.reset_launches()
     sched, wall = replay(cfg, stack)
@@ -1949,10 +2327,101 @@ def islands_rank(rank: int, world: int, out: str) -> None:
                    "build_ms": st.group_build_s * 1e3,
                    "lookup_us": st.lookup_s / max(st.lookups, 1) * 1e6,
                    "lookups": st.lookups}
-    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     res["rebind_ms"] = [dt * 1e3 for dt in eng.switch_log]
+    weights = (eng.model, eng.params)
+
+    # (e): a fresh engine over the same weights (its own pools and token
+    # buffers: phase 5's request ids again), then the SP engine
+    del stack, sched, eng, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    live_cfg = serve_config(num_blocks=2048, ranks=2, strategy="live")
+    stack = build_stack(live_cfg, weights, check_zero_copy=True)
+    res["e"] = live_full_width(torch, stack, live_cfg)
+    res["e_tick"] = live_tick_ms(torch, stack[0].backend)
+    del stack
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["e_sp"] = sp_full_width(torch, weights)
+    res["e_s"] = time.perf_counter() - t1
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    res["rank_s"] = time.perf_counter() - t0
     with open(f"{out}.{rank}.json", "w") as f:
         json.dump(res, f)
+
+
+def check_live_full_width(runs, smi: str) -> None:
+    """Phase 14 (e)'s verdict and readings: every request of the LIVE
+    trace done, its merge-up riding its riders with nothing paused or
+    recomputed, K2's and K4's LSE launches (the live lanes) counted and
+    required, every greedy token of the riders, the live tick and the SP
+    run a dense argmax or a near-tie; the SP context over one rank's
+    pool."""
+    e = runs[0]["e"]
+    for r, res in enumerate(runs):
+        x, tick, sp = res["e"], res["e_tick"], res["e_sp"]
+        p = x["preempt"]
+        check(x["done"] == x["n"] == 8 and x["host_argmax"] == 0,
+              f"rank {r}: live trace {x['done']}/{x['n']} done")
+        check(2 in x["merges"] and bool(x["riders"]) and
+              p["live_riders"] > 0 and p["paused"] == 0 and
+              p["recomputed_tokens"] == 0,
+              f"rank {r}: the LIVE merge-up did not ride: riders "
+              f"{x['riders']}, {p}")
+        check(x["merges"] == e["merges"] and x["preempt"] == e["preempt"],
+              f"rank {r} scheduled another live trace than rank 0")
+        for what, lse in (("trace", x["lse"]), ("SP run", sp["lse"])):
+            check(all(lse[k] > 0 for k in lse),
+                  f"rank {r}: the {what}'s live lanes never launched "
+                  f"K2 and K4 with their LSE: {lse}")
+        check(tick["lse"]["paged_attention"] ==
+              tick["launches"]["paged_attention"] > 0,
+              f"rank {r}: live tick K2 launches {tick['launches']}, LSE "
+              f"{tick['lse']}")
+        check(sp["context"] > sp["one_pool"] and sp["shards"] == [0, 1],
+              f"rank {r}: SP run {sp['context']} tokens over pools of "
+              f"{sp['one_pool']}, shards {sp['shards']}")
+        for what, g in (("rider", x["greedy"]), ("live tick", tick["greedy"]),
+                        ("SP", sp["greedy"])):
+            check(g["tokens"] > 0 and g["worst"] <= 1.0,
+                  f"rank {r}: a {what} greedy token is off the dense "
+                  f"one-rank forward's argmax by {g['worst']:.2f}x the "
+                  f"near-tie bound (margins {g['margins']})")
+    tick, sp = runs[0]["e_tick"], runs[0]["e_sp"]
+    plain = runs[0]["tick2"]
+    print(f"islands (e): llama3-8b bf16, 32 layers, phase 5's 8 requests "
+          f"under LIVE, merge 1 -> 2 while {len(e['riders'])} requests "
+          f"decode and a chunked prefill is in flight: {e['done']}/8 done "
+          f"in {e['wall_s']:.3f} s, preempt_stats {e['preempt']}, lanes "
+          f"{e['lanes']}, weight and pool data_ptrs unchanged over every "
+          f"rebind and step; K1-K4 launches a rank "
+          f"{[res['e']['launches'] for res in runs]}, of them returning "
+          f"the LSE (the live lanes) {[res['e']['lse'] for res in runs]}; "
+          f"{e['collectives'] / max(e['steps'], 1):.1f} TP collectives a "
+          f"step on rank 0; riders' greedy tokens against a dense one-rank "
+          f"forward: {e['greedy']['flips']} of {e['greedy']['tokens']} "
+          f"near-ties off its argmax (at most {e['greedy']['worst']:.2f}x "
+          f"the bound)")
+    print(f"islands (e): {smi}; decode tick of 16 tag-1 riders at merge 2 "
+          f"(prompts of 512): {tick['ms']:.2f} ms (the slower rank's) "
+          f"beside (b)'s plain merge-2 tick {plain['ms']:.2f} ms; lanes "
+          f"{tick['lanes']}; {tick['collectives']:.1f} TP collectives a "
+          f"tick on rank 0 (plain: {plain['collectives'] / plain['steps']:.1f}"
+          f"); K1-K4 launches over its {tick['steps']} live ticks "
+          f"{[res['e_tick']['launches'] for res in runs]}, K2 with its LSE "
+          f"{[res['e_tick']['lse']['paged_attention'] for res in runs]}; "
+          f"greedy {tick['greedy']['flips']} of {tick['greedy']['tokens']} "
+          f"near-ties (at most {tick['greedy']['worst']:.2f}x the bound)")
+    print(f"islands (e): {smi}; SP island Island(0, 2, 2, sp=2) served a "
+          f"{sp['context']}-token context over pools of {sp['one_pool']} "
+          f"tokens a rank (shards {sp['shards']}, lanes {sp['lanes']}) in "
+          f"{sp['wall_s']:.3f} s; K2/K4 LSE launches "
+          f"{[res['e_sp']['lse'] for res in runs]}; greedy "
+          f"{sp['greedy']['flips']} of {sp['greedy']['tokens']} near-ties "
+          f"(at most {sp['greedy']['worst']:.2f}x the bound); (d) "
+          f"{max(res['d_s'] for res in runs):.1f} s and (e) "
+          f"{max(res['e_s'] for res in runs):.1f} s of the phase")
 
 
 def serve_islands(torch, smi: str) -> None:
@@ -1976,6 +2445,20 @@ def serve_islands(torch, smi: str) -> None:
     print(f"islands (a): reduced llama3-8b fp32, DP -> TP2 -> DP "
           f"({a['rebinds']} rebinds, merges by tick {a['merges']}): card "
           f"streams equal the CPU ranks', {a['done']}/8 done")
+    d = check_live_runs([res["d"] for res in runs])
+    live, sp, kill = d["live"], d["sp"], d["kill"]
+    print(f"islands (d): reduced llama3-8b with 2 KV heads, fp32, card "
+          f"runs equal the CPU ranks' on both ranks "
+          f"({max(res['d_s'] for res in runs):.1f} s): LIVE DP -> TP2 "
+          f"with {len(live['riders'])} riders and a chunked prefill in "
+          f"flight, {live['done']}/8 done, preempt_stats {live['preempt']},"
+          f" lanes {live['lanes']}; SP island Island(0, 2, 2, sp=2) "
+          f"served a {sp['context']}-token context over pools of "
+          f"{sp['one_pool']} tokens (shards {sp['shards']}, lanes "
+          f"{sp['lanes']}), tokens equal to the big pool's; KILL of "
+          f"engine 1 mid-decode: EngineFault on {kill['fault']}, "
+          f"{kill['kept']} tokens kept, {kill['leaked']} blocks leaked, "
+          f"the recovered stream equals the fault-free one")
     b = runs[0]["b"]
     for r, res in enumerate(runs):
         check(res["b"]["done"] == res["b"]["n"] == 8 and res["b"]["in_vocab"]
@@ -2028,6 +2511,7 @@ def serve_islands(torch, smi: str) -> None:
               f"deviations)")
     print(f"islands (c): lse_merge of K2's split partials vs one K2 call: "
           f"max_abs_err {max(res['c_err'] for res in runs):.3e}")
+    check_live_full_width(runs, smi)
     print(f"islands: {smi}; phase 14 took {time.perf_counter() - t0:.1f} s")
 
 

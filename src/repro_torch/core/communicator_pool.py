@@ -5,10 +5,15 @@ pool therefore builds, at construction, one ``torch.distributed`` group
 for every TP group any layout of the plan can hold: each buddy-aligned
 power-of-two run of engines with its ('ed', 'model') ranks
 (``modes.tp_group_ranks``; the islands of ``modes.enumerate_layouts``
-are made of them). ``dist.new_group`` is collective over the whole
-world, so every rank creates every group in one fixed order, members or
-not; it cannot be lazy. At runtime a mode switch is an O(1) lookup of
-the island's group (``seat``); nothing is created on the critical path.
+are made of them), and beside each TP group of a merge above 1 the view
+groups of its merge axis, one per storage rank: the group's ranks that
+hold the same storage shard, over which the live cross-layout reads
+merge their partials (the JAX package's ``view_axes``; at one rank per
+engine the view group is the TP group itself). ``dist.new_group`` is
+collective over the whole world, so every rank creates every group in
+one fixed order, members or not; it cannot be lazy. At runtime a mode
+switch is an O(1) lookup of the island's groups (``seat``); nothing is
+created on the critical path.
 ``stats`` records the group build time against the lookup time (the
 paper's live switch against its cold start).
 
@@ -75,26 +80,29 @@ class PoolStats(CommStats):
 
 class Seat(NamedTuple):
     """Where this rank sits in one island: its DP group, its batch rows
-    ``[lo, hi)`` of the island's batch, whether it leads the group, and
-    the group's TP collectives (None at tp 1)."""
+    ``[lo, hi)`` of the island's batch, whether it leads the group, the
+    group's TP collectives (None at tp 1) and its view group's (None at
+    merge 1)."""
     group: int
     lo: int
     hi: int
     lead: bool
     comm: Optional[RankGroup]
+    view: Optional[RankGroup] = None
 
 
 class CommunicatorPool:
-    """Eager TP groups, per-island seats and step functions."""
+    """Eager TP and view groups, per-island seats and step functions."""
 
     def __init__(self, model, plan: ParallelPlan, geom: PoolGeometry,
                  sample: Tuple[float, int] = (0.0, 0), *,
-                 batch_per_engine: int = 1):
+                 batch_per_engine: int = 1, window: Optional[int] = None):
         self.model = model
         self.plan = plan
         self.geom = geom
         self.sample = sample  # (temperature, top_k) for sampled runners
         self.bpe = batch_per_engine
+        self.window = window  # sliding window of every serving step
         self._runners: Dict[Tuple, Callable] = {}
         self._seats: Dict[Island, Optional[Seat]] = {}
         self.stats = PoolStats()
@@ -105,25 +113,38 @@ class CommunicatorPool:
                              f"{self.world}")
         self.backend = dist.get_backend() if self.world > 1 else None
         self.host_group = None
-        self._groups: Dict[Tuple[int, int], RankGroup] = {}
+        self.view_groups = 0  # of stats.groups, those of a merge axis
+        # this rank's groups by their world ranks (a view group equal to
+        # its TP group is that group)
+        self._groups: Dict[Tuple[int, ...], RankGroup] = {}
         if self.world > 1:
             t0 = time.perf_counter()
             self.host_group = dist.new_group(backend="gloo")
+            tile = plan.engine_rows * plan.tp_base
+            built = set()
             for ranks in tp_group_ranks(plan):
-                if len(ranks) == 1:
-                    continue          # tp 1: no collective to make
-                handle = dist.new_group(ranks=list(ranks))
-                self.stats.groups += 1
-                if self.rank in ranks:
-                    self._groups[(ranks[0], len(ranks))] = RankGroup(
-                        handle, ranks, ranks.index(self.rank), self.stats)
+                views = [ranks[s::tile] for s in range(tile)] \
+                    if len(ranks) > tile else []
+                for i, members in enumerate([ranks] + views):
+                    if len(members) == 1 or members in built:
+                        continue      # one rank: no collective to make
+                    built.add(members)
+                    handle = dist.new_group(ranks=list(members))
+                    self.stats.groups += 1
+                    if i:
+                        self.view_groups += 1
+                    if self.rank in members:
+                        self._groups[members] = RankGroup(
+                            handle, members, members.index(self.rank),
+                            self.stats)
             self.stats.group_build_s = time.perf_counter() - t0
 
     def describe(self) -> str:
         if self.world == 1:
             return "1 rank, no process group"
         return (f"{self.world} ranks over {self.backend}; "
-                f"{self.stats.groups} TP groups built in "
+                f"{self.stats.groups - self.view_groups} TP groups and "
+                f"{self.view_groups} view groups built in "
                 f"{self.stats.group_build_s * 1e3:.1f} ms")
 
     def seat(self, island: Island) -> Optional[Seat]:
@@ -139,10 +160,14 @@ class CommunicatorPool:
             if 0 <= local < island.n_engines * tile:
                 g = local // width
                 first = island.start * tile + g * width
-                comm = self._groups[(first, width)] if width > 1 else None
+                ranks = tuple(range(first, first + width))
+                comm = self._groups[ranks] if width > 1 else None
+                # the merge axis at this rank's storage rank
+                members = ranks[(self.rank - first) % tile::tile]
+                view = self._groups[members] if len(members) > 1 else None
                 bpg = self.bpe * island.merge
                 s = Seat(g, g * bpg, (g + 1) * bpg, self.rank == first,
-                         comm)
+                         comm, view)
             self._seats[island] = s
         self.stats.lookups += 1
         self.stats.lookup_s += time.perf_counter() - t0
@@ -167,18 +192,23 @@ class CommunicatorPool:
     def runner(self, island: Island, phase: str, *, sampled: bool = False,
                batch_bucket: Optional[int] = None,
                seq_bucket: Optional[int] = None,
-               mb_bucket: Optional[int] = None) -> Callable:
-        """Step fn ``run(params, states, batch, comm)`` for (island shape,
-        phase, variant). ``sampled`` fuses the pool's ``sample=
-        (temperature, top_k)`` into the step. The key's ``donate`` slot
-        is always True (the port updates the pools in place, as the JAX
-        package's donated steps do) and its ``live`` slot None (no live
-        cross-layout reads yet)."""
+               mb_bucket: Optional[int] = None,
+               live: Optional[Tuple[int, ...]] = None) -> Callable:
+        """Step fn ``run(params, states, batch, comm, view)`` for (island
+        shape, phase, variant). ``sampled`` fuses the pool's ``sample=
+        (temperature, top_k)`` into the step. ``live`` selects the
+        cross-layout read variant: the ordered lane-tag tuple of the
+        block segments the batch carries (``None``: the single-view
+        step); an SP island (``island.sp > 1``) runs the SP write
+        variant of it. The key's ``donate`` slot is always True (the
+        port updates the pools in place, as the JAX package's donated
+        steps do)."""
         key = (island.merge, phase, sampled, True, batch_bucket,
-               seq_bucket, mb_bucket, island.n_engines, None, island.sp)
+               seq_bucket, mb_bucket, island.n_engines, live, island.sp)
         if key not in self._runners:
             run, _ = build_serve_step(
                 self.model, island_mode(self.plan, island), self.geom,
-                phase=phase, sample=self.sample if sampled else None)
+                phase=phase, sample=self.sample if sampled else None,
+                live=live, sp=island.sp, window=self.window)
             self._runners[key] = run
         return self._runners[key]

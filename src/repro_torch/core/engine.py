@@ -30,12 +30,23 @@ the max over the ranks (one CPU all_reduce), so every rank's scheduler
 makes the same decisions. ``ParallelPlan(1, 1, 1)`` is one rank with no
 process group.
 
-A request evicted under KV backpressure (a full pool, or a scripted
-``POOL_EXHAUST`` window of the ``FaultInjector``) is recovered as the
-reference recovers it: its island is drained, and the original prompt
-plus every token it produced is pinned as its new prompt. Live
-cross-layout segments, sequence parallelism and the faults that need a
-launch gate or quarantine raise ``NotImplementedError``.
+LIVE rebinds keep in-flight requests where they are: a rider's KV spans
+block segments written under earlier merges, and its steps read every
+segment in place (one partial sweep a lane, merged over the island's
+view group; ``live_readable``). A sequence-parallel island (``sp > 1``)
+spreads one request's blocks round-robin over its shards and reads them
+the same way. Live and SP decode caches are re-staged every step but
+keep their key, so the device token ring still feeds back.
+
+Faults follow the ``FaultInjector``'s script, which every rank replays
+alike: a launch on an island holding a dead engine raises
+``EngineFault`` on every rank before any collective (``_fault_gate``); a
+scripted REBIND_FAIL or DRAIN_CORRUPT raises ``TransitionFault`` before
+the layout moves; a dead or corrupted island's unharvested tokens are
+discarded, not drained. A recovered request (a quarantine, or an
+eviction under KV backpressure) pins its original prompt plus every
+token that reached the host as its new prompt. STALL is ignored: it
+scales simulated step times, and wall time is measured.
 
 Zero-sync hot path: steady-state decode performs no host
 synchronization and no per-token device->host transfer. Sampling
@@ -69,7 +80,7 @@ import torch
 
 from repro_torch.core.communicator_pool import (CommunicatorPool, Seat,
                                                 bucket_pow2)
-from repro_torch.core.faults import POOL_EXHAUST
+from repro_torch.core.faults import TransitionFault
 from repro_torch.core.kv_adaptor import (KVCacheAdaptor, PoolGeometry,
                                          bind_fleet, ragged_arange)
 from repro_torch.core.modes import FleetLayout, Island, ParallelPlan
@@ -102,10 +113,10 @@ class _DecodeCache:
     ``mb`` is the bucketed block-table width the staging buffers were
     built for; crossing a bucket boundary rebuilds the cache."""
     __slots__ = ("key", "rows", "row_reqs", "entries", "lengths", "nblk",
-                 "cap", "bufs", "mb")
+                 "cap", "bufs", "mb", "live")
 
     def __init__(self, key, rows, row_reqs, entries, lengths, nblk, cap,
-                 bufs, mb):
+                 bufs, mb, live=None):
         self.key = key
         self.rows = rows
         self.row_reqs = row_reqs
@@ -115,6 +126,10 @@ class _DecodeCache:
         self.cap = cap
         self.bufs = bufs
         self.mb = mb
+        # the lane tags when any entry's KV spans mode-tagged segments
+        # (or the island is SP): the cache is re-staged every step but
+        # keeps its key, so the token ring still feeds back
+        self.live = live
 
 
 class _IslandRT:
@@ -169,13 +184,6 @@ class FlyingEngine:
         ``torch.distributed`` the world is the plan's ranks and this
         process is one of them; without a process group the plan must be
         ``ParallelPlan(1, 1, 1)``."""
-        if injector is not None:
-            kinds = sorted({s.kind for s in injector.specs} - {POOL_EXHAUST})
-            if kinds:
-                raise NotImplementedError(
-                    f"fault kinds {kinds} need a launch gate or quarantine, "
-                    f"which come with the next islands slice (LIVE lanes, "
-                    f"SP, quarantine); the port takes {POOL_EXHAUST}")
         model.check_serving()
         self.pool = CommunicatorPool(model, plan, geom,
                                      sample=(temperature, top_k),
@@ -235,7 +243,7 @@ class FlyingEngine:
         self.switch_log: List[float] = []
         self.sync_stats = SyncStats()
         # scripted fault schedule (core/faults.py); the scheduler adopts
-        # it from here and applies its POOL_EXHAUST seizures itself
+        # it from here, so one script drives injection and detection
         self.injector = injector
         self._token_buf: Dict[str, List[int]] = {}
         # aborted requests: ids retired WITHOUT an island drain, whose
@@ -291,12 +299,17 @@ class FlyingEngine:
             for _ in kind_seq)
             for kind_seq, n in self.model.plan]
 
-    @staticmethod
-    def _check_islands(layout: FleetLayout) -> None:
-        if any(isl.sp > 1 for isl in layout.islands):
-            raise NotImplementedError(
-                "sequence-parallel islands come with the next islands "
-                "slice (LIVE lanes, SP, quarantine)")
+    def _check_islands(self, layout: FleetLayout) -> None:
+        """An SP island reads every block through the live lanes: its
+        write tag and merge must be tag-readable."""
+        for isl in layout.islands:
+            if isl.sp > 1 and not (
+                    self.live_readable()
+                    and self.geom.live_readable(isl.write_tag)
+                    and self.geom.live_readable(isl.merge)):
+                raise ValueError(
+                    f"{isl}: sequence parallelism needs live-readable "
+                    f"tags {isl.write_tag} and {isl.merge}")
 
     def _make_rt(self, isl: Island) -> _IslandRT:
         seat = self.pool.seat(isl)
@@ -324,10 +337,38 @@ class FlyingEngine:
         if layout == self.layout:
             return 0.0
         self._check_islands(layout)
+        inj = self.injector
+        if inj is not None and inj.take_rebind_fault() is not None:
+            # scripted failure BEFORE any state moves: the engine stays
+            # bound to the old layout, which the scheduler's rollback
+            # assumes
+            raise TransitionFault(f"scripted rebind failure (tick "
+                                  f"{inj.tick})")
         t0 = time.perf_counter()
         new_set = set(layout.islands)
-        for rt in self.islands:
-            if rt.island not in new_set:
+        changed = [rt for rt in self.islands if rt.island not in new_set]
+        changed_engs = {e for rt in changed for e in rt.island.engines()}
+        dead: set = set()
+        if inj is not None:
+            s = inj.take_drain_corrupt(changed_engs)
+            if s is not None:
+                bad = (set(s.engines) & changed_engs) or set(s.engines)
+                # the corruption IS the loss of the named islands'
+                # in-flight tokens; the layout is untouched, so rollback
+                # plus recovery stays well defined
+                for rt in changed:
+                    if set(rt.island.engines()) & bad:
+                        self._discard_island(rt)
+                raise TransitionFault("drain corrupted at the rebind safe "
+                                      "point", engines=bad)
+            dead = set(inj.dead_engines())
+        for rt in changed:
+            # a dead engine cannot answer the drain: its island's
+            # unharvested tokens are lost (the same choice on every
+            # rank, so the drain's world collective still meets)
+            if set(rt.island.engines()) & dead:
+                self._discard_island(rt)
+            else:
                 self._drain_island(rt)
         keep = self._rt_of
         self.islands = [keep.get(isl) or self._make_rt(isl)
@@ -556,6 +597,23 @@ class FlyingEngine:
         rt.last_src = None
         rt.last_key = None
 
+    def _discard_island(self, rt: _IslandRT) -> None:
+        """Fault path: drop one island's in-flight tokens WITHOUT
+        harvesting them (the engine they live on is dead, or the drain
+        was corrupted). Only the host token buffer survives."""
+        rt.pending.clear()
+        rt.last_tok.clear()
+        rt.last_src = None
+        rt.last_key = None
+        rt.steady = None
+
+    def _fault_gate(self, isl: Island) -> None:
+        """Raise ``EngineFault`` when a scripted-dead engine sits in this
+        island (a launch spanning it would hang on its collective). Every
+        rank raises here, before any collective of the step."""
+        if self.injector is not None:
+            self.injector.check_launch(list(isl.engines()))
+
     def drain(self) -> None:
         """Fleet-wide safe point (scheduler end-of-run, host readout)."""
         for rt in self.islands:
@@ -621,15 +679,6 @@ class FlyingEngine:
             host[int(row)] = abs(hash((r.req_id, int(idx)))) & 0xFFFFFFFF
         return self._up(rt, host)
 
-    def _single_view(self, entries, isl: Island) -> None:
-        """The port's steps read one mode view: every KV segment must be
-        tagged with the island's merge (no live cross-layout riders)."""
-        tags = {s.tag for e in entries for s in e.segments}
-        if not tags <= {isl.merge}:
-            raise NotImplementedError(
-                "live cross-layout segments come with the next islands "
-                "slice (LIVE lanes, SP, quarantine)")
-
     # ------------------------------------------------------------------
     def _stage_prefill(self, rt: _IslandRT, reqs: Sequence[Request],
                        mb_min: int = 1):
@@ -638,7 +687,7 @@ class FlyingEngine:
         prompt_len))``: the scheduler has already allocated the chunk's
         slots and only advances ``prefilled`` after the launch, so at
         staging time ``prefilled`` IS the prior context length. Returns
-        (batch, rows, final_mask, T, mb)."""
+        (batch, rows, final_mask, T, mb, live)."""
         isl = rt.island
         B = rt.B
         n = len(reqs)
@@ -647,7 +696,6 @@ class FlyingEngine:
         rows = np.fromiter((rows_map[r.req_id] for r in reqs), np.int64, n)
         entries = [self.adaptors[r.engine_group].table[r.req_id]
                    for r in reqs]
-        self._single_view(entries, isl)
         plens = np.fromiter((len(p) for p in prompts), np.int64, n)
         elens = np.fromiter((e.length for e in entries), np.int64, n)
         # prompt positions cached once this chunk lands (entry.length may
@@ -663,17 +711,41 @@ class FlyingEngine:
         # block-table width tracks the widest live request
         T = bucket_pow2(max(int(chunk.max()), 1))
         nblocks = max(len(e.block_ids) for e in entries)
-        assert nblocks <= self.max_blocks, \
-            f"request needs {nblocks} blocks > max_blocks_per_req=" \
-            f"{self.max_blocks}"
-        mb = max(self._mb_bucket(nblocks), mb_min)
+        if isl.sp > 1:
+            # blocks spread over sp lanes; each lane's table is bounded
+            lane_blocks = -(-nblocks // isl.sp)
+            assert lane_blocks <= self.max_blocks, \
+                f"request needs {lane_blocks} blocks a lane > " \
+                f"max_blocks_per_req={self.max_blocks}"
+            mb = max(self._mb_bucket(lane_blocks), mb_min)
+        else:
+            assert nblocks <= self.max_blocks, \
+                f"request needs {nblocks} blocks > max_blocks_per_req=" \
+                f"{self.max_blocks}"
+            mb = max(self._mb_bucket(nblocks), mb_min)
+        live = self._live_tags(entries, isl)
         bufs = self._bufs(("prefill", isl, B, mb, T))
         toks, slots, btab = bufs["toks"], bufs["slots"], bufs["btab"]
         toks.fill(0)
         slots.fill(-1)
         btab.fill(0)
-        cap = self.geom.capacity(isl.merge)
-        self._fill_block_tables(btab, rows, reqs)
+        cap = self.geom.capacity(isl.write_tag)
+        write_segs: List = [None] * n
+        if live is None:
+            self._fill_block_tables(btab, rows, reqs)
+        if isl.sp > 1:
+            # each chunk lands in ONE per-block SP segment (the write
+            # carries one owner shard a row), so the scheduler issues
+            # block-aligned chunks on SP islands
+            for i, (r, e) in enumerate(zip(reqs, entries)):
+                lo, hi = int(prior[i]), int(end[i])
+                if hi <= lo:
+                    continue
+                assert lo // cap == (hi - 1) // cap, \
+                    (r.req_id, "SP chunk spans blocks", lo, hi, cap)
+                write_segs[i] = next(
+                    sg for sg in reversed(e.segments)
+                    if sg.start <= lo < sg.start + cap and sg.shard >= 0)
         if int(chunk.sum()):
             rowcat = np.repeat(np.arange(n), chunk)
             offcat = ragged_arange(chunk)
@@ -681,8 +753,37 @@ class FlyingEngine:
             rcat = rows[rowcat]
             toks[rcat, offcat] = np.concatenate(
                 [p[lo:hi] for p, lo, hi in zip(prompts, prior, end)])
-            blockcat = btab[rcat, poscat // cap].astype(np.int64)
-            slots[rcat, offcat] = blockcat * cap + poscat % cap
+            if live is None:
+                # single-segment entries: global positions index the
+                # staged table directly
+                blockcat = btab[rcat, poscat // cap].astype(np.int64)
+                slots[rcat, offcat] = blockcat * cap + poscat % cap
+            elif isl.sp > 1:
+                # slot = write block * cap + block-local offset
+                blk = np.fromiter((sg.ids[0] if sg is not None else 0
+                                   for sg in write_segs), np.int64, n)
+                st = np.fromiter((sg.start if sg is not None else 0
+                                  for sg in write_segs), np.int64, n)
+                slots[rcat, offcat] = np.repeat(blk, chunk) * cap \
+                    + (poscat - np.repeat(st, chunk))
+            else:
+                # chunk write slots are RUN-LOCAL against each entry's
+                # current-tag run: a rebind froze the earlier segments,
+                # so global positions no longer index one table
+                tails = [self._seg_runs(e)[-1] for e in entries]
+                for r, t_run in zip(reqs, tails):
+                    assert t_run[0] == isl.merge, \
+                        (r.req_id, "chunk not under the island merge",
+                         t_run[0], isl.merge)
+                seg_start = np.fromiter((t_run[1] for t_run in tails),
+                                        np.int64, n)
+                spos = poscat - np.repeat(seg_start, chunk)
+                maxb = max(len(t_run[2]) for t_run in tails)
+                segtab = np.zeros((n, maxb), np.int64)
+                for i, t_run in enumerate(tails):
+                    segtab[i, :len(t_run[2])] = t_run[2]
+                slots[rcat, offcat] = segtab[rowcat, spos // cap] * cap \
+                    + spos % cap
         priorb = bufs["prior"]
         priorb.fill(0)
         priorb[rows] = prior
@@ -699,22 +800,40 @@ class FlyingEngine:
             "positions": self._up(rt, posb),
             "slots": self._up(rt, slots),
             "last_pos": self._up(rt, lastp),
-            "block_table": self._up(rt, btab),
-            "prior_len": self._up(rt, priorb),
         }
-        return batch, rows, final, T, mb
+        if live is None:
+            batch["block_table"] = self._up(rt, btab)
+            batch["prior_len"] = self._up(rt, priorb)
+        elif isl.sp > 1:
+            lanes = self._sp_lanes(isl, reqs, entries, rows, B, prior,
+                                   write_segs)
+            wown = np.zeros((B,), np.int32)
+            for i, (r, sg) in enumerate(zip(reqs, write_segs)):
+                if sg is not None:
+                    wown[rows[i]] = min(o.engine_id for o in sg.owners) \
+                        - self._group_lead(isl, r)
+            lanes["write_own"] = wown
+        else:
+            cur_start = np.fromiter(
+                (self._seg_runs(e)[-1][1] for e in entries), np.int64, n)
+            lanes = self._seg_arrays(isl, reqs, entries, rows, B, live,
+                                     prior - cur_start)
+        if live is not None:
+            batch.update({k: self._up(rt, v) for k, v in lanes.items()})
+        return batch, rows, final, T, mb, live
 
     def prefill(self, reqs: Sequence[Request], island: Union[Island, int],
                 chunk_tokens: int) -> float:
         rt = self._resolve(island)
+        self._fault_gate(rt.island)
         t0 = time.perf_counter()
-        batch, rows, final, T, mb = self._stage_prefill(rt, reqs)
+        batch, rows, final, T, mb, live = self._stage_prefill(rt, reqs)
         seeds = self._sample_seeds(rt, reqs, rows, "prefill")
         if seeds is not None:
             batch["sample_seeds"] = seeds
         runner = self.pool.runner(
             rt.island, "prefill", sampled=self.fused,
-            batch_bucket=rt.B, seq_bucket=T, mb_bucket=mb)
+            batch_bucket=rt.B, seq_bucket=T, mb_bucket=mb, live=live)
         self.sync_stats.steps += 1
         rt.stats.steps += 1
         out = self._launch(rt, runner, batch)
@@ -739,10 +858,16 @@ class FlyingEngine:
         seat = rt.seat
         if seat is None:
             return None
-        args = (rt.params, rt.states, batch)
+        states = rt.states
+        args = (rt.params, states, batch)
         if seat.comm is not None:
-            args += (seat.comm,)
+            args += (seat.comm, seat.view)
         out, rt.states = runner(*args)
+        if self.check_zero_copy:
+            # the step wrote the pools it was given, in place
+            assert rt.states is states \
+                and _ptrs(states) == self._resident[1], \
+                "a step moved the pools"
         return out
 
     def _elapsed(self, t0: float) -> float:
@@ -761,18 +886,31 @@ class FlyingEngine:
     # ------------------------------------------------------------------
     def request_fits(self, r: Request, merge) -> bool:
         """Admission gate: can this request's full context EVER sit in
-        one ``max_blocks_per_req``-wide block table under ``merge``?
-        Over-cap requests are rejected up front instead of crashing the
-        serve loop mid-stream."""
+        one ``max_blocks_per_req``-wide block table under ``merge`` (a
+        bare merge or an Island)? Over-cap requests are rejected up front
+        instead of crashing the serve loop mid-stream. On an SP island
+        the blocks round-robin over ``sp`` lanes, so the gate is a
+        lane's width."""
+        if isinstance(merge, Island) and merge.sp > 1:
+            cap = self.geom.capacity(merge.write_tag)
+            need = -(-r.total_context() // cap)
+            return -(-need // merge.sp) <= self.max_blocks
         m = merge.merge if isinstance(merge, Island) else merge
         cap = self.geom.capacity(m)
         need = -(-r.total_context() // cap)
         return need <= self.max_blocks
 
     def live_readable(self) -> bool:
-        """Scheduler capability hook: the port has no live cross-layout
-        read program yet."""
-        return False
+        """Scheduler capability hook: can this backend carry in-flight
+        requests' KV across a rebind in place? The geometry half
+        (``PoolGeometry.live_readable`` a tag) is the scheduler's check;
+        this half covers what the steps implement: the head-layout paged
+        pool, no MLA, no sliding window, non-recurrent, non-enc-dec."""
+        cfg = self.cfg
+        return (self.geom.layout == "head" and cfg.mla is None
+                and cfg.enc_dec is None
+                and cfg.family not in ("ssm", "hybrid")
+                and self.pool.window is None)
 
     def supports_mixed(self) -> bool:
         return self.mixed_step and self.fused
@@ -788,7 +926,16 @@ class FlyingEngine:
         the prefill output rows via ``d_src_rows``."""
         rt = self._resolve(island)
         isl = rt.island
+        self._fault_gate(isl)
         assert self.fused, "mixed step requires fused sampling"
+        ents = [self.adaptors[r.engine_group].table[r.req_id]
+                for r in list(prefills) + list(decodes)]
+        if self._live_tags(ents, isl) is not None:
+            # cross-tag segments in the tick: the mixed step has no live
+            # variant, so this transient phase runs the token-identical
+            # sequential prefill -> decode pair
+            return (self.prefill(prefills, island, chunk_tokens)
+                    + self.decode(decodes, island))
         t0 = time.perf_counter()
         B = rt.B
         cap = self.geom.capacity(isl.merge)
@@ -800,8 +947,8 @@ class FlyingEngine:
                       for r in decodes)
         mb = max(self._mb_bucket(pre_blocks),
                  self._mb_bucket(-(-int(dec_len) // cap)))
-        pbatch, prows, final, T, mb = self._stage_prefill(rt, prefills,
-                                                          mb_min=mb)
+        pbatch, prows, final, T, mb, _ = self._stage_prefill(rt, prefills,
+                                                             mb_min=mb)
         c = self._decode_cache(rt, decodes, mb_min=mb)
         bufs, drows = c.bufs, c.rows
         tokens = self._stage_decode(rt, decodes, c)
@@ -844,15 +991,163 @@ class FlyingEngine:
         return self._elapsed(t0)
 
     # ------------------------------------------------------------------
+    # live cross-layout staging
+    # ------------------------------------------------------------------
+    def _live_tags(self, entries, isl: Island) -> Optional[Tuple[int, ...]]:
+        """The lane-tag tuple when the step must run the live (lane)
+        variant; None selects the single-view step. Two triggers: (a) an
+        entry's KV spans segments tagged other than the island's merge:
+        one lane per distinct tag, sorted; (b) the island is
+        sequence-parallel: one lane per SP shard, all of the write tag
+        (blocks round-robin over the shards, so position arithmetic over
+        one concatenated table never holds). Same-tag shared prefix
+        segments alone do not trigger it: their blocks are full and
+        aligned under one capacity."""
+        if isl.sp > 1:
+            return (isl.write_tag,) * isl.sp
+        tags = {s.tag for e in entries for s in e.segments}
+        if tags <= {isl.merge}:
+            return None
+        tags.add(isl.merge)
+        return tuple(sorted(tags))
+
+    @staticmethod
+    def _seg_runs(e):
+        """Contiguous same-tag segments merged into one run each: ``[tag,
+        start, ids, owners]`` in order (a shared prefix head and its
+        private same-tag continuation are block-aligned under one
+        capacity, so the staging below only ever sees runs)."""
+        runs = []
+        for s in e.segments:
+            if runs and runs[-1][0] == s.tag:
+                runs[-1][2].extend(s.ids)
+            else:
+                runs.append([s.tag, s.start, list(s.ids), s.owners])
+        return runs
+
+    @staticmethod
+    def _group_lead(isl: Island, r: Request) -> int:
+        """The lead engine of the merge group serving ``r`` in ``isl``."""
+        return isl.start + ((r.engine_group - isl.start) // isl.merge) \
+            * isl.merge
+
+    def _seg_arrays(self, isl: Island, reqs: Sequence[Request], entries,
+                    rows: np.ndarray, B: int, tags, cur_len
+                    ) -> Dict[str, np.ndarray]:
+        """Per-lane (block table, token count, owner offset) host arrays
+        of the live step: lane ``i`` carries tag ``tags[i]`` as
+        ``lt{i}_bt``/``lt{i}_len``/``lt{i}_own``. ``cur_len[i]`` is entry
+        i's current-tag run's token count (decode: with the incoming
+        token; prefill: the prior tokens only). Owner offsets are the
+        merge-axis offsets of the group that wrote the run, from the
+        owners' fleet positions when recorded (an attached shared prefix
+        may be owned by a group unrelated to the reader's lead), else by
+        buddy alignment."""
+        m = isl.merge
+        out: Dict[str, np.ndarray] = {}
+        runs_of = [self._seg_runs(e) for e in entries]
+        for lane, t in enumerate(tags):
+            per = []
+            for i, (r, e) in enumerate(zip(reqs, entries)):
+                runs = runs_of[i]
+                match = [k for k, run in enumerate(runs) if run[0] == t]
+                assert len(match) <= 1, \
+                    (r.req_id, "non-contiguous tag runs", e.tags())
+                if not match:
+                    per.append((i, [], 0, 0))
+                    continue
+                k = match[0]
+                _, start, ids, owners = runs[k]
+                if t == m:
+                    ntok = cur_len[i]
+                else:
+                    stop = runs[k + 1][1] if k + 1 < len(runs) else e.length
+                    ntok = stop - start
+                own_lead = (min(o.engine_id for o in owners) if owners
+                            else (r.engine_group // t) * t)
+                own = own_lead - self._group_lead(isl, r)
+                assert 0 <= own <= m - t, (r.req_id, t, own, m)
+                per.append((i, ids, ntok, own))
+            mb_t = bucket_pow2(max([len(ids) for _, ids, _, _ in per] + [1]))
+            bt = np.zeros((B, mb_t), np.int32)
+            ln = np.zeros((B,), np.int32)
+            ow = np.zeros((B,), np.int32)
+            for i, ids, ntok, own in per:
+                row = rows[i]
+                bt[row, :len(ids)] = ids
+                ln[row] = ntok
+                ow[row] = own
+            out[f"lt{lane}_bt"] = bt
+            out[f"lt{lane}_len"] = ln
+            out[f"lt{lane}_own"] = ow
+        return out
+
+    def _sp_lanes(self, isl: Island, reqs: Sequence[Request], entries,
+                  rows: np.ndarray, B: int, upto, write_segs
+                  ) -> Dict[str, np.ndarray]:
+        """Per-lane host arrays of a sequence-parallel island: lane j
+        holds shard j's blocks of each request, in allocation order.
+        ``upto[i]`` bounds the tokens credited a lane for entry i (decode:
+        ``entry.length`` with the pending token; prefill: the prior
+        tokens only, the chunk's keys enter through the causal lane).
+        ``write_segs[i]`` (or None) is the row's write-block segment: its
+        shard is ROTATED to the LAST lane, which the prefill step treats
+        as the causal lane (lane-local key positions stay consistent
+        because every block of a lane before its last is full). Lanes
+        are resolved from each segment's OWNERS relative to the group
+        lead, so they stay valid across an SP-degree rebind."""
+        t, s = isl.write_tag, isl.sp
+        n = len(reqs)
+        cap = self.geom.capacity(t)
+        ids_rl: List[List[List[int]]] = [[[] for _ in range(s)]
+                                         for _ in range(n)]
+        len_rl = np.zeros((n, s), np.int64)
+        perm = np.tile(np.arange(s), (n, 1))
+        for i, (r, e) in enumerate(zip(reqs, entries)):
+            g_lead = self._group_lead(isl, r)
+            for sg in e.segments:
+                assert sg.tag == t and sg.shard >= 0, \
+                    (r.req_id, "non-SP segment on an SP island", sg.tag,
+                     sg.shard)
+                lane = (min(o.engine_id for o in sg.owners) - g_lead) // t
+                assert 0 <= lane < s, (r.req_id, lane, s)
+                ids_rl[i][lane].extend(sg.ids)
+                len_rl[i][lane] += min(max(int(upto[i]) - sg.start, 0),
+                                       cap * len(sg.ids))
+            w = write_segs[i]
+            if w is not None:
+                wl = (min(o.engine_id for o in w.owners) - g_lead) // t
+                perm[i] = [j for j in range(s) if j != wl] + [wl]
+        mb_l = bucket_pow2(max(
+            [len(ids) for per in ids_rl for ids in per] + [1]))
+        out: Dict[str, np.ndarray] = {}
+        for q in range(s):
+            bt = np.zeros((B, mb_l), np.int32)
+            ln = np.zeros((B,), np.int32)
+            ow = np.zeros((B,), np.int32)
+            for i in range(n):
+                j = int(perm[i][q])
+                row = rows[i]
+                ids = ids_rl[i][j]
+                bt[row, :len(ids)] = ids
+                ln[row] = len_rl[i][j]
+                ow[row] = j * t
+            out[f"lt{q}_bt"] = bt
+            out[f"lt{q}_len"] = ln
+            out[f"lt{q}_own"] = ow
+        return out
+
+    # ------------------------------------------------------------------
     def _decode_cache(self, rt: _IslandRT, reqs: Sequence[Request],
                       mb_min: int = 1) -> _DecodeCache:
         key = (rt.island, tuple(r.req_id for r in reqs))
         c = rt.steady
-        if c is not None and c.key == key:
+        if c is not None and c.key == key and c.live is None:
             self._decode_advance(c)
             # crossing an mb bucket boundary rebuilds the cache against
             # wider staging buffers; within a bucket the steady path is
-            # untouched
+            # untouched. Live caches re-stage every step instead, under
+            # the same key, so the token ring still feeds back
             need = max(self._mb_bucket(-(-int(c.lengths.max()) // c.cap)),
                        mb_min)
             if need == c.mb:
@@ -868,9 +1163,15 @@ class FlyingEngine:
         rows = np.fromiter((rows_map[r.req_id] for r in reqs), np.int64, n)
         entries = [self.adaptors[r.engine_group].table[r.req_id]
                    for r in reqs]
-        self._single_view(entries, isl)
         cap = self.geom.capacity(isl.merge)
         lengths = np.fromiter((e.length for e in entries), np.int64, n)
+        live = self._live_tags(entries, isl)
+        if isl.sp > 1:
+            return self._decode_build_sp(rt, key, reqs, entries, rows,
+                                         lengths, live)
+        if live is not None:
+            return self._decode_build_live(rt, key, reqs, entries, rows,
+                                           lengths, live)
         nblk = np.fromiter((len(e.block_ids) for e in entries), np.int64, n)
         mb = max(self._mb_bucket(-(-int(lengths.max()) // cap) if n else 1),
                  mb_min)
@@ -884,6 +1185,83 @@ class FlyingEngine:
         row_reqs = tuple((int(row), r.req_id) for row, r in zip(rows, reqs))
         c = _DecodeCache(key, rows, row_reqs, entries, lengths, nblk,
                          cap, bufs, mb)
+        rt.steady = c
+        return c
+
+    def _decode_build_live(self, rt: _IslandRT, key, reqs, entries,
+                           rows: np.ndarray, lengths: np.ndarray,
+                           live) -> _DecodeCache:
+        """Stage a decode batch whose KV spans mode-tagged segments: the
+        incoming token's slot is segment-local in the CURRENT segment
+        (the scheduler retagged pending slots at the rebind), and each
+        tag gets its own (table, count, owner) rows. Fresh arrays each
+        step: a live phase lasts only until its riders complete."""
+        isl = rt.island
+        assert self.geom.layout == "head", \
+            "live cross-layout staging covers the head-layout pool"
+        B, n = rt.B, len(reqs)
+        cap = self.geom.capacity(isl.merge)
+        tails = [self._seg_runs(e)[-1] for e in entries]
+        for r, t_run in zip(reqs, tails):
+            assert t_run[0] == isl.merge, \
+                (r.req_id, "pending slot not retagged", t_run[0], isl.merge)
+        seg_start = np.fromiter((t[1] for t in tails), np.int64, n)
+        bufs = {"toks": np.zeros((B, 1), np.int32),
+                "pos": np.zeros((B, 1), np.int32),
+                "slots": np.full((B,), -1, np.int32)}
+        p = lengths - 1                     # absolute (rope) positions
+        p_loc = p - seg_start               # segment-local write offset
+        bufs["pos"][rows, 0] = p
+        slot_blk = np.fromiter((t[2][int(pl) // cap]
+                                for t, pl in zip(tails, p_loc)), np.int64, n)
+        bufs["slots"][rows] = slot_blk * cap + p_loc % cap
+        bufs.update(self._seg_arrays(isl, reqs, entries, rows, B, live,
+                                     lengths - seg_start))
+        return self._live_cache(rt, key, reqs, entries, rows, lengths, cap,
+                                bufs, live)
+
+    def _decode_build_sp(self, rt: _IslandRT, key, reqs, entries,
+                         rows: np.ndarray, lengths: np.ndarray,
+                         live) -> _DecodeCache:
+        """Stage a decode batch on a sequence-parallel island: the
+        incoming token's slot is block-local in the live per-block
+        segment and ``write_own`` names its owner shard; each SP lane
+        gets its (table, count, owner) rows from ``_sp_lanes``.
+        Re-staged every step like the live path (lane tables shift as
+        blocks rotate over the shards), under the same key."""
+        isl = rt.island
+        assert self.geom.layout == "head", \
+            "SP staging covers the head-layout pool"
+        B, n = rt.B, len(reqs)
+        cap = self.geom.capacity(isl.write_tag)
+        bufs = {"toks": np.zeros((B, 1), np.int32),
+                "pos": np.zeros((B, 1), np.int32),
+                "slots": np.full((B,), -1, np.int32),
+                "write_own": np.zeros((B,), np.int32)}
+        for i, (r, e) in enumerate(zip(reqs, entries)):
+            sg = e.segments[-1]
+            assert sg.shard >= 0 and sg.tag == isl.write_tag, \
+                (r.req_id, "pending slot not SP-placed", sg.tag, sg.shard)
+            p = int(lengths[i]) - 1          # absolute (rope) position
+            assert sg.start <= p < sg.start + cap, (r.req_id, p, sg.start)
+            row = rows[i]
+            bufs["pos"][row, 0] = p
+            bufs["slots"][row] = sg.ids[0] * cap + (p - sg.start)
+            bufs["write_own"][row] = min(o.engine_id for o in sg.owners) \
+                - self._group_lead(isl, r)
+        bufs.update(self._sp_lanes(isl, reqs, entries, rows, B, lengths,
+                                   [None] * n))
+        return self._live_cache(rt, key, reqs, entries, rows, lengths, cap,
+                                bufs, live)
+
+    @staticmethod
+    def _live_cache(rt, key, reqs, entries, rows, lengths, cap, bufs,
+                    live) -> _DecodeCache:
+        row_reqs = tuple((int(row), r.req_id) for row, r in zip(rows, reqs))
+        nblk = np.fromiter((len(e.block_ids) for e in entries), np.int64,
+                           len(reqs))
+        c = _DecodeCache(key, rows, row_reqs, entries, lengths, nblk, cap,
+                         bufs, 0, live=live)
         rt.steady = c
         return c
 
@@ -910,16 +1288,20 @@ class FlyingEngine:
         vectorized position/slot/context math plus the device-resident
         previous-token gather. Shared by ``decode`` and ``mixed``."""
         bufs, rows, cap = c.bufs, c.rows, c.cap
-        p = c.lengths - 1
-        bufs["pos"][rows, 0] = p
-        bufs["slots"][rows] = \
-            bufs["btab"][rows, p // cap].astype(np.int64) * cap + p % cap
-        bufs["ctxl"][rows] = c.lengths
+        if c.live is None:
+            p = c.lengths - 1
+            bufs["pos"][rows, 0] = p
+            bufs["slots"][rows] = \
+                bufs["btab"][rows, p // cap].astype(np.int64) * cap + p % cap
+            bufs["ctxl"][rows] = c.lengths
+        # live caches staged positions and slots when built (segment-
+        # local slot arithmetic); only the token feed-back remains
         return self._tokens_in(rt, reqs, rows, c.key, bufs["toks"])
 
     def decode(self, reqs: Sequence[Request],
                island: Union[Island, int]) -> float:
         rt = self._resolve(island)
+        self._fault_gate(rt.island)
         t0 = time.perf_counter()
         c = self._decode_cache(rt, reqs)
         bufs = c.bufs
@@ -927,15 +1309,21 @@ class FlyingEngine:
             "tokens": self._stage_decode(rt, reqs, c),
             "positions": self._up(rt, bufs["pos"]),
             "slots": self._up(rt, bufs["slots"]),
-            "block_table": self._up(rt, bufs["btab"]),
-            "context_len": self._up(rt, bufs["ctxl"]),
         }
+        if c.live is None:
+            batch["block_table"] = self._up(rt, bufs["btab"])
+            batch["context_len"] = self._up(rt, bufs["ctxl"])
+        else:
+            # no total context length: the live step masks from the
+            # lanes' counts alone
+            batch.update({k: self._up(rt, v) for k, v in bufs.items()
+                          if k.startswith("lt") or k == "write_own"})
         seeds = self._sample_seeds(rt, reqs, c.rows, "decode")
         if seeds is not None:
             batch["sample_seeds"] = seeds
         runner = self.pool.runner(
             rt.island, "decode", sampled=self.fused,
-            batch_bucket=rt.B, seq_bucket=1, mb_bucket=c.mb)
+            batch_bucket=rt.B, seq_bucket=1, mb_bucket=c.mb, live=c.live)
         self.sync_stats.steps += 1
         rt.stats.steps += 1
         out = self._launch(rt, runner, batch)
@@ -969,13 +1357,14 @@ class FlyingEngine:
         return self._prompt_tokens(r)
 
     def recover_request(self, r: Request) -> int:
-        """Scheduler recovery hook (KV backpressure): drain the request's
+        """Scheduler recovery hook (a quarantine, or an eviction under KV
+        backpressure): drain the request's
         island so that every token it produced reaches the host, pin
         orig prompt ++ those tokens as its prompt, and return how many
         were kept. Called before the scheduler's fold bookkeeping, so
         ``r`` still carries its pre-fold prompt and placement. An island
-        with a dead engine would lose its in-flight tokens instead;
-        that needs quarantine, which is not ported."""
+        with a dead engine is discarded instead: its in-flight tokens
+        died with it, and everyone resident there is being recovered."""
         rid = r.req_id
         g = r.engine_group
         if g >= 0:
@@ -984,10 +1373,9 @@ class FlyingEngine:
                 dead = set(self.injector.dead_engines()) \
                     if self.injector is not None else set()
                 if set(rt.island.engines()) & dead:
-                    raise NotImplementedError(
-                        "recovery from a dead island needs quarantine, "
-                        "which is not ported")
-                self._drain_island(rt)
+                    self._discard_island(rt)
+                else:
+                    self._drain_island(rt)
         orig = np.asarray(self._prompt_tokens(r)[:r.prompt_len],
                           dtype=np.int64)
         toks = self._token_buf.get(rid, [])

@@ -21,7 +21,9 @@ and above).
 ``TPContext`` is the geometry of one mode, built once per runner; the
 step binds it at call time to the process group of the island it runs
 (``bind``), as the JAX package resolves the device slice from the
-island-committed arrays. With ``tp == 1`` every helper is the identity,
+island-committed arrays, and to its view group: the ranks of the merge
+axis at this rank's storage rank, over which the live cross-layout
+reads merge their partials (``lse_merge(..., view=True)``). With ``tp == 1`` every helper is the identity,
 so the same model code serves one rank and trains. Where the JAX
 package reads ``lax.axis_index`` over the TP axes ``('merge', 'ed',
 'model')``, the port reads this rank's index in its TP group, whose
@@ -103,23 +105,34 @@ class TPContext:
     # the TP group's collectives; None until bound (always None at tp 1)
     group: Optional[RankGroup] = dataclasses.field(default=None,
                                                    compare=False)
+    # the merge axis alone: the TP group's ranks that share this rank's
+    # storage rank (the JAX package's ``view_axes``); None until bound,
+    # and at view_m 1, where it is this rank alone
+    view_group: Optional[RankGroup] = dataclasses.field(default=None,
+                                                        compare=False)
 
     def __post_init__(self):
         if self.group is not None and self.group.size != self.tp:
             raise ValueError(f"a TP group of {self.group.size} ranks "
                              f"for tp={self.tp}")
+        if self.view_group is not None \
+                and self.view_group.size != self.view_m:
+            raise ValueError(f"a view group of {self.view_group.size} "
+                             f"ranks for view_m={self.view_m}")
 
     @property
     def storage_shards(self) -> int:
         return self.tp // self.view_m
 
-    def bind(self, group: Optional[RankGroup]) -> "TPContext":
-        """This geometry over one island's TP group (tp 1: itself)."""
+    def bind(self, group: Optional[RankGroup],
+             view_group: Optional[RankGroup] = None) -> "TPContext":
+        """This geometry over one island's TP group and, for the live
+        reads' merges, its view group (tp 1: itself)."""
         if self.tp == 1:
             return self
         if group is None:
             raise ValueError(f"tp={self.tp} needs its rank group")
-        return dataclasses.replace(self, group=group)
+        return dataclasses.replace(self, group=group, view_group=view_group)
 
     # ---- ranks (the JAX package's traced lax.axis_index) ---------------
     def _index(self) -> int:
@@ -170,6 +183,12 @@ class TPContext:
 
     def local_units(self, n: int) -> int:
         return n // self.compute_shards(n)
+
+    def stored_units(self, n: int) -> int:
+        """Units of an n-unit dim in this rank's storage shard (the
+        merge-1 frame): what the live cross-layout reads compute in
+        before slicing back to the mode's compute shard."""
+        return n // self.stored_shards(n)
 
     # ---- the view primitive (paper Eq. 1) ------------------------------
     def activate(self, w: torch.Tensor, dim: int, n: int) -> torch.Tensor:
@@ -255,21 +274,34 @@ class TPContext:
         return torch.cat([parts[r] for r in reps], dim=axis)
 
     def lse_merge(self, acc: torch.Tensor, l: torch.Tensor, m: torch.Tensor,
-                  wire_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-        """Merge online-softmax partials across the TP group: acc [..,H,D]
-        fp32 unnormalized, l [..,H] denominators, m [..,H] maxima -> full
-        attention output [..,H,D] fp32. ``wire_dtype`` (e.g. bf16) halves
-        the summed bytes: with w <= 1 the summand is max-normalized, so
-        bf16 loses only mantissa bits against the fp32 result."""
-        if self.tp == 1:
+                  wire_dtype: Optional[torch.dtype] = None,
+                  view: bool = False) -> torch.Tensor:
+        """Merge online-softmax partials across ranks: acc [..,H,D] fp32
+        unnormalized, l [..,H] denominators, m [..,H] maxima -> full
+        attention output [..,H,D] fp32. The merge runs over the TP group,
+        or with ``view`` over the view group alone: the live cross-layout
+        reads hold partials of one stored head across the merge axis,
+        while the other ('ed', 'model') positions hold other heads.
+        ``wire_dtype`` (e.g. bf16) halves the summed bytes: with w <= 1
+        the summand is max-normalized, so bf16 loses only mantissa bits
+        against the fp32 result."""
+        if view:
+            if self.view_m == 1:
+                return acc / torch.clamp_min(l[..., None], 1e-30)
+            if self.view_group is None:
+                raise RuntimeError("TPContext not bound to a view group")
+            group = self.view_group
+        elif self.tp == 1:
             return acc / torch.clamp_min(l[..., None], 1e-30)
-        m_g = self.pmax(m)
+        else:
+            group = self.group
+        m_g = group.all_reduce(m, "max")
         w = torch.exp(m - m_g)
         num_in = acc * w[..., None]
         if wire_dtype is not None:
             num_in = num_in.to(wire_dtype)
-        num = self.psum_scaled(num_in, 1).float()
-        den = self.psum_scaled(l * w, 1)
+        num = group.all_reduce(num_in, "sum").float()
+        den = group.all_reduce(l * w, "sum")
         return num / torch.clamp_min(den[..., None], 1e-30)
 
 
@@ -277,9 +309,11 @@ SINGLE = TPContext()
 
 
 def make_serving_ctx(merge: int, engine_rows: int, tp_base: int,
-                     group: Optional[RankGroup] = None) -> TPContext:
+                     group: Optional[RankGroup] = None,
+                     view_group: Optional[RankGroup] = None) -> TPContext:
     """TPContext for a flying-serving mode over ('dp', 'merge', 'ed',
-    'model'); ``group`` binds it to one island's TP group (see
-    ``TPContext.bind``). ``ep`` stays 1: the port serves no MoE model."""
+    'model'); ``group`` and ``view_group`` bind it to one island's TP and
+    view groups (see ``TPContext.bind``). ``ep`` stays 1: the port serves
+    no MoE model."""
     ctx = TPContext(tp=merge * engine_rows * tp_base, view_m=merge)
-    return ctx.bind(group) if group is not None else ctx
+    return ctx.bind(group, view_group) if group is not None else ctx

@@ -9,7 +9,8 @@ the hash of its sources is reused as long as they are unchanged.
 Nothing here runs when a module is imported.
 
 ``LAUNCHES`` counts each kernel's launches: its wrapper adds one where it
-launches the kernel, and nowhere else.
+launches the kernel, and nowhere else. ``LSE_LAUNCHES`` counts, of K2's
+and K4's, those that return the LSE (the live lanes' partial sweeps).
 """
 from __future__ import annotations
 
@@ -34,6 +35,8 @@ KERNELS = ("paged_append_token", "paged_attention", "paged_append_chunk",
            "paged_flash_prefill", "flash_prefill", "flash_prefill_bwd",
            "ssd_scan", "ssd_scan_bwd", "rglru_scan", "rglru_scan_bwd")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
+LSE_LAUNCHES: Dict[str, int] = {"paged_attention": 0,
+                                "paged_flash_prefill": 0}
 # nvcc's -Xptxas -v report of each source's last build (registers,
 # shared memory, spills), for chip_smoke.py to print
 BUILD_LOG: Dict[str, str] = {}
@@ -74,8 +77,9 @@ FUNCS: Dict[str, object] = {}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, LSE_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def _nvcc() -> str:

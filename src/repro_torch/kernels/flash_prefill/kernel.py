@@ -50,6 +50,8 @@ def paged_flash_prefill_kernel(q, k_pool, v_pool, block_table, prior_len, *,
         int(prior_only), _lib.dtype_code(q), _lib.dtype_code(k_pool),
         _lib.stream_of(q))
     _lib.LAUNCHES["paged_flash_prefill"] += 1
+    if return_lse:
+        _lib.LSE_LAUNCHES["paged_flash_prefill"] += 1
     _lib.check(rc, "paged_flash_prefill")
     return (out, lse) if return_lse else out
 

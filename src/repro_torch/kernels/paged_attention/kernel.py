@@ -124,5 +124,7 @@ def paged_attention_kernel(q, k_pool, v_pool, block_table, context_len, *,
         B, H, KV, hd, page, MB, window or 0, scale, n, split_len,
         _lib.dtype_code(q), _lib.dtype_code(k_pool), _lib.stream_of(q))
     _lib.LAUNCHES["paged_attention"] += 1
+    if return_lse:
+        _lib.LSE_LAUNCHES["paged_attention"] += 1
     _lib.check(rc, "paged_attention")
     return (out, lse) if return_lse else out

@@ -32,9 +32,18 @@ def gqa_attention(cfg: ArchConfig, p, x, ctx: TPContext, backend, state, *,
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     Hl, KVl = ctx.local_units(H), ctx.local_units(KV)
 
-    q = (x @ ctx.activate(p["wq"], 1, H)).reshape(B, T, Hl, hd)
-    k = (x @ ctx.activate(p["wk"], 1, KV)).reshape(B, T, KVl, hd)
-    v = (x @ ctx.activate(p["wv"], 1, KV)).reshape(B, T, KVl, hd)
+    if getattr(backend, "stored_frame", False):
+        # live cross-layout reads: project the rank's whole storage-shard
+        # head set; the backend sweeps each segment's heads and hands
+        # back this mode's local slice, so the output projection below
+        # is unchanged
+        q = (x @ p["wq"]).reshape(B, T, ctx.stored_units(H), hd)
+        k = (x @ p["wk"]).reshape(B, T, ctx.stored_units(KV), hd)
+        v = (x @ p["wv"]).reshape(B, T, ctx.stored_units(KV), hd)
+    else:
+        q = (x @ ctx.activate(p["wq"], 1, H)).reshape(B, T, Hl, hd)
+        k = (x @ ctx.activate(p["wk"], 1, KV)).reshape(B, T, KVl, hd)
+        v = (x @ ctx.activate(p["wv"], 1, KV)).reshape(B, T, KVl, hd)
 
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)

@@ -133,14 +133,16 @@ class Model:
     # forward
     # ------------------------------------------------------------------
     def forward(self, params, ctx: TPContext, *, mode: str, tokens,
-                backend, states=None, positions=None, last_pos=None):
+                backend, states=None, positions=None, last_pos=None,
+                window: Optional[int] = None):
         """Returns (fp32 logits, states, aux_loss).
 
         mode: 'train' | 'prefill' | 'decode'. ``positions`` [B,T] absolute
         positions. ``last_pos`` [B] (prefill only): per-request index of
         the final real prompt token, so the sampled logits don't depend
         on batch padding; defaults to the padded window's last position.
-        Serving ``states`` are updated in place and returned as given;
+        ``window`` is the sliding window of every attention layer (a
+        ``gqa_win`` layer keeps its config's). Serving ``states`` are updated in place and returned as given;
         train mode takes none, and is the only mode that records the
         autograd graph."""
         if mode == "train":
@@ -148,14 +150,16 @@ class Model:
                 raise ValueError("train mode runs without cache states")
             return self._forward(params, ctx, mode=mode, tokens=tokens,
                                  backend=backend, states=None,
-                                 positions=positions, last_pos=None)
+                                 positions=positions, last_pos=None,
+                                 window=window)
         with torch.no_grad():
             return self._forward(params, ctx, mode=mode, tokens=tokens,
                                  backend=backend, states=states,
-                                 positions=positions, last_pos=last_pos)
+                                 positions=positions, last_pos=last_pos,
+                                 window=window)
 
     def _forward(self, params, ctx, *, mode, tokens, backend, states,
-                 positions, last_pos):
+                 positions, last_pos, window):
         cfg = self.cfg
         x = tfm.embed_tokens(cfg, params["embed"], tokens, ctx)
         B, T = x.shape[0], x.shape[1]
@@ -171,7 +175,8 @@ class Model:
                     layer = partial(tfm.apply_layer, cfg, kind,
                                     _index(p_group[si], li), ctx=ctx,
                                     backend=backend, state=st,
-                                    positions=positions, mode=mode)
+                                    positions=positions, mode=mode,
+                                    window=window)
                     if remat:
                         x, _ = checkpoint(layer, x, use_reentrant=False)
                     else:

@@ -263,6 +263,83 @@ def test_paged_attention_kernels_are_deterministic(cuda):
 
 
 @pytest.mark.gpu
+def test_empty_lanes_never_reach_a_live_row(cuda):
+    """The live lanes' empty rows: K2's ``return_lse`` row at context 0
+    and K4's ``prior_only`` row at prior 0 give out 0 and an lse at most
+    NEG_INF / 2; ``_seg_scatter`` masks such rows to exactly 0 and
+    NEG_INF whatever the kernel wrote (NaN and +inf included), so a row
+    merged with a live lane equals that lane alone; and a live decode
+    over two lanes, each empty in some rows, gives on the card what the
+    plain versions give on the CPU."""
+    from repro_torch.core.views import TPContext
+    from repro_torch.models.cache import (NEG_INF, LiveDecodeBackend,
+                                          _merge_sweeps, _seg_scatter)
+    H_, KV_, hd, page, MB_ = 8, 2, 64, 4, 5
+    c = _paged(cuda, H_, KV_, hd, page, MB_, torch.float32, torch.bfloat16,
+               T_=3)
+    zero = torch.zeros(3, dtype=torch.int32, device=cuda)
+    live = torch.tensor([0, 9, 0], dtype=torch.int32, device=cuda)
+    full = torch.tensor([5, 3, 7], dtype=torch.int32, device=cuda)
+
+    def k2(n):
+        return pops.paged_attention_with_lse(c["q1"], c["kp"], c["vp"],
+                                             c["bt"], n)
+
+    def k4(n):
+        return fops.paged_prefill_sweep_with_lse(
+            c["qT"], c["kp"], c["vp"], c["bt"], n, prior_only=True)
+    for name, sweep, axis in (("K2", k2, 1), ("K4", k4, 2)):
+        o, lse = sweep(live)
+        empty = live == 0
+        assert float(o[empty].abs().max()) == 0.0, name
+        assert bool((lse[empty] <= NEG_INF / 2).all()), name
+        # the worst a kernel could leave in an empty row
+        bad_o, bad_l = o.clone(), lse.clone()
+        bad_o[empty], bad_l[empty] = float("nan"), float("inf")
+        parts = [_seg_scatter(x, l, zero, live > 0, H_, axis)
+                 for x, l in ((bad_o, bad_l), (o, lse))]
+        for x, l in parts:
+            assert bool((x[empty] == 0).all()) and \
+                bool((l[empty] == NEG_INF).all()), name
+        other = _seg_scatter(*sweep(full), zero, full > 0, H_, axis)
+        m, ws, den = _merge_sweeps([parts[0], other])
+        w = ws if axis == 1 else ws.transpose(2, 3)
+        merged = sum(x * wi[..., None] for (x, _), wi in
+                     zip([parts[0], other], w))
+        ln = den if axis == 1 else den.transpose(1, 2)
+        merged = merged / ln[..., None]
+        assert bool(torch.isfinite(merged).all()), name
+        torch.testing.assert_close(merged[empty], other[0][empty],
+                                   **_tol(torch.float32))
+
+    def decode(dev):
+        bt = c["bt"].to(dev)
+        lanes = ((1, bt[:, :2], torch.tensor([0, 6, 8]), ),
+                 (1, bt[:, 2:], torch.tensor([7, 0, 5]), ))
+        segs = tuple((t, b, n.to(dev, torch.int32),
+                      torch.zeros(3, dtype=torch.int32, device=dev))
+                     for t, b, n in lanes)
+        backend = LiveDecodeBackend(
+            ctx=TPContext(), slots=torch.tensor(
+                [-1, int(bt[1, 1]) * page + 2, -1], dtype=torch.int32,
+                device=dev), segs=segs, merge=1, block_base=page)
+        kp, vp = c["kp"].to(dev).clone(), c["vp"].to(dev).clone()
+        new = torch.randn((3, 1, KV_, hd), generator=torch.Generator(
+            ).manual_seed(9)).to(dev)
+        out, _ = backend.attend((kp, vp), c["q1"].to(dev)[:, None], new,
+                                -new, positions=None)
+        return out, kp
+    _lib.reset_launches()
+    on_card, kp_card = decode(cuda)
+    assert _lib.LSE_LAUNCHES["paged_attention"] == 2
+    on_cpu, kp_cpu = decode("cpu")
+    assert bool(torch.isfinite(on_card).all())
+    torch.testing.assert_close(on_card.cpu(), on_cpu, **_tol(torch.float32))
+    n = kp_card.shape[0] - 1
+    assert torch.equal(kp_card[:n].cpu(), kp_cpu[:n])
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Bd,Td,Hd,KVd,hdd,window", [
     (2, 100, 8, 2, 64, None), (2, 100, 8, 2, 64, 16),
@@ -887,3 +964,31 @@ def test_island_trace_on_the_card_matches_the_cpu(cuda, tmp_path):
             runs.append(json.load(f))
     got = chip_smoke.check_islands_trace(runs)
     assert got["rebinds"] == 2 and "gloo" in got["backend"]
+
+
+@pytest.mark.gpu
+def test_live_sp_fault_traces_on_the_card_match_the_cpu(cuda, tmp_path):
+    """``chip_smoke.py`` phase 14 (d) on two ranks sharing the card over
+    gloo: the reduced llama3-8b with 2 KV heads in fp32 at
+    ``ParallelPlan(1, 1, 2)``: a LIVE DP -> TP2 merge-up with decodes and
+    a chunked prefill in flight (nothing paused or recomputed), a pure-SP
+    island serving a context over one engine's pool, and a KILL of
+    engine 1 mid-decode recovered onto engine 0 (the fault-free stream):
+    on the card as on the CPU, on both ranks."""
+    import json
+    import sys
+    from pathlib import Path
+
+    from repro_torch.launch.ranks import spawn
+    root = Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root))
+    import chip_smoke
+    out = str(tmp_path / "live")
+    spawn(chip_smoke.live_runs_rank, 2, (out,), device_type="cuda",
+          timeout=300)
+    runs = []
+    for r in range(2):
+        with open(f"{out}.{r}.json") as f:
+            runs.append(json.load(f))
+    got = chip_smoke.check_live_runs(runs)
+    assert got["live"]["preempt"]["live_riders"] > 0

@@ -41,7 +41,7 @@ from repro.models.model import build_model as jax_build
 from repro_torch.configs import get_config
 from repro_torch.convert import params_from_numpy
 from repro_torch.core.engine import FlyingEngine
-from repro_torch.core.faults import (KILL, POOL_EXHAUST, FaultInjector,
+from repro_torch.core.faults import (POOL_EXHAUST, FaultInjector,
                                      FaultSpec)
 from repro_torch.core.kv_adaptor import PoolGeometry
 from repro_torch.core.modes import ParallelPlan
@@ -395,13 +395,9 @@ def test_staging_mutation_after_upload(stacks):
 def test_unported_engine_paths_raise(stacks):
     _, _, eng = _engine(stacks["torch"])
     assert eng.rebind(1) == 0.0
-    with pytest.raises(NotImplementedError):
-        _engine(stacks["torch"], injector=FaultInjector(
-            [FaultSpec(kind=KILL, tick=3, engines=(0,))]))
     with pytest.raises(ValueError, match="spans 2 ranks"):
         FlyingEngine(eng.model, ParallelPlan(tp_base=2, data_rows=1),
                      eng.geom, eng.params, device="cpu")
-    assert eng.live_readable() is False
 
 
 def test_launcher_serves_on_the_cpu_when_asked(capsys):

@@ -10,9 +10,11 @@ instead of hanging it.
 The JAX side runs in a subprocess, this file's ``__main__``, with 8
 forced host devices. There it patches ``AbstractMesh`` to take the pair
 form the JAX package passes (jax 0.9 refuses it; see
-``tests/test_torch_engine.py``) and ``FlyingEngine.live_readable`` to
-return False, so that both packages schedule without LIVE lanes (the
-port has none yet). It writes the reduced llama3-8b parameters, the
+``tests/test_torch_engine.py``) and nothing else: both packages'
+engines report ``live_readable()`` True, so their schedulers decide
+alike (the reduced llama3-8b's one KV head makes no tag above its own
+readable, so LIVE pauses what it cannot carry, as HARD does; the LIVE
+lanes themselves are held in ``tests/test_torch_live.py``). It writes the reduced llama3-8b parameters, the
 distributed step logits of ``tests/md_scripts/check_serve_consistency.py``
 at merges 1, 2 and 4, the scheduler runs of
 ``tests/md_scripts/check_engine_e2e.py`` and the island run of
@@ -26,10 +28,12 @@ manager's storage rules against the JAX package's partition specs;
 zero-copy weights and pools across merges 1 -> 2 -> 4 -> 1 -> 2; step
 logits within the reference's rtol = atol = 3e-3 of the JAX
 distributed step and of the one-rank port, greedy tokens identical;
-scheduler runs under HARD, SOFT and SEQUENTIAL token-identical to the
-JAX package's with equal phase logs and runner keys; a TP2 island
-carved beside a DP island over two partial rebinds, whose untouched
-island never drains; and the refusals that remain.
+scheduler runs under HARD, SOFT, SEQUENTIAL and LIVE token-identical to
+the JAX package's with equal phase logs, preempt_stats and runner keys;
+a TP2 island carved beside a DP island over two partial rebinds, whose
+untouched island never drains; every fault kind accepted and scripted
+on two ranks; SP islands and the live-read gates (a sliding window
+refuses both).
 """
 import json
 import os
@@ -62,7 +66,7 @@ from chip_smoke import FixedClock  # noqa: E402  (reports 10 ms a step)
 ARCH = "llama3-8b"
 PLAN = (1, 2, 4)            # engine_rows, tp_base, data_rows: 8 ranks
 MERGES = (1, 2, 4)
-STRATEGIES = ("hard", "soft", "sequential")
+STRATEGIES = ("hard", "soft", "sequential", "live")
 B, T = 4, 10                # check_serve_consistency's batch and prompt
 BPE, PROMPT = 2, 8          # check_island_serving's
 RTOL = ATOL = 3e-3          # check_serve_consistency's tolerance
@@ -121,7 +125,6 @@ def reference_main(out: str) -> None:
                 axis_sizes = tuple(s for _, s in axis_sizes)
             super().__init__(axis_sizes, axis_names, *a, **kw)
     jax.sharding.AbstractMesh = PairMesh
-    JEngine.live_readable = lambda self: False
 
     cfg = jget(ARCH).reduced()
     model = build_model(cfg, jnp.float32)
@@ -245,6 +248,7 @@ def _sched_run(eng, make_sched, Request) -> dict:
             "layouts": [[l.merge, l.switched, [list(i) for i in l.islands]]
                         for l in sched.log],
             "switches": sched.switches,
+            "preempt": dict(sched.preempt_stats),
             "keys": _key_text(eng.pool._runners)}
 
 
@@ -791,8 +795,8 @@ def test_step_logits_match_jax(ref_dir, port_steps, port_single, merge,
 @pytest.mark.parametrize("strategy", STRATEGIES)
 def test_scheduler_matches_jax(ref_dir, port_sched, strategy):
     """check_engine_e2e.py: 10 of 10 done, token streams, phase logs,
-    layouts and runner keys equal to the JAX package's, the same on
-    every rank."""
+    layouts, preempt_stats and runner keys equal to the JAX package's,
+    the same on every rank."""
     want = _read_json(os.path.join(ref_dir, "sched.json"))[strategy]
     runs = [p[strategy] for p in port_sched]
     got = runs[0]
@@ -801,7 +805,8 @@ def test_scheduler_matches_jax(ref_dir, port_sched, strategy):
     assert all({**r, "collectives": 0} == {**got, "collectives": 0}
                for r in runs[1:])
     assert len(got["done"]) == 10
-    for k in ("done", "toks", "phases", "layouts", "switches", "keys"):
+    for k in ("done", "toks", "phases", "layouts", "switches", "preempt",
+              "keys"):
         assert got[k] == want[k], k
     assert got["switches"] > 0
     assert got["collectives"] > 0
@@ -861,32 +866,145 @@ def test_launcher_refuses_rank_counts_it_cannot_serve(argv):
         serve.parse_config(argv)
 
 
-@pytest.mark.parametrize("kind", [KILL, STALL, REBIND_FAIL, DRAIN_CORRUPT])
-def test_fault_kinds_still_refused(kind):
+def fault_rank(rank, world, out):
+    """Each fault kind scripted on two engines of one rank each
+    (``ParallelPlan(1, 1, 2)``, a DP island per engine): an engine's
+    request prefilled and decoded, the fault armed at tick 1, then a
+    decode or a rebind to TP2."""
+    from repro_torch.core.faults import EngineFault, TransitionFault
+    from repro_torch.core.task_pool import Request
+    from repro_torch.models.model import build_model
     cfg = get_config(ARCH).reduced()
-    model = Model(cfg, torch.float32)
-    plan = ParallelPlan(1, 1, 1)
-    with pytest.raises(NotImplementedError, match="quarantine"):
-        FlyingEngine(model, plan, PoolGeometry(cfg, plan, num_blocks=8,
-                                               block_base=4),
-                     model.init(torch.Generator().manual_seed(0)),
-                     device="cpu", injector=FaultInjector(
-                         [FaultSpec(kind=kind, tick=3, engines=(0,))]))
-
-
-def test_sequence_parallel_and_live_still_refused():
+    model = build_model(cfg, torch.float32, "cpu")
+    params = model.init(torch.Generator().manual_seed(0))
     plan = ParallelPlan(1, 1, 2)
-    with pytest.raises(NotImplementedError, match="sequence-parallel"):
-        FlyingEngine._check_islands(FleetLayout(
-            plan, (Island(0, 2, 2, sp=2),)))
-    cfg = get_config(ARCH).reduced()
+    geom = PoolGeometry(cfg, plan, num_blocks=32, block_base=4)
+    dp = FleetLayout.of(plan, [(1, 1), (1, 1)])
+    res = {}
+    for kind in (None, KILL, STALL, REBIND_FAIL, DRAIN_CORRUPT):
+        spec = FaultSpec(kind=kind or STALL, tick=1 << 20) if kind is None \
+            else FaultSpec(kind=kind, tick=1,
+                           engines=() if kind == REBIND_FAIL else (1,))
+        inj = FaultInjector([spec])
+        eng = FlyingEngine(model, plan, geom, params, batch_per_engine=2,
+                           device="cpu", layout=dp, injector=inj)
+        reqs = []
+        for g in (0, 1):
+            r = Request(req_id=f"e{g}", arrival=0.0, prompt_len=PROMPT,
+                        output_len=1 << 30)
+            r.engine_group = g
+            reqs.append(r)
+            _start(eng, [r], dp.island_of(g))
+            _decode(eng, [r], dp.island_of(g), 2)
+        inj.advance(1)
+        got = {"raised": None}
+        try:
+            if kind in (REBIND_FAIL, DRAIN_CORRUPT):
+                eng.rebind(2)
+            else:
+                for r in reqs:
+                    _decode(eng, [r], dp.island_of(r.engine_group))
+        except (EngineFault, TransitionFault) as ex:
+            got["raised"] = [type(ex).__name__, sorted(ex.engines)]
+        got["layout"] = eng.layout.describe()
+        inj.advance(2)
+        if kind in (REBIND_FAIL, DRAIN_CORRUPT):
+            eng.rebind(2)           # the window has closed
+            got["after"] = eng.layout.describe()
+        got["toks"] = {r.req_id: list(map(int, eng.generated_tokens(
+            r.req_id))) for r in reqs}
+        got["fired"] = len(inj.fired)
+        res[str(kind)] = got
+    _write_json(f"{out}.{rank}.json", res)
+
+
+@pytest.fixture(scope="module")
+def port_faults(tmp_path_factory):
+    out = str(tmp_path_factory.mktemp("faults") / "faults")
+    _spawn(fault_rank, 2, out)
+    runs = _per_rank(out, 2, "json")
+    assert runs[0] == runs[1]
+    return runs[0]
+
+
+@pytest.mark.parametrize("kind", [KILL, STALL, REBIND_FAIL, DRAIN_CORRUPT])
+def test_fault_kinds_accepted_and_scripted(port_faults, kind):
+    """Every fault kind is taken at construction and plays its script on
+    both ranks alike: KILL makes the dead engine's launch raise
+    EngineFault (the other island decodes on); STALL is ignored on the
+    wall clock (tokens as without faults); REBIND_FAIL and DRAIN_CORRUPT
+    raise TransitionFault before the layout moves (DRAIN_CORRUPT
+    discarding the named island's unharvested tokens), and the next
+    rebind succeeds."""
+    base = port_faults["None"]
+    got = port_faults[kind]
+    assert got["fired"] > 0
+    if kind == KILL:
+        assert got["raised"] == ["EngineFault", [1]]
+        assert got["toks"]["e0"] == base["toks"]["e0"]
+        assert got["toks"]["e1"] == base["toks"]["e1"][:3]
+    elif kind == STALL:
+        assert got["raised"] is None and got["toks"] == base["toks"]
+    else:
+        engines = [] if kind == REBIND_FAIL else [1]
+        assert got["raised"] == ["TransitionFault", engines]
+        assert got["layout"] == "[DP | DP]" and got["after"] == "[TP2]"
+        assert got["toks"]["e0"] == base["toks"]["e0"][:3]
+        # the corrupted island's in-flight tokens are lost; a failed
+        # rebind keeps them for the next one
+        kept = 0 if kind == DRAIN_CORRUPT else 3
+        assert got["toks"]["e1"] == base["toks"]["e1"][:kept]
+
+
+def _engine_at_one_rank(arch=ARCH):
+    cfg = get_config(arch).reduced()
     model = Model(cfg, torch.float32)
     one = ParallelPlan(1, 1, 1)
-    eng = FlyingEngine(model, one, PoolGeometry(cfg, one, num_blocks=8,
-                                                block_base=4),
-                       model.init(torch.Generator().manual_seed(0)),
-                       device="cpu")
+    return FlyingEngine(model, one, PoolGeometry(cfg, one, num_blocks=8,
+                                                 block_base=4),
+                        model.init(torch.Generator().manual_seed(0)),
+                        device="cpu")
+
+
+def test_check_islands_takes_sequence_parallel():
+    """An SP island needs live-readable tags: the reduced stablelm-1.6b
+    (4 KV heads) takes ``Island(0, 2, 2, sp=2)``; the reduced llama3-8b
+    (one KV head, no tag above 1 readable) is refused."""
+    sp = FleetLayout(ParallelPlan(1, 1, 2), (Island(0, 2, 2, sp=2),))
+    _engine_at_one_rank("stablelm-1.6b")._check_islands(sp)
+    with pytest.raises(ValueError, match="sequence parallelism"):
+        _engine_at_one_rank()._check_islands(sp)
+
+
+def test_live_readable_follows_the_reference():
+    """``live_readable()`` is True for llama3-8b (and its geometry reads
+    every tag of two ranks at full width), False under a sliding window,
+    as the JAX engine's."""
+    eng = _engine_at_one_rank()
+    assert eng.live_readable() is True
+    full = get_config(ARCH)
+    geom = PoolGeometry(full, ParallelPlan(1, 1, 2), num_blocks=8,
+                        block_base=32)
+    assert geom.live_readable(1) and geom.live_readable(2)
+    eng.pool.window = 64
     assert eng.live_readable() is False
+
+
+def test_live_step_refused_under_a_sliding_window():
+    """A live step with a window is refused when it is built (segment-
+    local sweeps have lost the absolute key positions), as the JAX
+    package's ``build_serve_step`` refuses it; without one it builds."""
+    from repro_torch.core.steps import build_serve_step
+    cfg = get_config("stablelm-1.6b").reduced()
+    model = Model(cfg, torch.float32)
+    plan = ParallelPlan(1, 1, 2)
+    geom = PoolGeometry(cfg, plan, num_blocks=8, block_base=4)
+    mode = FlyingMode(plan, 2)
+    with pytest.raises(ValueError, match="sliding windows"):
+        build_serve_step(model, mode, geom, phase="decode", live=(1, 2),
+                         window=64)
+    build_serve_step(model, mode, geom, phase="decode", live=(1, 2))
+    build_serve_step(model, mode, geom, phase="decode", window=64)
 
 
 if __name__ == "__main__":
