@@ -42,7 +42,14 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    chunk_scan_tc) beside the forward's events time; K4's bf16 kernel and
    K6's bf16 tensor-core kernels (forward chunk_state_tc and
    chunk_scan_tc, backward dc_tc and dxb_tc) must show HGMMA
-   instructions in the SASS of every instance;
+   instructions in the SASS of every instance; K2 at MLA width
+   (``mla_decode``: fp32 q over the one compressed bf16 pool, KV 1) at
+   DeepSeek-V2's decode shape (B 8, H 128, W 576, R 512, page 16,
+   contexts 1 to 4096) with and without a window, and at W 80 / R 64 and
+   W 48 / R 32, in fp32 (atol 1e-4), timed against SDPA over the
+   gathered context (one kv head whose 128 query heads are SDPA's query
+   rows), and the one-pool K1 and K3 forms at width 576, bit-exact,
+   timed against ``index_copy_``;
 4. serve a small request trace with the reduced llama3-8b in fp32 on the
    card and on the CPU (plain versions): the greedy tokens and the phase
    log must be identical; then four requests over a 12-block pool, where
@@ -149,11 +156,31 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    (b)'s plain merge-2 tick (lanes and collectives a tick printed), and
    one 3072-token request on a pure-SP island whose pool is cut to 24
    blocks of 128 tokens a rank (its greedy tokens held the same way).
+15. (run after phase 14) MLA and MoE: (a) the reduced deepseek-v2-236b
+   (MLA + MoE) and phi3.5-moe-42b-a6.6b (GQA + MoE) in fp32 through a
+   scheduler run of six requests with prefill, mixed and decode steps,
+   on the card (K1, K3 and mla_decode; K1-K4) and on the CPU: greedy
+   tokens and phase logs equal; (b) deepseek-v2-236b at full width, 4 of
+   its 60 layers (the dense MLA+MLP layer and three MLA+MoE layers;
+   13.3 B parameters in bf16, seed 0), at ParallelPlan(1, 1, 1) over a
+   4096 x 16-token pool, 8 requests of 256-1024 prompt tokens and 32
+   out through the launcher's real path: every request done, every
+   sampled row's logits finite, mla_decode and K1 launched 4 times in
+   every step with decode rows and K3 4 times in every step with
+   prefill rows; tok/s, the median decode tick and the peak memory
+   printed; the MoE entries its capacity factor (1.25) drops counted;
+   then the same trace in prefill chunks of 1 (no step over 8 tokens,
+   so no entry drops, counted), whose greedy tokens are held against a
+   dense forward (no pool, naive MLA, every token through its top-k
+   experts): its argmax, or a near-tie within NEAR_TIE_SD; then a
+   profiled rerun's device time by kernel class (GEMMs, MoE dispatch,
+   mla_decode, elementwise) and busy share.
 
 Each kernel's launch count in the JSON record comes from the path that
 runs it: K1-K4 from phase 5, K5 and its backward at hd 128 from phase 8
 and at hd 256 from phase 12, K6 and its backward from phase 10, K7 and
-its backward from phase 12 (phase 14 prints its own K1-K4 counts, and
+its backward from phase 12, mla_decode and the one-pool K1 and K3 from
+phase 15 (b)'s first run (phase 14 prints its own K1-K4 counts, and
 K2's and K4's LSE launches, in its rank processes). The line
 before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
@@ -476,6 +503,7 @@ def kernel_checks(torch, np):
             qt, kg, vg, attn_mask=mask), iters=5, windows=3)))
     del kg, vg, mask, q, kp_, vp_
     paged_rep_checks(torch, np, rng, gen, close)
+    rows.extend(mla_rows(torch, np, rng, close))
 
     # -- K5: dense causal flash attention, forward and backward ----------
     tile_checks(torch, rng)
@@ -588,6 +616,136 @@ def paged_rep_checks(torch, np, rng, gen, close) -> None:
               f"{ms:.4f} ms (bf16)")
         del kp_, vp_, q, o, wo
         torch.cuda.empty_cache()
+
+
+def mla_rows(torch, np, rng, close):
+    """K2 at MLA width (``mla_decode``) against its plain version at
+    DeepSeek-V2's decode shape (B 8, H 128, W 576, R 512, page 16,
+    contexts 1 to 4096, fp32 q over a bf16 pool), with and without a
+    window, and at the reduced W 80 / R 64 and the Pallas test's W 48 /
+    R 32; the one-pool K1 and K3 forms (the compressed cache) bit-exact.
+    Times the kernels, the plain versions and one PyTorch call each:
+    SDPA over the context gathered (and cast to fp32) beforehand, one
+    kv head whose 128 query heads are SDPA's query rows, the key mask
+    of each request's context; ``index_copy_`` for the appends."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.paged_attention import kernel as pk
+    from repro_torch.kernels.paged_attention import ref as pr
+    from repro_torch.models.cache import paged_gather
+
+    dev = torch.device("cuda")
+    f32, bf16 = torch.float32, torch.bfloat16
+    B, H, W, R, page, nblk, MB = 8, 128, 576, 512, 16, 4096, 256
+    rows = []
+
+    def t(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+
+    def case(B_, H_, W_, nblk_, MB_, page_, full_ctx):
+        ctx = np.concatenate([[1, full_ctx], rng.integers(
+            2, full_ctx, size=B_ - 2)]).astype(np.int32)
+        return (t(rng.standard_normal((B_, H_, W_)) * W_ ** -0.5, f32),
+                t(rng.standard_normal((nblk_, page_, W_)), bf16),
+                t(rng.permutation(nblk_ - 1)[:B_ * MB_].reshape(B_, MB_),
+                  torch.int32), t(ctx, torch.int32), ctx)
+
+    q, pool, bt, ctx, ctx_np = case(B, H, W, nblk, MB, page, MB * page)
+    err = 0.0
+    for window in (None, 1024):
+        err = max(err, close(
+            pk.paged_mla_attention_kernel(q, pool, bt, ctx, R=R,
+                                          window=window),
+            pr.paged_mla_attention_ref(q, pool, bt, ctx, R=R, window=window),
+            f32, f"mla_decode B {B} H {H} W {W} R {R} window={window}"))
+    for H_, W_, R_, page_ in ((4, 80, 64, 16), (8, 48, 32, 8)):
+        q2, pool2, bt2, ctx2, _ = case(B, H_, W_, 512, 32, page_,
+                                       32 * page_)
+        close(pk.paged_mla_attention_kernel(q2, pool2, bt2, ctx2, R=R_),
+              pr.paged_mla_attention_ref(q2, pool2, bt2, ctx2, R=R_), f32,
+              f"mla_decode B {B} H {H_} W {W_} R {R_} page {page_}")
+    n_split, split_len = pk.mla_splits(B, H, MB * page, dev)
+    live = ctx_np.astype(np.int64)
+    nbytes = int(live.sum()) * W * 2 + B * H * (W + R) * 4 \
+        + int(np.ceil(live / page).sum()) * 4 + B * 4
+    flops = 2.0 * (W + R) * H * int(live.sum())
+    bms, by = bound(nbytes, flops)
+    kg = paged_gather(pool, bt).float()[:, None]          # [B,1,Tk,W]
+    vg = kg[..., :R]
+    mask = (torch.arange(MB * page, device=dev)[None, :]
+            < ctx[:, None].long())[:, None, None, :]
+    qs = q[:, None]                                       # [B,1,H,W]
+    print(f"  mla_decode: {n_split} splits of {split_len} keys, "
+          f"{n_split * B * -(-H // pk.MLA_HEADS)} blocks "
+          f"({int(np.ceil(live / split_len).sum()) * -(-H // pk.MLA_HEADS)}"
+          f" with live keys)")
+    row = dict(
+        name="mla_decode", route="cuda",
+        source="src/repro_torch/kernels/csrc/paged_attention.cu",
+        replaces="src/repro/kernels/paged_attention/kernel.py:97",
+        max_abs_err=err,
+        ms=time_ms(torch, lambda: pk.paged_mla_attention_kernel(
+            q, pool, bt, ctx, R=R)),
+        plain_ms=time_ms(torch, lambda: pr.paged_mla_attention_ref(
+            q, pool, bt, ctx, R=R), iters=5, windows=3),
+        bound_ms=bms, bound_by=by,
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qs, kg, vg, attn_mask=mask, scale=1.0)))
+    rows.append(row)
+    dev_ms = launch_device_ms(torch, lambda: pk.paged_mla_attention_kernel(
+        q, pool, bt, ctx, R=R), "decode")
+    print(f"  mla_decode: events {row['ms']:.4f} ms a call, device "
+          f"{dev_ms:.4f} ms a launch (profiler); bound {bms:.4f} ms "
+          f"({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); at the "
+          f"fp32 CUDA cores' 67 TFLOP/s the operations alone take "
+          f"{flops / 67e12 * 1e3:.4f} ms")
+    del kg, vg, mask, qs
+
+    # the one-pool appends: DeepSeek-V2's entries of 576 bf16
+    flat = pool.view(-1, W)
+    for kind, shape, name, replaces in (
+            ("token", (B,), "paged_append_token_mla",
+             "src/repro/kernels/paged_attention/kernel.py:165"),
+            ("chunk", (B, 512), "paged_append_chunk_mla",
+             "src/repro/kernels/paged_attention/kernel.py:224")):
+        kern = pk.paged_append_token_kernel if kind == "token" \
+            else pk.paged_append_chunk_kernel
+        plain = pr.paged_append_token_ref if kind == "token" \
+            else pr.paged_append_chunk_ref
+        n = int(np.prod(shape))
+        s = rng.choice((nblk - 1) * page, size=n, replace=False)
+        s[rng.random(n) < 0.25] = -1                      # parked rows
+        slots = t(s.reshape(shape), torch.int32)
+        for dtype in (f32, bf16):
+            vals = (t(rng.standard_normal(shape + (W,)), dtype),)
+            (got,) = kern((pool.clone(),), vals, slots)
+            (want,) = plain((pool.clone(),), vals, slots)
+            torch.cuda.synchronize()
+            check(torch.equal(got.view(-1, W)[:-1], want.view(-1, W)[:-1]),
+                  f"{name} ({dtype} values) is not bit-exact")
+        print(f"  {name} {tuple(shape)}: bit-exact")
+        idx = torch.where(slots.reshape(-1) >= 0, slots.reshape(-1).long(),
+                          nblk * page - 1)
+        rows_v = vals[0].reshape(n, W)
+        nbytes = n * W * (2 + 2) + 4 * n
+        bms, by = bound(nbytes, 0.0)
+        row = dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/paged_append.cu",
+            replaces=replaces, max_abs_err=0.0,
+            ms=time_ms(torch, lambda: kern((pool,), vals, slots)),
+            plain_ms=time_ms(torch, lambda: plain((pool,), vals, slots)),
+            bound_ms=bms, bound_by=by,
+            library_ms=time_ms(torch, lambda: flat.index_copy_(0, idx,
+                                                               rows_v)))
+        rows.append(row)
+        dev_ms = launch_device_ms(torch, lambda: kern((pool,), vals, slots),
+                                  "append_rows")
+        print(f"  {name} ({n} rows of {W}): events {row['ms']:.4f} ms a "
+              f"call, device {dev_ms:.4f} ms a launch (profiler)")
+    del pool
+    torch.cuda.empty_cache()
+    return rows
 
 
 def tile_checks(torch, rng):
@@ -1404,7 +1562,7 @@ def print_breakdown(tag: str, prof, wall: float, classes) -> None:
     """Device time by kernel class (``classes``: (class, name pattern)
     pairs, GEMM patterns added), the device's busy share of ``wall``
     seconds, and each of ``classes``' launches and mean time a launch."""
-    named = [c for c, _ in classes]
+    named = list(dict.fromkeys(c for c, _ in classes))
     classes = tuple(classes) + (("gemm", "gemm"), ("gemm", "nvjet"),
                                 ("gemm", "cutlass"), ("gemm", "xmma"))
     by: dict = {}
@@ -1875,7 +2033,7 @@ def decode_tick_ms(torch, eng, merge: int, steps: int = 10,
             "steps": steps + 3, "greedy": greedy}
 
 
-def greedy_margins(torch, eng, reqs) -> dict:
+def greedy_margins(torch, eng, reqs, dense=None) -> dict:
     """Holds every greedy token the engine streamed for ``reqs`` against
     one dense forward of the whole model on this rank (K5 and the full
     vocab, no pool, no collective), fed the prompt and the streamed
@@ -1884,7 +2042,8 @@ def greedy_margins(torch, eng, reqs) -> dict:
     NEAR_TIE_SD of the row's standard deviation over the vocab. bf16
     rounding moves a logit by a few hundredths of that; a token read
     from a wrong head or vocab slice lies some 4 deviations below the
-    top. Returns the token count, the flips, their margins and the
+    top. ``dense`` (tokens [T] -> fp32 logits [T, V]) replaces that
+    forward. Returns the token count, the flips, their margins and the
     largest margin / bound."""
     import numpy as np
 
@@ -1898,10 +2057,14 @@ def greedy_margins(torch, eng, reqs) -> dict:
         seq = np.concatenate([np.asarray(eng.prompt_tokens(r)[:r.prompt_len],
                                          dtype=np.int64),
                               np.asarray(gen[:-1], dtype=np.int64)])
-        with torch.no_grad():
-            logits, _, _ = eng.model.forward(
-                eng.params, SINGLE, mode="train", backend=TrainBackend(),
-                tokens=torch.as_tensor(seq, device=eng.device)[None])
+        seq_t = torch.as_tensor(seq, device=eng.device)
+        if dense is not None:
+            logits = dense(seq_t)[None]
+        else:
+            with torch.no_grad():
+                logits, _, _ = eng.model.forward(
+                    eng.params, SINGLE, mode="train", backend=TrainBackend(),
+                    tokens=seq_t[None])
         rows = logits[0, r.prompt_len - 1:].float()
         got = torch.as_tensor(gen, device=eng.device)
         top = rows.max(-1).values
@@ -2515,6 +2678,301 @@ def serve_islands(torch, smi: str) -> None:
     print(f"islands: {smi}; phase 14 took {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: MLA and MoE (DeepSeek-V2, Phi-3.5-MoE)
+# ---------------------------------------------------------------------------
+
+MLA_ARCH, MOE_ARCH = "deepseek-v2-236b", "phi3.5-moe-42b-a6.6b"
+# phase 15 (a)'s trace: prompts in chunks of 8 (the first, of 24,
+# prefills alone), request 3 at priority 1
+MOE_TRACE = [dict(req_id=f"r{i}", arrival=i * 0.01,
+                  prompt_len=(24, 8, 12, 16, 20, 28)[i], output_len=3 + i,
+                  priority=1 if i == 3 else 0) for i in range(6)]
+
+
+def moe_reference_check(torch):
+    """Phase 15 (a): the reduced DeepSeek-V2 (MLA + MoE) and Phi-3.5-MoE
+    (GQA + MoE) in fp32 through a scheduler run with prefill, mixed and
+    decode steps, on the card (K1-K4 and mla_decode) and on the CPU
+    (their plain versions): greedy tokens and phase logs equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import FlyingEngine
+    from repro_torch.core.kv_adaptor import PoolGeometry
+    from repro_torch.core.modes import ParallelPlan
+    from repro_torch.core.scheduler import DynamicScheduler, SchedulerConfig
+    from repro_torch.core.task_pool import Request
+    from repro_torch.kernels import _lib
+    from repro_torch.models.model import build_model
+
+    plan = ParallelPlan(engine_rows=1, tp_base=1, data_rows=1)
+    for arch in (MLA_ARCH, MOE_ARCH):
+        cfg = get_config(arch).reduced()
+        params = build_model(cfg, torch.float32, "cpu").init(
+            torch.Generator().manual_seed(0))
+
+        def serve(device):
+            geom = PoolGeometry(cfg, plan, num_blocks=64, block_base=4)
+            eng = FlyingEngine(build_model(cfg, torch.float32, device), plan,
+                               geom, params, batch_per_engine=2,
+                               max_blocks_per_req=16, device=device)
+            sched = DynamicScheduler(plan, geom, FixedClock(eng),
+                                     SchedulerConfig(strategy="hard",
+                                                     max_batch_per_group=2,
+                                                     prefill_chunk=8))
+            for r in MOE_TRACE:
+                sched.submit(Request(**r))
+            sched.run(max_steps=400)
+            return ({r["req_id"]: eng.generated_tokens(r["req_id"])
+                     for r in MOE_TRACE}, [l.phase for l in sched.log])
+
+        _lib.reset_launches()
+        toks_gpu, ph_gpu = serve("cuda")
+        launches = dict(_lib.LAUNCHES)
+        toks_cpu, ph_cpu = serve("cpu")
+        print(f"moe (a): reduced {arch} fp32, card vs CPU: tokens {toks_gpu}"
+              f" phases {ph_gpu}; card launches {launches}")
+        check(toks_gpu == toks_cpu, f"{arch}: card tokens {toks_gpu} != CPU "
+                                    f"{toks_cpu}")
+        check(ph_gpu == ph_cpu and {"prefill", "mixed", "decode"}
+              <= set(ph_gpu), f"{arch}: phase logs {ph_gpu} vs {ph_cpu}")
+        check(all(len(v) == r["output_len"] for v, r in
+                  zip(toks_gpu.values(), MOE_TRACE)),
+              f"{arch}: a request is short of tokens")
+        kernels = ("paged_append_token", "paged_append_chunk", "mla_decode") \
+            if arch == MLA_ARCH else SERVE_KERNELS
+        for k in kernels:
+            check(launches[k] > 0, f"{arch}: {k} never launched")
+
+
+def dense_mla_logits(model, params):
+    """The dense reference of phase 15 (b): tokens [T] -> fp32 logits
+    [T, V] of one forward over the whole sequence, with no pool and no
+    absorbed decode (each MLA layer expands its in-line compressed
+    entries naively, causal by position: ``TrainBackend.append_ctx``)
+    and no capacity (each MoE layer sends every token through its top-k
+    experts: ``dense_moe_ref``)."""
+    from repro_torch.core.views import SINGLE
+    from repro_torch.models import moe
+    from repro_torch.models.cache import TrainBackend
+
+    def forward(seq):
+        dispatch = moe.moe_ffn
+        moe.moe_ffn = lambda cfg, p, x, ctx: moe.dense_moe_ref(cfg, p, x)
+        try:
+            # decode mode keeps every position's logits (prefill keeps
+            # the last); TrainBackend makes the attention in-line
+            logits, _, _ = model.forward(params, SINGLE, mode="decode",
+                                         backend=TrainBackend(),
+                                         tokens=seq[None])
+        finally:
+            moe.moe_ffn = dispatch
+        return logits[0]
+    return forward
+
+
+class FiniteLogits:
+    """Wraps ``steps.sample_tokens``: every sampled row's logits feed a
+    device flag that stays True while all are finite (no host read in
+    the serving loop)."""
+
+    def __init__(self, torch, steps):
+        self.steps, self.inner = steps, steps.sample_tokens
+        self.ok = torch.ones((), dtype=torch.bool, device="cuda")
+        self.rows = 0
+
+        def sample(cfg, logits, ctx, **kw):
+            self.ok &= torch.isfinite(logits).all()
+            self.rows += logits.shape[0]
+            return self.inner(cfg, logits, ctx, **kw)
+        steps.sample_tokens = sample
+
+    def restore(self) -> bool:
+        self.steps.sample_tokens = self.inner
+        return bool(self.ok)
+
+
+class MoEDrops:
+    """Wraps ``moe.moe_ffn``: counts, on the card, the (token, choice)
+    entries that a call's capacity drops (padding rows included, as
+    they take capacity in serving) beside the entries routed."""
+
+    def __init__(self, torch, moe):
+        self.moe, self.inner = moe, moe.moe_ffn
+        self.dropped = torch.zeros((), dtype=torch.long, device="cuda")
+        self.entries = 0
+
+        def ffn(cfg, p, x, ctx):
+            n = x.shape[0] * x.shape[1]
+            e, _, _ = moe.route(p["router"], x.reshape(n, -1),
+                                cfg.moe.top_k)
+            pos = moe._positions_in_expert(e.reshape(-1),
+                                           cfg.moe.num_experts)
+            self.dropped += (pos >= moe.capacity(cfg, n)).sum()
+            self.entries += n * cfg.moe.top_k
+            return self.inner(cfg, p, x, ctx)
+        moe.moe_ffn = ffn
+
+    def restore(self) -> int:
+        self.moe.moe_ffn = self.inner
+        return int(self.dropped)
+
+
+def serve_mla_full_width(torch, smi: str) -> dict:
+    """Phase 15 (b): deepseek-v2-236b at full width, 4 of its 60 layers
+    (the dense MLA+MLP layer and three MLA+MoE layers), bf16, seed-0
+    weights, at ParallelPlan(1, 1, 1) over a 4096 x 16-token pool: 8
+    requests (prompts 256-1024, 32 tokens out) through the launcher's
+    real path (DynamicScheduler over FlyingEngine under the layout
+    policy), launch counts reset just before and read just after. Every
+    request done with finite logits and in-vocab tokens; K1 and
+    mla_decode launched once a layer in every step that carries decode
+    rows, K3 once a layer in every step that carries prefill rows. The
+    config's capacity factor (1.25) drops entries, and which ones
+    depends on how the batch was cut (with random weights most tokens
+    pick the same experts), which no single-sequence forward
+    reproduces; so the greedy tokens are held on a second run of the
+    same trace in steps of at most 8 tokens (prefill chunks of 1),
+    where an expert's capacity (at least 8) drops nothing (counted):
+    each must be the dense forward's argmax or a near-tie
+    (NEAR_TIE_SD); the first run's drops and its distance from the
+    dense forward are printed. Prints
+    tok/s, the median decode tick, the peak memory, and a profiled
+    rerun's device time by kernel class."""
+    import dataclasses
+    import math
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import steps as steps_mod
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.serve import build_stack, replay
+    from repro_torch.models import moe
+    from repro_torch.models.model import build_model
+    from repro_torch.training.checkpoint import tree_leaves
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(MLA_ARCH), num_layers=4)
+    sc = serve_config(arch=MLA_ARCH, prompt_range=(256, 1024),
+                      output_range=(32, 32))
+    gc_collect(torch)
+    t0 = time.perf_counter()
+    model = build_model(cfg, torch.bfloat16, "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"mla (b): built {MLA_ARCH} at full width, {cfg.num_layers} of 60 "
+          f"layers ({n_params / 1e9:.3f} B parameters, bf16) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    stack = build_stack(sc, weights=(model, params))
+    engine = stack[0].backend
+    clock = StepClock(engine)
+    stack[0].backend = clock
+    finite = FiniteLogits(torch, steps_mod)
+    drops = MoEDrops(torch, moe)
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launches()
+    try:
+        sched, wall = replay(sc, stack)
+    finally:
+        ok = finite.restore()
+        dropped = drops.restore()
+    launches = dict(_lib.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    reqs = list(sched.pool.all.values())
+    vocab = cfg.vocab_size
+    n_tok = 0
+    for r in reqs:
+        toks = engine.generated_tokens(r.req_id)
+        check(r.state == "done" and len(toks) == r.output_len,
+              f"{r.req_id}: state {r.state}, {len(toks)}/{r.output_len} "
+              f"tokens")
+        check(all(0 <= x < vocab for x in toks),
+              f"{r.req_id}: token outside the vocab")
+        n_tok += len(toks)
+    check(len(reqs) == 8, f"{len(reqs)} requests served, not 8")
+    check(ok, "a sampled row's logits are not finite")
+    kinds = [k for k, _, _ in clock.log]
+    with_dec = sum(1 for k, ids, _ in clock.log
+                   if k == "decode" or (k == "mixed" and ids[1]))
+    with_pre = sum(1 for k, ids, _ in clock.log
+                   if k == "prefill" or (k == "mixed" and ids[0]))
+    L = cfg.num_layers
+    want = {"mla_decode": L * with_dec, "paged_append_token": L * with_dec,
+            "paged_append_chunk": L * with_pre}
+    print(f"mla (b): {len(reqs)} requests, prompts "
+          f"{sorted(r.prompt_len for r in reqs)}, outputs "
+          f"{sorted(r.output_len for r in reqs)}; {len(kinds)} steps "
+          f"({kinds.count('prefill')} prefill, {kinds.count('mixed')} mixed,"
+          f" {kinds.count('decode')} decode; {with_dec} with decode rows); "
+          f"{finite.rows} sampled rows, all logits finite")
+    print(f"mla (b): kernel launches {launches}")
+    for k, n in want.items():
+        check(launches[k] == n, f"{k} launched {launches[k]} times, not "
+                                f"{L} layers x the steps that run it = {n}")
+    check(engine.sync_stats.host_argmax == 0,
+          "tokens were read back one at a time")
+    ticks = sorted(dt for k, _, dt in clock.log if k == "decode")
+    tick = ticks[len(ticks) // 2] if ticks else float("nan")
+    print(f"mla (b): {n_tok} tokens in {wall:.3f} s = {n_tok / wall:.1f} "
+          f"tok/s; median decode tick {tick * 1e3:.2f} ms over "
+          f"{len(ticks)} decode steps (min {ticks[0] * 1e3:.2f}, max "
+          f"{ticks[-1] * 1e3:.2f}); peak memory {peak / 2**30:.2f} GiB; "
+          f"{smi}")
+    dense = dense_mla_logits(model, params)
+    g = greedy_margins(torch, engine, reqs, dense=dense)
+    print(f"mla (b): capacity factor {cfg.moe.capacity_factor}: "
+          f"{dropped} of {drops.entries} routed entries dropped; greedy "
+          f"tokens against a dense forward (no pool, naive MLA, no MoE "
+          f"capacity): {g['flips']} of {g['tokens']} off its argmax, at "
+          f"most {g['worst']:.2f}x the bound of {NEAR_TIE_SD} row "
+          f"deviations")
+    # the hold: the same trace in steps of at most 8 tokens (prefill
+    # chunks of 1, 8 rows), which capacity (at least 8) never cuts
+    sc1 = dataclasses.replace(sc, prefill_chunk=1)
+    stack = build_stack(sc1, weights=(model, params))
+    drops = MoEDrops(torch, moe)
+    t0 = time.perf_counter()
+    try:
+        sched1, _ = replay(sc1, stack)
+    finally:
+        dropped1 = drops.restore()
+    reqs1 = list(sched1.pool.all.values())
+    check(dropped1 == 0 and all(r.state == "done" for r in reqs1),
+          f"prefill chunks of 1: {dropped1} entries dropped")
+    greedy = greedy_margins(torch, stack[0].backend, reqs1, dense=dense)
+    print(f"mla (b): the trace in prefill chunks of 1 ({len(sched1.log)} "
+          f"steps, {time.perf_counter() - t0:.1f} s; 0 of {drops.entries} "
+          f"entries dropped): {greedy['flips']} of {greedy['tokens']} "
+          f"greedy tokens are near-ties off the dense forward's argmax "
+          f"(margins {[f'{x:.3g}' for x in greedy['margins']]}, at most "
+          f"{greedy['worst']:.2f}x the bound)")
+    check(greedy["worst"] <= 1.0 and math.isfinite(greedy["worst"]),
+          f"a greedy token is off the dense forward's argmax by "
+          f"{greedy['worst']:.2f}x the near-tie bound")
+    del stack, sched1, reqs1
+    # the breakdown: the same trace again, under the profiler
+    stack = build_stack(sc, weights=(model, params))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, wall2 = replay(sc, stack)
+    print_breakdown("mla (b) breakdown", prof, wall2, (
+        ("mla_decode", "mla::decode"), ("mla_decode", "mla6decode"),
+        ("paged_append", "append_rows"),
+        ("moe dispatch, pool gather", "index"),
+        ("moe dispatch, pool gather", "sort"),
+        ("moe dispatch, pool gather", "scatter"),
+        ("moe dispatch, pool gather", "gather"),
+        ("moe dispatch, pool gather", "cat"),
+        ("elementwise", "elementwise"), ("reduction", "reduce"),
+        ("softmax", "softmax")))
+    del stack, engine, clock, sched, model, params, dense
+    gc_collect(torch)
+    print(f"mla (b): phase 15 (b) took {time.perf_counter() - t_phase:.1f} s")
+    return {"mla_decode": launches["mla_decode"],
+            "paged_append_token_mla": launches["paged_append_token"],
+            "paged_append_chunk_mla": launches["paged_append_chunk"]}
+
+
 def gc_collect(torch) -> None:
     import gc
     gc.collect()
@@ -2639,6 +3097,8 @@ def main(argv=None) -> int:
         launches.update(train_recurrentgemma(torch))
         gc_collect(torch)
         serve_islands(torch, smi)
+        moe_reference_check(torch)
+        launches.update(serve_mla_full_width(torch, smi))
     for r in rows:
         r["launches"] = launches[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches",

@@ -34,20 +34,22 @@ def _shapes(tree):
     return tuple(tree.shape)
 
 
-def _convert(tree, dtype, device):
+def _convert(tree, dtype, device, name=""):
     if isinstance(tree, dict):
-        return {k: _convert(v, dtype, device) for k, v in tree.items()}
+        return {k: _convert(v, dtype, device, k) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_convert(v, dtype, device) for v in tree)
-    return _leaf(tree, dtype).to(device)
+        return type(tree)(_convert(v, dtype, device, name) for v in tree)
+    # the MoE router stays fp32 in every model, as the JAX package keeps it
+    return _leaf(tree, torch.float32 if name == "router" else dtype).to(
+        device)
 
 
 def params_from_numpy(cfg: ArchConfig, tree: Any, *,
                       dtype: Optional[torch.dtype] = None,
                       device="cpu") -> Any:
     """The JAX package's param tree (numpy leaves) as the port's
-    parameters on ``device``; ``dtype`` casts every leaf (None keeps each
-    leaf's own)."""
+    parameters on ``device``; ``dtype`` casts every leaf but the MoE
+    router's, which stays fp32 (None keeps each leaf's own)."""
     want = _shapes(Model(cfg, torch.float32, torch.device("meta")).init(
         torch.Generator(device="cpu")))
     got = _shapes(tree)

@@ -290,13 +290,15 @@ class FlyingEngine:
     # ------------------------------------------------------------------
     def _fresh_states(self):
         """Per group, per kind: the rank's flat (k, v) pools ``[n_layers,
-        num_blocks, block_elems]`` on the device, zeroed. Each step views
-        them in its island's mode and writes them in place."""
+        num_blocks, block_elems]`` on the device, zeroed (MLA: its one
+        compressed pool). Each step views them in its island's mode and
+        writes them in place."""
         shape = tuple(self.geom.flat_shape())
         return [tuple({"mixer": tuple(
             torch.zeros((n,) + shape, dtype=self.model.dtype,
-                        device=self.device) for _ in range(2))}
-            for _ in kind_seq)
+                        device=self.device)
+            for _ in range(self.model.pools_of(kind)))}
+            for kind in kind_seq)
             for kind_seq, n in self.model.plan]
 
     def _check_islands(self, layout: FleetLayout) -> None:

@@ -78,7 +78,8 @@ def build_serve_step(model: Model, mode: FlyingMode, geom: PoolGeometry, *,
         raise ValueError(phase)
     cfg = model.cfg
     mode_ctx = make_serving_ctx(mode.merge, mode.plan.engine_rows,
-                                mode.plan.tp_base)
+                                mode.plan.tp_base,
+                                cfg.moe.num_experts if cfg.moe else 0)
     merge = mode.merge
     if sp < 1 or merge % sp:
         raise ValueError(f"sp={sp} does not divide merge {merge}")
@@ -186,8 +187,10 @@ def _view_states(model: Model, states, geom: PoolGeometry, merge: int):
     """Physical layout -> mode view (paper §4.2: a mode switch IS this
     metadata reshape). Each paged pool leaf is stored flat ``[n_layers,
     num_blocks, block_elems]`` and viewed as ``[n_layers, num_blocks,
-    B(m), kvh/m, hd]``: the same storage, so writes through the view
-    land in the flat pool and no reverse reshape is needed."""
+    B(m), kvh/m, hd]`` (MLA's one compressed pool: ``[n_layers,
+    num_blocks, B_base, W]`` at every merge): the same storage, so
+    writes through the view land in the flat pool and no reverse reshape
+    is needed."""
     shape = tuple(geom.view_shape(merge))
     return [tuple({**st, "mixer": tuple(p.view((p.shape[0],) + shape)
                                         for p in st["mixer"])}

@@ -309,11 +309,15 @@ SINGLE = TPContext()
 
 
 def make_serving_ctx(merge: int, engine_rows: int, tp_base: int,
+                     n_experts: int = 0,
                      group: Optional[RankGroup] = None,
                      view_group: Optional[RankGroup] = None) -> TPContext:
     """TPContext for a flying-serving mode over ('dp', 'merge', 'ed',
     'model'); ``group`` and ``view_group`` bind it to one island's TP and
-    view groups (see ``TPContext.bind``). ``ep`` stays 1: the port serves
-    no MoE model."""
-    ctx = TPContext(tp=merge * engine_rows * tp_base, view_m=merge)
+    view groups (see ``TPContext.bind``). ``ep`` is the JAX package's:
+    ``engine_rows`` when a MoE model's ``n_experts`` split over them
+    (the MoE layer then raises: expert parallelism is not ported)."""
+    ep = engine_rows if (n_experts and n_experts % engine_rows == 0
+                         and engine_rows > 1) else 1
+    ctx = TPContext(tp=merge * engine_rows * tp_base, view_m=merge, ep=ep)
     return ctx.bind(group, view_group) if group is not None else ctx

@@ -32,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 KERNELS = ("paged_append_token", "paged_attention", "paged_append_chunk",
+           "mla_decode",
            "paged_flash_prefill", "flash_prefill", "flash_prefill_bwd",
            "ssd_scan", "ssd_scan_bwd", "rglru_scan", "rglru_scan_bwd")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
@@ -52,7 +53,8 @@ _SIGNATURES = {
         "paged_append_rows": [_P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _P]},
     "paged_attention": {
         "paged_attention_decode": [_P] * 9 + [_I] * 7 + [_F] + [_I] * 4
-                                  + [_P]},
+                                  + [_P],
+        "mla_decode": [_P] * 7 + [_I] * 7 + [_F] + [_I] * 3 + [_P]},
     "paged_prefill": {
         "paged_flash_prefill": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                 _I, _I, _I, _I, _F, _I, _I, _I, _P],

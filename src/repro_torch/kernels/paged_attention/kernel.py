@@ -1,7 +1,9 @@
 """CUDA wrappers of the paged decode kernels (csrc/paged_append.cu,
 csrc/paged_attention.cu): validate, allocate outputs, launch on the
 current stream, count the launch, raise on a launch error. They take
-CUDA tensors only; ``ops`` routes CPU tensors to the plain versions."""
+CUDA tensors only; ``ops`` routes CPU tensors to the plain versions.
+The appends take a (k, v) pool pair or one pool (the compressed MLA
+cache)."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
@@ -12,8 +14,10 @@ from repro_torch.kernels import _lib
 
 
 def _append_rows(pools, vals, slots, n_rows: int, what: str):
-    kp, vp = pools
-    kv, vv = vals[0].contiguous(), vals[1].contiguous()
+    if len(pools) not in (1, 2) or len(vals) != len(pools):
+        raise ValueError(f"{what}: {len(pools)} pools, {len(vals)} values")
+    kp, vp = pools[0], pools[-1]
+    kv, vv = vals[0].contiguous(), vals[-1].contiguous()
     if slots.dtype != torch.int32:
         slots = slots.to(torch.int32)
     slots = slots.contiguous()
@@ -25,25 +29,28 @@ def _append_rows(pools, vals, slots, n_rows: int, what: str):
             or kv.numel() != n_rows * w or vp.dtype != kp.dtype:
         raise ValueError(f"{what}: pools {tuple(shape)} vs values "
                          f"{tuple(kv.shape)}")
+    two = len(pools) == 2
     rc = _lib.func("paged_append_rows")(
-        kv.data_ptr(), vv.data_ptr(), kp.data_ptr(), vp.data_ptr(),
-        slots.data_ptr(), n_rows, rows - 1, w, _lib.dtype_code(kv),
-        _lib.dtype_code(kp), _lib.stream_of(kp))
+        kv.data_ptr(), vv.data_ptr() if two else None, kp.data_ptr(),
+        vp.data_ptr() if two else None, slots.data_ptr(), n_rows, rows - 1,
+        w, _lib.dtype_code(kv), _lib.dtype_code(kp), _lib.stream_of(kp))
     _lib.LAUNCHES[what] += 1
     _lib.check(rc, what)
     return pools
 
 
 def paged_append_token_kernel(pools, vals, slots):
-    """In-place single-token append: pools (k, v) [nblk,page,*w] (views
-    of the engine's flat pools, written in place), vals (k, v) [B,*w],
-    slots [B] (negative: parked on the scratch row)."""
+    """In-place single-token append: pools (k, v) or (pool,)
+    [nblk,page,*w] (views of the engine's flat pools, written in place),
+    vals of the same count [B,*w], slots [B] (negative: parked on the
+    scratch row)."""
     return _append_rows(pools, vals, slots, slots.shape[0],
                         "paged_append_token")
 
 
 def paged_append_chunk_kernel(pools, vals, slots):
-    """In-place chunk append: vals (k, v) [B,T,*w], slots [B,T]."""
+    """In-place chunk append: vals (k, v) or (entry,) [B,T,*w], slots
+    [B,T]."""
     return _append_rows(pools, vals, slots, slots.numel(),
                         "paged_append_chunk")
 
@@ -128,3 +135,68 @@ def paged_attention_kernel(q, k_pool, v_pool, block_table, context_len, *,
         _lib.LSE_LAUNCHES["paged_attention"] += 1
     _lib.check(rc, "paged_attention")
     return (out, lse) if return_lse else out
+
+
+MLA_HEADS = 32      # query heads one block of the MLA decode kernel serves
+MLA_MAX_W = 576     # widest compressed entry it takes (DeepSeek-V2's)
+
+
+def mla_splits(B: int, H: int, keys: int, device,
+               splits: Optional[int] = None) -> Tuple[int, int]:
+    """(splits, split_len) of the MLA decode kernel over ``keys`` = MB *
+    page key positions: split lengths are multiples of 64 keys, and the
+    fewest splits whose B * groups * splits blocks (one an SM: each
+    takes ~150 KB of shared memory at W 576) fill the card's SMs twice
+    (or ``splits``, if given: a test's choice)."""
+    groups = -(-H // MLA_HEADS)
+    if splits is None:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        splits = -(-2 * sms // (B * groups))
+    splits = max(1, min(int(splits), -(-keys // 64)))
+    split_len = -(-keys // splits)
+    split_len = -(-split_len // 64) * 64
+    return -(-keys // split_len), split_len
+
+
+def paged_mla_attention_kernel(q_cat, pool, block_table, context_len, *,
+                               R: int, window: Optional[int] = None,
+                               softmax_scale: float = 1.0,
+                               splits: Optional[int] = None):
+    """Absorbed MLA decode over the compressed paged cache: q_cat [B,H,W]
+    fp32 (pre-scaled [q_nope W_uk ++ q_pe]); pool [nblk,page,W] fp32 or
+    bf16; block_table [B,MB]; context_len [B] -> [B,H,R] fp32, the
+    softmax over q_cat . entry read over each entry's first R lanes. W
+    and R multiples of 8, R <= W <= 576, any H and page. ``splits``
+    overrides the split count that ``mla_splits`` picks (tests only)."""
+    q = _lib.aligned(q_cat.contiguous())
+    pool = _lib.aligned(pool)
+    bt = block_table.to(torch.int32).contiguous()
+    ctx = context_len.to(torch.int32).contiguous()
+    _lib.require_cuda(q, pool, bt, ctx)
+    if q.dtype != torch.float32:
+        raise TypeError(f"mla_decode takes fp32 queries, not {q.dtype}")
+    B, H, W = q.shape
+    if pool.dim() != 3 or pool.shape[2] != W:
+        raise ValueError(f"mla_decode: q {tuple(q.shape)} vs pool "
+                         f"{tuple(pool.shape)}")
+    if W % 8 or W > MLA_MAX_W or R % 8 or not 0 < R <= W:
+        raise ValueError(f"mla_decode takes W and R multiples of 8 with R "
+                         f"<= W <= {MLA_MAX_W}, not W {W}, R {R}")
+    page, MB = pool.shape[1], bt.shape[1]
+    n, split_len = mla_splits(B, H, MB * page, q.device, splits)
+    groups = -(-H // MLA_HEADS)
+    part = count = None
+    if n > 1:
+        part = torch.empty((B * groups * n, 2 + R, MLA_HEADS),
+                           dtype=torch.float32, device=q.device)
+        count = _counters(q.device, B * groups)
+    out = torch.empty((B, H, R), dtype=torch.float32, device=q.device)
+    rc = _lib.func("mla_decode")(
+        q.data_ptr(), pool.data_ptr(), bt.data_ptr(), ctx.data_ptr(),
+        out.data_ptr(), part.data_ptr() if part is not None else None,
+        count.data_ptr() if count is not None else None,
+        B, H, W, R, page, MB, window or 0, softmax_scale, n, split_len,
+        _lib.dtype_code(pool), _lib.stream_of(q))
+    _lib.LAUNCHES["mla_decode"] += 1
+    _lib.check(rc, "mla_decode")
+    return out

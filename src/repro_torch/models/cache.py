@@ -17,6 +17,11 @@ the same tensors it was given, their storage (``data_ptr()``) unchanged.
 - ``TrainBackend``   — no cache: full-sequence causal attention,
   optionally windowed, differentiable (kernels/flash_prefill).
 
+MLA layers (models/attention.py) keep one compressed pool ``(pool,)``
+``[num_blocks, page, W]`` instead of the pair and use the raw
+primitives: ``append_ctx`` (append the chunk's entries, gather the
+prefix) for prefill, ``attend_mla_absorbed`` for decode.
+
 Which implementation runs is decided by where the tensors lie: the CUDA
 kernels for tensors on the card, their plain PyTorch versions for
 tensors on the CPU. The plain attention math the plain versions share
@@ -159,6 +164,10 @@ class TrainBackend:
         w = window if window is not None else self.window
         return fp_ops.flash_prefill(q, k, v, window=w), state
 
+    def append_ctx(self, state, vals, *, positions):
+        """MLA: the sequence is its own context, causal in line."""
+        return vals, None, state
+
 
 @dataclass(frozen=True)
 class PrefillBackend:
@@ -179,6 +188,16 @@ class PrefillBackend:
             self.prior_len, window=window)
         return out, (k_pool, v_pool)
 
+    def append_ctx(self, state, vals, *, positions):
+        """MLA: append the chunk's compressed entries vals [B,T,W] (K3's
+        one-pool form on the card), then gather the whole prefix through
+        the block table -> (ctx [B,MB*page,W], None: causal by absolute
+        position, (pool,))."""
+        from repro_torch.kernels.paged_attention import ops as pa_ops
+        (pool,) = state
+        pa_ops.paged_append_chunk((pool,), (vals,), self.slots)
+        return paged_gather(pool, self.block_table), None, (pool,)
+
 
 @dataclass(frozen=True)
 class DecodeBackend:
@@ -197,6 +216,32 @@ class DecodeBackend:
             q[:, 0], k[:, 0], v[:, 0], k_pool, v_pool, self.slots,
             self.block_table, self.context_len, window=window)
         return out[:, None], (k_pool, v_pool)
+
+    def attend_mla_absorbed(self, state, q_abs, q_pe, entry, *, R: int,
+                            window=None):
+        """Absorbed MLA decode: q_abs [B,Hl,R] = q_nope W_uk and q_pe
+        [B,Hl,Rr] (both pre-scaled), entry [B,R+Rr] the new token's
+        compressed row. Scores run against the compressed pool directly
+        (K1's one-pool append, then the MLA decode kernel on the card);
+        returns ([B,Hl,R] fp32 context read, (pool,)) for the caller to
+        up-project with W_uv."""
+        from repro_torch.kernels.paged_attention import ops as pa_ops
+        (pool,) = state
+        q_cat = torch.cat([q_abs, q_pe], dim=-1)
+        out_c, pool = pa_ops.paged_mla_attention_decode(
+            q_cat, entry, pool, self.slots, self.block_table,
+            self.context_len, R=R, window=window)
+        return out_c, (pool,)
+
+    def append_ctx(self, state, vals, *, positions):
+        """MLA's raw primitive in decode: append vals [B,W] (or [B,1,W])
+        at ``slots``, gather the prefix -> (ctx, context_len, (pool,))."""
+        from repro_torch.kernels.paged_attention import ops as pa_ops
+        (pool,) = state
+        pa_ops.paged_append_token((pool,), (vals.reshape(vals.shape[0], -1),),
+                                  self.slots)
+        return (paged_gather(pool, self.block_table), self.context_len,
+                (pool,))
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Public model API: build a dense GQA, Mamba-2 or RecurrentGemma
-architecture from its ArchConfig.
+"""Public model API: build a dense GQA, MLA/MoE, Mamba-2 or
+RecurrentGemma architecture from its ArchConfig.
 
 ``Model.init`` makes the parameters as a plain dict of tensors, layers of
 a group stacked on axis 0 as in the JAX package (so its parameters carry
@@ -10,7 +10,8 @@ views) are written in place and returned as given. Train mode keeps the
 autograd graph and, as the JAX package's ``remat``, recomputes each
 layer's activations in the backward pass. Mamba-2 and RecurrentGemma
 stacks run in train mode only: their serving states are not ported, and
-asking for them raises (``check_serving``, ``layer_state``). Parameter
+asking for them raises (``check_serving``, ``layer_state``); MoE stacks
+(DeepSeek-V2, Phi-3.5-MoE) serve only, and train mode raises. Parameter
 leaves keep the dtypes the JAX package gives them, so the RG-LRU's
 decay and gate leaves stay fp32 in a bf16 model.
 """
@@ -26,6 +27,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.views import TPContext
 from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn_mod
 from repro_torch.models import transformer as tfm
 
 
@@ -97,16 +99,28 @@ class Model:
     # ------------------------------------------------------------------
     # per-layer cache/state construction
     # ------------------------------------------------------------------
+    @staticmethod
+    def pools_of(kind) -> int:
+        """Paged pools of a layer kind: MLA's one compressed pool, or the
+        (k, v) pair."""
+        return 1 if kind[0] == "mla" else 2
+
     def layer_state(self, kind, *, ctx: TPContext, num_blocks: int,
                     page: int):
-        """One layer's state: the (k, v) pool pair [num_blocks, page,
-        kvh_local, hd], zeroed."""
+        """One layer's state, zeroed: the (k, v) pool pair [num_blocks,
+        page, kvh_local, hd], or for MLA the one compressed pool
+        [num_blocks, page, W] as a 1-tuple (replicated over the TP
+        group)."""
         tfm.check_kind(kind, serving=True)
-        shape = (num_blocks, page, ctx.local_units(self.cfg.num_kv_heads),
-                 self.cfg.resolved_head_dim)
+        if kind[0] == "mla":
+            shape = (num_blocks, page, attn_mod.mla_cache_width(self.cfg))
+        else:
+            shape = (num_blocks, page,
+                     ctx.local_units(self.cfg.num_kv_heads),
+                     self.cfg.resolved_head_dim)
         return {"mixer": tuple(torch.zeros(shape, dtype=self.dtype,
                                            device=self.device)
-                               for _ in range(2))}
+                               for _ in range(self.pools_of(kind)))}
 
     def check_serving(self) -> None:
         """Raise unless every layer kind of the stack can serve."""
@@ -116,7 +130,8 @@ class Model:
 
     def init_states(self, *, ctx: TPContext, num_blocks: int, page: int):
         """Full stacked state tree aligned with the stack plan: per group,
-        per kind, {"mixer": (k [n, ...], v [n, ...])}."""
+        per kind, {"mixer": (k [n, ...], v [n, ...])} (MLA: (pool [n,
+        ...],))."""
         groups = []
         for kind_seq, n in self.plan:
             per_kind = []
@@ -148,6 +163,10 @@ class Model:
         if mode == "train":
             if states is not None:
                 raise ValueError("train mode runs without cache states")
+            if any(kind[1] == "moe" for seq, _ in self.plan for kind in seq):
+                raise NotImplementedError(
+                    "MoE training (the router's load-balance loss) is not "
+                    "ported (ROADMAP.md, Queue 1); MoE stacks serve only")
             return self._forward(params, ctx, mode=mode, tokens=tokens,
                                  backend=backend, states=None,
                                  positions=positions, last_pos=None,

@@ -1,16 +1,18 @@
-"""Backbone assembly for dense GQA stacks, Mamba-2 stacks and the hybrid
-RecurrentGemma stack.
+"""Backbone assembly for dense GQA stacks, MLA and MoE stacks, Mamba-2
+stacks and the hybrid RecurrentGemma stack.
 
 A layer *kind* is ``(mixer, ffn)``. The stack plan partitions layers into
 groups of a repeating kind sequence, as in the JAX package (which scans
 each group); the port loops over the layers of a group. The port serves
 and trains dense decoder stacks (mixers ``gqa``/``gqa_win`` with the
-gated ``mlp``), trains Mamba-2 stacks (``("mamba", "none")``: no
-``norm2`` and no FFN, so the parameter tree is the JAX package's leaf for
-leaf) and trains the hybrid stack (``("rglru", "gelu_mlp")`` and
-``("gqa_win", "gelu_mlp")``: the RG-LRU block or windowed attention,
-then the ungated GeLU MLP); it raises on the other kinds, and on serving
-a Mamba-2 or hybrid stack.
+gated ``mlp``), serves MLA and MoE stacks (DeepSeek-V2's ``("mla",
+"mlp")`` then ``("mla", "moe")``, Phi-3.5-MoE's ``("gqa", "moe")``; MoE
+training, with its load-balance loss, is not ported), trains Mamba-2
+stacks (``("mamba", "none")``: no ``norm2`` and no FFN, so the parameter
+tree is the JAX package's leaf for leaf) and trains the hybrid stack
+(``("rglru", "gelu_mlp")`` and ``("gqa_win", "gelu_mlp")``: the RG-LRU
+block or windowed attention, then the ungated GeLU MLP); it raises on
+the other kinds, and on serving a Mamba-2 or hybrid stack.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.views import TPContext
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import init_embedding, init_linear, rms_norm
 from repro_torch.models.mamba2 import init_mamba2, mamba2_layer
 from repro_torch.models.rglru import init_rglru, rglru_block
@@ -77,10 +80,11 @@ def check_kind(kind: Kind, *, serving: bool = False) -> None:
                 "carried h0 and a decision on the JAX engine's recurrent "
                 "state (ROADMAP Queue 3); the port trains hybrid stacks "
                 "only")
-    elif mixer not in ("gqa", "gqa_win") or ffn != "mlp":
+    elif mixer not in ("gqa", "gqa_win", "mla") or ffn not in ("mlp", "moe"):
         raise NotImplementedError(
-            f"layer kind {kind}: the port runs dense GQA stacks with a "
-            f"gated MLP and trains Mamba-2 and RecurrentGemma stacks")
+            f"layer kind {kind}: the port runs GQA and MLA stacks with a "
+            f"gated MLP or MoE and trains Mamba-2 and RecurrentGemma "
+            f"stacks")
 
 
 def init_layer(generator, cfg: ArchConfig, kind: Kind, dtype, device):
@@ -93,11 +97,16 @@ def init_layer(generator, cfg: ArchConfig, kind: Kind, dtype, device):
         return p
     if mixer == "rglru":
         p["mixer"] = init_rglru(generator, cfg, dtype, device)
+    elif mixer == "mla":
+        p["attn"] = attn_mod.init_mla(generator, cfg, dtype, device)
     else:
         p["attn"] = attn_mod.init_gqa(generator, cfg, dtype, device)
     p["norm2"] = torch.ones((cfg.d_model,), **ones)
-    p["ffn"] = ffn_mod.init_mlp(generator, cfg.d_model, cfg.d_ff, dtype,
-                                device, gated=(ffn == "mlp"))
+    if ffn == "moe":
+        p["ffn"] = moe_mod.init_moe(generator, cfg, dtype, device)
+    else:
+        p["ffn"] = ffn_mod.init_mlp(generator, cfg.d_model, cfg.d_ff, dtype,
+                                    device, gated=(ffn == "mlp"))
     return p
 
 
@@ -105,8 +114,8 @@ def apply_layer(cfg: ArchConfig, kind: Kind, p, x, ctx: TPContext, backend,
                 state, *, positions, mode: str,
                 window: Optional[int] = None):
     """One pre-norm decoder layer. ``state`` is the layer's (k, v) pool
-    pair (None for a Mamba-2 or RG-LRU layer, which runs in train mode
-    only); returns (x, state)."""
+    pair, or its one compressed pool for MLA (None for a Mamba-2 or
+    RG-LRU layer, which runs in train mode only); returns (x, state)."""
     mixer, ffn = kind
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if kind == MAMBA:
@@ -114,6 +123,10 @@ def apply_layer(cfg: ArchConfig, kind: Kind, p, x, ctx: TPContext, backend,
         return x + out, state
     if mixer == "rglru":
         out, state = rglru_block(cfg, p["mixer"], h, ctx, state, mode=mode)
+    elif mixer == "mla":
+        out, state = attn_mod.mla_attention(cfg, p["attn"], h, ctx, backend,
+                                            state, positions=positions,
+                                            window=window)
     else:
         w = cfg.hybrid.window if (mixer == "gqa_win" and cfg.hybrid) \
             else window
@@ -122,6 +135,8 @@ def apply_layer(cfg: ArchConfig, kind: Kind, p, x, ctx: TPContext, backend,
                                             window=w)
     x = x + out
     h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
+    if ffn == "moe":
+        return x + moe_mod.moe_ffn(cfg, p["ffn"], h2, ctx)[0], state
     ffn_fn = ffn_mod.gelu_mlp if ffn == "gelu_mlp" else ffn_mod.mlp
     x = x + ffn_fn(p["ffn"], h2, ctx, cfg.d_ff)
     return x, state

@@ -27,7 +27,12 @@ split-K) and prefill (K4; bf16 on the tensor cores, every other dtype
 pair on the CUDA cores) kernels are held at rep = H/KV of 1, 4, 7 and
 12, hd 64 and 128, pages of 4, 16 and 128, all four q/pool dtype pairs:
 their outputs at the tolerance of q's dtype, their lse (from fp32 q, or
-from bf16 q with exact bf16 products) at the fp32 one.
+from bf16 q with exact bf16 products) at the fp32 one. The MLA decode
+kernel (K2 at MLA width: KV 1, fp32 q over a bf16 or fp32 compressed
+pool, fp32 out) at atol = rtol = 1e-4: both sides compute in fp32 from
+the same pool values, but each score sums W (up to 576) products and
+each output up to 4096 weighted keys in another order, and the scores
+of the full-width case reach about 25 before the softmax.
 """
 import copy
 
@@ -599,6 +604,101 @@ def test_appends_bit_exact_at_odd_rows(cuda, vdt, pdt, KV_, hd_):
         want = plain(tuple(p.clone() for p in base), vals, slots)
         for g, wt in zip(got, want):
             assert torch.equal(g.view(-1, w)[:-1], wt.view(-1, w)[:-1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("vdt,pdt", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("w", [576, 80, 48, 36])
+def test_one_pool_appends_bit_exact(cuda, vdt, pdt, w):
+    """K1 and K3's one-pool form (the compressed MLA cache, entries of
+    width 576, 80 and 48; 36 takes the scalar route) with parked rows:
+    bit-exact against the plain versions, but for the scratch row."""
+    from repro_torch.kernels.paged_attention import kernel as pker
+    rng = np.random.default_rng(17)
+    nblk, page = 9, 16
+
+    def t(shape, dtype):
+        return torch.from_numpy(rng.standard_normal(shape)).to(cuda, dtype)
+    for kern, plain, shape in (
+            (pker.paged_append_token_kernel, pref.paged_append_token_ref,
+             (7,)),
+            (pker.paged_append_chunk_kernel, pref.paged_append_chunk_ref,
+             (3, 5))):
+        n = int(np.prod(shape))
+        s = rng.choice((nblk - 1) * page, size=n, replace=False)
+        s[[1, n - 2]] = -1                                  # parked rows
+        slots = torch.from_numpy(s.reshape(shape).astype(np.int32)).to(cuda)
+        vals = (t(shape + (w,), vdt),)
+        base = t((nblk, page, w), pdt)
+        (got,) = kern((base.clone(),), vals, slots)
+        (want,) = plain((base.clone(),), vals, slots)
+        assert torch.equal(got.view(-1, w)[:-1], want.view(-1, w)[:-1])
+
+
+def mla_case(dev, B, H, W, page, max_ctx, pdt, seed=0, scale=None):
+    """Inputs of the MLA decode kernel: q_cat [B,H,W] fp32 N(0, 1), a
+    compressed pool [nblk,page,W] of N(0, 1) entries in ``pdt``, disjoint
+    block tables and contexts drawn in [1, max_ctx] (the last row at
+    max_ctx)."""
+    rng = np.random.default_rng(seed)
+    MB_ = -(-max_ctx // page)
+    nblk = B * MB_ + 1
+    q = torch.from_numpy(rng.standard_normal((B, H, W))).float().to(dev)
+    pool = torch.from_numpy(rng.standard_normal((nblk, page, W))).to(
+        dev, pdt)
+    bt = rng.permutation(nblk - 1)[:B * MB_].reshape(B, MB_)
+    ctx = rng.integers(1, max_ctx + 1, B)
+    ctx[-1] = max_ctx
+    return (q, pool, torch.from_numpy(bt.astype(np.int32)).to(dev),
+            torch.from_numpy(ctx.astype(np.int32)).to(dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pdt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B_,H_,W,R,page,max_ctx,window,splits", [
+    (8, 128, 576, 512, 16, 4096, None, None),    # DeepSeek-V2 full width
+    (8, 128, 576, 512, 16, 4096, 700, None),
+    (3, 128, 576, 576, 32, 300, None, 3),        # R = W: two column sets
+    (4, 4, 80, 64, 16, 100, None, None),         # the reduced config
+    (2, 8, 48, 32, 8, 32, None, 1),              # the Pallas test's width
+    (5, 40, 96, 64, 16, 333, 50, 4),             # ragged head groups
+])
+def test_mla_decode_matches_plain(cuda, pdt, B_, H_, W, R, page, max_ctx,
+                                  window, splits):
+    """K2 at MLA width (the one compressed pool viewed as KV 1, fp32 q,
+    out [B,H,R]) against ``paged_mla_attention_ref``, with and without a
+    window, split and whole; the ticket counters are left zero."""
+    from repro_torch.kernels.paged_attention import kernel as pker
+    q, pool, bt, ctx = mla_case(cuda, B_, H_, W, page, max_ctx, pdt)
+    scale = W ** -0.5
+    got = pker.paged_mla_attention_kernel(q, pool, bt, ctx, R=R,
+                                          window=window,
+                                          softmax_scale=scale, splits=splits)
+    want = pref.paged_mla_attention_ref(q, pool, bt, ctx, R=R, window=window,
+                                        softmax_scale=scale)
+    torch.cuda.synchronize()
+    assert got.shape == (B_, H_, R) and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    counters = pker._COUNTERS.get(q.device)
+    assert counters is None or int(counters.abs().sum()) == 0
+
+
+@pytest.mark.gpu
+def test_mla_decode_refuses_what_it_cannot_take(cuda):
+    from repro_torch.kernels.paged_attention import kernel as pker
+    q, pool, bt, ctx = mla_case(cuda, 2, 4, 80, 16, 40, torch.bfloat16)
+    for kw, what in ((dict(q_cat=q.bfloat16(), R=64), TypeError),
+                     (dict(q_cat=q, R=60), ValueError),
+                     (dict(q_cat=q, R=88), ValueError)):
+        with pytest.raises(what):
+            pker.paged_mla_attention_kernel(kw["q_cat"], pool, bt, ctx,
+                                            R=kw["R"])
+    wide = torch.zeros((3, 16, 584), device=cuda)
+    with pytest.raises(ValueError):
+        pker.paged_mla_attention_kernel(
+            torch.zeros((2, 4, 584), device=cuda), wide, bt, ctx, R=512)
 
 
 @pytest.mark.gpu

@@ -677,7 +677,8 @@ def test_tp_context_collectives(world, tmp_path):
 
 
 @pytest.mark.parametrize("arch", [ARCH, "mamba2-2.7b", "recurrentgemma-9b",
-                                  "phi3.5-moe-42b-a6.6b"])
+                                  "phi3.5-moe-42b-a6.6b",
+                                  "deepseek-v2-236b"])
 @pytest.mark.parametrize("plan", [(1, 2, 4), (2, 2, 4), (1, 4, 2)])
 def test_storage_rules_match_jax_specs(arch, plan):
     """Each leaf's storage shards are the JAX package's serving

@@ -152,10 +152,36 @@ def test_unported_paths_raise():
         sample_tokens(None, torch.zeros(1, 4), SINGLE, temperature=0.7)
     assert sample_tokens(None, torch.zeros(1, 4), SINGLE, temperature=0.7,
                          seeds=torch.tensor([3])).shape == (1,)
+    from repro_torch.core.views import make_serving_ctx
+    from repro_torch.models.cache import LiveDecodeBackend, TrainBackend
+    from repro_torch.models.moe import moe_ffn
     for arch in ("deepseek-v2-236b", "phi3.5-moe-42b-a6.6b"):  # MLA, MoE
+        cfg = get_config(arch).reduced()
+        m = build_model(cfg, torch.float32, "cpu")
+        m.check_serving()                     # both build and serve
+        p = m.init(torch.Generator().manual_seed(0))
+        # MoE training (the router's aux loss) is not ported
         with pytest.raises(NotImplementedError):
-            build_model(get_config(arch).reduced(), torch.float32,
-                        "cpu").plan
+            m.forward(p, SINGLE, mode="train", backend=TrainBackend(),
+                      tokens=torch.zeros((1, 4), dtype=torch.long))
+        # expert parallelism over 'ed' (engine_rows > 1) is not ported
+        full = get_config(arch)
+        ctx = make_serving_ctx(1, full.engine_rows, 1, full.moe.num_experts)
+        assert ctx.ep == full.engine_rows > 1
+        ffn = p["groups"][-1][0]["ffn"]
+        with pytest.raises(NotImplementedError):
+            moe_ffn(cfg, ffn, torch.zeros((1, 2, cfg.d_model)), ctx)
+    # MLA's replicated compressed cache has no live cross-layout reads
+    from repro_torch.models.attention import mla_attention
+    cfg = get_config("deepseek-v2-236b").reduced()
+    p = build_model(cfg, torch.float32, "cpu").init(
+        torch.Generator().manual_seed(0))
+    live = LiveDecodeBackend(ctx=SINGLE, slots=torch.zeros(1), segs=(),
+                             merge=1, block_base=4)
+    with pytest.raises(NotImplementedError):
+        mla_attention(cfg, p["groups"][0][0]["attn"],
+                      torch.zeros((1, 1, cfg.d_model)), SINGLE, live, None,
+                      positions=torch.zeros((1, 1), dtype=torch.long))
     for arch in ("mamba2-2.7b", "recurrentgemma-9b"):  # trains, not serves
         with pytest.raises(NotImplementedError):
             build_model(get_config(arch).reduced(), torch.float32,

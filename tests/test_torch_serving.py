@@ -295,6 +295,8 @@ LAUNCHER_ARGS = {
     "plain": ["--requests", "60"],
     "frontdoor": ["--requests", "60", "--frontdoor", "--priority-frac",
                   "0.2", "--prefix-cache", "--arrival", "bursty"],
+    "deepseek": ["--requests", "60", "--arch", "deepseek-v2-236b"],
+    "phi-moe": ["--requests", "60", "--arch", "phi3.5-moe-42b-a6.6b"],
 }
 
 
