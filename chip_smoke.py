@@ -43,13 +43,14 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    K6's bf16 tensor-core kernels (forward chunk_state_tc and
    chunk_scan_tc, backward dc_tc and dxb_tc) must show HGMMA
    instructions in the SASS of every instance; K2 at MLA width
-   (``mla_decode``: fp32 q over the one compressed bf16 pool, KV 1) at
-   DeepSeek-V2's decode shape (B 8, H 128, W 576, R 512, page 16,
-   contexts 1 to 4096) with and without a window, and at W 80 / R 64 and
-   W 48 / R 32, in fp32 (atol 1e-4), timed against SDPA over the
-   gathered context (one kv head whose 128 query heads are SDPA's query
-   rows), and the one-pool K1 and K3 forms at width 576, bit-exact,
-   timed against ``index_copy_``;
+   (``mla_decode``: fp32 q over the one compressed bf16 pool, KV 1: the
+   tensor cores' ``decode_tc``, q and P as bf16 hi + lo) at DeepSeek-V2's
+   decode shape (B 8, H 128, W 576, R 512, page 16, contexts 1 to 4096)
+   with and without a window, and at W 80 / R 64 and W 48 / R 32, in
+   fp32 (atol 1e-4), timed against SDPA over the gathered context (one
+   kv head whose 128 query heads are SDPA's query rows), the fp32 pool's
+   CUDA-core ``decode`` timed beside it, and the one-pool K1 and K3 forms
+   at width 576, bit-exact, timed against ``index_copy_``;
 4. serve a small request trace with the reduced llama3-8b in fp32 on the
    card and on the CPU (plain versions): the greedy tokens and the phase
    log must be identical; then four requests over a 12-block pool, where
@@ -174,7 +175,9 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    dense forward (no pool, naive MLA, every token through its top-k
    experts): its argmax, or a near-tie within NEAR_TIE_SD; then a
    profiled rerun's device time by kernel class (GEMMs, MoE dispatch,
-   mla_decode, elementwise) and busy share.
+   mla_decode's decode_tc, elementwise) and busy share, where every
+   mla_decode call must have run decode_tc and none the CUDA cores'
+   decode.
 
 Each kernel's launch count in the JSON record comes from the path that
 runs it: K1-K4 from phase 5, K5 and its backward at hd 128 from phase 8
@@ -621,15 +624,18 @@ def paged_rep_checks(torch, np, rng, gen, close) -> None:
 def mla_rows(torch, np, rng, close):
     """K2 at MLA width (``mla_decode``) against its plain version at
     DeepSeek-V2's decode shape (B 8, H 128, W 576, R 512, page 16,
-    contexts 1 to 4096, fp32 q over a bf16 pool), with and without a
-    window, and at the reduced W 80 / R 64 and the Pallas test's W 48 /
-    R 32; the one-pool K1 and K3 forms (the compressed cache) bit-exact.
-    Times the kernels, the plain versions and one PyTorch call each:
+    contexts 1 to 4096, fp32 q over a bf16 pool: the tensor-core
+    ``decode_tc``), with and without a window, and at the reduced W 80 /
+    R 64 and the Pallas test's W 48 / R 32; the one-pool K1 and K3 forms
+    (the compressed cache) bit-exact. Times the kernels (the fp32 pool's
+    CUDA-core ``decode`` beside the row's bf16 route), the plain
+    versions and one PyTorch call each:
     SDPA over the context gathered (and cast to fp32) beforehand, one
     kv head whose 128 query heads are SDPA's query rows, the key mask
     of each request's context; ``index_copy_`` for the appends."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels import _lib
     from repro_torch.kernels.paged_attention import kernel as pk
     from repro_torch.kernels.paged_attention import ref as pr
     from repro_torch.models.cache import paged_gather
@@ -693,12 +699,30 @@ def mla_rows(torch, np, rng, close):
             qs, kg, vg, attn_mask=mask, scale=1.0)))
     rows.append(row)
     dev_ms = launch_device_ms(torch, lambda: pk.paged_mla_attention_kernel(
-        q, pool, bt, ctx, R=R), "decode")
-    print(f"  mla_decode: events {row['ms']:.4f} ms a call, device "
-          f"{dev_ms:.4f} ms a launch (profiler); bound {bms:.4f} ms "
-          f"({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); at the "
-          f"fp32 CUDA cores' 67 TFLOP/s the operations alone take "
-          f"{flops / 67e12 * 1e3:.4f} ms")
+        q, pool, bt, ctx, R=R), "decode_tc")
+    pool32 = pool.float()
+    err32 = close(pk.paged_mla_attention_kernel(q, pool32, bt, ctx, R=R),
+                  pr.paged_mla_attention_ref(q, pool32, bt, ctx, R=R), f32,
+                  f"mla_decode B {B} H {H} W {W} R {R} fp32 pool")
+    ms32 = time_ms(torch, lambda: pk.paged_mla_attention_kernel(
+        q, pool32, bt, ctx, R=R))
+    dev32 = launch_device_ms(torch, lambda: pk.paged_mla_attention_kernel(
+        q, pool32, bt, ctx, R=R), "decode")
+    del pool32
+    # the tensor cores' work: S = q K^T over W and O = P V over R, each
+    # with its bf16 A operand (q, P) as hi + lo, for 64-head blocks
+    hb = -(-H // pk.MLA_HEADS) * pk.MLA_HEADS
+    tc_flops = 2.0 * 2 * (W + R) * hb * int(live.sum())
+    print(f"  mla_decode: bf16 pool (decode_tc, tensor cores) events "
+          f"{row['ms']:.4f} ms a call, device {dev_ms:.4f} ms a launch "
+          f"(profiler); fp32 pool (decode, CUDA cores) events {ms32:.4f} ms, "
+          f"device {dev32:.4f} ms, max_abs_err {err32:.3g}; bound "
+          f"{bms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} "
+          f"GFLOP); the tensor cores run {tc_flops / 1e9:.2f} GFLOP (q and "
+          f"P as hi + lo), {tc_flops / 989e12 * 1e3:.4f} ms at the bf16 "
+          f"peak, {tc_flops / (dev_ms * 1e-3) / 1e12:.1f} TFLOP/s in this "
+          f"run; decode_tc's dynamic shared memory "
+          f"{_lib.func('mla_decode_tc_smem')()} bytes")
     del kg, vg, mask, qs
 
     # the one-pool appends: DeepSeek-V2's entries of 576 bf16
@@ -2951,12 +2975,29 @@ def serve_mla_full_width(torch, smi: str) -> dict:
           f"a greedy token is off the dense forward's argmax by "
           f"{greedy['worst']:.2f}x the near-tie bound")
     del stack, sched1, reqs1
-    # the breakdown: the same trace again, under the profiler
+    # the breakdown: the same trace again, under the profiler; the bf16
+    # pool's route: every mla_decode call ran decode_tc, none the CUDA
+    # cores' decode
     stack = build_stack(sc, weights=(model, params))
+    _lib.reset_launches()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, wall2 = replay(sc, stack)
+    n_mla = _lib.LAUNCHES["mla_decode"]
+    n_tc = n_core = 0
+    for e in prof.key_averages():
+        if "decode_tc" in e.key:
+            n_tc += e.count
+        elif "mla::decode<" in e.key or "mla6decodeI" in e.key:
+            n_core += e.count
+    print(f"mla (b): the profiled rerun's {n_mla} mla_decode calls ran "
+          f"decode_tc {n_tc} times, the CUDA cores' decode {n_core} times")
+    check(n_mla > 0 and n_tc == n_mla and n_core == 0,
+          f"mla_decode over the bf16 pool: {n_mla} calls, {n_tc} decode_tc "
+          f"launches, {n_core} CUDA-core launches")
     print_breakdown("mla (b) breakdown", prof, wall2, (
-        ("mla_decode", "mla::decode"), ("mla_decode", "mla6decode"),
+        ("mla_decode decode_tc", "decode_tc"),
+        ("mla_decode decode", "mla::decode<"),
+        ("mla_decode decode", "mla6decodei"),
         ("paged_append", "append_rows"),
         ("moe dispatch, pool gather", "index"),
         ("moe dispatch, pool gather", "sort"),
@@ -2999,14 +3040,17 @@ def kernel_label(mangled: str) -> str:
     args = []
     i = 1 if rest.startswith("I") else len(rest)
     while i < len(rest) and rest[i] != "E":
-        m = re.match(r"(\d+)|Li(-?\d+)E", rest[i:])
+        m = re.match(r"(\d+)|Li(-?\d+)E|Lb([01])E", rest[i:])
         if m and m.group(1):             # a named type
             k = int(m.group(1))
             j = i + m.end()
             args.append(rest[j:j + k].replace("__nv_bfloat16", "bf16"))
             i = j + k
-        elif m:                          # an int
+        elif m and m.group(2):           # an int
             args.append(m.group(2))
+            i += m.end()
+        elif m:                          # a bool
+            args.append(("false", "true")[int(m.group(3))])
             i += m.end()
         else:                            # a builtin type
             args.append({"f": "f32"}.get(rest[i], rest[i]))

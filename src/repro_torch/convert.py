@@ -46,10 +46,11 @@ def _convert(tree, dtype, device, name=""):
 
 def params_from_numpy(cfg: ArchConfig, tree: Any, *,
                       dtype: Optional[torch.dtype] = None,
-                      device="cpu") -> Any:
+                      device) -> Any:
     """The JAX package's param tree (numpy leaves) as the port's
-    parameters on ``device``; ``dtype`` casts every leaf but the MoE
-    router's, which stays fp32 (None keeps each leaf's own)."""
+    parameters on ``device`` (no default: the caller names it);
+    ``dtype`` casts every leaf but the MoE router's, which stays fp32
+    (None keeps each leaf's own)."""
     want = _shapes(Model(cfg, torch.float32, torch.device("meta")).init(
         torch.Generator(device="cpu")))
     got = _shapes(tree)

@@ -54,7 +54,8 @@ _SIGNATURES = {
     "paged_attention": {
         "paged_attention_decode": [_P] * 9 + [_I] * 7 + [_F] + [_I] * 4
                                   + [_P],
-        "mla_decode": [_P] * 7 + [_I] * 7 + [_F] + [_I] * 3 + [_P]},
+        "mla_decode": [_P] * 7 + [_I] * 7 + [_F] + [_I] * 3 + [_P],
+        "mla_decode_tc_smem": []},
     "paged_prefill": {
         "paged_flash_prefill": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                 _I, _I, _I, _I, _F, _I, _I, _I, _P],

@@ -325,9 +325,10 @@ __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// k step kk's A fragments from a 64 x 64 fp32 accumulator ``s``: hi =
-// bf16(s), lo = bf16(s - hi).
-__device__ __forceinline__ void split_frag(const float (&s)[32], int kk,
+// k step kk's A fragments from a 64 x N fp32 accumulator ``s`` (N / 2
+// registers): hi = bf16(s), lo = bf16(s - hi).
+template <int NR>
+__device__ __forceinline__ void split_frag(const float (&s)[NR], int kk,
                                            uint32_t (&hi)[4],
                                            uint32_t (&lo)[4]) {
 #pragma unroll
@@ -350,9 +351,10 @@ __device__ __forceinline__ int acc_col(int i) {
 }
 
 // ---------------------------------------------------------------------------
-// Tall tiles (the SSD backward, ssd_scan.cu): RW = 64 or 128 rows of W
-// bf16 columns, stored as W/64 atoms of RW rows x 128 bytes, each with the
-// 128-byte swizzle above. A 64-row tall tile is a Tile<W>. With 128 rows
+// Tall tiles (the SSD backward, ssd_scan.cu; the MLA decode's 32-key
+// tiles, paged_attention.cu): RW = 32, 64 or 128 rows of W bf16 columns,
+// stored as W/64 atoms of RW rows x 128 bytes, each with the 128-byte
+// swizzle above. A 64-row tall tile is a Tile<W>. With 128 rows
 // a K-major operand still advances 32 bytes a k step within an atom and
 // one atom per four, an N-major one 16 rows (2048 bytes) a k step, with
 // the atoms RW * 128 bytes apart; a 64-row A operand from rows 64..127
@@ -389,6 +391,24 @@ __device__ __forceinline__ void load_tall(uint32_t sm, const __nv_bfloat16* g,
 // D[64 x N] (+)= A[64 x 16] B[16 x N], both from shared memory, A
 // K-major, B K-major (TB 0) or N-major (TB 1, the transpose bit)
 template <int N, int TB> struct SS;
+template <int TB> struct SS<32, TB> {
+  static __device__ __forceinline__ void run(float (&d)[16], uint64_t da,
+                                             uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+        "%12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, 0, %19;\n}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(acc), "n"(TB));
+  }
+};
+
 template <int TB> struct SS<64, TB> {
   static __device__ __forceinline__ void run(float (&d)[32], uint64_t da,
                                              uint64_t db, int acc) {

@@ -40,6 +40,7 @@
 //   came last: deterministic), writes the output and sets the counter
 //   back to 0.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -410,40 +411,46 @@ extern "C" int paged_attention_decode(const void* q, const void* kpool,
 // shape: a row of 576 elements is 72 lanes, and 128 query heads on one
 // kv head would be 16 groups of 8, each reading the whole context again.
 //
-// Bound on the H100: operations. A key costs every head (W + R) * 2
-// flops (the score over W lanes, the value over R) against W * 2 bytes
-// read once for all heads: 128 heads make ~140 flops a byte, above the
-// fp32 CUDA cores' ridge (67 TFLOP/s over 3.35 TB/s, 20 a byte) and
-// below the bf16 tensor cores' (295). This kernel is the simple fp32
-// CUDA-core form; the tensor-core form is a later step.
+// Bound on the H100: a key costs every head (W + R) * 2 flops (the score
+// over W lanes, the value over R) against W * 2 bytes read once for all
+// heads: 128 heads make ~140 flops a byte, above the fp32 CUDA cores'
+// ridge (67 TFLOP/s over 3.35 TB/s, 20 a byte) and below the bf16 tensor
+// cores' (295). So a bf16 pool goes to the tensor cores (decode_tc); an
+// fp32 pool keeps the CUDA-core form (decode), the way K4 and K5 split by
+// dtype.
 //
-// - A block owns (split, head group, request): HG = 32 query heads and
-//   the key positions [s * split_len, (s + 1) * split_len) of the live
-//   range [max(0, ctx - window), ctx); 128 heads are 4 groups.
-// - Each tile of TK = 32 key rows is staged in shared memory once, in
-//   fp32, and serves both products for all the block's heads: the
-//   scores over W lanes and the value read over the first R lanes. The
-//   next tile's global loads are in flight while one tile is computed.
+// Both split each request's live range [max(0, ctx - window), ctx) into
+// splits of split_len keys, a block per (head block, split, request),
+// and merge the splits in the same launch as decode_kernel's do: fp32
+// partials (max, sum, unnormalised [heads, R] output) to scratch, a
+// ticket from a per-(request, head block) counter left zero, and the
+// last block merges in split order.
+// ---------------------------------------------------------------------------
+namespace {
+namespace mla {
+
+constexpr int MAX_W = 576;               // widest entry taken
+
+// ---------------------------------------------------------------------------
+// decode: fp32 pools, the fp32 CUDA cores.
+//
+// - A block owns (split, head group, request): HG = 32 query heads.
+// - Each tile of TK = 32 key rows is staged in shared memory once and
+//   serves both products for all the block's heads: the scores over W
+//   lanes and the value read over the first R lanes. The next tile's
+//   global loads are in flight while one tile is computed.
 // - Scores: warp w owns heads 4w..4w+3 and lane t key t of the tile, so
 //   the query reads are warp-wide broadcasts and the online softmax of a
 //   head is one warp's shuffles. Rows are padded to W + 4 floats, which
 //   keeps the 32 lanes' 16-byte key reads free of bank conflicts.
 // - Values: thread (c, g) owns columns 4c..4c+3 (and 4c + 512.. when R
 //   exceeds 512) of 16 heads' fp32 outputs in registers.
-// - Splits merge in the same launch as decode_kernel's do: fp32 partials
-//   (max, sum, unnormalised [HG, R] output) to scratch, a ticket from a
-//   per-(request, group) counter left zero, and the last block merges in
-//   split order.
 // ---------------------------------------------------------------------------
-namespace {
-namespace mla {
-
 constexpr int NT = 256;                  // threads a block
 constexpr int HG = 32;                   // query heads a block
 constexpr int TK = 32;                   // key positions a tile
 constexpr int HPW = HG / (NT / 32);      // heads a warp scores
 constexpr int HPT = HG / 2;              // heads a thread accumulates
-constexpr int MAX_W = 576;               // widest entry taken
 constexpr int LPT = (TK * (MAX_W / 8) + NT - 1) / NT;  // row loads a tile
 constexpr int PS = HG + 4;               // row stride of the p tile
 static_assert(HPW == 4, "a warp writes its heads' p as one float4");
@@ -466,12 +473,13 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// q [B,H,W] fp32; pool [nblk,page,W]; out [B,H,R] fp32. ``part`` holds
-// B * groups * splits partials of (2 + R) * HG floats (m[HG], l[HG],
-// acc[HG][R]); ``count`` B * groups counters, zero on entry, left zero.
-template <typename KT, int NQ>
+// q [B,H,W] fp32; pool [nblk,page,W] fp32; out [B,H,R] fp32. ``part``
+// holds B * groups * splits partials of (2 + R) * HG floats (m[HG],
+// l[HG], acc[HG][R]); ``count`` B * groups counters, zero on entry, left
+// zero.
+template <int NQ>
 __global__ void __launch_bounds__(NT, 1)
-decode(const float* __restrict__ q, const KT* __restrict__ pool,
+decode(const float* __restrict__ q, const float* __restrict__ pool,
        const int* __restrict__ bt, const int* __restrict__ ctx_len,
        float* __restrict__ out, float* __restrict__ part,
        int* __restrict__ count, int H, int groups, int W, int R, int page,
@@ -522,7 +530,7 @@ decode(const float* __restrict__ q, const KT* __restrict__ pool,
   const int W8 = W / 8;
   const int n_ld = TK * W8;
   const int* btb = bt + (long long)b * MB;
-  Row8<KT> reg[LPT];
+  Row8<float> reg[LPT];
   // global loads of the tile at ``base`` into registers (zero past k_hi)
   auto fetch = [&](int base) {
 #pragma unroll
@@ -701,37 +709,460 @@ decode(const float* __restrict__ q, const KT* __restrict__ pool,
   if (tid == 0) count[cnt] = 0;
 }
 
-template <typename KT, int NQ>
-int launch(dim3 grid, size_t smem, cudaStream_t st, const void* q,
-           const void* pool, const void* bt, const void* ctx, void* out,
-           void* part, void* count, int H, int groups, int W, int R,
-           int page, int MB, int window, float scale, int split_len) {
-  static bool ready = false;     // the shared-memory limit, set once
-  if (!ready) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        decode<KT, NQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem_bytes(MAX_W));
-    if (e != cudaSuccess) return (int)e;
-    ready = true;
+// ---------------------------------------------------------------------------
+// decode_tc: bf16 pools, the tensor cores (wgmma, tile code in
+// hopper.cuh).
+//
+// - A block owns (head block, split, request): HB = 64 query heads, the
+//   wgmma M, zero rows past H. The head block is blockIdx.x, so the
+//   blocks that read one (request, split) run side by side and the second
+//   read of the context comes from L2.
+// - q (fp32) is split once into q_hi = bf16(q c) and q_lo = bf16(q c -
+//   q_hi), c = scale log2(e), both kept in shared memory for the whole
+//   sweep (9 atoms of 64 x 64 each at W 576, zero past W). The pool is
+//   bf16, so K is exact and S = q_hi K^T + q_lo K^T keeps about 16 bits of
+//   q, as K5 keeps of its P.
+// - Tiles of TK = 32 keys in a two-stage ring: the next tile's copy
+//   (cp.async, zero past the split and past W; a thread copies one row,
+//   whose block-table entry it looked up a tile ahead) runs while this
+//   one is multiplied.
+// - Two consumer warpgroups. S [64 x 32] = q K^T (m64n32k16, K-major B):
+//   each warpgroup takes half of W's k steps, in two accumulators (hi
+//   and lo), and the halves are summed through shared memory, so both
+//   hold the same S and run the same online softmax in base 2 on their
+//   registers. Then O += P V for each warpgroup's own NC of R's columns,
+//   P from registers as split_frag's hi + lo fragments, V the same key
+//   tile read N-major. At R 512 each owns 256 columns (128 fp32
+//   registers); R above 512 gives warpgroup 1 the 64 columns past 512
+//   too (EX).
+// - What bounds it: the products read their operands from shared memory,
+//   and q (147 KB, hi + lo) is read again for every 32 keys: about 285 KB
+//   of operand reads a tile against 36 KB of keys from device memory.
+// - Shared memory: q hi + lo 147,456 bytes, two key tiles 73,728, the S
+//   exchange 8,192: 229,376 (+ 1024 for alignment), one block an SM. At
+//   the end the block's output goes through the tiles' space to 16-byte
+//   stores, and the last block's merge keeps its weights there.
+// ---------------------------------------------------------------------------
+constexpr int HB = hop::TR;                   // query heads a block
+constexpr int TKC = 32;                       // keys a tile
+constexpr int NTC = 2 * hop::WG;              // two consumer warpgroups
+constexpr int Q_BYTES = HB * MAX_W * 2;       // q hi (or lo): 9 atoms
+constexpr int KT_ATOM = TKC * 128;            // a key tile's 64-column atom
+constexpr int K_BYTES = TKC * MAX_W * 2;      // a key tile
+constexpr int X_BYTES = HB * TKC * 4;         // the S exchange
+constexpr int TC_SMEM = 2 * Q_BYTES + 2 * K_BYTES + X_BYTES + 1024;
+constexpr int QJ = MAX_W / 32;                 // q chunks a thread stages
+static_assert(NTC == 8 * TKC && NTC == 4 * HB, "a key row is 8 threads', "
+              "a q row 4 threads'");
+// the merge keeps two floats a (head, split) where the q tiles were
+constexpr int MAX_SPLITS_TC = 2 * Q_BYTES / (2 * HB * 4);
+
+// A warpgroup's accumulator ``acc`` (columns c0 + acc_col(i), those
+// under R) into the [HB, rp] fp32 rows at ``so`` in shared memory,
+// divided by the row sums ``l`` where ``norm``.
+template <int NR>
+__device__ __forceinline__ void stage_acc(const float (&acc)[NR],
+                                          const float (&l)[2], int c0,
+                                          int R, bool norm, float* so,
+                                          int rp) {
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    inv[r] = !norm ? 1.f : l[r] > 0.f ? 1.f / l[r] : 0.f;
+#pragma unroll
+  for (int i = 0; i < NR; i += 2) {
+    const int col = c0 + hop::acc_col(i);
+    if (col >= R) continue;
+    const float f = inv[(i >> 1) & 1];
+    *reinterpret_cast<float2*>(so + hop::acc_row(i) * rp + col) =
+        make_float2(acc[i] * f, acc[i + 1] * f);
   }
-  decode<KT, NQ><<<grid, NT, smem, st>>>(
-      (const float*)q, (const KT*)pool, (const int*)bt, (const int*)ctx,
+}
+
+// The two warpgroups' halves of S summed through shared memory ``xs``
+// ([4][WG] float4, this thread's column at xs[0]): warpgroup 1 writes
+// its half, warpgroup 0 adds it to its own and writes the sum back, and
+// warpgroup 1 reads it, so both hold the same S.
+__device__ __forceinline__ void sum_halves(float (&sc)[16], float4* xs,
+                                           int g) {
+  if (g == 1) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      xs[j * hop::WG] = make_float4(sc[4 * j], sc[4 * j + 1], sc[4 * j + 2],
+                                    sc[4 * j + 3]);
+  }
+  __syncthreads();
+  if (g == 0) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float4 v = xs[j * hop::WG];
+      sc[4 * j] += v.x;
+      sc[4 * j + 1] += v.y;
+      sc[4 * j + 2] += v.z;
+      sc[4 * j + 3] += v.w;
+      xs[j * hop::WG] = make_float4(sc[4 * j], sc[4 * j + 1], sc[4 * j + 2],
+                                    sc[4 * j + 3]);
+    }
+  }
+  __syncthreads();
+  if (g == 1) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float4 v = xs[j * hop::WG];
+      sc[4 * j] = v.x;
+      sc[4 * j + 1] = v.y;
+      sc[4 * j + 2] = v.z;
+      sc[4 * j + 3] = v.w;
+    }
+  }
+}
+
+// q [B,H,W] fp32; pool [nblk,page,W] bf16; out [B,H,R] fp32; ``part``
+// holds B * groups * splits partials of (2 + R) * HB floats, ``count`` B
+// * groups counters (groups = gridDim.x), as for decode.
+template <int NC, bool EX>
+__global__ void __launch_bounds__(NTC, 1)
+decode_tc(const float* __restrict__ q, const __nv_bfloat16* __restrict__ pool,
+          const int* __restrict__ bt, const int* __restrict__ ctx_len,
+          float* __restrict__ out, float* __restrict__ part,
+          int* __restrict__ count, int H, int W, int R, int page, int MB,
+          int window, float scale, int split_len) {
+  using bf16 = __nv_bfloat16;
+  extern __shared__ uint8_t smraw[];
+  const uint32_t sq_hi = hop::smem_base(smraw), sq_lo = sq_hi + Q_BYTES;
+  const uint32_t sk0 = sq_lo + Q_BYTES;
+  uint8_t* sgen = smraw + (sq_hi - hop::smem_u32(smraw));  // sq_hi, generic
+  float4* sx = reinterpret_cast<float4*>(sgen + 2 * Q_BYTES + 2 * K_BYTES);
+  __shared__ bool last;
+
+  const int hb = blockIdx.x, s = blockIdx.y, b = blockIdx.z;
+  const int h0 = hb * HB, ng = min(HB, H - h0);
+  const int tid = threadIdx.x, g = tid / hop::WG;
+  const int ctx = ctx_len[b];
+  const int hi = min(ctx, MB * page);
+  const int lo = window > 0 ? max(0, ctx - window) : 0;
+  const long long hrow = (long long)b * H + h0;
+  const long long cnt = (long long)b * gridDim.x + hb;
+  if (hi <= lo) {                                // no live key
+    if (s == 0)
+      for (int x = tid; x < ng * R; x += NTC) out[hrow * R + x] = 0.f;
+    return;
+  }
+  const int s_lo = lo / split_len, s_hi = (hi - 1) / split_len;
+  if (s < s_lo || s > s_hi) return;
+  const int k_lo = max(lo, s * split_len);
+  const int k_hi = min(hi, (s + 1) * split_len);
+  const int n = (k_hi - k_lo + TKC - 1) / TKC;
+  const int CPR = ((W + 15) & ~15) / 8;          // 16-byte chunks read a row
+  const int* btb = bt + (long long)b * MB;
+
+  // the element offset of this thread's key row in tile ``it`` (-1: past
+  // the split): thread t copies row t / 8 of each key tile, its 16-byte
+  // chunks t % 8 + 8 j, so it looks up one block-table entry a tile
+  const int kr = tid >> 3, kc = tid & 7;
+  auto row_of = [&](int it) -> long long {
+    const int key = k_lo + it * TKC + kr;
+    if (it >= n || key >= k_hi) return -1;
+    const int pg = key / page;
+    return ((long long)max(btb[pg], 0) * page + (key - pg * page)) * W;
+  };
+  // start the copy of key tile ``it`` (this thread's row at ``row``) into
+  // ring stage it % 2: zero past the split and past W
+  auto load_k = [&](int it, long long row) {
+    const uint32_t st = sk0 + (it & 1) * K_BYTES + hop::swizzle(kr, kc);
+#pragma unroll
+    for (int j = 0; j < MAX_W / 64; ++j) {
+      const int c = kc + 8 * j;
+      const bool ok = row >= 0 && c * 8 < W;
+      if (c < CPR) hop::cp_async16(st + j * KT_ATOM, ok ? pool + row + c * 8
+                                                        : pool, ok);
+    }
+  };
+  long long row_next = row_of(0);
+  load_k(0, row_next);
+  hop::cp_commit();
+  row_next = row_of(1);
+
+  // q hi and lo, scaled into base 2; heads past ng and lanes past W zero.
+  // Thread t stages row t / 4, its 32-byte chunks t % 4 + 4 j, six
+  // chunks' loads in flight at once.
+  const float cs = scale * LOG2E;
+  const int qh = tid >> 2, qc = tid & 3;
+  const float* qrow = q + (hrow + min(qh, ng - 1)) * W;
+#pragma unroll
+  for (int j0 = 0; j0 < QJ; j0 += 6) {
+    float4 a[6], e[6];
+#pragma unroll
+    for (int j = 0; j < 6; ++j) {
+      const int c = qc + 4 * (j0 + j);
+      a[j] = e[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (qh < ng && c * 8 < W) {
+        a[j] = reinterpret_cast<const float4*>(qrow + c * 8)[0];
+        e[j] = reinterpret_cast<const float4*>(qrow + c * 8)[1];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 6; ++j) {
+      const int c = qc + 4 * (j0 + j);
+      if (c >= CPR) continue;
+      uint4 vh, vl;
+      hop::split2(a[j].x * cs, a[j].y * cs, vh.x, vl.x);
+      hop::split2(a[j].z * cs, a[j].w * cs, vh.y, vl.y);
+      hop::split2(e[j].x * cs, e[j].y * cs, vh.z, vl.z);
+      hop::split2(e[j].z * cs, e[j].w * cs, vh.w, vl.w);
+      const uint32_t off =
+          (c / 8) * hop::Tile<MAX_W>::ATOM + hop::swizzle(qh, c % 8);
+      *reinterpret_cast<uint4*>(sgen + off) = vh;
+      *reinterpret_cast<uint4*>(sgen + Q_BYTES + off) = vl;
+    }
+  }
+
+  float o[NC / 2], ox[EX ? 32 : 1];
+#pragma unroll
+  for (int i = 0; i < NC / 2; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (EX ? 32 : 1); ++i) ox[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  const bool pv = g * NC < R;          // this warpgroup's columns are read
+  const uint32_t vcol = (g * NC / 64) * KT_ATOM;
+  // this warpgroup's k steps of S: its half of W
+  const int kh = (CPR / 2 + 1) / 2;
+  const int kk0 = g * kh, kk1 = min(CPR / 2, kk0 + kh);
+  for (int it = 0; it < n; ++it) {
+    if (it + 1 < n) {
+      load_k(it + 1, row_next);
+      hop::cp_commit();
+      row_next = row_of(it + 2);     // its lookup runs under this tile
+      hop::cp_wait<1>();
+    } else {
+      hop::cp_wait<0>();
+    }
+    hop::fence_async_smem();
+    __syncthreads();
+    const uint32_t kt = sk0 + (it & 1) * K_BYTES;
+
+    // S = q K^T, hi and lo (two accumulators, so that the two chains of
+    // products overlap): each warpgroup over its half of W, then the
+    // halves summed through shared memory, so both hold the same S
+    float sc[16], sl[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) sc[i] = sl[i] = 0.f;
+    hop::wg_fence();
+    for (int kk = kk0; kk < kk1; ++kk) {
+      const uint64_t dk = hop::desc_kt<TKC>(kt, kk);
+      hop::mma_ss_t<32, 0>(sc, hop::desc_k<MAX_W>(sq_hi, kk), dk, 1);
+      hop::mma_ss_t<32, 0>(sl, hop::desc_k<MAX_W>(sq_lo, kk), dk, 1);
+    }
+    hop::wg_commit();
+    hop::wg_wait<0>();
+    hop::fence_regs(sc);
+    hop::fence_regs(sl);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) sc[i] += sl[i];
+    sum_halves(sc, sx + tid % hop::WG, g);
+
+    // the online softmax: the tile's first key is live, so every max is
+    // finite; keys past k_hi are masked
+    const int base = k_lo + it * TKC;
+    const bool edge = base + TKC > k_hi;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      if (edge && base + hop::acc_col(i) >= k_hi) sc[i] = -INFINITY;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float mn = fmaxf(m[r], mx[r]);
+      alpha[r] = exp2f(m[r] - mn);
+      m[r] = mn;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      sc[i] = exp2f(sc[i] - m[(i >> 1) & 1]);
+      l[(i >> 1) & 1] += sc[i];
+    }
+
+    // O += P V over this warpgroup's columns, P as hi + lo fragments
+    if (pv) {
+      uint32_t ph[2][4], pl[2][4];
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) hop::split_frag(sc, kk, ph[kk], pl[kk]);
+#pragma unroll
+      for (int i = 0; i < NC / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+      if constexpr (EX) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) ox[i] *= alpha[(i >> 1) & 1];
+      }
+      hop::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        const uint64_t dv = hop::desc_nt<TKC>(kt + vcol, kk);
+        hop::mma_rs<NC>(o, ph[kk], dv);
+        hop::mma_rs<NC>(o, pl[kk], dv);
+      }
+      if constexpr (EX) {
+        if (g == 1) {
+#pragma unroll
+          for (int kk = 0; kk < 2; ++kk) {
+            const uint64_t dv = hop::desc_nt<TKC>(kt + 8 * KT_ATOM, kk);
+            hop::mma_rs<64>(ox, ph[kk], dv);
+            hop::mma_rs<64>(ox, pl[kk], dv);
+          }
+        }
+      }
+      hop::wg_commit();
+      hop::wg_wait<0>();
+      hop::fence_regs(o);
+      if constexpr (EX) hop::fence_regs(ox);
+    }
+    __syncthreads();  // this stage is free for the copy after next
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  const bool whole = s_lo == s_hi;               // one split: write directly
+  const size_t psz = (size_t)(2 + R) * HB;
+  float* mine = part + ((size_t)cnt * gridDim.y + s) * psz;
+  // the block's [ng, R] output (normalised if whole, else the split's
+  // partial) through shared memory (the tiles' space: the copies and
+  // products are done), then out in coalesced 16-byte stores
+  float* so = reinterpret_cast<float*>(sgen);    // [HB][R + 8]
+  const int rp = R + 8;                          // rows 32 bytes apart mod 128
+  if (pv) stage_acc(o, l, g * NC, R, whole, so, rp);
+  if constexpr (EX) {
+    if (g == 1) stage_acc(ox, l, 512, R, whole, so, rp);
+  }
+  __syncthreads();
+  {
+    float4* dst = reinterpret_cast<float4*>(whole ? out + hrow * R
+                                                  : mine + 2 * HB);
+    const int R4 = R / 4;
+    for (int x = tid; x < ng * R4; x += NTC) {
+      const int h = x / R4;
+      dst[x] = *reinterpret_cast<const float4*>(so + h * rp + 4 * (x - h * R4));
+    }
+  }
+  if (whole) return;
+  if (g == 0 && tid % 4 == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = hop::acc_row(2 * r);
+      mine[row] = m[r];
+      mine[HB + row] = l[r];
+    }
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(count + cnt, 1) == s_hi - s_lo;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // the merge: every split's (m, l) of each head into shared memory (the
+  // q tiles' space) at once, then each head's weights exp2(m - M) / L
+  // in place of its m, then 16-byte loads of the partials, MI at a time
+  const int ns = s_hi - s_lo + 1;
+  const float* all = part + ((size_t)cnt * gridDim.y + s_lo) * psz;
+  float* wt = reinterpret_cast<float*>(sgen);    // [ng][ns]: m, then weight
+  float* lt = wt + ng * ns;                      // [ng][ns]: l
+  for (int x = tid; x < ng * ns; x += NTC) {
+    const int h = x / ns, t = x - h * ns;
+    wt[x] = __ldcg(all + t * psz + h);
+    lt[x] = __ldcg(all + t * psz + HB + h);
+  }
+  __syncthreads();
+  for (int h = tid; h < ng; h += NTC) {
+    float M = -INFINITY, L = 0.f;
+    for (int t = 0; t < ns; ++t) M = fmaxf(M, wt[h * ns + t]);
+    for (int t = 0; t < ns; ++t)
+      if (lt[h * ns + t] > 0.f)
+        L += lt[h * ns + t] * exp2f(wt[h * ns + t] - M);
+    for (int t = 0; t < ns; ++t)
+      wt[h * ns + t] = lt[h * ns + t] > 0.f && L > 0.f
+                           ? exp2f(wt[h * ns + t] - M) / L
+                           : 0.f;
+  }
+  __syncthreads();
+  // a thread sums MI float4s of the output at once: MI of a split's
+  // loads in flight
+  constexpr int MI = 16;
+  const int R4 = R / 4, n4 = ng * R4;
+  const size_t ps4 = psz / 4;
+  const float4* src = reinterpret_cast<const float4*>(all) + HB / 2;
+  float4* dst = reinterpret_cast<float4*>(out + hrow * R);
+  for (int x0 = tid; x0 < n4; x0 += MI * NTC) {
+    float4 a[MI];
+    int xs[MI], hs[MI];
+#pragma unroll
+    for (int j = 0; j < MI; ++j) {
+      a[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+      xs[j] = min(x0 + j * NTC, n4 - 1);         // past n4: read, not stored
+      hs[j] = xs[j] / R4;
+    }
+    for (int t = 0; t < ns; ++t) {
+#pragma unroll
+      for (int j = 0; j < MI; ++j) {
+        const float4 v = __ldcg(src + t * ps4 + xs[j]);
+        const float w = wt[hs[j] * ns + t];
+        a[j].x += w * v.x;
+        a[j].y += w * v.y;
+        a[j].z += w * v.z;
+        a[j].w += w * v.w;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < MI; ++j)
+      if (x0 + j * NTC < n4) dst[x0 + j * NTC] = a[j];
+  }
+  if (tid == 0) count[cnt] = 0;
+}
+
+// The shared-memory limit of each kernel is set once, at its first launch.
+template <typename K>
+int allow_smem(K kernel, bool& ready, size_t smem) {
+  if (ready) return 0;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  ready = true;
+  return 0;
+}
+
+template <int NQ>
+int launch(dim3 grid, cudaStream_t st, const void* q, const void* pool,
+           const void* bt, const void* ctx, void* out, void* part,
+           void* count, int H, int groups, int W, int R, int page, int MB,
+           int window, float scale, int split_len) {
+  static bool ready = false;
+  const int rc = allow_smem(decode<NQ>, ready, smem_bytes(MAX_W));
+  if (rc != 0) return rc;
+  decode<NQ><<<grid, NT, smem_bytes(W), st>>>(
+      (const float*)q, (const float*)pool, (const int*)bt, (const int*)ctx,
       (float*)out, (float*)part, (int*)count, H, groups, W, R, page, MB,
       window, scale, split_len);
   return 0;
 }
 
-template <typename KT>
-int launch_nq(int R, dim3 grid, size_t smem, cudaStream_t st, const void* q,
-              const void* pool, const void* bt, const void* ctx, void* out,
-              void* part, void* count, int H, int groups, int W, int page,
-              int MB, int window, float scale, int split_len) {
-  if (R <= 4 * (NT / 2))
-    return launch<KT, 1>(grid, smem, st, q, pool, bt, ctx, out, part, count,
-                         H, groups, W, R, page, MB, window, scale,
-                         split_len);
-  return launch<KT, 2>(grid, smem, st, q, pool, bt, ctx, out, part, count,
-                       H, groups, W, R, page, MB, window, scale, split_len);
+template <int NC, bool EX>
+int launch_tc(dim3 grid, cudaStream_t st, const void* q, const void* pool,
+              const void* bt, const void* ctx, void* out, void* part,
+              void* count, int H, int W, int R, int page, int MB, int window,
+              float scale, int split_len) {
+  static bool ready = false;
+  const int rc = allow_smem(decode_tc<NC, EX>, ready, TC_SMEM);
+  if (rc != 0) return rc;
+  decode_tc<NC, EX><<<grid, NTC, TC_SMEM, st>>>(
+      (const float*)q, (const __nv_bfloat16*)pool, (const int*)bt,
+      (const int*)ctx, (float*)out, (float*)part, (int*)count, H, W, R, page,
+      MB, window, scale, split_len);
+  return 0;
 }
 
 }  // namespace mla
@@ -739,12 +1170,13 @@ int launch_nq(int R, dim3 grid, size_t smem, cudaStream_t st, const void* q,
 }  // namespace
 
 // q [B,H,W] fp32 (pre-scaled queries [q_nope W_uk ++ q_pe]); pool
-// [nblk,page,W] fp32 or bf16; bt [B,MB] int32; ctx [B] int32; out [B,H,R]
-// fp32, the first R lanes of the attention output. W and R multiples of
-// 8, R <= W <= 576. window <= 0: none. splits blocks of split_len keys
-// per (request, head group); with more than one split, part holds B *
-// groups * splits partials of (2 + R) * 32 floats and count B * groups
-// int32 zeros (left zero); groups = ceil(H / 32).
+// [nblk,page,W] bf16 (decode_tc) or fp32 (decode); bt [B,MB] int32; ctx
+// [B] int32; out [B,H,R] fp32, the first R lanes of the attention output.
+// W and R multiples of 8, R <= W <= 576. window <= 0: none. splits blocks
+// of split_len keys per (request, head block) of hg = 64 heads (bf16) or
+// 32 (fp32); with more than one split, part holds B * groups * splits
+// partials of (2 + R) * hg floats and count B * groups int32 zeros (left
+// zero); groups = ceil(H / hg).
 extern "C" int mla_decode(const void* q, const void* pool, const void* bt,
                           const void* ctx, void* out, void* part,
                           void* count, int B, int H, int W, int R, int page,
@@ -754,24 +1186,36 @@ extern "C" int mla_decode(const void* q, const void* pool, const void* bt,
   if (W <= 0 || W % 8 || W > MAX_W || R <= 0 || R % 8 || R > W || H <= 0 ||
       page <= 0 || splits <= 0 || split_len <= 0 ||
       (long long)splits * split_len < (long long)MB * page ||
-      (splits > 1 && (part == nullptr || count == nullptr)))
+      (splits > 1 && (part == nullptr || count == nullptr)) ||
+      (kv_dtype != DT_BF16 && kv_dtype != DT_F32))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaGetLastError();
-  const int groups = (H + HG - 1) / HG;
-  const dim3 grid(splits, groups, B);
-  const size_t smem = smem_bytes(W);
   cudaStream_t st = (cudaStream_t)stream;
   int rc;
-  if (kv_dtype == DT_F32)
-    rc = launch_nq<float>(R, grid, smem, st, q, pool, bt, ctx, out, part,
-                          count, H, groups, W, page, MB, window, scale,
-                          split_len);
-  else if (kv_dtype == DT_BF16)
-    rc = launch_nq<__nv_bfloat16>(R, grid, smem, st, q, pool, bt, ctx, out,
-                                  part, count, H, groups, W, page, MB,
-                                  window, scale, split_len);
-  else
-    rc = (int)cudaErrorInvalidValue;
+  if (kv_dtype == DT_BF16) {
+    const dim3 grid((H + HB - 1) / HB, splits, B);
+    auto go = [&](auto fn) {
+      return fn(grid, st, q, pool, bt, ctx, out, part, count, H, W, R, page,
+                MB, window, scale, split_len);
+    };
+    if (splits > MAX_SPLITS_TC) return (int)cudaErrorInvalidValue;
+    if (R <= 128) rc = go(launch_tc<64, false>);
+    else if (R <= 256) rc = go(launch_tc<128, false>);
+    else if (R <= 512) rc = go(launch_tc<256, false>);
+    else rc = go(launch_tc<256, true>);
+  } else {
+    const int groups = (H + HG - 1) / HG;
+    const dim3 grid(splits, groups, B);
+    if (R <= 4 * (NT / 2))
+      rc = launch<1>(grid, st, q, pool, bt, ctx, out, part, count, H, groups,
+                     W, R, page, MB, window, scale, split_len);
+    else
+      rc = launch<2>(grid, st, q, pool, bt, ctx, out, part, count, H, groups,
+                     W, R, page, MB, window, scale, split_len);
+  }
   if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }
+
+// Dynamic shared memory of decode_tc, for reports.
+extern "C" int mla_decode_tc_smem() { return mla::TC_SMEM; }

@@ -137,18 +137,29 @@ def paged_attention_kernel(q, k_pool, v_pool, block_table, context_len, *,
     return (out, lse) if return_lse else out
 
 
-MLA_HEADS = 32      # query heads one block of the MLA decode kernel serves
+MLA_HEADS = 64      # query heads a block of the bf16 (tensor-core) route
+MLA_HEADS_FP32 = 32  # ... of the fp32 pools' CUDA-core route
 MLA_MAX_W = 576     # widest compressed entry it takes (DeepSeek-V2's)
 
 
+def mla_heads(pool_dtype: torch.dtype) -> int:
+    """Query heads one block of the MLA decode kernel serves over a pool
+    of ``pool_dtype``: 64 (the wgmma M) on the bf16 route, 32 on the
+    fp32 CUDA-core route."""
+    return MLA_HEADS if pool_dtype == torch.bfloat16 else MLA_HEADS_FP32
+
+
 def mla_splits(B: int, H: int, keys: int, device,
-               splits: Optional[int] = None) -> Tuple[int, int]:
+               splits: Optional[int] = None,
+               heads: int = MLA_HEADS) -> Tuple[int, int]:
     """(splits, split_len) of the MLA decode kernel over ``keys`` = MB *
-    page key positions: split lengths are multiples of 64 keys, and the
-    fewest splits whose B * groups * splits blocks (one an SM: each
-    takes ~150 KB of shared memory at W 576) fill the card's SMs twice
-    (or ``splits``, if given: a test's choice)."""
-    groups = -(-H // MLA_HEADS)
+    page key positions, in blocks of ``heads`` query heads: split
+    lengths are multiples of 64 keys, and the fewest splits whose B *
+    groups * splits blocks (one an SM: each takes ~225 KB of shared
+    memory on the bf16 route, ~150 KB on the fp32 one, at W 576) fill
+    the card's SMs twice (or ``splits``, if given: a test's choice; the
+    bf16 route takes at most 288)."""
+    groups = -(-H // heads)
     if splits is None:
         sms = torch.cuda.get_device_properties(device).multi_processor_count
         splits = -(-2 * sms // (B * groups))
@@ -166,8 +177,10 @@ def paged_mla_attention_kernel(q_cat, pool, block_table, context_len, *,
     fp32 (pre-scaled [q_nope W_uk ++ q_pe]); pool [nblk,page,W] fp32 or
     bf16; block_table [B,MB]; context_len [B] -> [B,H,R] fp32, the
     softmax over q_cat . entry read over each entry's first R lanes. W
-    and R multiples of 8, R <= W <= 576, any H and page. ``splits``
-    overrides the split count that ``mla_splits`` picks (tests only)."""
+    and R multiples of 8, R <= W <= 576, any H and page. A bf16 pool runs
+    the tensor-core kernel (``decode_tc``), an fp32 pool the CUDA-core
+    one (``decode``). ``splits`` overrides the split count that
+    ``mla_splits`` picks (tests only)."""
     q = _lib.aligned(q_cat.contiguous())
     pool = _lib.aligned(pool)
     bt = block_table.to(torch.int32).contiguous()
@@ -183,11 +196,12 @@ def paged_mla_attention_kernel(q_cat, pool, block_table, context_len, *,
         raise ValueError(f"mla_decode takes W and R multiples of 8 with R "
                          f"<= W <= {MLA_MAX_W}, not W {W}, R {R}")
     page, MB = pool.shape[1], bt.shape[1]
-    n, split_len = mla_splits(B, H, MB * page, q.device, splits)
-    groups = -(-H // MLA_HEADS)
+    heads = mla_heads(pool.dtype)
+    n, split_len = mla_splits(B, H, MB * page, q.device, splits, heads)
+    groups = -(-H // heads)
     part = count = None
     if n > 1:
-        part = torch.empty((B * groups * n, 2 + R, MLA_HEADS),
+        part = torch.empty((B * groups * n, 2 + R, heads),
                            dtype=torch.float32, device=q.device)
         count = _counters(q.device, B * groups)
     out = torch.empty((B, H, R), dtype=torch.float32, device=q.device)

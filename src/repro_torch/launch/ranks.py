@@ -45,13 +45,14 @@ def _entry(rank: int, fn: Callable, world: int, init_method: str,
 
 
 def spawn(fn: Callable, world: int, args: Sequence = (), *,
-          device_type: str = "cpu", timeout: Optional[float] = 600.0,
+          device_type: str, timeout: Optional[float] = 600.0,
           hash_seed: str = "0", threads: Optional[int] = None) -> None:
     """Run ``fn(rank, world, *args)`` on ``world`` spawned ranks and wait
     for all of them. ``fn`` must be importable by the children (a
-    module-level function). Raises if a rank raises, and
-    ``TimeoutError`` (after killing every rank) past ``timeout``
-    seconds (None: no deadline)."""
+    module-level function). ``device_type`` ("cuda" or "cpu") has no
+    default: the caller names where the ranks run. Raises if a rank
+    raises, and ``TimeoutError`` (after killing every rank) past
+    ``timeout`` seconds (None: no deadline)."""
     tmp = tempfile.mkdtemp(prefix="ranks-")
     init = "file://" + os.path.join(tmp, "store")
     saved = os.environ.get("PYTHONHASHSEED")

@@ -65,8 +65,8 @@ def _index(tree, i: int):
 @dataclass
 class Model:
     cfg: ArchConfig
-    dtype: torch.dtype = torch.bfloat16
-    device: torch.device = torch.device("cpu")
+    dtype: torch.dtype
+    device: torch.device
     # rematerialize layer activations in the backward pass (training)
     remat: bool = True
 

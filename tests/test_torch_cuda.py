@@ -29,10 +29,12 @@ pair on the CUDA cores) kernels are held at rep = H/KV of 1, 4, 7 and
 their outputs at the tolerance of q's dtype, their lse (from fp32 q, or
 from bf16 q with exact bf16 products) at the fp32 one. The MLA decode
 kernel (K2 at MLA width: KV 1, fp32 q over a bf16 or fp32 compressed
-pool, fp32 out) at atol = rtol = 1e-4: both sides compute in fp32 from
-the same pool values, but each score sums W (up to 576) products and
-each output up to 4096 weighted keys in another order, and the scores
-of the full-width case reach about 25 before the softmax.
+pool, fp32 out) at atol = rtol = 1e-4: each score sums W (up to 576)
+products and each output up to 4096 weighted keys in another order, and
+the scores of the full-width case reach about 25 before the softmax; on
+a bf16 pool the tensor cores take q and P as bf16 hi + lo halves (about
+16 bits each), whose margin at this tolerance tests/test_torch_mla.py
+shows on the CPU (a quarter of it used with q times 4).
 """
 import copy
 
@@ -657,21 +659,37 @@ def mla_case(dev, B, H, W, page, max_ctx, pdt, seed=0, scale=None):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("pdt", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("B_,H_,W,R,page,max_ctx,window,splits", [
-    (8, 128, 576, 512, 16, 4096, None, None),    # DeepSeek-V2 full width
-    (8, 128, 576, 512, 16, 4096, 700, None),
-    (3, 128, 576, 576, 32, 300, None, 3),        # R = W: two column sets
-    (4, 4, 80, 64, 16, 100, None, None),         # the reduced config
-    (2, 8, 48, 32, 8, 32, None, 1),              # the Pallas test's width
-    (5, 40, 96, 64, 16, 333, 50, 4),             # ragged head groups
-])
+@pytest.mark.parametrize(
+    "B_,H_,W,R,page,max_ctx,window,splits,q_mul,ctx0", [
+        (8, 128, 576, 512, 16, 4096, None, None, 1, False),  # DeepSeek-V2
+        (8, 128, 576, 512, 16, 4096, 700, None, 1, False),
+        (3, 128, 576, 576, 32, 300, None, 3, 1, False),  # R = W
+        (4, 4, 80, 64, 16, 100, None, None, 1, False),   # the reduced config
+        (2, 8, 48, 32, 8, 32, None, 1, 1, False),        # the Pallas test's
+        (5, 40, 96, 64, 16, 333, 50, 4, 1, False),       # ragged head groups
+        (3, 8, 40, 24, 16, 200, None, 2, 1, False),      # W off the k step
+        (4, 64, 576, 512, 16, 1000, None, None, 1, False),  # a merge-2 rank
+        (2, 129, 576, 512, 16, 500, None, 2, 1, False),  # 1 head in a block
+        (4, 16, 576, 512, 16, 300, 45, 3, 1, False),     # window mid-tile
+        (3, 16, 576, 512, 16, 200, None, 2, 1, True),    # a row at context 0
+        (8, 128, 576, 512, 16, 4096, None, None, 4, False),  # wide scores
+    ])
 def test_mla_decode_matches_plain(cuda, pdt, B_, H_, W, R, page, max_ctx,
-                                  window, splits):
+                                  window, splits, q_mul, ctx0):
     """K2 at MLA width (the one compressed pool viewed as KV 1, fp32 q,
     out [B,H,R]) against ``paged_mla_attention_ref``, with and without a
-    window, split and whole; the ticket counters are left zero."""
+    window, split and whole; bf16 pools run ``decode_tc`` (tensor cores),
+    fp32 pools ``decode`` (CUDA cores). The cases reach the tensor-core
+    kernel's edges: W not a multiple of its k step of 16, 64 heads (one
+    block), 129 (one live head in the last block), a window that starts
+    inside a 32-key tile, a row with no key (zeros), q times 4 (scores
+    wide enough to test the hi + lo split of q). The ticket counters are
+    left zero."""
     from repro_torch.kernels.paged_attention import kernel as pker
     q, pool, bt, ctx = mla_case(cuda, B_, H_, W, page, max_ctx, pdt)
+    q = q * q_mul
+    if ctx0:
+        ctx[0] = 0
     scale = W ** -0.5
     got = pker.paged_mla_attention_kernel(q, pool, bt, ctx, R=R,
                                           window=window,
@@ -681,8 +699,35 @@ def test_mla_decode_matches_plain(cuda, pdt, B_, H_, W, R, page, max_ctx,
     torch.cuda.synchronize()
     assert got.shape == (B_, H_, R) and got.dtype == torch.float32
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    if ctx0:
+        assert int(got[0].count_nonzero()) == 0
     counters = pker._COUNTERS.get(q.device)
     assert counters is None or int(counters.abs().sum()) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pdt,want,other", [
+    (torch.bfloat16, ("decode_tc",), ("mla::decode<", "mla6decodeI")),
+    (torch.float32, ("mla::decode<", "mla6decodeI"), ("decode_tc",))])
+def test_mla_decode_route_by_pool_dtype(cuda, pdt, want, other):
+    """A bf16 pool runs the tensor-core kernel and nothing else, an fp32
+    pool the CUDA-core one: the kernel names in torch.profiler's CUDA
+    events (demangled or not) over three calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.paged_attention import kernel as pker
+    q, pool, bt, ctx = mla_case(cuda, 2, 128, 576, 16, 300, pdt)
+    pker.paged_mla_attention_kernel(q, pool, bt, ctx, R=512)
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            pker.paged_mla_attention_kernel(q, pool, bt, ctx, R=512)
+        torch.cuda.synchronize()
+    assert _lib.LAUNCHES["mla_decode"] == 3
+    names = [e.key for e in prof.key_averages()]
+    assert [n for n in names if any(w in n for w in want)], names
+    assert not [n for n in names if any(o in n for o in other)], names
 
 
 @pytest.mark.gpu

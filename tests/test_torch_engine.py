@@ -102,7 +102,7 @@ def stacks():
     jp = jm.init(jax.random.key(0))
     cfg = get_config("llama3-8b").reduced()
     tm = build_model(cfg, torch.float32, device="cpu")
-    tp = params_from_numpy(cfg, jax.tree.map(np.asarray, jp))
+    tp = params_from_numpy(cfg, jax.tree.map(np.asarray, jp), device="cpu")
     return {
         "jax": dict(model=jm, params=jp, Plan=JaxPlan, Geom=JaxGeometry,
                     Engine=JaxEngine, Sched=JaxScheduler,

@@ -261,7 +261,8 @@ def _port_params(ref_dir: str, cfg):
         torch.Generator(device="cpu"))
     with np.load(os.path.join(ref_dir, "params.npz")) as z:
         leaves = [z[f"arr_{i}"] for i in range(len(z.files))]
-    return params_from_numpy(cfg, ckpt.tree_unflatten(like, leaves))
+    return params_from_numpy(cfg, ckpt.tree_unflatten(like, leaves),
+                             device="cpu")
 
 
 def _stack(ref_dir, plan_args=PLAN):
@@ -588,7 +589,15 @@ def ref_dir(tmp_path_factory):
 
 
 def _spawn(fn, world, *args):
-    spawn(fn, world, args, timeout=SPAWN_S, threads=1)
+    spawn(fn, world, args, device_type="cpu", timeout=SPAWN_S,
+          threads=1)
+
+
+def test_spawn_names_its_device():
+    """``spawn`` has no default device: a call that names none raises
+    before any rank starts."""
+    with pytest.raises(TypeError):
+        spawn(print, 2, ())
 
 
 def _per_rank(out, world, ext):
@@ -721,7 +730,8 @@ def test_storage_shard_is_the_rank_slice():
     tensors themselves."""
     from repro_torch.core.weights_manager import WeightsManager
     cfg = get_config(ARCH).reduced()
-    params = Model(cfg, torch.float32).init(torch.Generator().manual_seed(0))
+    params = Model(cfg, torch.float32, torch.device("cpu")).init(
+        torch.Generator().manual_seed(0))
     wm = WeightsManager(cfg, ParallelPlan(*PLAN))
     s0, s1 = (wm.storage_shard(params, r) for r in (0, 1))
     wq = params["groups"][0][0]["attn"]["wq"]
@@ -959,7 +969,7 @@ def test_fault_kinds_accepted_and_scripted(port_faults, kind):
 
 def _engine_at_one_rank(arch=ARCH):
     cfg = get_config(arch).reduced()
-    model = Model(cfg, torch.float32)
+    model = Model(cfg, torch.float32, torch.device("cpu"))
     one = ParallelPlan(1, 1, 1)
     return FlyingEngine(model, one, PoolGeometry(cfg, one, num_blocks=8,
                                                  block_base=4),
@@ -997,7 +1007,7 @@ def test_live_step_refused_under_a_sliding_window():
     package's ``build_serve_step`` refuses it; without one it builds."""
     from repro_torch.core.steps import build_serve_step
     cfg = get_config("stablelm-1.6b").reduced()
-    model = Model(cfg, torch.float32)
+    model = Model(cfg, torch.float32, torch.device("cpu"))
     plan = ParallelPlan(1, 1, 2)
     geom = PoolGeometry(cfg, plan, num_blocks=8, block_base=4)
     mode = FlyingMode(plan, 2)

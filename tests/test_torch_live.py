@@ -483,7 +483,8 @@ def _port_params(ref_dir: str, name: str, cfg):
         torch.Generator(device="cpu"))
     with np.load(os.path.join(ref_dir, f"{name}.npz")) as z:
         leaves = [z[f"arr_{i}"] for i in range(len(z.files))]
-    return params_from_numpy(cfg, ckpt.tree_unflatten(like, leaves))
+    return params_from_numpy(cfg, ckpt.tree_unflatten(like, leaves),
+                             device="cpu")
 
 
 def _stack(ref_dir, arch: str, name: str):
@@ -1046,7 +1047,8 @@ def split(port):
 
 
 def _spawn(fn, world, *args):
-    spawn(fn, world, args, timeout=SPAWN_S, threads=1)
+    spawn(fn, world, args, device_type="cpu", timeout=SPAWN_S,
+          threads=1)
 
 
 def _ranks(out, world=8):

@@ -54,6 +54,7 @@ from repro_torch.core.scheduler import DynamicScheduler, SchedulerConfig
 from repro_torch.core.task_pool import Request
 from repro_torch.core.views import SINGLE
 from repro_torch.kernels.paged_attention import ops as pa_ops
+from repro_torch.kernels.paged_attention.ref import paged_mla_attention_ref
 from repro_torch.models.cache import DecodeBackend, PrefillBackend
 from repro_torch.models.model import build_model
 from test_torch_engine import _FixedClock, jax_mesh_shim  # noqa: F401
@@ -75,7 +76,7 @@ def both_models(arch):
     jp = jm.init(jax.random.key(0))
     cfg = get_config(arch).reduced()
     tm = build_model(cfg, torch.float32, device="cpu")
-    tp = params_from_numpy(cfg, jax.tree.map(np.asarray, jp))
+    tp = params_from_numpy(cfg, jax.tree.map(np.asarray, jp), device="cpu")
     return jm, jp, tm, tp
 
 
@@ -217,6 +218,104 @@ def test_one_pool_chunk_append_matches_jax(dtype):
     np.testing.assert_array_equal(
         got.float().numpy().reshape(-1, W)[:rows],
         np.asarray(want.astype(jnp.float32)).reshape(-1, W)[:rows])
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core MLA decode's arithmetic (csrc/paged_attention.cu,
+# mla::decode_tc), emulated where no card is
+# ---------------------------------------------------------------------------
+
+LOG2E = 1.4426950408889634
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _hi_lo(x):
+    hi = _bf16(x)
+    return hi, _bf16(x - hi)
+
+
+def mla_decode_tc_emulated(q_cat, pool, block_table, context_len, *, R,
+                           window=None, softmax_scale=1.0, split_len=128,
+                           tile=32):
+    """``decode_tc``'s arithmetic in plain torch: q c (c = scale log2 e)
+    split into bf16 hi + lo, K and V the pool's bf16 rows, S = q_hi K^T +
+    q_lo K^T summed in fp32; tiles of ``tile`` keys from each split's
+    first live key with the online softmax in base 2, P split into bf16
+    hi + lo for P V; the splits merged as the kernel's last block merges
+    them (a weight exp2(m - M) / L a split). Returns [B,H,R] fp32."""
+    B, H, W = q_cat.shape
+    page, MB = pool.shape[1], block_table.shape[1]
+    rows = pool.reshape(-1, W)
+    q_hi, q_lo = _hi_lo(q_cat.float() * (softmax_scale * LOG2E))
+    out = torch.zeros(B, H, R)
+    for b in range(B):
+        ctx = int(context_len[b])
+        hi = min(ctx, MB * page)
+        lo = max(0, ctx - window) if window else 0
+        if hi <= lo:
+            continue
+        parts = []
+        for s in range(lo // split_len, (hi - 1) // split_len + 1):
+            m = torch.full((H,), -float("inf"))
+            ell, o = torch.zeros(H), torch.zeros(H, R)
+            k_hi = min(hi, (s + 1) * split_len)
+            for base in range(max(lo, s * split_len), k_hi, tile):
+                keys = torch.arange(base, min(base + tile, k_hi))
+                kv = _bf16(rows[block_table[b, keys // page].long() * page
+                                + keys % page])
+                sc = q_hi[b] @ kv.T + q_lo[b] @ kv.T
+                mn = torch.maximum(m, sc.amax(1))
+                alpha = torch.exp2(m - mn)
+                p = torch.exp2(sc - mn[:, None])
+                ell = ell * alpha + p.sum(1)
+                m = mn
+                p_hi, p_lo = _hi_lo(p)
+                o = o * alpha[:, None] + p_hi @ kv[:, :R] + p_lo @ kv[:, :R]
+            parts.append((m, ell, o))
+        M = torch.stack([t[0] for t in parts]).amax(0)
+        L = sum(t[1] * torch.exp2(t[0] - M) for t in parts)
+        out[b] = sum(t[2] * (torch.exp2(t[0] - M) / L)[:, None]
+                     for t in parts)
+    return out
+
+
+@pytest.mark.parametrize("window", [None, 100])
+@pytest.mark.parametrize("q_mul", [1, 4])
+def test_mla_decode_tc_arithmetic_matches_ref_and_jax(q_mul, window):
+    """The tensor-core kernel's precision design at DeepSeek-V2's width
+    (H 128, W 576, R 512; a few hundred keys over pages of 16, split in
+    128s): its emulation against ``paged_mla_attention_ref`` and the JAX
+    ``paged_mla_attention_decode(impl="ref")`` on the same bf16 pool
+    (after the JAX op's append), within the card test's atol = rtol =
+    1e-4; q times 4 widens the scores."""
+    rng = np.random.default_rng(11)
+    B, H, R, W, page, MB = 3, 128, 512, 576, 16, 24
+    nblk = B * MB + 1
+    def bf(a):                                  # bf16 values held in fp32
+        return _bf16(torch.from_numpy(a.astype(np.float32))).numpy()
+
+    q = (rng.standard_normal((B, H, W)) * q_mul).astype(np.float32)
+    pool = bf(rng.standard_normal((nblk, page, W)))
+    entry = bf(rng.standard_normal((B, W)))
+    bt = rng.permutation(nblk - 1)[:B * MB].reshape(B, MB).astype(np.int32)
+    cl = np.array([300, 173, 384], np.int32)
+    slots = (bt[np.arange(B), (cl - 1) // page] * page
+             + (cl - 1) % page).astype(np.int32)
+    scale = W ** -0.5
+    jo, jpool = jax_mla_decode(*map(jnp.asarray, (q, entry, pool, slots, bt,
+                                                  cl)),
+                               R=R, window=window, softmax_scale=scale,
+                               impl="ref")
+    t = [torch.from_numpy(np.array(a)) for a in (q, jpool, bt, cl)]
+    got = mla_decode_tc_emulated(*t, R=R, window=window,
+                                 softmax_scale=scale)
+    want = paged_mla_attention_ref(*t, R=R, window=window,
+                                   softmax_scale=scale)
+    torch.testing.assert_close(got, want, **TOL)
+    torch.testing.assert_close(got, torch.from_numpy(np.array(jo)), **TOL)
 
 
 # ---------------------------------------------------------------------------

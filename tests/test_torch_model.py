@@ -35,7 +35,7 @@ def models():
     jp = jm.init(jax.random.key(0))
     cfg = get_config("llama3-8b").reduced()
     tm = build_model(cfg, torch.float32, device="cpu")
-    tp = params_from_numpy(cfg, jax.tree.map(np.asarray, jp))
+    tp = params_from_numpy(cfg, jax.tree.map(np.asarray, jp), device="cpu")
     return jm, jp, tm, tp
 
 
@@ -118,7 +118,7 @@ def test_convert_rejects_a_foreign_tree(models):
     bad = jax.tree.map(np.asarray, jp)
     bad["embed"]["tok"] = bad["embed"]["tok"][:, :8]
     with pytest.raises(ValueError):
-        params_from_numpy(get_config("llama3-8b").reduced(), bad)
+        params_from_numpy(get_config("llama3-8b").reduced(), bad, device="cpu")
 
 
 def test_seeded_init_keeps_the_jax_scales():

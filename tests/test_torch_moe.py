@@ -133,7 +133,7 @@ def test_router_stays_fp32():
     assert ffn["e_gate"].dtype == torch.bfloat16
     # an fp32 tree cast to bf16 on the way in keeps its router fp32
     tree = jax.tree.map(lambda t: t.float().numpy(), p)
-    tp = params_from_numpy(cfg, tree, dtype=torch.bfloat16)
+    tp = params_from_numpy(cfg, tree, dtype=torch.bfloat16, device="cpu")
     assert tp["groups"][0][0]["ffn"]["router"].dtype == torch.float32
     assert tp["groups"][0][0]["ffn"]["e_up"].dtype == torch.bfloat16
 

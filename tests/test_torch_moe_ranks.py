@@ -125,7 +125,8 @@ def steps_rank(rank, world, ref_dir, out):
             torch.Generator(device="cpu"))
         with np.load(os.path.join(ref_dir, f"{arch}.params.npz")) as z:
             leaves = [z[f"arr_{i}"] for i in range(len(z.files))]
-        params = params_from_numpy(cfg, ckpt.tree_unflatten(like, leaves))
+        params = params_from_numpy(cfg, ckpt.tree_unflatten(like, leaves),
+                                   device="cpu")
         shard = WeightsManager(cfg, plan).storage_shard(params, rank % 2)
         toks = torch.from_numpy(np.load(os.path.join(
             ref_dir, f"{arch}.steps.npz"))["tokens"]).long()

@@ -221,7 +221,7 @@ def hybrid():
     jm = jax_build(_test_config(jax_side=True), jnp.float32)
     jp = jm.init(jax.random.key(0))
     cfg = _test_config()
-    tp = params_from_numpy(cfg, jax.tree.map(np.asarray, jp))
+    tp = params_from_numpy(cfg, jax.tree.map(np.asarray, jp), device="cpu")
     return jm, jp, cfg, build_model(cfg, torch.float32, "cpu"), tp
 
 
@@ -368,7 +368,7 @@ def test_hybrid_tree_converts_and_checkpoints_both_ways(hybrid, tmp_path,
     _, _, cfg, tm, _ = hybrid
     jp = jax_build(_test_config(jax_side=True),
                    getattr(jnp, dtype)).init(jax.random.key(0))
-    port = params_from_numpy(cfg, jax.tree.map(np.asarray, jp))
+    port = params_from_numpy(cfg, jax.tree.map(np.asarray, jp), device="cpu")
     for a, b in zip(ckpt.tree_leaves(port), jax.tree.leaves(jp)):
         assert str(a.dtype).split(".")[-1] == str(b.dtype)
         np.testing.assert_array_equal(a.float().numpy(),
@@ -378,7 +378,7 @@ def test_hybrid_tree_converts_and_checkpoints_both_ways(hybrid, tmp_path,
     bad["groups"][0][0]["mixer"]["lam"] = \
         bad["groups"][0][0]["mixer"]["lam"][..., :3]
     with pytest.raises(ValueError):
-        params_from_numpy(cfg, bad)
+        params_from_numpy(cfg, bad, device="cpu")
     path = os.path.join(tmp_path, "jax_ck")
     jax_ckpt.save(path, jp, step=3)
     like = build_model(cfg, getattr(torch, dtype), "cpu").init(

@@ -261,7 +261,7 @@ def mamba():
     jm = jax_build(jax_config("mamba2-2.7b").reduced(), jnp.float32)
     jp = jm.init(jax.random.key(0))
     cfg = get_config("mamba2-2.7b").reduced()
-    tp = params_from_numpy(cfg, jax.tree.map(np.asarray, jp))
+    tp = params_from_numpy(cfg, jax.tree.map(np.asarray, jp), device="cpu")
     return jm, jp, cfg, build_model(cfg, torch.float32, "cpu"), tp
 
 
@@ -375,7 +375,7 @@ def test_mamba_tree_converts_in_jax_flatten_order(mamba, tmp_path):
     bad["groups"][0][0]["mixer"]["w_dt"] = \
         bad["groups"][0][0]["mixer"]["w_dt"][..., :3]
     with pytest.raises(ValueError):
-        params_from_numpy(cfg, bad)
+        params_from_numpy(cfg, bad, device="cpu")
     # checkpoints both ways
     path = os.path.join(tmp_path, "jax_ck")
     jax_ckpt.save(path, jp, step=3)

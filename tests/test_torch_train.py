@@ -234,7 +234,7 @@ def test_jax_checkpoint_restores_into_the_port(reduced, tmp_path, dtype):
     like = tm.init(torch.Generator().manual_seed(0))
     like = ckpt.tree_map(lambda t: t.to(getattr(torch, dtype)), like)
     got, step = ckpt.restore(path, like)
-    want = params_from_numpy(cfg, _np_tree(jp))
+    want = params_from_numpy(cfg, _np_tree(jp), device="cpu")
     assert step == 17 == ckpt.latest_step(path)
     for a, b in zip(ckpt.tree_leaves(got), ckpt.tree_leaves(want)):
         assert a.dtype == b.dtype == getattr(torch, dtype)
@@ -251,7 +251,7 @@ def test_jax_checkpoint_restores_into_the_port(reduced, tmp_path, dtype):
 
 def test_tree_order_is_jax_flatten_order(reduced):
     _, jp, cfg, _ = reduced
-    port = params_from_numpy(cfg, _np_tree(jp))
+    port = params_from_numpy(cfg, _np_tree(jp), device="cpu")
     for a, b in zip(ckpt.tree_leaves(port), jax.tree.leaves(jp)):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     assert len(ckpt.tree_leaves(port)) == len(jax.tree.leaves(jp))
@@ -273,7 +273,7 @@ def test_train_forward_matches_jax(zoo, arch):
                             tokens=jnp.asarray(toks, jnp.int32),
                             backend=JTrain())
     params = ckpt.tree_map(lambda t: t.requires_grad_(True),
-                           params_from_numpy(cfg, _np_tree(jp)))
+                           params_from_numpy(cfg, _np_tree(jp), device="cpu"))
     got, st, aux = tm.forward(params, SINGLE, mode="train",
                               tokens=torch.from_numpy(toks),
                               backend=TrainBackend())
@@ -281,7 +281,7 @@ def test_train_forward_matches_jax(zoo, arch):
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
                                atol=1e-4, rtol=1e-4)
     with pytest.raises(ValueError):
-        tm.forward(params_from_numpy(cfg, _np_tree(jp)), SINGLE,
+        tm.forward(params_from_numpy(cfg, _np_tree(jp), device="cpu"), SINGLE,
                    mode="train", tokens=torch.from_numpy(toks),
                    backend=TrainBackend(), states=[])
 
@@ -308,7 +308,7 @@ def test_remat_recomputes_each_layer_once(zoo, arch, monkeypatch):
     grads = {}
     for remat in (True, False):
         tm.remat = remat
-        params = params_from_numpy(cfg, _np_tree(jp))
+        params = params_from_numpy(cfg, _np_tree(jp), device="cpu")
         leaves = ckpt.tree_leaves(params)
         for p in leaves:
             p.requires_grad_(True)
@@ -409,7 +409,7 @@ def _three_steps_match_jax(jm, jp, cfg, tm, *, seq, near_zero=0.0):
               jax.jit(jopt.init, out_shardings=osh)(jp))
     opt = AdamW(lr=1e-3, warmup=5)
     step = build_train_step(tm, ParallelPlan(1, 1, 1), opt=opt)
-    params = params_from_numpy(cfg, _np_tree(jp))
+    params = params_from_numpy(cfg, _np_tree(jp), device="cpu")
     carry = (params, opt.init(params))
     it = batches(DataConfig(cfg.vocab_size, seq, 4, seed=0))
 
