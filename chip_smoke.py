@@ -50,7 +50,11 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    fp32 (atol 1e-4), timed against SDPA over the gathered context (one
    kv head whose 128 query heads are SDPA's query rows), the fp32 pool's
    CUDA-core ``decode`` timed beside it, and the one-pool K1 and K3 forms
-   at width 576, bit-exact, timed against ``index_copy_``;
+   at width 576, bit-exact, timed against ``index_copy_``; K2 and
+   ``mla_decode`` with their LSE (the striped pools' stripe partials) at
+   the same shapes, on both of mla_decode's routes with a row of no key,
+   its output bit for bit the call's without the LSE, each timed as its
+   own row;
 4. serve a small request trace with the reduced llama3-8b in fp32 on the
    card and on the CPU (plain versions): the greedy tokens and the phase
    log must be identical; then four requests over a 12-block pool, where
@@ -178,13 +182,47 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    mla_decode's decode_tc, elementwise) and busy share, where every
    mla_decode call must have run decode_tc and none the CUDA cores'
    decode.
+16. (run after phase 15) the striped (context-parallel) pools: two rank
+   processes on the one card over gloo at ``ParallelPlan(1, 1, 2)``,
+   merge 2 (one TP2 island, stripe factor 2; no number here measures TP
+   on two cards): (a) the reduced llama3-8b and deepseek-v2-236b in fp32
+   on a striped pool, phase 15 (a)'s six requests with every prompt in
+   one prefill chunk, on the card and on the CPU in each rank: streams
+   and phase logs equal on both ranks, K1, K3, K5 forward and K2 (every
+   call with its LSE), or the one-pool K1 and K3 and mla_decode (every
+   call with its LSE), launched; K2's and mla_decode's LSE partials over
+   each rank's stripe merged by ``lse_merge`` against one whole-context
+   call (fp32 tolerance); (b) llama3-8b at full width and depth in bf16
+   on a striped pool serving phase 5's 8 requests, the prefill chunk
+   raised to 2048 (striped prefill is fresh only): every request done,
+   the pools' ``data_ptr``s unchanged, K1, K3, K5 forward and K2 with
+   its LSE counted from zero and required, every greedy token held
+   against phase 14's dense one-rank forward (its argmax or a near-tie
+   within NEAR_TIE_SD); a decode tick of 16 rows printed beside phase
+   14 (b)'s head-layout merge-2 tick, with its collectives and each
+   rank's peak; (c) deepseek-v2-236b at full width cut to 2 of 60 layers
+   (the dense MLA+MLP layer and one MLA+MoE layer) in bf16, 8 requests
+   of 256-1024 prompt tokens and 32 out in prefill chunks of 1024 on a
+   striped pool: every request done, every sampled row finite,
+   mla_decode with its LSE and the one-pool K1 and K3 counted from zero
+   and required (2 layers x the steps that run them), the blocks a
+   1024-token request takes a rank in each layout printed; then one
+   prefill of 8 prompts of 1024 tokens (no padded position, so none
+   takes MoE capacity) and one decode step (8 tokens: no entry drops)
+   on a striped and on a head-layout pool: the prefill's logits within
+   STRIPED_MLA_SD row deviations, the greedy tokens equal or near-ties;
+   the same steps with the MoE FFN made a dense MLP like the first
+   layer's (no router after the attention), both within STRIPED_MLA_SD;
+   and over fp32 weights at 4 prompts, both within STRIPED_MLA_F32_SD.
 
 Each kernel's launch count in the JSON record comes from the path that
 runs it: K1-K4 from phase 5, K5 and its backward at hd 128 from phase 8
 and at hd 256 from phase 12, K6 and its backward from phase 10, K7 and
 its backward from phase 12, mla_decode and the one-pool K1 and K3 from
-phase 15 (b)'s first run (phase 14 prints its own K1-K4 counts, and
-K2's and K4's LSE launches, in its rank processes). The line
+phase 15 (b)'s first run, K2 with its LSE from phase 16 (b)'s trace and
+mla_decode with its LSE from phase 16 (c)'s striped run, on rank 0
+(phase 14 prints its own K1-K4 counts, and K2's and K4's LSE launches,
+in its rank processes). The line
 before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -397,7 +435,7 @@ def kernel_checks(torch, np):
         2, MB * page, size=B - 2)]).astype(np.int32)
     ctx = t(ctx_np, torch.int32)
     bt = tables(B)
-    errs = []
+    errs, lse_errs = [], []
     for dtype in (f32, bf16):
         kp_, vp_ = pools(dtype)
         q = t(rng.standard_normal((B, H, hd)), dtype)
@@ -410,7 +448,7 @@ def kernel_checks(torch, np):
                     q.float(), kp_, vp_, bt, c0, return_lse=True)
                 wnt, wl = pr.paged_attention_with_lse_ref(
                     q.float(), kp_, vp_, bt, c0)
-                close(gl, wl, f32, tag + " (lse)")
+                lse_errs.append(close(gl, wl, f32, tag + " (lse)"))
             else:
                 g = pk.paged_attention_kernel(q, kp_, vp_, bt, ctx,
                                               window=window)
@@ -445,7 +483,24 @@ def kernel_checks(torch, np):
         bound_ms=bms, bound_by=by,
         library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
             q4, kg, vg, attn_mask=mask))))
-    del kg, vg
+    # K2 with its LSE (the striped pools' stripe partials and the live
+    # lanes' sweeps): fp32 q, fp32 out and lse, over the bf16 pools
+    qf, qf4 = q.float(), q4.float()
+    kgf, vgf = kg.float(), vg.float()
+    bms, by = bound(nbytes + 2 * B * H * hd * 2 + B * H * 4, flops)
+    rows.append(dict(
+        name="paged_attention_lse", route="cuda",
+        source="src/repro_torch/kernels/csrc/paged_attention.cu",
+        replaces="src/repro/kernels/paged_attention/kernel.py:97",
+        max_abs_err=max(lse_errs),
+        ms=time_ms(torch, lambda: pk.paged_attention_kernel(
+            qf, kp_, vp_, bt, ctx, return_lse=True)),
+        plain_ms=time_ms(torch, lambda: pr.paged_attention_with_lse_ref(
+            qf, kp_, vp_, bt, ctx), iters=5, windows=3),
+        bound_ms=bms, bound_by=by,
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qf4, kgf, vgf, attn_mask=mask))))
+    del kg, vg, kgf, vgf
 
     append_row("chunk", "paged_append_chunk",
                "src/repro/kernels/paged_attention/kernel.py:224", 8, 512)
@@ -657,13 +712,31 @@ def mla_rows(torch, np, rng, close):
                   torch.int32), t(ctx, torch.int32), ctx)
 
     q, pool, bt, ctx, ctx_np = case(B, H, W, nblk, MB, page, MB * page)
-    err = 0.0
+    err = err_lse = 0.0
     for window in (None, 1024):
         err = max(err, close(
             pk.paged_mla_attention_kernel(q, pool, bt, ctx, R=R,
                                           window=window),
             pr.paged_mla_attention_ref(q, pool, bt, ctx, R=R, window=window),
             f32, f"mla_decode B {B} H {H} W {W} R {R} window={window}"))
+    # with its LSE (the striped pools' stripe partials), on both routes,
+    # a row with no live key included: out bit for bit the no-LSE call's
+    c0 = ctx.clone()
+    c0[0] = 0
+    for pdt in (bf16, f32):
+        pl = pool.to(pdt)
+        g, gl = pk.paged_mla_attention_kernel(q, pl, bt, c0, R=R,
+                                              return_lse=True)
+        wnt, wl = pr.paged_mla_attention_ref(q, pl, bt, c0, R=R,
+                                             return_lse=True)
+        tag = f"mla_decode {pdt} pool, with its LSE"
+        check(torch.equal(g, pk.paged_mla_attention_kernel(q, pl, bt, c0,
+                                                           R=R)),
+              f"{tag}: the output moved with the LSE asked")
+        e = max(close(g, wnt, f32, tag), close(gl, wl, f32, tag + " (lse)"))
+        if pdt == bf16:
+            err_lse = e
+        del pl
     for H_, W_, R_, page_ in ((4, 80, 64, 16), (8, 48, 32, 8)):
         q2, pool2, bt2, ctx2, _ = case(B, H_, W_, 512, 32, page_,
                                        32 * page_)
@@ -698,6 +771,20 @@ def mla_rows(torch, np, rng, close):
         library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
             qs, kg, vg, attn_mask=mask, scale=1.0)))
     rows.append(row)
+    bms_l, by_l = bound(nbytes + B * H * 4, flops)
+    row_lse = dict(
+        name="mla_decode_lse", route="cuda",
+        source="src/repro_torch/kernels/csrc/paged_attention.cu",
+        replaces="src/repro/kernels/paged_attention/kernel.py:97",
+        max_abs_err=err_lse,
+        ms=time_ms(torch, lambda: pk.paged_mla_attention_kernel(
+            q, pool, bt, ctx, R=R, return_lse=True)),
+        plain_ms=time_ms(torch, lambda: pr.paged_mla_attention_ref(
+            q, pool, bt, ctx, R=R, return_lse=True), iters=5, windows=3),
+        bound_ms=bms_l, bound_by=by_l, library_ms=row["library_ms"])
+    rows.append(row_lse)
+    print(f"  mla_decode: {row['ms']:.4f} ms a call with no LSE asked, "
+          f"{row_lse['ms']:.4f} ms with its LSE (events)")
     dev_ms = launch_device_ms(torch, lambda: pk.paged_mla_attention_kernel(
         q, pool, bt, ctx, R=R), "decode_tc")
     pool32 = pool.float()
@@ -2011,12 +2098,13 @@ def lse_merge_check(torch, eng) -> float:
 
 
 def decode_tick_ms(torch, eng, merge: int, steps: int = 10,
-                   prompt: int = 512) -> dict:
+                   prompt: int = 512, kernels=SERVE_KERNELS) -> dict:
     """Fleet decode ticks at one uniform merge: 2 x bpe requests of
     ``prompt`` tokens prefilled, two warm ticks, then ``steps`` ticks
     timed on the host clock to the end of a drain (which syncs every
     rank): the mean ms a tick, the slowest rank's. Returns the tick ms,
-    the K1-K4 launches and the TP collectives of this rank over the
+    the launches of ``kernels`` (K1-K4 by default) and those that
+    returned the LSE, and the TP collectives of this rank over the
     prefill and the ticks."""
     from repro_torch.core.task_pool import Request
     from repro_torch.kernels import _lib
@@ -2045,14 +2133,15 @@ def decode_tick_ms(torch, eng, merge: int, steps: int = 10,
     eng.drain()
     torch.cuda.synchronize()
     ms = eng.pool.host_max((time.perf_counter() - t0) * 1e3 / steps)
-    launches = {k: _lib.LAUNCHES[k] for k in SERVE_KERNELS}
+    launches = {k: _lib.LAUNCHES[k] for k in kernels}
+    lse = dict(_lib.LSE_LAUNCHES)
     for r in reqs:
         check(len(eng.generated_tokens(r.req_id)) == steps + 3,
               f"merge {merge}: {r.req_id} short of tokens")
     greedy = greedy_margins(torch, eng, reqs)
     for r in reqs:
         eng.adaptors[r.engine_group].release(r.req_id)
-    return {"ms": ms, "launches": launches,
+    return {"ms": ms, "launches": launches, "lse": lse,
             "collectives": eng.pool.stats.collectives - coll0,
             "steps": steps + 3, "greedy": greedy}
 
@@ -2559,7 +2648,8 @@ def check_live_full_width(runs, smi: str) -> None:
         check(x["merges"] == e["merges"] and x["preempt"] == e["preempt"],
               f"rank {r} scheduled another live trace than rank 0")
         for what, lse in (("trace", x["lse"]), ("SP run", sp["lse"])):
-            check(all(lse[k] > 0 for k in lse),
+            check(all(lse[k] > 0 for k in ("paged_attention",
+                                           "paged_flash_prefill")),
                   f"rank {r}: the {what}'s live lanes never launched "
                   f"K2 and K4 with their LSE: {lse}")
         check(tick["lse"]["paged_attention"] ==
@@ -2611,9 +2701,11 @@ def check_live_full_width(runs, smi: str) -> None:
           f"{max(res['e_s'] for res in runs):.1f} s of the phase")
 
 
-def serve_islands(torch, smi: str) -> None:
+def serve_islands(torch, smi: str) -> dict:
     """Phase 14: spawn two rank processes on the one card (gloo), run
-    ``islands_rank`` in each, and check and print what they found."""
+    ``islands_rank`` in each, and check and print what they found.
+    Returns (b)'s merge-2 decode tick, for phase 16 to print beside its
+    striped one."""
     import tempfile
 
     from repro_torch.launch.ranks import spawn
@@ -2700,6 +2792,7 @@ def serve_islands(torch, smi: str) -> None:
           f"max_abs_err {max(res['c_err'] for res in runs):.3e}")
     check_live_full_width(runs, smi)
     print(f"islands: {smi}; phase 14 took {time.perf_counter() - t0:.1f} s")
+    return runs[0]["tick2"]
 
 
 # ---------------------------------------------------------------------------
@@ -3013,6 +3106,602 @@ def serve_mla_full_width(torch, smi: str) -> dict:
             "paged_append_token_mla": launches["paged_append_token"],
             "paged_append_chunk_mla": launches["paged_append_chunk"]}
 
+# ---------------------------------------------------------------------------
+# phase 16: the striped (context-parallel) pools on two ranks
+# ---------------------------------------------------------------------------
+
+# the kernels a striped llama3-8b step runs (K1, K3, K5 forward; K2 runs
+# with its LSE only) and a striped DeepSeek-V2 step (the one-pool K1 and
+# K3; mla_decode with its LSE only)
+STRIPED_KERNELS = ("paged_append_token", "paged_append_chunk",
+                   "flash_prefill", "paged_attention", "paged_flash_prefill")
+STRIPED_MLA_KERNELS = ("paged_append_token", "paged_append_chunk",
+                       "mla_decode")
+# phase 16 (c): the largest difference, in standard deviations of the
+# row over the vocab, between a logit of a step on the striped pool and
+# of the same step on the head-layout pool (merge 2): bf16 prefill (the
+# same shapes in both layouts) and bf16 decode with the MoE FFN made a
+# dense MLP, and fp32 prefill and decode. The bf16 decode step through the
+# MoE layer is held by its greedy tokens alone: its striped path rounds
+# q to bf16 for the wire and merges in bf16, and the router after it
+# turns such rounding into another expert now and then
+STRIPED_MLA_SD = 0.1
+STRIPED_MLA_F32_SD = 1e-3
+
+
+def striped_engine(model, params, layout: str, *, num_blocks: int,
+                   block_base: int, bpe: int, max_blocks: int, chunk: int,
+                   clock=None):
+    """A ``FlyingEngine`` at ``ParallelPlan(1, 1, 2)`` over a pool of
+    ``layout`` bound to merge 2 (one TP2 island: stripe factor 2 when
+    striped; every step zero-copy checked; prefill and decode as two
+    steps, as the striped pool runs them, whatever the layout), and a
+    HARD scheduler pinned at merge 2 over it (through ``clock``, a
+    backend proxy class)."""
+    from repro_torch.core.engine import FlyingEngine
+    from repro_torch.core.kv_adaptor import PoolGeometry
+    from repro_torch.core.modes import ParallelPlan
+    from repro_torch.core.scheduler import DynamicScheduler, SchedulerConfig
+    plan = ParallelPlan(engine_rows=1, tp_base=1, data_rows=2)
+    geom = PoolGeometry(model.cfg, plan, num_blocks=num_blocks,
+                        block_base=block_base, layout=layout)
+    eng = FlyingEngine(model, plan, geom, params, batch_per_engine=bpe,
+                       max_blocks_per_req=max_blocks, device=model.device,
+                       check_zero_copy=True, mixed_step=False)
+    eng.switch(1, 2)
+    backend = clock(eng) if clock is not None else eng
+    sched = DynamicScheduler(plan, geom, backend, SchedulerConfig(
+        strategy="hard", max_batch_per_group=bpe, prefill_chunk=chunk,
+        fixed_merge=2))
+    return sched, eng
+
+
+def serve_spec(sc):
+    """The workload of a ``serve_config``, as the launcher builds it."""
+    from repro_torch.serving.workload import WorkloadSpec
+    spec = WorkloadSpec(n_requests=sc.requests, seed=sc.seed,
+                        prompt_range=sc.prompt_range,
+                        output_range=sc.output_range,
+                        priority_frac=sc.priority_frac)
+    spec.arrival, spec.rate = sc.arrival, sc.rate
+    spec.background_frac, spec.cancel_frac = sc.background_frac, \
+        sc.cancel_frac
+    return spec
+
+
+def striped_reduced(torch, device) -> dict:
+    """Phase 16 (a): the reduced llama3-8b and deepseek-v2-236b in fp32
+    (weights seeded on the CPU) on the striped pool at merge 2, phase 15
+    (a)'s six requests (every prompt within one prefill chunk of 32)
+    with a fixed clock on ``device``: streams, phase logs and, on the
+    card, the launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.task_pool import Request
+    from repro_torch.kernels import _lib
+    from repro_torch.models.model import build_model
+    res = {}
+    for arch in ("llama3-8b", MLA_ARCH):
+        cfg = get_config(arch).reduced()
+        params = build_model(cfg, torch.float32, "cpu").init(
+            torch.Generator().manual_seed(0))
+        sched, eng = striped_engine(
+            build_model(cfg, torch.float32, device), params, "striped",
+            num_blocks=64, block_base=4, bpe=2, max_blocks=16, chunk=32,
+            clock=FixedClock)
+        _lib.reset_launches()
+        for r in MOE_TRACE:
+            sched.submit(Request(**r))
+        sched.run(max_steps=400)
+        res[arch] = {
+            "toks": {r["req_id"]: eng.generated_tokens(r["req_id"])
+                     for r in MOE_TRACE},
+            "phases": [l.phase for l in sched.log],
+            "merges": sorted({l.merge for l in sched.log}),
+            "launches": dict(_lib.LAUNCHES) if device == "cuda" else None,
+            "lse": dict(_lib.LSE_LAUNCHES) if device == "cuda" else None}
+    return res
+
+
+def _stripe_of(torch, whole, bt_w, stripe: int, F: int, bt_s, nblk: int):
+    """The stripe pool of ``whole`` [nblk_w, page, *w] (rows through
+    ``bt_w`` [B, MB_w]): token t of each row, where t % F == stripe, at
+    its stripe slot through ``bt_s``."""
+    from repro_torch.models.striped import stripe_write_slot
+    page = whole.shape[1]
+    Bq, mbw = bt_w.shape
+    pos = torch.arange(mbw * page, device=whole.device)[None].expand(Bq, -1)
+    local = stripe_write_slot(pos, stripe, F, bt_s, page).long()
+    src = bt_w.long().gather(1, pos // page) * page + pos % page
+    out = torch.zeros((nblk,) + tuple(whole.shape[1:]), dtype=whole.dtype,
+                      device=whole.device)
+    keep = local >= 0
+    out.view(nblk * page, -1)[local[keep]] = \
+        whole.reshape(-1, out[0, 0].numel())[src[keep]]
+    return out
+
+
+def striped_kernel_checks(torch, eng) -> dict:
+    """Phase 16 (a), kernel checks: K2's LSE partial over this rank's
+    stripe (llama3-8b's full heads: H 32, KV 8, hd 128, page 16, bf16
+    pools, q rounded to bf16) and ``mla_decode``'s with its LSE
+    (DeepSeek-V2: H 128, W 576, R 512), each merged over the two ranks
+    by ``TPContext.lse_merge`` in fp32, against one K2 (one
+    ``mla_decode``) call over the whole context. Returns the max abs
+    errors."""
+    from repro_torch.core.views import make_serving_ctx
+    from repro_torch.kernels.paged_attention import kernel as pk
+    from repro_torch.models.striped import stripe_partial, stripe_partial_mla
+    ctx = make_serving_ctx(2, 1, 1, group=eng.pool.seat(
+        eng.layout.islands[0]).comm)
+    s, F = ctx.stripe_index(), ctx.tp
+    dev = eng.device
+    gen = torch.Generator(device=dev).manual_seed(16)
+    Bq, page, mbw = 8, 16, 128
+    nblk_w, nblk_s = Bq * mbw + 1, Bq * mbw // 2 + 1
+    bt_w = torch.randperm(nblk_w - 1, generator=gen, device=dev)[
+        :Bq * mbw].reshape(Bq, mbw).to(torch.int32)
+    bt_s = torch.randperm(nblk_s - 1, generator=gen, device=dev)[
+        :Bq * mbw // 2].reshape(Bq, mbw // 2).to(torch.int32)
+    ctxl = torch.randint(1, mbw * page + 1, (Bq,), generator=gen,
+                         device=dev).to(torch.int32)
+    ctxl[0] = 1                              # one stripe holds no key
+    errs = {}
+    # GQA at full heads
+    kw, vw = (torch.randn((nblk_w, page, 8, 128), generator=gen,
+                          device=dev).to(torch.bfloat16) for _ in range(2))
+    q = torch.randn((Bq, 32, 128), generator=gen, device=dev).to(
+        torch.bfloat16)
+    kp, vp = (_stripe_of(torch, x, bt_w, s, F, bt_s, nblk_s)
+              for x in (kw, vw))
+    acc, l, m = stripe_partial(q, kp, vp, bt_s, ctxl, s, F)
+    merged = ctx.lse_merge(acc, l, m)
+    whole = pk.paged_attention_kernel(q.float(), kw, vw, bt_w, ctxl)
+    torch.cuda.synchronize()
+    errs["paged_attention_lse"] = float((merged - whole).abs().max())
+    check(torch.allclose(merged, whole, **F32_TOL),
+          f"striped K2 partials merged are off one K2 call by "
+          f"{errs['paged_attention_lse']:.3e}")
+    del kw, vw, kp, vp
+    # MLA at DeepSeek-V2's width
+    R, W = 512, 576
+    pool_w = torch.randn((nblk_w, page, W), generator=gen,
+                         device=dev).to(torch.bfloat16)
+    qc = (torch.randn((Bq, 128, W), generator=gen, device=dev)
+          * W ** -0.5).to(torch.bfloat16)
+    pool_s = _stripe_of(torch, pool_w, bt_w, s, F, bt_s, nblk_s)
+    acc, l, m = stripe_partial_mla(qc[..., :R], qc[..., R:], pool_s, bt_s,
+                                   ctxl, s, F, R=R)
+    merged = ctx.lse_merge(acc, l, m)
+    whole = pk.paged_mla_attention_kernel(qc.float(), pool_w, bt_w, ctxl,
+                                          R=R)
+    torch.cuda.synchronize()
+    errs["mla_decode_lse"] = float((merged - whole).abs().max())
+    check(torch.allclose(merged, whole, **F32_TOL),
+          f"striped mla_decode partials merged are off one mla_decode "
+          f"call by {errs['mla_decode_lse']:.3e}")
+    return errs
+
+
+def striped_full_width(torch, weights) -> dict:
+    """Phase 16 (b): llama3-8b at full width and depth in bf16 on the
+    striped pool at merge 2 (2048 blocks of 16 rows a rank, 32 tokens a
+    block), phase 5's 8 requests with every prompt in one prefill chunk
+    (2048) and the launches counted from zero; the greedy tokens held
+    against the dense one-rank forward; then a decode tick of 16 rows."""
+    from repro_torch.core.weights_manager import _ptrs
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.serve import replay
+    model, params = weights
+    sc = serve_config(ranks=2, num_blocks=2048, prefill_chunk=2048)
+    sched, eng = striped_engine(model, params, "striped",
+                                num_blocks=sc.num_blocks,
+                                block_base=sc.block_base,
+                                bpe=sc.batch_per_engine,
+                                max_blocks=sc.max_blocks_per_req,
+                                chunk=sc.prefill_chunk, clock=StepClock)
+    clock = sched.backend
+    pools = _ptrs(eng._pools)
+    _lib.reset_launches()
+    coll0 = eng.pool.stats.collectives
+    sched, wall = replay(sc, (sched, serve_spec(sc), None))
+    launches = {k: _lib.LAUNCHES[k] for k in STRIPED_KERNELS}
+    dec = sorted(dt * 1e3 for k, _, dt in clock.log if k == "decode")
+    lse = dict(_lib.LSE_LAUNCHES)
+    reqs = list(sched.pool.all.values())
+    res = {
+        "done": sum(r.state == "done" and len(eng.generated_tokens(
+            r.req_id)) == r.output_len for r in reqs),
+        "n": len(reqs),
+        "prompts": sorted(r.prompt_len for r in reqs),
+        "tokens": sum(len(eng.generated_tokens(r.req_id)) for r in reqs),
+        "in_vocab": all(0 <= x < eng.cfg.vocab_size for r in reqs
+                        for x in eng.generated_tokens(r.req_id)),
+        "wall_s": wall, "phases": [l.phase for l in sched.log],
+        "merges": sorted({l.merge for l in sched.log}),
+        "launches": launches, "lse": lse,
+        "steps": eng.sync_stats.steps,
+        "prefill_ms": [dt * 1e3 for k, _, dt in clock.log
+                       if k == "prefill"],
+        "prefill_rows": [len(ids) for k, ids, _ in clock.log
+                         if k == "prefill"],
+        "decode_ms": [dec[len(dec) // 2], dec[0], dec[-1]],
+        "collectives": eng.pool.stats.collectives - coll0,
+        "host_argmax": eng.sync_stats.host_argmax,
+        "greedy": greedy_margins(torch, eng, reqs)}
+    res["tick"] = decode_tick_ms(torch, eng, 2, kernels=STRIPED_KERNELS)
+    res["pools_unchanged"] = _ptrs(eng._pools) == pools
+    res["checks"] = striped_kernel_checks(torch, eng)
+    return res
+
+
+def striped_mla_steps(torch, model, params, comm, B: int = 8,
+                      T: int = 1024) -> dict:
+    """Phase 16 (c): one prefill of B prompts of T tokens (no padding, so
+    no padded position takes MoE capacity) and one decode step, with the
+    same seeded tokens, over a striped and over a head-layout pool at
+    merge 2 (``build_serve_step`` with full-vocab logits, on the TP2
+    group ``comm``). The prefill's block tables cover exactly its T
+    tokens, so its attention runs the same shapes in both layouts and the
+    caches it writes (layer 0's dense output, compressed) agree; the
+    decode step's 8 tokens fit an expert's capacity of 8, so nothing
+    drops there. Returns each step's logits distance in row deviations
+    and the decode step's greedy agreement."""
+    import numpy as np
+
+    from repro_torch.core.kv_adaptor import KVCacheAdaptor, PoolGeometry
+    from repro_torch.core.modes import FlyingMode, ParallelPlan
+    from repro_torch.core.steps import build_serve_step
+    plan = ParallelPlan(engine_rows=1, tp_base=1, data_rows=2)
+    mode = FlyingMode(plan, 2)
+    dev = model.device
+    gen = torch.Generator(device=dev).manual_seed(16)
+    toks = torch.randint(0, model.cfg.vocab_size, (B, T + 1), generator=gen,
+                         device=dev, dtype=torch.int32)
+    i32 = dict(dtype=torch.int32, device=dev)
+    logits = {}
+    for layout in ("striped", "head"):
+        geom = PoolGeometry(model.cfg, plan, num_blocks=1024, block_base=16,
+                            layout=layout)
+        ad = KVCacheAdaptor(geom)
+        ad.switch_mode(2)
+        mb = T // geom.capacity(2)
+        slots = [ad.append_slots(f"r{b}", T) for b in range(B)]
+        btab = [ad.block_table(f"r{b}", mb) for b in range(B)]
+        dslots = [ad.append_slots(f"r{b}", 1)[0] for b in range(B)]
+        btab2 = [ad.block_table(f"r{b}", mb + 1) for b in range(B)]
+        states = [tuple({"mixer": tuple(
+            torch.zeros((n,) + geom.flat_shape(), dtype=model.dtype,
+                        device=dev)
+            for _ in range(model.pools_of(kind)))} for kind in ks)
+            for ks, n in model.plan]
+        prefill, _ = build_serve_step(model, mode, geom, phase="prefill")
+        decode, _ = build_serve_step(model, mode, geom, phase="decode")
+        lp, states = prefill(params, states, {
+            "tokens": toks[:, :T],
+            "positions": torch.arange(T, **i32)[None].expand(B, T),
+            "slots": torch.as_tensor(np.stack(slots), **i32),
+            "block_table": torch.as_tensor(np.stack(btab), **i32),
+            "prior_len": torch.zeros((B,), **i32)}, comm)
+        ld, states = decode(params, states, {
+            "tokens": toks[:, T:],
+            "positions": torch.full((B, 1), T, **i32),
+            "slots": torch.as_tensor(np.asarray(dslots), **i32),
+            "block_table": torch.as_tensor(np.stack(btab2), **i32),
+            "context_len": torch.full((B,), T + 1, **i32)}, comm)
+        logits[layout] = (lp.float(), ld.float())
+        del states
+    res = {}
+    for i, step in enumerate(("prefill", "decode")):
+        a, b = logits["striped"][i], logits["head"][i]
+        sd = b.std(-1)
+        res[f"{step}_sd"] = float(((a - b).abs() / sd[:, None]).max())
+        res[f"{step}_max_abs"] = float((a - b).abs().max())
+        res[f"{step}_flips"] = int((a.argmax(-1) != b.argmax(-1)).sum())
+        margin = b.max(-1).values - b.gather(1, a.argmax(-1)[:, None])[:, 0]
+        res[f"{step}_worst"] = float((margin / (NEAR_TIE_SD * sd)).max())
+        res[f"{step}_finite"] = bool(torch.isfinite(a).all())
+    res["logit_sd"] = float(logits["head"][1].std(-1).mean())
+    res["rows"], res["T"] = B, T
+    return res
+
+
+def striped_mla(torch) -> dict:
+    """Phase 16 (c): deepseek-v2-236b at full width, 2 of its 60 layers
+    (the dense MLA+MLP layer and one MLA+MoE layer), bf16, seed-0
+    weights, on the striped pool at merge 2: 8 requests of 256-1024
+    prompt tokens and 32 out in prefill chunks of 1024 through the
+    scheduler (every request done, every sampled row finite, the pools
+    in place, the launches counted from zero), then
+    ``striped_mla_steps`` against the head-layout pool: in bf16, in bf16
+    with the MoE FFN made a dense MLP, and over fp32 weights (4
+    prompts)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import steps as steps_mod
+    from repro_torch.core.weights_manager import _ptrs
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.serve import replay
+    from repro_torch.models.model import build_model
+    from repro_torch.training.checkpoint import tree_leaves
+    cfg = dataclasses.replace(get_config(MLA_ARCH), num_layers=2)
+    model = build_model(cfg, torch.bfloat16, "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    sc = serve_config(arch=MLA_ARCH, ranks=2, prompt_range=(256, 1024),
+                      output_range=(32, 32), prefill_chunk=1024)
+    sched, eng = striped_engine(model, params, "striped",
+                                num_blocks=sc.num_blocks,
+                                block_base=sc.block_base,
+                                bpe=sc.batch_per_engine,
+                                max_blocks=sc.max_blocks_per_req,
+                                chunk=sc.prefill_chunk, clock=StepClock)
+    clock = sched.backend
+    pools = _ptrs(eng._pools)
+    finite = FiniteLogits(torch, steps_mod)
+    _lib.reset_launches()
+    try:
+        sched, wall = replay(sc, (sched, serve_spec(sc), None))
+    finally:
+        ok = finite.restore()
+    reqs = list(sched.pool.all.values())
+    L = cfg.num_layers
+    n_dec = sum(k == "decode" for k, _, _ in clock.log)
+    n_pre = sum(k == "prefill" for k, _, _ in clock.log)
+    res = {"done": sum(r.state == "done" and len(eng.generated_tokens(
+               r.req_id)) == r.output_len for r in reqs),
+           "n": len(reqs), "finite": ok, "wall_s": wall,
+           "tokens": sum(len(eng.generated_tokens(r.req_id))
+                         for r in reqs),
+           "launches": {k: _lib.LAUNCHES[k] for k in STRIPED_MLA_KERNELS},
+           "lse": dict(_lib.LSE_LAUNCHES),
+           "want": {"mla_decode": L * n_dec, "paged_append_token": L * n_dec,
+                    "paged_append_chunk": L * n_pre},
+           "pools_unchanged": _ptrs(eng._pools) == pools,
+           "params": sum(t.numel() for t in tree_leaves(params)),
+           "blocks_1024": -(-1024 // eng.geom.capacity(2)),
+           "capacity": eng.geom.capacity(2)}
+    from repro_torch.core.kv_adaptor import PoolGeometry
+    head = PoolGeometry(cfg, eng.plan, num_blocks=16, block_base=16)
+    res["head_blocks_1024"] = -(-1024 // head.capacity(2))
+    res["head_capacity"] = head.capacity(2)
+    comm = eng.pool.seat(eng.layout.islands[0]).comm
+    res["steps"] = striped_mla_steps(torch, model, params, comm)
+    del sched, eng, clock, model, params
+    gc_collect(torch)
+    # the same steps in bf16 with the MoE layer's FFN a dense MLP (the
+    # first layer's): no router to amplify the layouts' rounding
+    model = build_model(dataclasses.replace(cfg, moe=None),
+                        torch.bfloat16, "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    res["steps_dense"] = striped_mla_steps(torch, model, params, comm)
+    del model, params
+    gc_collect(torch)
+    # the same steps in fp32 (4 prompts; 21.4 GB of weights a rank)
+    model = build_model(cfg, torch.float32, "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    res["steps_f32"] = striped_mla_steps(torch, model, params, comm, B=4)
+    del model, params
+    gc_collect(torch)
+    return res
+
+
+def striped_rank(rank: int, world: int, out: str) -> None:
+    """One rank of phase 16: (a) the reduced llama3-8b and
+    deepseek-v2-236b on the striped pool on the card and on the CPU, (b)
+    llama3-8b at full width and depth on it (and the kernel checks of
+    (a)), (c) deepseek-v2-236b cut to 2 layers on it and on the
+    head-layout pool. Writes ``{out}.{rank}.json``."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(4)
+    t0 = time.perf_counter()
+    res = {"a": {dev: striped_reduced(torch, dev)
+                 for dev in ("cuda", "cpu")}}
+    res["a_s"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    model = build_model(get_config("llama3-8b"), torch.bfloat16, "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res["b"] = striped_full_width(torch, (model, params))
+    res["b_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    res["b_s"] = time.perf_counter() - t1
+    del model, params
+    gc_collect(torch)
+    t1 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    res["c"] = striped_mla(torch)
+    res["c_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    res["c_s"] = time.perf_counter() - t1
+    res["rank_s"] = time.perf_counter() - t0
+    with open(f"{out}.{rank}.json", "w") as f:
+        json.dump(res, f)
+
+
+def serve_striped(torch, smi: str, head_tick: dict) -> dict:
+    """Phase 16: spawn two rank processes on the one card (gloo), run
+    ``striped_rank`` in each, check and print what they found. Returns
+    the LSE launches of K2 (from (b)) and of mla_decode (from (c)) for
+    the kernels' JSON record."""
+    import tempfile
+
+    from repro_torch.launch.ranks import spawn
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        out = str(Path(d) / "striped")
+        spawn(striped_rank, 2, (out,), device_type="cuda", timeout=900)
+        runs = []
+        for r in range(2):
+            with open(f"{out}.{r}.json") as f:
+                runs.append(json.load(f))
+    print("striped: two ranks share this card over gloo at ParallelPlan(1, "
+          "1, 2), merge 2 (one TP2 island, stripe factor 2), host-staged: "
+          "no number here measures TP on two cards")
+    # (a)
+    for r, res in enumerate(runs):
+        for arch, card in res["a"]["cuda"].items():
+            cpu = res["a"]["cpu"][arch]
+            check(card["toks"] == cpu["toks"] and
+                  card["phases"] == cpu["phases"],
+                  f"rank {r}: striped {arch} card streams {card['toks']} != "
+                  f"CPU {cpu['toks']}")
+            check(card["toks"] == runs[0]["a"]["cuda"][arch]["toks"],
+                  f"rank {r}: striped {arch} streams differ from rank 0's")
+            check(all(len(card["toks"][t["req_id"]]) == t["output_len"]
+                      for t in MOE_TRACE) and card["merges"] == [2]
+                  and "mixed" not in card["phases"],
+                  f"rank {r}: striped {arch}: {card}")
+            need = ("paged_append_token", "paged_append_chunk",
+                    "mla_decode") if arch == MLA_ARCH else (
+                "paged_append_token", "paged_append_chunk", "flash_prefill",
+                "paged_attention")
+            for k in need:
+                check(card["launches"][k] > 0,
+                      f"rank {r}: striped {arch}: {k} never launched")
+            lse_k = "mla_decode" if arch == MLA_ARCH else "paged_attention"
+            check(card["lse"][lse_k] == card["launches"][lse_k],
+                  f"rank {r}: striped {arch}: {lse_k} ran without its LSE")
+    for arch, card in runs[0]["a"]["cuda"].items():
+        print(f"striped (a): reduced {arch} fp32, six requests at merge 2: "
+              f"card streams and phases equal the CPU ranks' on both ranks "
+              f"(phases {card['phases']}); card launches "
+              f"{ {k: v for k, v in card['launches'].items() if v} }, with "
+              f"the LSE {card['lse']}")
+    errs = {k: max(res["b"]["checks"][k] for res in runs)
+            for k in runs[0]["b"]["checks"]}
+    print(f"striped (a): stripe partials merged by lse_merge over the two "
+          f"ranks against one whole-context call: K2 with its LSE "
+          f"max_abs_err {errs['paged_attention_lse']:.3e}, mla_decode with "
+          f"its LSE {errs['mla_decode_lse']:.3e}")
+    # (b)
+    b = runs[0]["b"]
+    for r, res in enumerate(runs):
+        x = res["b"]
+        check(x["done"] == x["n"] == 8 and x["in_vocab"]
+              and x["host_argmax"] == 0 and x["pools_unchanged"]
+              and x["merges"] == [2],
+              f"rank {r}: striped llama3-8b {x['done']}/{x['n']} done, "
+              f"pools unchanged {x['pools_unchanged']}")
+        check(x["phases"] == b["phases"],
+              f"rank {r} scheduled another striped trace than rank 0")
+        for k in ("paged_append_token", "paged_append_chunk",
+                  "flash_prefill", "paged_attention"):
+            check(x["launches"][k] > 0,
+                  f"rank {r}: striped llama3-8b: {k} never launched")
+        check(x["lse"]["paged_attention"] == x["launches"][
+            "paged_attention"] and x["launches"]["paged_flash_prefill"] == 0,
+              f"rank {r}: striped llama3-8b launches {x['launches']}, LSE "
+              f"{x['lse']}")
+        for what, g in (("trace", x["greedy"]),
+                        ("tick", x["tick"]["greedy"])):
+            check(g["tokens"] > 0 and g["worst"] <= 1.0,
+                  f"rank {r}: a striped {what} greedy token is off the dense "
+                  f"one-rank forward's argmax by {g['worst']:.2f}x the "
+                  f"near-tie bound (margins {g['margins']})")
+    tick = b["tick"]
+    print(f"striped (b): llama3-8b bf16, 32 layers, phase 5's 8 requests "
+          f"(prompts {b['prompts']}) at merge 2 on the striped pool, each "
+          f"prompt in one chunk of 2048: {b['done']}/8 done, {b['tokens']} "
+          f"tokens in {b['wall_s']:.3f} s ({b['phases'].count('prefill')} "
+          f"prefill, {b['phases'].count('decode')} decode steps); pool "
+          f"data_ptrs unchanged on both ranks; launches a rank "
+          f"{[res['b']['launches'] for res in runs]}, K2 with its LSE "
+          f"{[res['b']['lse']['paged_attention'] for res in runs]}; "
+          f"{b['collectives'] / max(b['steps'], 1):.1f} TP collectives a "
+          f"step on rank 0; prefill steps "
+          f"{[round(x, 1) for x in b['prefill_ms']]} ms (rows "
+          f"{b['prefill_rows']}), decode steps median "
+          f"{b['decode_ms'][0]:.1f} ms (min {b['decode_ms'][1]:.1f}, max "
+          f"{b['decode_ms'][2]:.1f}); greedy tokens against a dense one-rank "
+          f"forward: "
+          f"{b['greedy']['flips']} of {b['greedy']['tokens']} near-ties off "
+          f"its argmax (margins {[f'{m:.3g}' for m in b['greedy']['margins']]}"
+          f", at most {b['greedy']['worst']:.2f}x the bound)")
+    print(f"striped (b): {smi}; decode tick of 16 rows (prompts of 512) on "
+          f"the striped pool at merge 2: {tick['ms']:.2f} ms (the slower "
+          f"rank's) beside phase 14 (b)'s head-layout merge-2 tick "
+          f"{head_tick['ms']:.2f} ms; "
+          f"{tick['collectives'] / tick['steps']:.1f} TP collectives a step "
+          f"(head layout {head_tick['collectives'] / head_tick['steps']:.1f})"
+          f"; launches {[res['b']['tick']['launches'] for res in runs]}; "
+          f"greedy {tick['greedy']['flips']} of {tick['greedy']['tokens']} "
+          f"near-ties (at most {tick['greedy']['worst']:.2f}x the bound); "
+          f"peak memory a rank "
+          f"{[round(res['b_peak_gib'], 2) for res in runs]} GiB (both ranks "
+          f"on this card)")
+    # (c)
+    c = runs[0]["c"]
+    for r, res in enumerate(runs):
+        x, st = res["c"], res["c"]["steps"]
+        check(x["done"] == x["n"] == 8 and x["finite"]
+              and x["pools_unchanged"],
+              f"rank {r}: striped deepseek-v2 {x['done']}/{x['n']} done, "
+              f"finite {x['finite']}, pools unchanged "
+              f"{x['pools_unchanged']}")
+        check(st == c["steps"] and x["steps_f32"] == c["steps_f32"]
+              and x["steps_dense"] == c["steps_dense"],
+              f"rank {r}: the layouts' steps read other logits than rank "
+              f"0's")
+        for k, n in x["want"].items():
+            check(x["launches"][k] == n > 0,
+                  f"rank {r}: striped deepseek-v2: {k} launched "
+                  f"{x['launches'][k]} times, not {n}")
+        check(x["lse"]["mla_decode"] == x["launches"]["mla_decode"],
+              f"rank {r}: striped mla_decode ran without its LSE")
+        for what, y, step, bound_sd in (
+                ("bf16", st, "prefill", STRIPED_MLA_SD),
+                ("bf16", st, "decode", float("inf")),
+                ("bf16 dense", x["steps_dense"], "prefill", STRIPED_MLA_SD),
+                ("bf16 dense", x["steps_dense"], "decode", STRIPED_MLA_SD),
+                ("fp32", x["steps_f32"], "prefill", STRIPED_MLA_F32_SD),
+                ("fp32", x["steps_f32"], "decode", STRIPED_MLA_F32_SD)):
+            check(y[f"{step}_finite"] and y[f"{step}_sd"] <= bound_sd
+                  and y[f"{step}_worst"] <= 1.0,
+                  f"rank {r}: the {what} {step} step's logits on the "
+                  f"striped and the head-layout pool differ by "
+                  f"{y[f'{step}_sd']:.3g} row deviations (bound {bound_sd}"
+                  f"), greedy {y[f'{step}_flips']} flips at "
+                  f"{y[f'{step}_worst']:.2f}x the near-tie bound")
+    st = c["steps"]
+    print(f"striped (c): deepseek-v2-236b bf16, 2 of 60 layers "
+          f"({c['params'] / 1e9:.3f} B parameters a rank), 8 requests "
+          f"at merge 2 on the striped pool: {c['done']}/8 done, "
+          f"{c['tokens']} tokens in {c['wall_s']:.3f} s, every sampled row "
+          f"finite, pool data_ptrs unchanged; launches {c['launches']} (= 2 "
+          f"layers x the steps that run them), mla_decode with its LSE "
+          f"{c['lse']['mla_decode']}; a 1024-token request takes "
+          f"{c['blocks_1024']} blocks a rank (capacity {c['capacity']} "
+          f"tokens a block) against {c['head_blocks_1024']} on the "
+          f"head-layout pool (capacity {c['head_capacity']}: MLA's cache "
+          f"is replicated there)")
+    for what, y, bound_sd in (
+            ("bf16", st, f"{STRIPED_MLA_SD}, prefill"),
+            ("bf16, both FFNs dense MLPs", c["steps_dense"],
+             STRIPED_MLA_SD),
+            ("fp32", c["steps_f32"], STRIPED_MLA_F32_SD)):
+        print(f"striped (c): {what}, {y['rows']} prompts of {y['T']} tokens, "
+              f"one prefill and one decode step on the striped and on the "
+              f"head-layout pool at merge 2: prefill logits "
+              f"{y['prefill_sd']:.4g} row deviations apart (max |diff| "
+              f"{y['prefill_max_abs']:.4g}, {y['prefill_flips']} greedy "
+              f"flips), the decode step's {y['decode_sd']:.4g} (bound "
+              f"{bound_sd}; max |diff| {y['decode_max_abs']:.4g} against a "
+              f"mean row deviation {y['logit_sd']:.4g}), {y['decode_flips']} "
+              f"of {y['rows']} greedy tokens differ (at most "
+              f"{y['decode_worst']:.2f}x the near-tie bound)")
+    print(f"striped (c): peak memory a rank "
+          f"{[round(res['c_peak_gib'], 2) for res in runs]} GiB")
+    print(f"striped: {smi}; (a) {max(res['a_s'] for res in runs):.1f} s, (b) "
+          f"{max(res['b_s'] for res in runs):.1f} s, (c) "
+          f"{max(res['c_s'] for res in runs):.1f} s; phase 16 took "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {"paged_attention_lse": b["lse"]["paged_attention"],
+            "mla_decode_lse": c["lse"]["mla_decode"]}
+
 
 def gc_collect(torch) -> None:
     import gc
@@ -3140,9 +3829,11 @@ def main(argv=None) -> int:
                               bf16=True)
         launches.update(train_recurrentgemma(torch))
         gc_collect(torch)
-        serve_islands(torch, smi)
+        head_tick = serve_islands(torch, smi)
         moe_reference_check(torch)
         launches.update(serve_mla_full_width(torch, smi))
+        gc_collect(torch)
+        launches.update(serve_striped(torch, smi, head_tick))
     for r in rows:
         r["launches"] = launches[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches",

@@ -706,6 +706,11 @@ class FlyingEngine:
         prior = np.fromiter((max(int(r.prefilled), 0) for r in reqs),
                             np.int64, n)
         prior = np.minimum(prior, end)
+        if self.geom.layout == "striped" and prior.any():
+            raise ValueError(
+                "a striped prefill is fresh only: prompts must fit one "
+                "prefill chunk (prior context of "
+                f"{[r.req_id for r, p in zip(reqs, prior) if p]})")
         chunk = end - prior
         final = end >= plens
         # seq bucket: pad the CHUNK extent to pow2 so chunk-length
@@ -915,7 +920,10 @@ class FlyingEngine:
                 and self.pool.window is None)
 
     def supports_mixed(self) -> bool:
-        return self.mixed_step and self.fused
+        """Mixed steps cover the head-layout pool: a striped pool runs
+        prefill and decode as two launches."""
+        return (self.mixed_step and self.fused
+                and self.geom.layout != "striped")
 
     def mixed(self, prefills: Sequence[Request], decodes: Sequence[Request],
               island: Union[Island, int], chunk_tokens: int) -> float:

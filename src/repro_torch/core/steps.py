@@ -15,6 +15,11 @@ it was given, their ``data_ptr()`` unchanged.
 The live variants (``live=``, ``sp=``) read KV that spans block segments
 written under other merges (models/cache.py's live backends); they take
 the island's view group (``view``) besides its TP group.
+
+A striped ``PoolGeometry`` (``layout='striped'``) runs the context-
+parallel backends of models/striped.py: every token's KV heads on the
+rank of its stripe, decode merged over the TP group. Its prefill is
+fresh only, and it has no mixed or live variant.
 """
 from __future__ import annotations
 
@@ -28,6 +33,8 @@ from repro_torch.core.views import make_serving_ctx
 from repro_torch.models.cache import (DecodeBackend, LiveDecodeBackend,
                                       LivePrefillBackend, PrefillBackend)
 from repro_torch.models.model import Model
+from repro_torch.models.striped import (StripedDecodeBackend,
+                                        StripedPrefillBackend)
 from repro_torch.models.transformer import gather_vocab, sample_tokens
 
 
@@ -73,10 +80,20 @@ def build_serve_step(model: Model, mode: FlyingMode, geom: PoolGeometry, *,
 
     ``window`` is a sliding window over every attention layer; the live
     variants refuse one (a segment-local sweep has lost the absolute
-    key positions)."""
+    key positions).
+
+    A striped ``geom`` refuses the mixed phase and the live variants, as
+    the JAX package asserts, and a prefill batch with any ``prior_len``
+    above 0: the striped prefill attends within its chunk only, so a
+    prompt's later chunk would lose its prior context (the JAX package
+    runs it and drops that context)."""
     if phase not in ("prefill", "decode", "mixed"):
         raise ValueError(phase)
     cfg = model.cfg
+    striped = geom.layout == "striped"
+    if striped and phase == "mixed":
+        raise ValueError("the mixed step covers the head-layout pool; a "
+                         "striped pool runs prefill and decode apart")
     mode_ctx = make_serving_ctx(mode.merge, mode.plan.engine_rows,
                                 mode.plan.tp_base,
                                 cfg.moe.num_experts if cfg.moe else 0)
@@ -129,6 +146,14 @@ def build_serve_step(model: Model, mode: FlyingMode, geom: PoolGeometry, *,
     def prefill(ctx, params, sts, batch, pre=""):
         if live is not None:
             backend = live_backend(ctx, batch)
+        elif striped:
+            if bool((batch["prior_len"] > 0).any()):
+                raise ValueError("a striped prefill is fresh only: a chunk "
+                                 "after a prior context would not attend "
+                                 "to it")
+            backend = StripedPrefillBackend(
+                ctx=ctx, block_table=batch["block_table"], window=window,
+                slots=batch["slots"])
         else:
             backend = PrefillBackend(slots=batch[pre + "slots"],
                                      prior_len=batch[pre + "prior_len"],
@@ -143,6 +168,12 @@ def build_serve_step(model: Model, mode: FlyingMode, geom: PoolGeometry, *,
     def decode(ctx, params, sts, batch, tokens, pre=""):
         if live is not None:
             backend = live_backend(ctx, batch)
+        elif striped:
+            backend = StripedDecodeBackend(
+                ctx=ctx, block_table=batch["block_table"],
+                context_len=batch["context_len"], n_q_heads=cfg.num_heads,
+                n_kv_heads=cfg.num_kv_heads, window=window,
+                slots=batch["slots"])
         else:
             backend = DecodeBackend(slots=batch[pre + "slots"],
                                     block_table=batch[pre + "block_table"],

@@ -9,8 +9,9 @@ the hash of its sources is reused as long as they are unchanged.
 Nothing here runs when a module is imported.
 
 ``LAUNCHES`` counts each kernel's launches: its wrapper adds one where it
-launches the kernel, and nowhere else. ``LSE_LAUNCHES`` counts, of K2's
-and K4's, those that return the LSE (the live lanes' partial sweeps).
+launches the kernel, and nowhere else. ``LSE_LAUNCHES`` counts, of K2's,
+K4's and ``mla_decode``'s, those that return the LSE (the live lanes'
+partial sweeps and the striped pools' stripe partials).
 """
 from __future__ import annotations
 
@@ -37,7 +38,7 @@ KERNELS = ("paged_append_token", "paged_attention", "paged_append_chunk",
            "ssd_scan", "ssd_scan_bwd", "rglru_scan", "rglru_scan_bwd")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 LSE_LAUNCHES: Dict[str, int] = {"paged_attention": 0,
-                                "paged_flash_prefill": 0}
+                                "paged_flash_prefill": 0, "mla_decode": 0}
 # nvcc's -Xptxas -v report of each source's last build (registers,
 # shared memory, spills), for chip_smoke.py to print
 BUILD_LOG: Dict[str, str] = {}
@@ -54,7 +55,7 @@ _SIGNATURES = {
     "paged_attention": {
         "paged_attention_decode": [_P] * 9 + [_I] * 7 + [_F] + [_I] * 4
                                   + [_P],
-        "mla_decode": [_P] * 7 + [_I] * 7 + [_F] + [_I] * 3 + [_P],
+        "mla_decode": [_P] * 8 + [_I] * 7 + [_F] + [_I] * 3 + [_P],
         "mla_decode_tc_smem": []},
     "paged_prefill": {
         "paged_flash_prefill": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

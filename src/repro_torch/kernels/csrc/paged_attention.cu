@@ -473,17 +473,19 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// q [B,H,W] fp32; pool [nblk,page,W] fp32; out [B,H,R] fp32. ``part``
-// holds B * groups * splits partials of (2 + R) * HG floats (m[HG],
-// l[HG], acc[HG][R]); ``count`` B * groups counters, zero on entry, left
-// zero.
-template <int NQ>
+// q [B,H,W] fp32; pool [nblk,page,W] fp32; out [B,H,R] fp32; lse [B,H]
+// fp32, written when LSE (NEG_INF where no key is live: an instance of
+// its own, so the one without is the kernel as it was). ``part`` holds B
+// * groups * splits partials of (2 + R) * HG floats (m[HG], l[HG],
+// acc[HG][R]); ``count`` B * groups counters, zero on entry, left zero.
+template <int NQ, bool LSE>
 __global__ void __launch_bounds__(NT, 1)
 decode(const float* __restrict__ q, const float* __restrict__ pool,
        const int* __restrict__ bt, const int* __restrict__ ctx_len,
-       float* __restrict__ out, float* __restrict__ part,
-       int* __restrict__ count, int H, int groups, int W, int R, int page,
-       int MB, int window, float scale, int split_len) {
+       float* __restrict__ out, float* __restrict__ lse,
+       float* __restrict__ part, int* __restrict__ count, int H, int groups,
+       int W, int R, int page, int MB, int window, float scale,
+       int split_len) {
   extern __shared__ float4 smem4[];
   float* sq = reinterpret_cast<float*>(smem4);   // [HG][W + 4]
   const int WP = W + 4;
@@ -505,8 +507,10 @@ decode(const float* __restrict__ q, const float* __restrict__ pool,
   const long long hrow = (long long)b * H + h0;  // first head's row
   const long long cnt = (long long)b * groups + grp;
   if (hi <= lo) {                                // no live key
-    if (s == 0)
+    if (s == 0) {
       for (int x = tid; x < ng * R; x += NT) out[hrow * R + x] = 0.f;
+      if (LSE && tid < ng) lse[hrow + tid] = REPRO_NEG_INF;
+    }
     return;
   }
   const int s_lo = lo / split_len, s_hi = (hi - 1) / split_len;
@@ -679,7 +683,13 @@ decode(const float* __restrict__ q, const float* __restrict__ pool,
       }
     }
   }
-  if (whole) return;
+  if (whole) {
+    if (LSE && tid < ng)
+      lse[hrow + tid] = s_l[tid] > 0.f
+                            ? (s_m[tid] + log2f(s_l[tid])) * LN2
+                            : REPRO_NEG_INF;
+    return;
+  }
   if (tid < HG) {
     mine[tid] = s_m[tid];
     mine[HG + tid] = s_l[tid];
@@ -705,6 +715,8 @@ decode(const float* __restrict__ q, const float* __restrict__ pool,
       }
     }
     out[(hrow + h) * R + r] = L > 0.f ? O / L : 0.f;
+    if (LSE && r == 0)
+      lse[hrow + h] = L > 0.f ? (M + log2f(L)) * LN2 : REPRO_NEG_INF;
   }
   if (tid == 0) count[cnt] = 0;
 }
@@ -817,16 +829,17 @@ __device__ __forceinline__ void sum_halves(float (&sc)[16], float4* xs,
   }
 }
 
-// q [B,H,W] fp32; pool [nblk,page,W] bf16; out [B,H,R] fp32; ``part``
-// holds B * groups * splits partials of (2 + R) * HB floats, ``count`` B
-// * groups counters (groups = gridDim.x), as for decode.
-template <int NC, bool EX>
+// q [B,H,W] fp32; pool [nblk,page,W] bf16; out [B,H,R] fp32; lse [B,H]
+// fp32, written when LSE; ``part`` holds B * groups * splits partials of
+// (2 + R) * HB floats, ``count`` B * groups counters (groups =
+// gridDim.x), as for decode.
+template <int NC, bool EX, bool LSE>
 __global__ void __launch_bounds__(NTC, 1)
 decode_tc(const float* __restrict__ q, const __nv_bfloat16* __restrict__ pool,
           const int* __restrict__ bt, const int* __restrict__ ctx_len,
-          float* __restrict__ out, float* __restrict__ part,
-          int* __restrict__ count, int H, int W, int R, int page, int MB,
-          int window, float scale, int split_len) {
+          float* __restrict__ out, float* __restrict__ lse,
+          float* __restrict__ part, int* __restrict__ count, int H, int W,
+          int R, int page, int MB, int window, float scale, int split_len) {
   using bf16 = __nv_bfloat16;
   extern __shared__ uint8_t smraw[];
   const uint32_t sq_hi = hop::smem_base(smraw), sq_lo = sq_hi + Q_BYTES;
@@ -844,8 +857,10 @@ decode_tc(const float* __restrict__ q, const __nv_bfloat16* __restrict__ pool,
   const long long hrow = (long long)b * H + h0;
   const long long cnt = (long long)b * gridDim.x + hb;
   if (hi <= lo) {                                // no live key
-    if (s == 0)
+    if (s == 0) {
       for (int x = tid; x < ng * R; x += NTC) out[hrow * R + x] = 0.f;
+      if (LSE && tid < ng) lse[hrow + tid] = REPRO_NEG_INF;
+    }
     return;
   }
   const int s_lo = lo / split_len, s_hi = (hi - 1) / split_len;
@@ -1050,7 +1065,19 @@ decode_tc(const float* __restrict__ q, const __nv_bfloat16* __restrict__ pool,
       dst[x] = *reinterpret_cast<const float4*>(so + h * rp + 4 * (x - h * R4));
     }
   }
-  if (whole) return;
+  if (whole) {
+    // each row's (m, l) is whole in every thread of its quad
+    if (LSE && g == 0 && tid % 4 == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = hop::acc_row(2 * r);
+        if (row < ng)
+          lse[hrow + row] = l[r] > 0.f ? (m[r] + log2f(l[r])) * LN2
+                                       : REPRO_NEG_INF;
+      }
+    }
+    return;
+  }
   if (g == 0 && tid % 4 == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -1088,6 +1115,8 @@ decode_tc(const float* __restrict__ q, const __nv_bfloat16* __restrict__ pool,
       wt[h * ns + t] = lt[h * ns + t] > 0.f && L > 0.f
                            ? exp2f(wt[h * ns + t] - M) / L
                            : 0.f;
+    if (LSE)
+      lse[hrow + h] = L > 0.f ? (M + log2f(L)) * LN2 : REPRO_NEG_INF;
   }
   __syncthreads();
   // a thread sums MI float4s of the output at once: MI of a split's
@@ -1135,33 +1164,33 @@ int allow_smem(K kernel, bool& ready, size_t smem) {
   return 0;
 }
 
-template <int NQ>
+template <int NQ, bool LSE>
 int launch(dim3 grid, cudaStream_t st, const void* q, const void* pool,
-           const void* bt, const void* ctx, void* out, void* part,
+           const void* bt, const void* ctx, void* out, void* lse, void* part,
            void* count, int H, int groups, int W, int R, int page, int MB,
            int window, float scale, int split_len) {
   static bool ready = false;
-  const int rc = allow_smem(decode<NQ>, ready, smem_bytes(MAX_W));
+  const int rc = allow_smem(decode<NQ, LSE>, ready, smem_bytes(MAX_W));
   if (rc != 0) return rc;
-  decode<NQ><<<grid, NT, smem_bytes(W), st>>>(
+  decode<NQ, LSE><<<grid, NT, smem_bytes(W), st>>>(
       (const float*)q, (const float*)pool, (const int*)bt, (const int*)ctx,
-      (float*)out, (float*)part, (int*)count, H, groups, W, R, page, MB,
-      window, scale, split_len);
+      (float*)out, (float*)lse, (float*)part, (int*)count, H, groups, W, R,
+      page, MB, window, scale, split_len);
   return 0;
 }
 
-template <int NC, bool EX>
+template <int NC, bool EX, bool LSE>
 int launch_tc(dim3 grid, cudaStream_t st, const void* q, const void* pool,
-              const void* bt, const void* ctx, void* out, void* part,
-              void* count, int H, int W, int R, int page, int MB, int window,
-              float scale, int split_len) {
+              const void* bt, const void* ctx, void* out, void* lse,
+              void* part, void* count, int H, int W, int R, int page, int MB,
+              int window, float scale, int split_len) {
   static bool ready = false;
-  const int rc = allow_smem(decode_tc<NC, EX>, ready, TC_SMEM);
+  const int rc = allow_smem(decode_tc<NC, EX, LSE>, ready, TC_SMEM);
   if (rc != 0) return rc;
-  decode_tc<NC, EX><<<grid, NTC, TC_SMEM, st>>>(
+  decode_tc<NC, EX, LSE><<<grid, NTC, TC_SMEM, st>>>(
       (const float*)q, (const __nv_bfloat16*)pool, (const int*)bt,
-      (const int*)ctx, (float*)out, (float*)part, (int*)count, H, W, R, page,
-      MB, window, scale, split_len);
+      (const int*)ctx, (float*)out, (float*)lse, (float*)part, (int*)count,
+      H, W, R, page, MB, window, scale, split_len);
   return 0;
 }
 
@@ -1171,14 +1200,15 @@ int launch_tc(dim3 grid, cudaStream_t st, const void* q, const void* pool,
 
 // q [B,H,W] fp32 (pre-scaled queries [q_nope W_uk ++ q_pe]); pool
 // [nblk,page,W] bf16 (decode_tc) or fp32 (decode); bt [B,MB] int32; ctx
-// [B] int32; out [B,H,R] fp32, the first R lanes of the attention output.
-// W and R multiples of 8, R <= W <= 576. window <= 0: none. splits blocks
-// of split_len keys per (request, head block) of hg = 64 heads (bf16) or
-// 32 (fp32); with more than one split, part holds B * groups * splits
-// partials of (2 + R) * hg floats and count B * groups int32 zeros (left
-// zero); groups = ceil(H / hg).
+// [B] int32; out [B,H,R] fp32, the first R lanes of the attention output;
+// lse [B,H] fp32 (m + log l of each head, NEG_INF where no key is live) or
+// null. W and R multiples of 8, R <= W <= 576. window <= 0: none. splits
+// blocks of split_len keys per (request, head block) of hg = 64 heads
+// (bf16) or 32 (fp32); with more than one split, part holds B * groups *
+// splits partials of (2 + R) * hg floats and count B * groups int32 zeros
+// (left zero); groups = ceil(H / hg).
 extern "C" int mla_decode(const void* q, const void* pool, const void* bt,
-                          const void* ctx, void* out, void* part,
+                          const void* ctx, void* out, void* lse, void* part,
                           void* count, int B, int H, int W, int R, int page,
                           int MB, int window, float scale, int splits,
                           int split_len, int kv_dtype, void* stream) {
@@ -1195,23 +1225,35 @@ extern "C" int mla_decode(const void* q, const void* pool, const void* bt,
   if (kv_dtype == DT_BF16) {
     const dim3 grid((H + HB - 1) / HB, splits, B);
     auto go = [&](auto fn) {
-      return fn(grid, st, q, pool, bt, ctx, out, part, count, H, W, R, page,
-                MB, window, scale, split_len);
+      return fn(grid, st, q, pool, bt, ctx, out, lse, part, count, H, W, R,
+                page, MB, window, scale, split_len);
     };
     if (splits > MAX_SPLITS_TC) return (int)cudaErrorInvalidValue;
-    if (R <= 128) rc = go(launch_tc<64, false>);
-    else if (R <= 256) rc = go(launch_tc<128, false>);
-    else if (R <= 512) rc = go(launch_tc<256, false>);
-    else rc = go(launch_tc<256, true>);
+    const bool l = lse != nullptr;
+    if (R <= 128)
+      rc = l ? go(launch_tc<64, false, true>)
+             : go(launch_tc<64, false, false>);
+    else if (R <= 256)
+      rc = l ? go(launch_tc<128, false, true>)
+             : go(launch_tc<128, false, false>);
+    else if (R <= 512)
+      rc = l ? go(launch_tc<256, false, true>)
+             : go(launch_tc<256, false, false>);
+    else
+      rc = l ? go(launch_tc<256, true, true>)
+             : go(launch_tc<256, true, false>);
   } else {
     const int groups = (H + HG - 1) / HG;
     const dim3 grid(splits, groups, B);
+    auto go = [&](auto fn) {
+      return fn(grid, st, q, pool, bt, ctx, out, lse, part, count, H, groups,
+                W, R, page, MB, window, scale, split_len);
+    };
+    const bool l = lse != nullptr;
     if (R <= 4 * (NT / 2))
-      rc = launch<1>(grid, st, q, pool, bt, ctx, out, part, count, H, groups,
-                     W, R, page, MB, window, scale, split_len);
+      rc = l ? go(launch<1, true>) : go(launch<1, false>);
     else
-      rc = launch<2>(grid, st, q, pool, bt, ctx, out, part, count, H, groups,
-                     W, R, page, MB, window, scale, split_len);
+      rc = l ? go(launch<2, true>) : go(launch<2, false>);
   }
   if (rc != 0) return rc;
   return (int)cudaGetLastError();

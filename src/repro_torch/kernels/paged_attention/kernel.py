@@ -172,11 +172,14 @@ def mla_splits(B: int, H: int, keys: int, device,
 def paged_mla_attention_kernel(q_cat, pool, block_table, context_len, *,
                                R: int, window: Optional[int] = None,
                                softmax_scale: float = 1.0,
+                               return_lse: bool = False,
                                splits: Optional[int] = None):
     """Absorbed MLA decode over the compressed paged cache: q_cat [B,H,W]
     fp32 (pre-scaled [q_nope W_uk ++ q_pe]); pool [nblk,page,W] fp32 or
     bf16; block_table [B,MB]; context_len [B] -> [B,H,R] fp32, the
-    softmax over q_cat . entry read over each entry's first R lanes. W
+    softmax over q_cat . entry read over each entry's first R lanes (+
+    ``return_lse``: lse [B,H] fp32, ``NEG_INF`` and out 0 for a row with
+    no live key). W
     and R multiples of 8, R <= W <= 576, any H and page. A bf16 pool runs
     the tensor-core kernel (``decode_tc``), an fp32 pool the CUDA-core
     one (``decode``). ``splits`` overrides the split count that
@@ -205,12 +208,17 @@ def paged_mla_attention_kernel(q_cat, pool, block_table, context_len, *,
                            dtype=torch.float32, device=q.device)
         count = _counters(q.device, B * groups)
     out = torch.empty((B, H, R), dtype=torch.float32, device=q.device)
+    lse = torch.empty((B, H), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     rc = _lib.func("mla_decode")(
         q.data_ptr(), pool.data_ptr(), bt.data_ptr(), ctx.data_ptr(),
-        out.data_ptr(), part.data_ptr() if part is not None else None,
+        out.data_ptr(), lse.data_ptr() if lse is not None else None,
+        part.data_ptr() if part is not None else None,
         count.data_ptr() if count is not None else None,
         B, H, W, R, page, MB, window or 0, softmax_scale, n, split_len,
         _lib.dtype_code(pool), _lib.stream_of(q))
     _lib.LAUNCHES["mla_decode"] += 1
+    if return_lse:
+        _lib.LSE_LAUNCHES["mla_decode"] += 1
     _lib.check(rc, "mla_decode")
-    return out
+    return (out, lse) if return_lse else out

@@ -107,3 +107,19 @@ def paged_mla_attention_decode(q_cat, entry_new, pool, slots, block_table,
             q_cat, pool, block_table, context_len, R=R, window=window,
             softmax_scale=softmax_scale)
     return out, pool
+
+
+def paged_mla_attention_with_lse(q_cat, pool, block_table, context_len, *,
+                                 R: int, softmax_scale: float = 1.0):
+    """Partial absorbed MLA decode over ONE set of the compressed pool's
+    pages (no append): (out_c [B,H,R] fp32, lse [B,H] fp32), for
+    LSE-merging with partials over other pages (the striped pools'
+    stripes). Rows with ``context_len == 0`` contribute nothing (lse
+    ``NEG_INF``, out 0)."""
+    if on_cuda(q_cat):
+        return K.paged_mla_attention_kernel(
+            q_cat.float(), pool, block_table, context_len, R=R,
+            softmax_scale=softmax_scale, return_lse=True)
+    return REF.paged_mla_attention_ref(
+        q_cat, pool, block_table, context_len, R=R,
+        softmax_scale=softmax_scale, return_lse=True)

@@ -30,13 +30,15 @@ def paged_append_chunk_ref(pools, vals, slots):
 
 def paged_mla_attention_ref(q_cat, pool, block_table, context_len, *,
                             R: int, window: Optional[int] = None,
-                            softmax_scale: float = 1.0):
+                            softmax_scale: float = 1.0,
+                            return_lse: bool = False):
     """Absorbed MLA decode over the compressed paged cache: q_cat
     [B,H,W] = [q_nope W_uk ++ q_pe] (pre-scaled by the caller); pool
     [nblk,page,W] of [c_kv ++ k_pe] entries. Scores are q_cat . entry,
     the value read is the entry's first R lanes (the compressed context
     vector), so nothing of shape [B,Tk,H,.] exists. Returns [B,H,R]
-    fp32; a row with no live key gets 0."""
+    fp32; a row with no live key gets 0. ``return_lse`` also returns
+    each head's log-sum-exp [B,H] fp32 (``NEG_INF`` with no live key)."""
     ctx = paged_gather(pool, block_table).float()          # [B,Tk,W]
     s = torch.einsum("bhw,btw->bht", q_cat.float(), ctx) * softmax_scale
     pos = torch.arange(ctx.shape[1], device=ctx.device)[None, None, :]
@@ -45,9 +47,16 @@ def paged_mla_attention_ref(q_cat, pool, block_table, context_len, *,
     if window is not None:
         mask &= pos >= cl - window
     s = torch.where(mask, s, NEG_INF)
-    e = torch.where(mask, torch.exp(s - s.amax(dim=-1, keepdim=True)), 0.0)
-    p = e / e.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    return torch.einsum("bht,btr->bhr", p, ctx[..., :R])
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.where(mask, torch.exp(s - m), 0.0)
+    den = e.sum(dim=-1, keepdim=True)
+    p = e / den.clamp_min(1e-30)
+    out = torch.einsum("bht,btr->bhr", p, ctx[..., :R])
+    if not return_lse:
+        return out
+    lse = torch.where(den > 0.0, m + torch.log(den.clamp_min(1e-30)),
+                      NEG_INF)[..., 0]
+    return out, lse
 
 
 def paged_attention_with_lse_ref(q, k_pool, v_pool, block_table,

@@ -94,8 +94,11 @@ def mla_attention(cfg: ArchConfig, p, x, ctx: TPContext, backend, state, *,
     ``DecodeBackend``) runs absorbed: q . W_uk scores the compressed
     entries directly and the read context vectors are up-projected with
     W_uv, so no [B,Tk,H,.] K/V exists. Prefill and train expand the
-    gathered context naively in fp32, as the JAX package does."""
+    gathered context naively in fp32, as the JAX package does. A
+    ``StripedDecodeBackend`` runs the same absorbed form over the
+    striped pool, context parallel (models/striped.py)."""
     from repro_torch.models.cache import NEG_INF, DecodeBackend
+    from repro_torch.models.striped import StripedDecodeBackend
     if getattr(backend, "stored_frame", False):
         raise NotImplementedError(
             "live cross-layout reads do not cover MLA: its compressed "
@@ -122,12 +125,17 @@ def mla_attention(cfg: ArchConfig, p, x, ctx: TPContext, backend, state, *,
     wuk = ctx.activate(p["wuk"], 1, H).reshape(R, Hl, Dn).float()
     wuv = ctx.activate(p["wuv"], 1, H).reshape(R, Hl, Dv).float()
 
-    if isinstance(backend, DecodeBackend):
+    if isinstance(backend, (StripedDecodeBackend, DecodeBackend)):
         q_abs = torch.einsum("bhd,rhd->bhr", q_nope[:, 0].float(),
                              wuk) * scale
-        out_c, state = backend.attend_mla_absorbed(
-            state, q_abs, q_pe[:, 0].float() * scale, entry[:, 0], R=R,
-            window=window)
+        if isinstance(backend, StripedDecodeBackend):
+            out_c, state = backend.attend_mla(
+                state, q_abs, q_pe[:, 0].float() * scale, entry[:, 0], R=R,
+                n_heads=H)
+        else:
+            out_c, state = backend.attend_mla_absorbed(
+                state, q_abs, q_pe[:, 0].float() * scale, entry[:, 0], R=R,
+                window=window)
         out = torch.einsum("bhr,rhd->bhd", out_c, wuv)
         out = out.to(x.dtype).reshape(B, 1, Hl * Dv)
         return ctx.psum(out @ ctx.activate(p["wo"], 0, H), H), state

@@ -34,7 +34,13 @@ products and each output up to 4096 weighted keys in another order, and
 the scores of the full-width case reach about 25 before the softmax; on
 a bf16 pool the tensor cores take q and P as bf16 hi + lo halves (about
 16 bits each), whose margin at this tolerance tests/test_torch_mla.py
-shows on the CPU (a quarter of it used with q times 4).
+shows on the CPU (a quarter of it used with q times 4); its LSE at the
+same tolerance. The striped pools' stripe partials on the card (K2 and
+``mla_decode`` with their LSE) against the plain partials on the CPU:
+over fp32 pools the outputs at fp32's tolerance; over bf16 pools at an
+atol of 2^-8 of the largest value read (the plain partials round p to
+bf16, the kernels do not), lse at fp32's (1e-4: bf16 scores sum exact
+products in another order).
 """
 import copy
 
@@ -744,6 +750,148 @@ def test_mla_decode_refuses_what_it_cannot_take(cuda):
     with pytest.raises(ValueError):
         pker.paged_mla_attention_kernel(
             torch.zeros((2, 4, 584), device=cuda), wide, bt, ctx, R=512)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pdt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B_,H_,W,R,page,max_ctx,window,splits,ctx0", [
+    (8, 128, 576, 512, 16, 4096, None, None, False),  # DeepSeek-V2, split
+    (4, 64, 576, 512, 16, 300, 45, 1, True),  # whole, window, empty row
+    (4, 4, 80, 64, 16, 100, None, 2, False),  # the reduced config
+    (2, 129, 576, 512, 16, 500, None, 2, True),  # 1 head in a block
+])
+def test_mla_decode_lse_matches_plain(cuda, pdt, B_, H_, W, R, page, max_ctx,
+                                      window, splits, ctx0):
+    """``mla_decode`` with ``return_lse`` on both routes (bf16 pools:
+    ``decode_tc``; fp32: ``decode``), whole and split: its lse against
+    ``paged_mla_attention_ref(return_lse=True)`` at the kernel's
+    tolerance, NEG_INF and zeros for a row with no key, and its output
+    bit for bit the output of the same call without the LSE; the LSE
+    launch counted apart."""
+    from repro_torch.kernels.paged_attention import kernel as pker
+    from repro_torch.models.cache import NEG_INF
+    q, pool, bt, ctx = mla_case(cuda, B_, H_, W, page, max_ctx, pdt, seed=3)
+    if ctx0:
+        ctx[0] = 0
+    scale = W ** -0.5
+    _lib.reset_launches()
+    got, lse = pker.paged_mla_attention_kernel(
+        q, pool, bt, ctx, R=R, window=window, softmax_scale=scale,
+        splits=splits, return_lse=True)
+    plain = pker.paged_mla_attention_kernel(
+        q, pool, bt, ctx, R=R, window=window, softmax_scale=scale,
+        splits=splits)
+    want, wlse = pref.paged_mla_attention_ref(
+        q, pool, bt, ctx, R=R, window=window, softmax_scale=scale,
+        return_lse=True)
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["mla_decode"] == 2
+    assert _lib.LSE_LAUNCHES["mla_decode"] == 1
+    assert lse.shape == (B_, H_) and lse.dtype == torch.float32
+    assert torch.equal(got, plain)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(lse, wlse, atol=1e-4, rtol=1e-4)
+    if ctx0:
+        assert int(got[0].count_nonzero()) == 0
+        assert bool((lse[0] == NEG_INF).all())
+
+
+def _stripe_case(dev, pdt, F, seed, width):
+    """Random stripe pools of ``width`` ([KV, hd] or [W]) in ``pdt``, their
+    local block tables and whole contexts (one of them 1 token: most
+    stripes of that row are empty), on the card and on the CPU."""
+    rng = np.random.default_rng(seed)
+    Bn, page, MB_ = 4, 16, 6
+    nblk = Bn * MB_ + 2
+    pools = [torch.from_numpy(rng.standard_normal(
+        (nblk, page) + width)).to(pdt) for _ in range(2)]
+    bt = torch.from_numpy(rng.permutation(nblk - 1)[:Bn * MB_].reshape(
+        Bn, MB_).astype(np.int32))
+    cl = torch.from_numpy(np.array([1, 37, 200, MB_ * page * F], np.int32))
+    return pools, bt, cl, [x.to(dev) for x in pools], bt.to(dev), cl.to(dev)
+
+
+def _merge(parts):
+    m_g = torch.stack([m for _, _, m in parts]).amax(0)
+    num = sum(a * torch.exp(m - m_g)[..., None] for a, _, m in parts)
+    den = sum(l * torch.exp(m - m_g) for _, l, m in parts)
+    return num / den[..., None]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pdt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("F", [2, 4])
+def test_striped_partials_match_plain(cuda, pdt, F):
+    """The striped pools' stripe partials on the card (K2 with its LSE
+    for GQA at llama3-8b's merge-2 width, ``mla_decode`` with its LSE at
+    DeepSeek-V2's) against ``_partial_attention`` and the plain MLA
+    partial on the CPU, stripe by stripe (out = acc / l, lse = m + log l
+    where the stripe holds a key) and merged over the F stripes. fp32
+    pools: the outputs at fp32's tolerance (1e-4 for MLA's wide scores).
+    bf16 pools: the plain partials round p to bf16 before the value
+    product, as the JAX package does, where the kernels keep P to 16 bits
+    or more, so an output moves by at most 2^-9 of the largest value it
+    reads: atol 2^-8 of that, rtol 1e-2. The lse at fp32's tolerance."""
+    from repro_torch.models import striped as TS
+
+    def tol(values, f32_atol):
+        if pdt == torch.float32:
+            return dict(atol=f32_atol, rtol=f32_atol)
+        return dict(atol=float(values.float().abs().max()) / 256, rtol=1e-2)
+    (kc, vc), bt, cl, (kg, vg), btg, clg = _stripe_case(cuda, pdt, F, 7,
+                                                        (8, 128))
+    q = torch.randn((4, 32, 128), generator=torch.Generator().manual_seed(
+        1)).to(pdt)
+    cpu, card = [], []
+    for s in range(F):
+        acc, l, m = TS.stripe_partial(q, kc, vc, bt, cl, s, F)
+        out, one, lse = TS.stripe_partial(q.to(cuda), kg, vg, btg, clg, s, F)
+        live = l > 0
+        torch.testing.assert_close(out.cpu()[live],
+                                   (acc / l[..., None])[live],
+                                   **tol(vc, 1e-5))
+        torch.testing.assert_close(lse.cpu()[live],
+                                   (m + torch.log(l))[live], atol=1e-4,
+                                   rtol=1e-5)
+        assert bool((out.cpu()[~live] == 0).all()) and bool((one == 1).all())
+        cpu.append((acc, l, m))
+        card.append((out.cpu(), one.cpu(), lse.cpu()))
+    torch.testing.assert_close(_merge(card), _merge(cpu), **tol(vc, 1e-5))
+
+    R, Rr = 512, 64
+    (pc, _), bt, cl, (pg, _), btg, clg = _stripe_case(cuda, pdt, F, 8,
+                                                      (R + Rr,))
+    g = torch.Generator().manual_seed(2)
+    qa = (torch.randn((4, 64, R), generator=g) * 0.05).to(pdt)
+    qp = (torch.randn((4, 64, Rr), generator=g) * 0.05).to(pdt)
+    cpu, card = [], []
+    for s in range(F):
+        acc, l, m = TS.stripe_partial_mla(qa, qp, pc, bt, cl, s, F, R=R)
+        out, one, lse = TS.stripe_partial_mla(qa.to(cuda), qp.to(cuda), pg,
+                                              btg, clg, s, F, R=R)
+        live = l > 0
+        torch.testing.assert_close(out.cpu()[live],
+                                   (acc / l[..., None])[live],
+                                   **tol(pc[..., :R], 1e-4))
+        torch.testing.assert_close(lse.cpu()[live],
+                                   (m + torch.log(l))[live], atol=1e-4,
+                                   rtol=1e-4)
+        cpu.append((acc, l, m))
+        card.append((out.cpu(), one.cpu(), lse.cpu()))
+    torch.testing.assert_close(_merge(card), _merge(cpu),
+                               **tol(pc[..., :R], 1e-4))
+
+
+@pytest.mark.gpu
+def test_striped_window_refused_on_the_card(cuda):
+    """A windowed stripe partial on the card raises instead of falling to
+    the plain version: K2 takes no per-row stripe-local bound."""
+    from repro_torch.models import striped as TS
+    _, _, _, (kg, vg), btg, clg = _stripe_case(cuda, torch.float32, 2, 9,
+                                               (2, 64))
+    q = torch.zeros((4, 4, 64), device=cuda)
+    with pytest.raises(NotImplementedError):
+        TS.stripe_partial(q, kg, vg, btg, clg, 0, 2, window=8)
 
 
 @pytest.mark.gpu

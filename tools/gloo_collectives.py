@@ -11,9 +11,11 @@ device_count)``, and on rank 0 prints, for fp32, bf16, int32 and int64
 CUDA tensors, whether all_reduce SUM, MAX and MIN, broadcast and
 all_gather give the right values; then the host-clock time of an
 all_reduce of bf16 activations (a decode row of llama3-8b, 16 rows, and
-a 256-row prefill chunk), synchronised with the card. The last line is
-one JSON object. The times measure gloo staging through the host, not
-TP on separate cards.
+a 256-row prefill chunk) and of an all_gather of one rank's K or V
+heads at a striped merge-2 island (4 of llama3-8b's 8 KV heads of 128:
+16 decode rows, and a 16-row prefill chunk of 2048 tokens),
+synchronised with the card. The last line is one JSON object. The
+times measure gloo staging through the host, not TP on separate cards.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 SIZES = (4096, 16 * 4096, 256 * 4096)     # bf16 elements a call
+GATHERS = (16 * 4 * 128, 16 * 2048 * 4 * 128)    # bf16 elements a rank
 
 
 def rank_main(rank: int, world: int, out: str) -> None:
@@ -62,9 +65,22 @@ def rank_main(rank: int, world: int, out: str) -> None:
             dist.all_reduce(t)
         torch.cuda.synchronize()
         times[n] = (time.perf_counter() - t0) / 20 * 1e3
+    gathers = {}
+    for n in GATHERS:
+        t = torch.randn(n, device=dev).to(torch.bfloat16)
+        parts = [torch.empty_like(t) for _ in range(world)]
+        for _ in range(2):
+            dist.all_gather(parts, t)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            dist.all_gather(parts, t)
+        torch.cuda.synchronize()
+        gathers[n] = (time.perf_counter() - t0) / 5 * 1e3
     if rank == 0:
         with open(out, "w") as f:
-            json.dump({"checks": checks, "all_reduce_ms": times}, f)
+            json.dump({"checks": checks, "all_reduce_ms": times,
+                       "all_gather_ms": gathers}, f)
 
 
 def main(argv=None) -> int:
@@ -93,6 +109,8 @@ def main(argv=None) -> int:
         print(f"  {k}: {'ok' if ok else 'WRONG'}")
     for n, ms in res["all_reduce_ms"].items():
         print(f"  all_reduce bf16 {n} elements: {ms:.3f} ms")
+    for n, ms in res["all_gather_ms"].items():
+        print(f"  all_gather bf16 {n} elements a rank: {ms:.3f} ms")
     print(f"{smi}; {args.ranks} ranks on {torch.cuda.device_count()} "
           f"card(s), torch {torch.__version__}")
     res.update(device=smi, ranks=args.ranks)

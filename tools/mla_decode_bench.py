@@ -4,7 +4,7 @@ one card: B 8, H 128, W 576, R 512, page 16, 256-block tables, contexts
 1 to 4096, fp32 q over a bf16 pool (the tensor-core route) and over an
 fp32 pool (the CUDA-core route).
 
-    python3 tools/mla_decode_bench.py [--src DIR] [--tag NAME]
+    python3 tools/mla_decode_bench.py [--src DIR] [--tag NAME] [--lse]
                                       [--splits N ...]
                                       [--case B CTX SPLITS ...]
 
@@ -17,8 +17,9 @@ wrapper (what chip_smoke.py reports), and the device time per launch
 that torch.profiler records for the kernel alone. ``--splits`` also
 times the bf16 route at each given split count instead of the one its
 wrapper picks; ``--case B CTX SPLITS`` (repeatable) at other batches
-and contexts (B at most 8: the first B requests' queries and pages).
-Each result's largest difference from the plain version is printed
+and contexts (B at most 8: the first B requests' queries and pages);
+``--lse`` also times both routes returning the LSE (a tree whose wrapper
+takes ``return_lse``). Each result's largest difference from the plain version is printed
 beside its times. The last line is one JSON object.
 """
 from __future__ import annotations
@@ -44,6 +45,8 @@ def main(argv=None) -> int:
                     default=[], metavar=("B", "CTX", "SPLITS"),
                     help="also time the bf16 route over B requests of CTX "
                          "keys each in SPLITS splits (0: the wrapper's)")
+    ap.add_argument("--lse", action="store_true",
+                    help="also time both routes with return_lse=True")
     args = ap.parse_args(argv)
     import numpy as np
     import torch
@@ -76,17 +79,23 @@ def main(argv=None) -> int:
             ("mla_decode fp32 pool", pool32, None)]
     runs += [(f"mla_decode bf16 pool splits={n}", pool, n)
              for n in args.splits]
-    runs = [(name, p, n, q, bt, ctx) for name, p, n in runs]
+    runs = [(name, p, n, q, bt, ctx, False) for name, p, n in runs]
+    if args.lse:
+        runs += [(f"mla_decode {d} pool, with its LSE", p, None, q, bt, ctx,
+                  True) for d, p in (("bf16", pool), ("fp32", pool32))]
     for b_, c_, n in args.case:
         if not 0 < b_ <= B or not 0 <= c_ <= MB * page:
             ap.error(f"--case takes B 1-{B} and CTX 0-{MB * page}")
         runs.append((f"mla_decode bf16 pool B {b_} ctx {c_} splits={n}",
                      pool, n or None, q[:b_], bt[:b_],
-                     torch.full((b_,), c_, dtype=torch.int32, device=dev)))
-    for name, p, n, q_, bt_, ctx_ in runs:
-        def fn(p=p, n=n, q_=q_, bt_=bt_, ctx_=ctx_):
-            return pk.paged_mla_attention_kernel(q_, p, bt_, ctx_, R=R,
-                                                 splits=n)
+                     torch.full((b_,), c_, dtype=torch.int32, device=dev),
+                     False))
+    for name, p, n, q_, bt_, ctx_, lse in runs:
+        def fn(p=p, n=n, q_=q_, bt_=bt_, ctx_=ctx_, lse=lse):
+            kw = {"return_lse": True} if lse else {}
+            out = pk.paged_mla_attention_kernel(q_, p, bt_, ctx_, R=R,
+                                                splits=n, **kw)
+            return out[0] if lse else out
         err = float((fn() - pr.paged_mla_attention_ref(
             q_, p, bt_, ctx_, R=R)).abs().max())
         r = res["kernels"][name] = {"event_ms": event_ms(torch, fn),

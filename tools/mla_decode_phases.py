@@ -57,7 +57,7 @@ STAMPS = (
     ("  for (int it = 0; it < n; ++it) {\n", "    tick(6);\n", False),
     ("      load_k(it + 1, row_next);\n      hop::cp_commit();\n",
      "      tick(8);\n", False),
-    ("  if (whole) return;\n  if (g == 0 && tid % 4 == 0) {",
+    ("  if (whole) {\n    // each row's (m, l) is whole in every thread",
      "  tick(7);\n"
      "  if (hb == 0 && s == 0 && b == 0 && tid % hop::WG == 0)\n"
      "    printf(\"decode_tc phases g %d n %d: q %lld wait %lld S %lld \"\n"
