@@ -54,7 +54,10 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    ``mla_decode`` with their LSE (the striped pools' stripe partials) at
    the same shapes, on both of mla_decode's routes with a row of no key,
    its output bit for bit the call's without the LSE, each timed as its
-   own row;
+   own row; last (so the checks above draw the inputs they drew before),
+   K2 and K4 at whisper-base's decoder (H 8, KV 8, hd 64) and K5 forward
+   and backward at hd 64 at whisper-base's (8 x 448) and internvl2-1b's
+   (H 14, KV 2, 4 x 2304) training shapes in bf16, timed beside SDPA;
 4. serve a small request trace with the reduced llama3-8b in fp32 on the
    card and on the CPU (plain versions): the greedy tokens and the phase
    log must be identical; then four requests over a 12-block pool, where
@@ -214,6 +217,26 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    the same steps with the MoE FFN made a dense MLP like the first
    layer's (no router after the attention), both within STRIPED_MLA_SD;
    and over fp32 weights at 4 prompts, both within STRIPED_MLA_F32_SD.
+17. (run after phase 16) whisper-base (encoder and cross caches) and
+   internvl2-1b (projector and patch prefix), the modality frontends fed
+   seeded stub embeddings, at step level through ``build_serve_step``
+   and in training: (a) the reduced configs in fp32 from the same
+   weights, one prefill step of 4 ragged prompts (whisper with frames
+   masked by ``enc_len`` in two rows) and 8 decode steps on the card and
+   on the CPU: greedy tokens equal, logits within rtol = atol = 1e-4,
+   K1-K4 launched; (b) both at full width and depth in bf16 (whisper-base
+   6 + 6 layers, 1500 frames; internvl2-1b 24 layers, 256 patches of
+   1024), 8 requests (whisper prompts 32-256, every other row's
+   ``enc_len`` below 1500; internvl2-1b 256-1024 text tokens), one
+   prefill and 32 decode steps after an untimed warm-up, K1-K4 counted
+   from zero (layers x steps), every greedy token held against a dense
+   forward (its argmax or a near-tie within NEAR_TIE_SD); the prefill
+   step's ms, the median decode step's ms and the peak printed; (c) both
+   reduced configs trained on card and CPU as phase 7, then 20 bf16
+   steps each at full width and depth (whisper-base 8 x 448,
+   internvl2-1b 4 x 2048 after its patches): finite losses, the last
+   below the first, K5 launched 2 x layers x steps forward and layers x
+   steps backward; median step ms, tok/s and peak printed.
 
 Each kernel's launch count in the JSON record comes from the path that
 runs it: K1-K4 from phase 5, K5 and its backward at hd 128 from phase 8
@@ -222,7 +245,8 @@ its backward from phase 12, mla_decode and the one-pool K1 and K3 from
 phase 15 (b)'s first run, K2 with its LSE from phase 16 (b)'s trace and
 mla_decode with its LSE from phase 16 (c)'s striped run, on rank 0
 (phase 14 prints its own K1-K4 counts, and K2's and K4's LSE launches,
-in its rank processes). The line
+in its rank processes; phase 17 prints the K1-K5 counts of its own
+runs). The line
 before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -579,17 +603,31 @@ def kernel_checks(torch, np):
     # its training shape, 4 x 2048 (where it masks nothing)
     rows.extend(flash_rows(torch, gen, close, "_hd256", 16, 1, 256,
                            [(2, 4096), (4, 2048)], (2048,)))
+    # phase 17's shapes, last, so that every check above draws the inputs
+    # it drew before they were added: K2 and K4 at whisper-base's decoder
+    # (H 8, KV 8, hd 64), K5 at hd 64
+    torch.cuda.empty_cache()
+    paged_rep_checks(torch, np, rng, gen, close, ((8, 8, 64, 512, 16),))
+    flash_hd64_checks(torch, gen, close)
     _lib.reset_launches()
     torch.cuda.empty_cache()
     return rows
 
 
-def paged_rep_checks(torch, np, rng, gen, close) -> None:
+# paged_rep_checks' shapes: (H, KV, hd, prefill T, page)
+REP_SHAPES = ((14, 2, 64, 512, 16), (96, 8, 128, 256, 16),
+              (16, 4, 128, 512, 32))
+
+
+def paged_rep_checks(torch, np, rng, gen, close,
+                     shapes=REP_SHAPES) -> None:
     """K2 and K4 at rep = H/KV of 7 (internvl2-1b's language model: H 14,
     KV 2, hd 64) and 12 (mistral-large-123b: H 96, KV 8, hd 128), and at
     the view one rank of a merge-2 llama3-8b island reads (H 16, KV 4,
     hd 128, pages of 32 tokens; K1 and K3 there too, bit-exact), against
-    their plain versions, at phase 3's decode shape (B 8, contexts 1 to
+    their plain versions (``shapes``: (H, KV, hd, prefill T, page);
+    phase 3 calls it again last at whisper-base's decoder, H 8, KV 8, hd
+    64), at phase 3's decode shape (B 8, contexts 1 to
     4096) and prefill shape (B 4, T 512; T 256 at rep 12, where the plain
     version's scores take 1.6 GB a copy): bf16 q over bf16 pools (K4 on
     the tensor cores) and fp32 q over bf16 pools with lse (K4 on the CUDA
@@ -605,8 +643,7 @@ def paged_rep_checks(torch, np, rng, gen, close) -> None:
 
     def t(a, dtype):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
-    for H, KV, hd, Tp, page in ((14, 2, 64, 512, 16), (96, 8, 128, 256, 16),
-                                (16, 4, 128, 512, 32)):
+    for H, KV, hd, Tp, page in shapes:
         rep = H // KV
         kp_, vp_ = (torch.randn((nblk, page, KV, hd), generator=gen,
                                 device=dev).to(bf16) for _ in range(2))
@@ -1148,6 +1185,65 @@ def rglru_rows(torch, gen):
         bound_ms=bwd_b[0], bound_by=bwd_b[1], library_ms=None)]
     del a, g, y, dy
     return rows
+
+
+def flash_hd64_checks(torch, gen, close) -> None:
+    """K5 forward and backward at hd 64, the attention of phase 17's
+    training runs: whisper-base's decoder (H 8, KV 8) at batch 8 x 448
+    and internvl2-1b's language model (H 14, KV 2) at batch 4 x 2304
+    (256 patches and 2048 text tokens), causal, in bf16 (the fp32 route
+    refuses rep 7), against their plain versions; each printed with its
+    time, its bound (as ``flash_rows`` counts it) and SDPA's time."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_prefill import kernel as fk
+    from repro_torch.kernels.flash_prefill import ref as fr
+
+    dev = torch.device("cuda")
+    f32, bf16 = torch.float32, torch.bfloat16
+    hd = 64
+
+    def rnd(shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf16)
+    for H, KV, B, T in ((8, 8, 8, 448), (14, 2, 4, 2304)):
+        q, do = rnd((B, T, H, hd)), rnd((B, T, H, hd))
+        k, v = rnd((B, T, KV, hd)), rnd((B, T, KV, hd))
+        tag = f"hd 64 rep {H // KV} bf16 [{B},{T}]"
+        o, lse = fk.flash_prefill_kernel(q, k, v)
+        wo, wl = fr.flash_prefill_fwd_ref(q, k, v)
+        close(lse, wl, f32, f"flash_prefill {tag} (lse)")
+        close(o, wo, bf16, f"flash_prefill {tag}")
+        grads = fk.flash_prefill_bwd_kernel(q, k, v, o, lse, do)
+        wants = fr.flash_prefill_bwd_ref(q, k, v, o, lse, do)
+        for n, g, w_ in zip("qkv", grads, wants):
+            close(g, w_, bf16, f"flash_prefill_bwd {tag} d{n}")
+        del grads, wants, wo, wl
+        pairs = B * H * T * (T + 1) // 2
+        qbytes, kbytes = B * T * H * hd * 2, B * T * KV * hd * 2
+        fwd_b = bound(2 * qbytes + 2 * kbytes + B * H * T * 4,
+                      4.0 * hd * pairs)
+        bwd_b = bound(4 * qbytes + 4 * kbytes + B * H * T * 4,
+                      10.0 * hd * pairs)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        lo = F.scaled_dot_product_attention(
+            *(x.transpose(1, 2) for x in leaves), is_causal=True,
+            enable_gqa=True)
+        dot = do.transpose(1, 2)
+        times = (
+            ("flash_prefill", fwd_b, time_ms(torch, lambda: (
+                fk.flash_prefill_kernel(q, k, v))),
+             time_ms(torch, lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt, is_causal=True, enable_gqa=True))),
+            ("flash_prefill_bwd", bwd_b, time_ms(torch, lambda: (
+                fk.flash_prefill_bwd_kernel(q, k, v, o, lse, do)),
+                iters=5, windows=3),
+             time_ms(torch, lambda: torch.autograd.grad(
+                 lo, leaves, dot, retain_graph=True), iters=5, windows=3)))
+        for name, b, ms, lib_ms in times:
+            print(f"  {name} {tag}: {ms:.4f} ms, bound {b[0]:.4f} ms "
+                  f"({b[1]}; {b[0] / ms:.1%} of it), SDPA {lib_ms:.4f} ms")
+        del lo, leaves, q, k, v, do, o, lse
 
 
 def flash_rows(torch, gen, close, suffix: str, H: int, KV: int, hd: int,
@@ -2162,9 +2258,7 @@ def greedy_margins(torch, eng, reqs, dense=None) -> dict:
 
     from repro_torch.core.views import SINGLE
     from repro_torch.models.cache import TrainBackend
-    n = flips = 0
-    worst = 0.0
-    margins = []
+    acc = {"tokens": 0, "flips": 0, "worst": 0.0, "margins": []}
     for r in reqs:
         gen = eng.generated_tokens(r.req_id)
         seq = np.concatenate([np.asarray(eng.prompt_tokens(r)[:r.prompt_len],
@@ -2178,17 +2272,22 @@ def greedy_margins(torch, eng, reqs, dense=None) -> dict:
                 logits, _, _ = eng.model.forward(
                     eng.params, SINGLE, mode="train", backend=TrainBackend(),
                     tokens=seq_t[None])
-        rows = logits[0, r.prompt_len - 1:].float()
-        got = torch.as_tensor(gen, device=eng.device)
-        top = rows.max(-1).values
-        margin = top - rows.gather(1, got[:, None])[:, 0]
-        bound = NEAR_TIE_SD * rows.std(-1)
-        n += len(gen)
-        flips += int((margin > 0).sum())
-        worst = max(worst, float((margin / bound).max()))
-        margins += [float(m) for m in margin[margin > 0]]
-    return {"tokens": n, "flips": flips, "worst": worst,
-            "margins": margins}
+        tally_near_ties(acc, logits[0, r.prompt_len - 1:].float(),
+                        torch.as_tensor(gen, device=eng.device))
+    return acc
+
+
+def tally_near_ties(acc: dict, rows, got) -> None:
+    """Adds to ``acc`` the greedy tokens ``got`` [n] held against dense
+    logits ``rows`` [n, V]: each a flip unless it is the rows' argmax,
+    its margin (top logit less its own) against NEAR_TIE_SD of the row's
+    standard deviation."""
+    margin = rows.max(-1).values - rows.gather(1, got[:, None])[:, 0]
+    acc["tokens"] += len(got)
+    acc["flips"] += int((margin > 0).sum())
+    acc["worst"] = max(acc["worst"], float(
+        (margin / (NEAR_TIE_SD * rows.std(-1))).max()))
+    acc["margins"] += [float(m) for m in margin[margin > 0]]
 
 
 class MergeWhenMixed:
@@ -3703,6 +3802,316 @@ def serve_striped(torch, smi: str, head_tick: dict) -> dict:
             "mla_decode_lse": c["lse"]["mla_decode"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: whisper-base's encoder and cross caches and internvl2-1b's
+# patch prefix, at step level and in training
+# ---------------------------------------------------------------------------
+
+FRONTEND_ARCHS = ("whisper-base", "internvl2-1b")
+
+
+def frontend_steps(torch, np, model, params, prompts, decodes: int, *, fe,
+                   enc_len=None, num_blocks: int = 1024, block_base: int = 16,
+                   timed: bool = False) -> dict:
+    """Serves ``prompts`` (token id lists) with their stub embeddings
+    ``fe`` at ``ParallelPlan(1, 1, 1)`` through ``build_serve_step`` over
+    a ``KVCacheAdaptor`` pool: one prefill step over every prompt (after
+    internvl2-1b's patches; padded to the longest, the pads' slots
+    parked, ``last_pos`` at each row's last real position; whisper's
+    ``enc_len`` masking frames), then ``decodes`` decode steps, each row
+    fed its own greedy token (whisper's cross K/V read from the states
+    the prefill wrote). Returns the greedy tokens [B][decodes + 1], each
+    step's full-vocab logits (on the CPU) and, ``timed``, each step's
+    wall ms (the card synchronised around it)."""
+    from repro_torch.core.kv_adaptor import KVCacheAdaptor, PoolGeometry
+    from repro_torch.core.modes import FlyingMode, ParallelPlan
+    from repro_torch.core.steps import build_serve_step, fresh_states
+    cfg, dev = model.cfg, model.device
+    plan = ParallelPlan(engine_rows=1, tp_base=1, data_rows=1)
+    mode = FlyingMode(plan, 1)
+    geom = PoolGeometry(cfg, plan, num_blocks=num_blocks,
+                        block_base=block_base)
+    ad = KVCacheAdaptor(geom)
+    ad.switch_mode(1)
+    B = len(prompts)
+    prefix = cfg.frontend.num_embeds if cfg.enc_dec is None else 0
+    frames = cfg.frontend.num_embeds if cfg.enc_dec is not None else 0
+    lens = np.array([prefix + len(p) for p in prompts])
+    T = int(lens.max())
+    mb = -(-(T + decodes) // geom.capacity(1))
+    slots = np.full((B, T), -1, np.int64)
+    toks = np.zeros((B, T - prefix), np.int64)
+    for b, p in enumerate(prompts):
+        slots[b, :lens[b]] = ad.append_slots(f"r{b}", int(lens[b]))
+        toks[b, :len(p)] = p
+    i32 = dict(dtype=torch.int32, device=dev)
+
+    def tables():
+        return torch.as_tensor(np.stack([ad.block_table(f"r{b}", mb)
+                                         for b in range(B)]), **i32)
+    states = fresh_states(model, mode, geom, batch=B, enc_frames=frames)
+    prefill, _ = build_serve_step(model, mode, geom, phase="prefill")
+    decode, _ = build_serve_step(model, mode, geom, phase="decode")
+    extra = {} if enc_len is None else {
+        "enc_len": torch.as_tensor(enc_len, **i32)}
+    res = {"tokens": [], "logits": [], "ms": []}
+
+    def run(step, batch):
+        if timed:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        logits, _ = step(params, states, batch)
+        if timed:
+            torch.cuda.synchronize()
+            res["ms"].append((time.perf_counter() - t0) * 1e3)
+        tok = logits.argmax(-1)
+        res["tokens"].append(tok)
+        res["logits"].append(logits.float().cpu())
+        return tok
+    tok = run(prefill, {
+        "tokens": torch.as_tensor(toks, **i32),
+        "positions": torch.arange(T, **i32)[None].expand(B, T),
+        "slots": torch.as_tensor(slots, **i32), "block_table": tables(),
+        "prior_len": torch.zeros((B,), **i32),
+        "last_pos": torch.as_tensor(lens - 1, **i32), "frontend_embeds": fe,
+        **extra})
+    for i in range(decodes):
+        pos = lens + i
+        dslots = [ad.append_slots(f"r{b}", 1)[0] for b in range(B)]
+        tok = run(decode, {
+            "tokens": tok[:, None].to(torch.int32),
+            "positions": torch.as_tensor(pos[:, None], **i32),
+            "slots": torch.as_tensor(np.asarray(dslots), **i32),
+            "block_table": tables(),
+            "context_len": torch.as_tensor(pos + 1, **i32), **extra})
+    res["tokens"] = torch.stack(res["tokens"], 1).cpu().tolist()
+    return res
+
+
+def frontend_inputs(torch, np, cfg, B: int, lo: int, hi: int, seed: int,
+                    dtype, device):
+    """B prompts of lo..hi tokens, the stub embeddings (``launch.train``'s
+    draw) and, for whisper, an ``enc_len`` below the frame count in every
+    other row, all from ``seed``."""
+    from repro_torch.launch.train import frontend_embeds
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(lo, hi + 1, B)]
+    fe = frontend_embeds(cfg, B, seed, dtype, device)
+    enc_len = None
+    if cfg.enc_dec is not None:
+        F = cfg.frontend.num_embeds
+        enc_len = np.where(np.arange(B) % 2 == 1,
+                           rng.integers(F // 4, F, B), F).astype(np.int32)
+    return prompts, fe, enc_len
+
+
+def frontends_reduced(torch, np) -> None:
+    """Phase 17 (a): the reduced whisper-base and internvl2-1b in fp32,
+    the same weights (seed 0, drawn on the CPU) and stub embeddings, one
+    prefill step of 4 ragged prompts and 8 decode steps on the card and
+    on the CPU: greedy tokens equal, every step's logits within rtol =
+    atol = 1e-4, K1-K4 launched on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _lib
+    from repro_torch.models.model import build_model
+    from repro_torch.training.checkpoint import tree_map
+    for arch in FRONTEND_ARCHS:
+        cfg = get_config(arch).reduced()
+        params = build_model(cfg, torch.float32, "cpu").init(
+            torch.Generator().manual_seed(0))
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            model = build_model(cfg, torch.float32, dev)
+            prompts, fe, enc_len = frontend_inputs(
+                torch, np, cfg, 4, 8, 24, 5, torch.float32, dev)
+            _lib.reset_launches()
+            runs[dev] = frontend_steps(
+                torch, np, model, tree_map(lambda t: t.to(dev), params),
+                prompts, 8, fe=fe, enc_len=enc_len, num_blocks=64,
+                block_base=4)
+            runs[dev]["launches"] = {k: _lib.LAUNCHES[k]
+                                     for k in SERVE_KERNELS}
+        card, cpu = runs["cuda"], runs["cpu"]
+        err = max(float((a - b).abs().max())
+                  for a, b in zip(card["logits"], cpu["logits"]))
+        print(f"frontends (a): reduced {arch} fp32, prompts "
+              f"{[len(p) for p in prompts]}"
+              f"{'' if enc_len is None else f', enc_len {enc_len.tolist()}'}"
+              f", one prefill and 8 decode steps: card tokens "
+              f"{card['tokens']}, max |logits card - CPU| {err:.3e}, card "
+              f"launches {card['launches']}")
+        check(card["tokens"] == cpu["tokens"],
+              f"reduced {arch}: card tokens {card['tokens']} != CPU "
+              f"{cpu['tokens']}")
+        check(all(torch.allclose(a, b, rtol=1e-4, atol=1e-4)
+                  for a, b in zip(card["logits"], cpu["logits"])),
+              f"reduced {arch}: card and CPU logits differ by {err:.3e}")
+        for k in SERVE_KERNELS:
+            check(card["launches"][k] > 0 and cpu["launches"][k] == 0,
+                  f"reduced {arch}: {k} launched {card['launches'][k]} "
+                  f"times on the card, {cpu['launches'][k]} on the CPU")
+
+
+def frontend_greedy(torch, model, params, prompts, fe, enc_len,
+                    tokens) -> dict:
+    """Holds each row's served greedy tokens against one dense train-mode
+    forward of the row on the card (K5, no pool; the encoder or the
+    patch prefix as served), fed the prompt and the served tokens: the
+    dense argmax, or a near-tie within NEAR_TIE_SD of the row's
+    deviation (``greedy_margins``' rule)."""
+    from repro_torch.core.views import SINGLE
+    from repro_torch.models.cache import TrainBackend
+    cfg, dev = model.cfg, model.device
+    prefix = cfg.frontend.num_embeds if cfg.enc_dec is None else 0
+    acc = {"tokens": 0, "flips": 0, "worst": 0.0, "margins": []}
+    for b, p in enumerate(prompts):
+        seq = torch.as_tensor(p + tokens[b][:-1], device=dev)[None]
+        kw = {} if enc_len is None else {
+            "enc_len": torch.as_tensor(enc_len[b:b + 1], device=dev)}
+        with torch.no_grad():
+            logits, _, _ = model.forward(
+                params, SINGLE, mode="train", backend=TrainBackend(),
+                tokens=seq, frontend_embeds=fe[b:b + 1], **kw)
+        tally_near_ties(acc, logits[0, prefix + len(p) - 1:].float(),
+                        torch.as_tensor(tokens[b], device=dev))
+        del logits
+    return acc
+
+
+def frontends_full_width(torch, np, smi: str) -> dict:
+    """Phase 17 (b): whisper-base (6 + 6 layers, 1500 frames, vocab 51865)
+    and internvl2-1b (24 layers, 256 patches of width 1024, vocab 151655)
+    at full width and depth in bf16, seeded random weights: 8 requests
+    (whisper: prompts of 32-256 tokens, every other row's ``enc_len``
+    below 1500; internvl2-1b: 256-1024 text tokens after the patches),
+    one prefill step and 32 decode steps (after an untimed warm-up run
+    of one of each), the launch counts reset just before the timed run;
+    every greedy token held against the dense forward. Returns the
+    timed run's launches by arch."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _lib
+    from repro_torch.models.model import build_model
+    from repro_torch.training.checkpoint import tree_leaves
+    out = {}
+    for arch, lo, hi in (("whisper-base", 32, 256),
+                         ("internvl2-1b", 256, 1024)):
+        cfg = get_config(arch)
+        model = build_model(cfg, torch.bfloat16, "cuda")
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        prompts, fe, enc_len = frontend_inputs(
+            torch, np, cfg, 8, lo, hi, 17, torch.bfloat16, "cuda")
+        frontend_steps(torch, np, model, params, prompts, 1, fe=fe,
+                       enc_len=enc_len)
+        gc_collect(torch)
+        torch.cuda.reset_peak_memory_stats()
+        _lib.reset_launches()
+        res = frontend_steps(torch, np, model, params, prompts, 32, fe=fe,
+                             enc_len=enc_len, timed=True)
+        launches = {k: _lib.LAUNCHES[k] for k in SERVE_KERNELS}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        L = cfg.num_layers
+        want = {"paged_append_chunk": L, "paged_flash_prefill": L,
+                "paged_append_token": 32 * L, "paged_attention": 32 * L}
+        check(launches == want, f"{arch}: launches {launches}, not {want}")
+        vocab = cfg.vocab_size
+        check(all(0 <= x < vocab for row in res["tokens"] for x in row),
+              f"{arch}: a token outside the vocab")
+        g = frontend_greedy(torch, model, params, prompts, fe, enc_len,
+                            res["tokens"])
+        dec = sorted(res["ms"][1:])
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        prefix = cfg.frontend.num_embeds if cfg.enc_dec is None else 0
+        print(f"frontends (b): {arch} bf16 at full width and depth "
+              f"({n_params / 1e9:.3f} B parameters), 8 requests, prompts "
+              f"{sorted(len(p) for p in prompts)}"
+              f"{f' after {prefix} patches' if prefix else ''}"
+              f"{'' if enc_len is None else f', enc_len {enc_len.tolist()}'}"
+              f": prefill step {res['ms'][0]:.2f} ms, decode steps median "
+              f"{dec[len(dec) // 2]:.2f} ms (min {dec[0]:.2f}, max "
+              f"{dec[-1]:.2f}) = {8 / dec[len(dec) // 2] * 1e3:.1f} tok/s, "
+              f"peak {peak:.2f} GiB; launches {launches}; greedy tokens "
+              f"against the dense forward: {g['flips']} of {g['tokens']} "
+              f"near-ties off its argmax (margins "
+              f"{[f'{m:.3g}' for m in g['margins']]}, at most "
+              f"{g['worst']:.2f}x the bound); {smi}")
+        check(g["worst"] <= 1.0,
+              f"{arch}: a served greedy token is off the dense forward's "
+              f"argmax by {g['worst']:.2f}x the near-tie bound")
+        out[arch] = launches
+        del model, params, fe, res
+        gc_collect(torch)
+    return out
+
+
+def train_frontend(torch, arch: str, batch: int, seq: int) -> dict:
+    """Phase 17 (c): ``arch`` at full width and depth in bf16 (fp32 AdamW
+    moments), ``batch`` x ``seq`` text tokens with the launcher's stub
+    embeddings, 20 steps through ``launch.train.train``, the launch
+    counts reset just before and read just after: finite losses, the
+    last below the first, K5 launched twice a decoder layer a step
+    forward (remat) and once backward (the encoder's attention is plain
+    torch)."""
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.train import train
+    cfg = get_config(arch)
+    steps = 20
+    gc_collect(torch)
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launches()
+    res = train(cfg, steps=steps, batch=batch, seq=seq, device="cuda",
+                dtype=torch.bfloat16, log_every=5,
+                log=lambda s: print(f"frontends (c): {arch} {s}"))
+    launches = {k: _lib.LAUNCHES[k] for k in TRAIN_KERNELS}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del res.params
+    steady = sorted(res.step_s[1:])
+    med = steady[len(steady) // 2]
+    L = cfg.num_layers
+    extra = (f" after {cfg.frontend.num_embeds} patches"
+             if cfg.enc_dec is None else
+             f", {cfg.frontend.num_embeds} encoder frames")
+    print(f"frontends (c): {arch} bf16 at full width and depth, batch "
+          f"{batch} x {seq} text tokens{extra}, {steps} steps: losses "
+          + " ".join(f"{x:.4f}" for x in res.losses))
+    print(f"frontends (c): {arch} step time median {med * 1e3:.1f} ms over "
+          f"steps 2-{steps} (min {steady[0] * 1e3:.1f}, max "
+          f"{steady[-1] * 1e3:.1f}; first {res.step_s[0] * 1e3:.1f} ms) = "
+          f"{res.tokens_per_step / med:.1f} text tok/s; peak {peak:.2f} "
+          f"GiB; launches {launches}")
+    check(all(math.isfinite(x) for x in res.losses),
+          f"{arch}: a loss is not finite")
+    check(res.losses[-1] < res.losses[0],
+          f"{arch}: loss did not decrease: {res.losses[0]} -> "
+          f"{res.losses[-1]}")
+    want = {"flash_prefill": 2 * L * steps, "flash_prefill_bwd": L * steps}
+    check(launches == want, f"{arch}: K5 launches {launches}, not {want}")
+    gc_collect(torch)
+    return launches
+
+
+def serve_frontends(torch, np, smi: str) -> None:
+    """Phase 17: (a) the reduced configs card == CPU at step level, (b)
+    both models at full width served at step level, (c) training: the
+    reduced configs' card-against-CPU losses (fp32, then bf16), then 20
+    full-width bf16 steps each."""
+    t0 = time.perf_counter()
+    frontends_reduced(torch, np)
+    t1 = time.perf_counter()
+    frontends_full_width(torch, np, smi)
+    t2 = time.perf_counter()
+    for arch in FRONTEND_ARCHS:
+        train_reference_check(torch, np, arch, bf16=True)
+    train_frontend(torch, "whisper-base", 8, 448)
+    train_frontend(torch, "internvl2-1b", 4, 2048)
+    print(f"frontends: {smi}; (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, "
+          f"(c) {time.perf_counter() - t2:.1f} s; phase 17 took "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
 def gc_collect(torch) -> None:
     import gc
     gc.collect()
@@ -3834,6 +4243,8 @@ def main(argv=None) -> int:
         launches.update(serve_mla_full_width(torch, smi))
         gc_collect(torch)
         launches.update(serve_striped(torch, smi, head_tick))
+        gc_collect(torch)
+        serve_frontends(torch, np, smi)
     for r in rows:
         r["launches"] = launches[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches",

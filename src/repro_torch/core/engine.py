@@ -83,7 +83,9 @@ from repro_torch.core.communicator_pool import (CommunicatorPool, Seat,
 from repro_torch.core.faults import TransitionFault
 from repro_torch.core.kv_adaptor import (KVCacheAdaptor, PoolGeometry,
                                          bind_fleet, ragged_arange)
-from repro_torch.core.modes import FleetLayout, Island, ParallelPlan
+from repro_torch.core.modes import (FleetLayout, FlyingMode, Island,
+                                    ParallelPlan)
+from repro_torch.core.steps import fresh_states
 from repro_torch.core.task_pool import Request, prompt_token_ids
 from repro_torch.core.weights_manager import WeightsManager, _ptrs
 from repro_torch.device import resolve_device
@@ -169,6 +171,28 @@ def _rank_device(device: torch.device, rank: int) -> torch.device:
     return device
 
 
+def _check_engine_family(cfg) -> None:
+    """Refuse the families whose per-request inputs the engine does not
+    keep: an enc-dec model's cross caches are batch-dense rows of a step,
+    which the engine's batch rows (handed out anew every step) would not
+    keep with their request, and neither engine stages a request's
+    ``frontend_embeds``, so the JAX package's engine serves whisper over
+    zero cross caches and InternVL2 without its image prefix. These
+    models serve through ``build_serve_step`` only (ROADMAP.md, Queue 1
+    item 2.4)."""
+    what = ("an enc-dec model (cross caches)" if cfg.enc_dec is not None
+            else "a vision-prefix model (frontend embeddings)"
+            if cfg.frontend is not None else None)
+    if what is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: FlyingEngine does not serve {what}: the engine "
+            f"keeps no batch-dense cross-cache rows with their request and "
+            f"stages no frontend_embeds (the JAX engine serves such models "
+            f"over zero caches or without their prefix); engine-level "
+            f"serving of these families is ROADMAP.md Queue 1 item 2.4, "
+            f"step-level serving runs through core.steps.build_serve_step")
+
+
 class FlyingEngine:
     def __init__(self, model: Model, plan: ParallelPlan, geom: PoolGeometry,
                  params, *, batch_per_engine: int = 4,
@@ -185,6 +209,7 @@ class FlyingEngine:
         process is one of them; without a process group the plan must be
         ``ParallelPlan(1, 1, 1)``."""
         model.check_serving()
+        _check_engine_family(model.cfg)
         self.pool = CommunicatorPool(model, plan, geom,
                                      sample=(temperature, top_k),
                                      batch_per_engine=batch_per_engine)
@@ -293,13 +318,8 @@ class FlyingEngine:
         num_blocks, block_elems]`` on the device, zeroed (MLA: its one
         compressed pool). Each step views them in its island's mode and
         writes them in place."""
-        shape = tuple(self.geom.flat_shape())
-        return [tuple({"mixer": tuple(
-            torch.zeros((n,) + shape, dtype=self.model.dtype,
-                        device=self.device)
-            for _ in range(self.model.pools_of(kind)))}
-            for kind in kind_seq)
-            for kind_seq, n in self.model.plan]
+        return fresh_states(self.model, FlyingMode(self.plan, 1), self.geom,
+                            device=self.device)
 
     def _check_islands(self, layout: FleetLayout) -> None:
         """An SP island reads every block through the live lanes: its

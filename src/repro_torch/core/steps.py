@@ -20,6 +20,13 @@ A striped ``PoolGeometry`` (``layout='striped'``) runs the context-
 parallel backends of models/striped.py: every token's KV heads on the
 rank of its stripe, decode merged over the TP group. Its prefill is
 fresh only, and it has no mixed or live variant.
+
+Enc-dec (whisper) and vision-prefix (InternVL2) models take their
+frontend embeddings in the prefill and decode steps' batches
+(``frontend_embeds``, and ``enc_len`` for whisper's frames), as the JAX
+package's step does. A whisper layer's state holds its cross K/V rows
+beside the paged pools (``"cross"``, batch-dense: row b is the step's
+batch row b), which the prefill writes and the decode steps read.
 """
 from __future__ import annotations
 
@@ -86,7 +93,10 @@ def build_serve_step(model: Model, mode: FlyingMode, geom: PoolGeometry, *,
     the JAX package asserts, and a prefill batch with any ``prior_len``
     above 0: the striped prefill attends within its chunk only, so a
     prompt's later chunk would lose its prior context (the JAX package
-    runs it and drops that context)."""
+    runs it and drops that context). An enc-dec model refuses the mixed
+    phase and the live variants, as the JAX package asserts; an enc-dec
+    or frontend model refuses a striped ``geom``, which no run of the
+    JAX package covers."""
     if phase not in ("prefill", "decode", "mixed"):
         raise ValueError(phase)
     cfg = model.cfg
@@ -94,6 +104,15 @@ def build_serve_step(model: Model, mode: FlyingMode, geom: PoolGeometry, *,
     if striped and phase == "mixed":
         raise ValueError("the mixed step covers the head-layout pool; a "
                          "striped pool runs prefill and decode apart")
+    if cfg.enc_dec is not None and phase == "mixed":
+        raise ValueError("the mixed step covers paged attention models "
+                         "only, not an enc-dec model")
+    if cfg.enc_dec is not None and live is not None:
+        raise ValueError("live reads need the head-layout paged pool and "
+                         "no cross caches")
+    if striped and (cfg.enc_dec is not None or cfg.frontend is not None):
+        raise ValueError("the striped pool serves decoder-only models "
+                         "without a modality frontend")
     mode_ctx = make_serving_ctx(mode.merge, mode.plan.engine_rows,
                                 mode.plan.tp_base,
                                 cfg.moe.num_experts if cfg.moe else 0)
@@ -143,6 +162,13 @@ def build_serve_step(model: Model, mode: FlyingMode, geom: PoolGeometry, *,
                     merge=merge, block_base=geom.block_base, sp=sp,
                     write_own=batch.get("write_own"))
 
+    def frontend(batch, pre):
+        # the mixed step's halves take no frontend inputs
+        if pre:
+            return {}
+        return {"enc_len": batch.get("enc_len"),
+                "frontend_embeds": batch.get("frontend_embeds")}
+
     def prefill(ctx, params, sts, batch, pre=""):
         if live is not None:
             backend = live_backend(ctx, batch)
@@ -162,7 +188,7 @@ def build_serve_step(model: Model, mode: FlyingMode, geom: PoolGeometry, *,
             params, ctx, mode="prefill", tokens=batch[pre + "tokens"],
             positions=batch[pre + "positions"], backend=backend,
             states=sts, last_pos=batch.get(pre + "last_pos"),
-            window=window)
+            window=window, **frontend(batch, pre))
         return logits
 
     def decode(ctx, params, sts, batch, tokens, pre=""):
@@ -181,7 +207,7 @@ def build_serve_step(model: Model, mode: FlyingMode, geom: PoolGeometry, *,
         logits, _, _ = model.forward(
             params, ctx, mode="decode", tokens=tokens,
             positions=batch[pre + "positions"], backend=backend,
-            states=sts, window=window)
+            states=sts, window=window, **frontend(batch, pre))
         return logits
 
     @torch.no_grad()
@@ -214,6 +240,36 @@ def build_serve_step(model: Model, mode: FlyingMode, geom: PoolGeometry, *,
     return run, mode_ctx
 
 
+def fresh_states(model: Model, mode: FlyingMode, geom: PoolGeometry, *,
+                 batch: int = 0, enc_frames: int = 0, device=None):
+    """Zeroed states as the steps of ``mode`` take them, on ``device``
+    (default the model's): per group, per kind, the flat pools
+    ``[n_layers, num_blocks, block_elems]`` (MLA: its one compressed
+    pool), and for an enc-dec attention layer its cross K/V rows
+    ``[n_layers, batch, enc_frames, KV_local, hd]`` at the mode's TP
+    width (a step's batch is ``batch`` rows)."""
+    cfg = model.cfg
+    kvl = make_serving_ctx(mode.merge, mode.plan.engine_rows,
+                           mode.plan.tp_base).local_units(cfg.num_kv_heads)
+    dev = model.device if device is None else device
+
+    def zeros(shape):
+        return torch.zeros(shape, dtype=model.dtype, device=dev)
+    groups = []
+    for kind_seq, n in model.plan:
+        per_kind = []
+        for kind in kind_seq:
+            st = {"mixer": tuple(zeros((n,) + tuple(geom.flat_shape()))
+                                 for _ in range(model.pools_of(kind)))}
+            if cfg.enc_dec is not None and kind[0] in ("gqa", "gqa_win"):
+                st["cross"] = tuple(
+                    zeros((n, batch, enc_frames, kvl, cfg.resolved_head_dim))
+                    for _ in range(2))
+            per_kind.append(st)
+        groups.append(tuple(per_kind))
+    return groups
+
+
 def _view_states(model: Model, states, geom: PoolGeometry, merge: int):
     """Physical layout -> mode view (paper §4.2: a mode switch IS this
     metadata reshape). Each paged pool leaf is stored flat ``[n_layers,
@@ -221,7 +277,8 @@ def _view_states(model: Model, states, geom: PoolGeometry, merge: int):
     B(m), kvh/m, hd]`` (MLA's one compressed pool: ``[n_layers,
     num_blocks, B_base, W]`` at every merge): the same storage, so
     writes through the view land in the flat pool and no reverse reshape
-    is needed."""
+    is needed. Other leaves (an enc-dec layer's ``"cross"`` rows) are
+    carried as they are."""
     shape = tuple(geom.view_shape(merge))
     return [tuple({**st, "mixer": tuple(p.view((p.shape[0],) + shape)
                                         for p in st["mixer"])}

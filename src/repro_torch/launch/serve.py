@@ -116,6 +116,11 @@ class ServeConfig:
     prefill_chunk: int = 512
     prompt_range: Tuple[int, int] = (256, 2048)
     output_range: Tuple[int, int] = (32, 64)
+    # the scheduler's clock: 0 advances it by each step's and rebind's
+    # measured wall time; > 0 by this many seconds each, so the schedule
+    # is a function of the trace alone (for tests; the JAX launcher has
+    # no such knob)
+    step_seconds: float = 0.0
 
     _CHOICES = {"strategy": ("hard", "soft", "sequential", "live"),
                 "switch": ("flying", "restart", "none"),
@@ -214,6 +219,36 @@ def parse_config(argv=None) -> ServeConfig:
 STREAM_HARVEST = 4
 
 
+class FixedStepClock:
+    """Engine proxy whose steps and rebinds report ``seconds`` each in
+    place of their measured wall time (``--step-seconds``): the
+    scheduler's island clocks, and with them which islands launch in a
+    tick, then follow the trace alone. Everything else is the engine's."""
+
+    def __init__(self, eng, seconds: float):
+        self.eng = eng
+        self.seconds = seconds
+
+    def __getattr__(self, k):
+        return getattr(self.eng, k)
+
+    def prefill(self, *a):
+        self.eng.prefill(*a)
+        return self.seconds
+
+    def decode(self, *a):
+        self.eng.decode(*a)
+        return self.seconds
+
+    def mixed(self, *a):
+        self.eng.mixed(*a)
+        return self.seconds
+
+    def rebind(self, layout):
+        self.eng.rebind(layout)
+        return self.seconds
+
+
 def build_stack(cfg: ServeConfig, weights=None, **engine):
     """Scheduler + workload spec + fault injector for this config (sim or
     real). A real run's engine is ``sched.backend``; ``weights`` (a built
@@ -264,6 +299,8 @@ def build_stack(cfg: ServeConfig, weights=None, **engine):
             injector=injector, device=device,
             **({"harvest_limit": STREAM_HARVEST} if cfg.serve else {}),
             **engine)
+        if cfg.step_seconds > 0:
+            backend = FixedStepClock(backend, cfg.step_seconds)
         sched = DynamicScheduler(
             plan, geom, backend,
             SchedulerConfig(strategy=cfg.strategy,

@@ -34,6 +34,20 @@ class TrainResult:
     params: Any = None                                  # after the last step
 
 
+def frontend_embeds(cfg: ArchConfig, batch: int, seed: int,
+                    dtype: torch.dtype, device) -> Optional[torch.Tensor]:
+    """The stub frontend's embeddings a training run feeds every step:
+    N(0, 1) x 0.1 [batch, num_embeds, width] from a CPU generator seeded
+    by ``seed`` (the same on every device), in ``dtype`` on ``device``
+    (None without a frontend)."""
+    if cfg.frontend is None:
+        return None
+    width = cfg.frontend.embed_width or cfg.d_model
+    gen = torch.Generator().manual_seed(seed)
+    fe = torch.randn((batch, cfg.frontend.num_embeds, width), generator=gen)
+    return (fe * 0.1).to(device=device, dtype=dtype)
+
+
 def train(cfg: ArchConfig, *, steps: int, batch: int, seq: int,
           lr: float = 1e-3, device: Optional[str] = None,
           dtype: torch.dtype = torch.bfloat16, params=None, ckpt: str = "",
@@ -53,6 +67,9 @@ def train(cfg: ArchConfig, *, steps: int, batch: int, seq: int,
     from repro_torch.training.train_step import build_train_step
 
     dev = resolve_device(device)
+    if cfg.enc_dec is not None and seq > cfg.max_decode_context:
+        raise ValueError(f"{cfg.name}'s decoder takes at most "
+                         f"{cfg.max_decode_context} positions, not {seq}")
     model = build_model(cfg, dtype, dev)
     if params is None:
         params = model.init(torch.Generator(device=dev).manual_seed(seed))
@@ -61,10 +78,13 @@ def train(cfg: ArchConfig, *, steps: int, batch: int, seq: int,
     step = build_train_step(model, plan, opt=opt)
     carry = (params, opt.init(params))
     it = batches(DataConfig(cfg.vocab_size, seq, batch, seed=seed))
+    fe = frontend_embeds(cfg, batch, seed, dtype, dev)
     res = TrainResult(tokens_per_step=batch * seq)
     t_start = time.perf_counter()
     for i in range(steps):
         b = next(it)
+        if fe is not None:
+            b["frontend_embeds"] = fe
         t0 = time.perf_counter()
         carry, mets = step(carry, b)
         loss = float(mets["loss"])           # waits for the step

@@ -55,6 +55,16 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(max_len: int, d: int, device=None) -> torch.Tensor:
+    """Whisper's sinusoidal embeddings [max_len, d] in fp32: the sines of
+    every frequency, then their cosines (concatenated, not
+    interleaved)."""
+    pos = torch.arange(max_len, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos * torch.exp(-math.log(10000.0) * dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.gelu(x, approximate=True)``: the tanh approximation."""
     return F.gelu(x, approximate="tanh")

@@ -1,5 +1,6 @@
-"""Public model API: build a dense GQA, MLA/MoE, Mamba-2 or
-RecurrentGemma architecture from its ArchConfig.
+"""Public model API: build a dense GQA, MLA/MoE, Mamba-2, RecurrentGemma,
+whisper (enc-dec) or InternVL2 (vision prefix) architecture from its
+ArchConfig.
 
 ``Model.init`` makes the parameters as a plain dict of tensors, layers of
 a group stacked on axis 0 as in the JAX package (so its parameters carry
@@ -14,6 +15,14 @@ asking for them raises (``check_serving``, ``layer_state``); MoE stacks
 (DeepSeek-V2, Phi-3.5-MoE) serve only, and train mode raises. Parameter
 leaves keep the dtypes the JAX package gives them, so the RG-LRU's
 decay and gate leaves stay fp32 in a bf16 model.
+
+The modality frontends are stubs, as in the JAX package: ``forward``
+takes their precomputed embeddings (``frontend_embeds``, in the model's
+dtype). Whisper's run through the bidirectional encoder (its layers a
+list, ``params["encoder"]``), whose output every decoder layer
+cross-attends to; a prefill writes each layer's cross K/V into its
+``"cross"`` state, which the decode steps read. InternVL2's patches go
+through ``embed.projector`` and precede the token embeddings.
 """
 from __future__ import annotations
 
@@ -29,6 +38,7 @@ from repro_torch.core.views import TPContext
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import transformer as tfm
+from repro_torch.models.common import sinusoidal_positions
 
 
 def _stack_into(per_layer, n: int):
@@ -87,6 +97,8 @@ class Model:
         cfg, dt, dev = self.cfg, self.dtype, self.device
         params: Dict[str, Any] = {
             "embed": tfm.init_embed(generator, cfg, dt, dev)}
+        if cfg.enc_dec is not None:
+            params["encoder"] = tfm.init_encoder(generator, cfg, dt, dev)
         groups = []
         for kind_seq, n in self.plan:
             groups.append(tuple(
@@ -106,21 +118,29 @@ class Model:
         return 1 if kind[0] == "mla" else 2
 
     def layer_state(self, kind, *, ctx: TPContext, num_blocks: int,
-                    page: int):
+                    page: int, batch: int = 0, enc_frames: int = 0):
         """One layer's state, zeroed: the (k, v) pool pair [num_blocks,
         page, kvh_local, hd], or for MLA the one compressed pool
         [num_blocks, page, W] as a 1-tuple (replicated over the TP
-        group)."""
+        group); an enc-dec attention layer adds ``"cross"``, its cross
+        K/V pair [batch, enc_frames, kvh_local, hd] (batch-dense rows of
+        the step's batch)."""
         tfm.check_kind(kind, serving=True)
+        cfg = self.cfg
+        kvl, hd = ctx.local_units(cfg.num_kv_heads), cfg.resolved_head_dim
         if kind[0] == "mla":
-            shape = (num_blocks, page, attn_mod.mla_cache_width(self.cfg))
+            shape = (num_blocks, page, attn_mod.mla_cache_width(cfg))
         else:
-            shape = (num_blocks, page,
-                     ctx.local_units(self.cfg.num_kv_heads),
-                     self.cfg.resolved_head_dim)
-        return {"mixer": tuple(torch.zeros(shape, dtype=self.dtype,
-                                           device=self.device)
-                               for _ in range(self.pools_of(kind)))}
+            shape = (num_blocks, page, kvl, hd)
+
+        def zeros(shape):
+            return torch.zeros(shape, dtype=self.dtype, device=self.device)
+        st = {"mixer": tuple(zeros(shape)
+                             for _ in range(self.pools_of(kind)))}
+        if cfg.enc_dec is not None and kind[0] in ("gqa", "gqa_win"):
+            st["cross"] = tuple(zeros((batch, enc_frames, kvl, hd))
+                                for _ in range(2))
+        return st
 
     def check_serving(self) -> None:
         """Raise unless every layer kind of the stack can serve."""
@@ -128,19 +148,22 @@ class Model:
             for kind in kind_seq:
                 tfm.check_kind(kind, serving=True)
 
-    def init_states(self, *, ctx: TPContext, num_blocks: int, page: int):
+    def init_states(self, *, ctx: TPContext, num_blocks: int, page: int,
+                    batch: int = 0, enc_frames: int = 0):
         """Full stacked state tree aligned with the stack plan: per group,
         per kind, {"mixer": (k [n, ...], v [n, ...])} (MLA: (pool [n,
-        ...],))."""
+        ...],)), and for an enc-dec stack {"cross": (k [n, batch,
+        enc_frames, ...], v [n, ...])} beside it."""
         groups = []
         for kind_seq, n in self.plan:
             per_kind = []
             for kind in kind_seq:
                 one = self.layer_state(kind, ctx=ctx, num_blocks=num_blocks,
-                                       page=page)
-                per_kind.append({"mixer": tuple(
-                    t.new_zeros((n,) + tuple(t.shape))
-                    for t in one["mixer"])})
+                                       page=page, batch=batch,
+                                       enc_frames=enc_frames)
+                per_kind.append({k: tuple(t.new_zeros((n,) + tuple(t.shape))
+                                          for t in leaves)
+                                 for k, leaves in one.items()})
             groups.append(tuple(per_kind))
         return groups
 
@@ -149,17 +172,32 @@ class Model:
     # ------------------------------------------------------------------
     def forward(self, params, ctx: TPContext, *, mode: str, tokens,
                 backend, states=None, positions=None, last_pos=None,
-                window: Optional[int] = None):
+                window: Optional[int] = None, frontend_embeds=None,
+                enc_len=None):
         """Returns (fp32 logits, states, aux_loss).
 
         mode: 'train' | 'prefill' | 'decode'. ``positions`` [B,T] absolute
-        positions. ``last_pos`` [B] (prefill only): per-request index of
-        the final real prompt token, so the sampled logits don't depend
-        on batch padding; defaults to the padded window's last position.
-        ``window`` is the sliding window of every attention layer (a
-        ``gqa_win`` layer keeps its config's). Serving ``states`` are updated in place and returned as given;
+        positions (with a vision prefix, T counts the patches). ``last_pos``
+        [B] (prefill only): per-request index of the final real prompt
+        token, so the sampled logits don't depend on batch padding;
+        defaults to the padded window's last position. ``window`` is the
+        sliding window of every attention layer (a ``gqa_win`` layer
+        keeps its config's). ``frontend_embeds`` [B, num_embeds, width]
+        feeds the stubbed frontend: whisper's frames (the encoder runs,
+        ``enc_len`` [B] masks frames at or past it, in the encoder's keys
+        and the cross-attention; a serving call writes the cross caches)
+        or InternVL2's patches (projected and put before the tokens).
+        Serving ``states`` are updated in place and returned as given;
         train mode takes none, and is the only mode that records the
         autograd graph."""
+        cfg = self.cfg
+        if frontend_embeds is not None:
+            if cfg.frontend is None:
+                raise ValueError(f"{cfg.name} has no modality frontend")
+            if frontend_embeds.dtype != self.dtype:
+                raise ValueError(f"frontend embeddings in "
+                                 f"{frontend_embeds.dtype} for a "
+                                 f"{self.dtype} model")
         if mode == "train":
             if states is not None:
                 raise ValueError("train mode runs without cache states")
@@ -167,35 +205,61 @@ class Model:
                 raise NotImplementedError(
                     "MoE training (the router's load-balance loss) is not "
                     "ported (ROADMAP.md, Queue 1); MoE stacks serve only")
+            if cfg.enc_dec is not None and frontend_embeds is None:
+                raise ValueError("an enc-dec decoder trains on its "
+                                 "encoder's output: pass frontend_embeds")
             return self._forward(params, ctx, mode=mode, tokens=tokens,
                                  backend=backend, states=None,
                                  positions=positions, last_pos=None,
-                                 window=window)
+                                 window=window, fe=frontend_embeds,
+                                 enc_len=enc_len)
         with torch.no_grad():
             return self._forward(params, ctx, mode=mode, tokens=tokens,
                                  backend=backend, states=states,
                                  positions=positions, last_pos=last_pos,
-                                 window=window)
+                                 window=window, fe=frontend_embeds,
+                                 enc_len=enc_len)
 
     def _forward(self, params, ctx, *, mode, tokens, backend, states,
-                 positions, last_pos, window):
+                 positions, last_pos, window, fe, enc_len):
         cfg = self.cfg
+        enc_out = None
+        if cfg.enc_dec is not None and fe is not None:
+            enc_out = tfm.encode(cfg, params["encoder"], fe, ctx,
+                                 frame_len=enc_len)
         x = tfm.embed_tokens(cfg, params["embed"], tokens, ctx)
+        if cfg.frontend is not None and cfg.frontend.kind == "vision" \
+                and fe is not None:
+            patches = (fe @ params["embed"]["projector"]).to(x.dtype)
+            x = torch.cat([patches, x], dim=1)
         B, T = x.shape[0], x.shape[1]
         if positions is None:
             positions = torch.arange(T, device=x.device)[None].expand(B, T)
+        if cfg.enc_dec is not None:
+            # whisper's decoder: sinusoidal positions over its context
+            n_pos = int(cfg.max_decode_context)
+            if int(positions.max()) >= n_pos:
+                raise ValueError(f"decoder position {int(positions.max())} "
+                                 f"past {cfg.name}'s {n_pos} positions")
+            pe = sinusoidal_positions(n_pos, cfg.d_model, x.device)
+            x = x + pe[positions.long()].to(x.dtype)
         remat = mode == "train" and self.remat
         for gi, (kind_seq, n) in enumerate(self.plan):
             p_group = params["groups"][gi]
             for li in range(n):
                 for si, kind in enumerate(kind_seq):
-                    st = None if states is None else tuple(
-                        t[li] for t in states[gi][si]["mixer"])
+                    st = cross = None
+                    if states is not None:
+                        st_l = states[gi][si]
+                        st = tuple(t[li] for t in st_l["mixer"])
+                        if "cross" in st_l:
+                            cross = tuple(t[li] for t in st_l["cross"])
                     layer = partial(tfm.apply_layer, cfg, kind,
                                     _index(p_group[si], li), ctx=ctx,
                                     backend=backend, state=st,
                                     positions=positions, mode=mode,
-                                    window=window)
+                                    window=window, cross=cross,
+                                    enc_out=enc_out, enc_len=enc_len)
                     if remat:
                         x, _ = checkpoint(layer, x, use_reentrant=False)
                     else:

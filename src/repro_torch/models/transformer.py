@@ -1,18 +1,24 @@
 """Backbone assembly for dense GQA stacks, MLA and MoE stacks, Mamba-2
-stacks and the hybrid RecurrentGemma stack.
+stacks, the hybrid RecurrentGemma stack and whisper's encoder-decoder.
 
 A layer *kind* is ``(mixer, ffn)``. The stack plan partitions layers into
 groups of a repeating kind sequence, as in the JAX package (which scans
 each group); the port loops over the layers of a group. The port serves
 and trains dense decoder stacks (mixers ``gqa``/``gqa_win`` with the
-gated ``mlp``), serves MLA and MoE stacks (DeepSeek-V2's ``("mla",
-"mlp")`` then ``("mla", "moe")``, Phi-3.5-MoE's ``("gqa", "moe")``; MoE
-training, with its load-balance loss, is not ported), trains Mamba-2
-stacks (``("mamba", "none")``: no ``norm2`` and no FFN, so the parameter
-tree is the JAX package's leaf for leaf) and trains the hybrid stack
-(``("rglru", "gelu_mlp")`` and ``("gqa_win", "gelu_mlp")``: the RG-LRU
-block or windowed attention, then the ungated GeLU MLP); it raises on
-the other kinds, and on serving a Mamba-2 or hybrid stack.
+gated ``mlp``, or whisper's ``("gqa", "gelu_mlp")``: an enc-dec decoder
+layer adds a cross-attention sub-block over the encoder's output), serves
+MLA and MoE stacks (DeepSeek-V2's ``("mla", "mlp")`` then ``("mla",
+"moe")``, Phi-3.5-MoE's ``("gqa", "moe")``; MoE training, with its
+load-balance loss, is not ported), trains Mamba-2 stacks (``("mamba",
+"none")``: no ``norm2`` and no FFN, so the parameter tree is the JAX
+package's leaf for leaf) and trains the hybrid stack (``("rglru",
+"gelu_mlp")`` and ``("gqa_win", "gelu_mlp")``: the RG-LRU block or
+windowed attention, then the ungated GeLU MLP); it raises on the other
+kinds, and on serving a Mamba-2 or hybrid stack.
+
+Whisper's encoder (``encode``) and the cross-attention are plain torch,
+as they are plain jnp in the JAX package: bidirectional attention with
+fp32 scores and softmax, no kernel.
 """
 from __future__ import annotations
 
@@ -26,7 +32,9 @@ from repro_torch.core.views import TPContext
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.common import init_embedding, init_linear, rms_norm
+from repro_torch.models.cache import NEG_INF
+from repro_torch.models.common import (init_embedding, init_linear, rms_norm,
+                                       sinusoidal_positions)
 from repro_torch.models.mamba2 import init_mamba2, mamba2_layer
 from repro_torch.models.rglru import init_rglru, rglru_block
 from repro_torch.serving.sampling import sample
@@ -62,6 +70,8 @@ def stack_plan(cfg: ArchConfig) -> List[Tuple[Tuple[Kind, ...], int]]:
 MAMBA: Kind = ("mamba", "none")
 RGLRU: Kind = ("rglru", "gelu_mlp")
 LOCAL_ATTN: Kind = ("gqa_win", "gelu_mlp")
+# whisper's decoder and encoder layers
+ENC_DEC: Kind = ("gqa", "gelu_mlp")
 
 
 def check_kind(kind: Kind, *, serving: bool = False) -> None:
@@ -80,11 +90,12 @@ def check_kind(kind: Kind, *, serving: bool = False) -> None:
                 "carried h0 and a decision on the JAX engine's recurrent "
                 "state (ROADMAP Queue 3); the port trains hybrid stacks "
                 "only")
-    elif mixer not in ("gqa", "gqa_win", "mla") or ffn not in ("mlp", "moe"):
+    elif kind != ENC_DEC and (mixer not in ("gqa", "gqa_win", "mla")
+                              or ffn not in ("mlp", "moe")):
         raise NotImplementedError(
             f"layer kind {kind}: the port runs GQA and MLA stacks with a "
-            f"gated MLP or MoE and trains Mamba-2 and RecurrentGemma "
-            f"stacks")
+            f"gated MLP or MoE and whisper's GQA with the GeLU MLP, and "
+            f"trains Mamba-2 and RecurrentGemma stacks")
 
 
 def init_layer(generator, cfg: ArchConfig, kind: Kind, dtype, device):
@@ -101,6 +112,9 @@ def init_layer(generator, cfg: ArchConfig, kind: Kind, dtype, device):
         p["attn"] = attn_mod.init_mla(generator, cfg, dtype, device)
     else:
         p["attn"] = attn_mod.init_gqa(generator, cfg, dtype, device)
+    if cfg.enc_dec is not None and mixer in ("gqa", "gqa_win"):
+        p["norm_x"] = torch.ones((cfg.d_model,), **ones)
+        p["cross"] = attn_mod.init_gqa(generator, cfg, dtype, device)
     p["norm2"] = torch.ones((cfg.d_model,), **ones)
     if ffn == "moe":
         p["ffn"] = moe_mod.init_moe(generator, cfg, dtype, device)
@@ -110,12 +124,61 @@ def init_layer(generator, cfg: ArchConfig, kind: Kind, dtype, device):
     return p
 
 
+def _dense_attention(q, k, v, key_len=None):
+    """Bidirectional attention as the JAX package's encoder and cross
+    attention compute it: q [B,T,Hl,hd] over k/v [B,F,KVl,hd] (each kv
+    head repeated for its query heads), fp32 scores scaled by hd^-1/2,
+    keys at or past ``key_len`` [B] masked with NEG_INF, fp32 softmax;
+    returns fp32 [B,T,Hl,hd]."""
+    rep = q.shape[2] // k.shape[2]
+    k = k.repeat_interleave(rep, dim=2).float()
+    v = v.repeat_interleave(rep, dim=2).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k) * q.shape[-1] ** -0.5
+    if key_len is not None:
+        keys = torch.arange(k.shape[1], device=k.device)
+        s = torch.where(keys[None, None, None, :]
+                        < key_len.to(k.device)[:, None, None, None], s,
+                        NEG_INF)
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), v)
+
+
+def make_cross_kv(cfg, p_cross, enc_out, ctx: TPContext):
+    """The cross-attention's K/V [B,F,KVl,hd] from the encoder output."""
+    KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    B, F, _ = enc_out.shape
+    shape = (B, F, ctx.local_units(KV), hd)
+    return ((enc_out @ ctx.activate(p_cross["wk"], 1, KV)).reshape(shape),
+            (enc_out @ ctx.activate(p_cross["wv"], 1, KV)).reshape(shape))
+
+
+def cross_attention(cfg, p, x, ctx: TPContext, enc_kv, *, enc_len=None):
+    """Decoder cross-attention over the encoder's K/V ``enc_kv`` ((k, v)
+    [B,F,KVl,hd]); frames at or past ``enc_len`` [B] are masked."""
+    B, T, _ = x.shape
+    H, hd = cfg.num_heads, cfg.resolved_head_dim
+    Hl = ctx.local_units(H)
+    if enc_kv[0].shape[0] != B:
+        raise ValueError(f"cross K/V of {enc_kv[0].shape[0]} rows for a "
+                         f"batch of {B}")
+    q = (x @ ctx.activate(p["wq"], 1, H)).reshape(B, T, Hl, hd)
+    o = _dense_attention(q, *enc_kv, key_len=enc_len).to(x.dtype)
+    return ctx.psum(o.reshape(B, T, Hl * hd) @ ctx.activate(p["wo"], 0, H),
+                    H)
+
+
 def apply_layer(cfg: ArchConfig, kind: Kind, p, x, ctx: TPContext, backend,
                 state, *, positions, mode: str,
-                window: Optional[int] = None):
+                window: Optional[int] = None, cross=None, enc_out=None,
+                enc_len=None):
     """One pre-norm decoder layer. ``state`` is the layer's (k, v) pool
     pair, or its one compressed pool for MLA (None for a Mamba-2 or
-    RG-LRU layer, which runs in train mode only); returns (x, state)."""
+    RG-LRU layer, which runs in train mode only); returns (x, state).
+
+    An enc-dec layer runs its cross-attention sub-block between the mixer
+    and the FFN: over K/V projected from ``enc_out`` when the encoder ran
+    in this call (train and prefill; ``cross``, the layer's cross cache
+    pair [B,F,KVl,hd], is then written with them in place), else over
+    the cached ``cross`` (decode)."""
     mixer, ffn = kind
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if kind == MAMBA:
@@ -134,6 +197,20 @@ def apply_layer(cfg: ArchConfig, kind: Kind, p, x, ctx: TPContext, backend,
                                             state, positions=positions,
                                             window=w)
     x = x + out
+    if "cross" in p:
+        if enc_out is not None:
+            enc_kv = make_cross_kv(cfg, p["cross"], enc_out, ctx)
+            if cross is not None:
+                for cache, new in zip(cross, enc_kv):
+                    if cache.shape != new.shape:
+                        raise ValueError(f"cross cache {tuple(cache.shape)}"
+                                         f" for K/V {tuple(new.shape)}")
+                    cache.copy_(new)
+        else:
+            enc_kv = cross
+        hx = rms_norm(x, p["norm_x"], cfg.norm_eps)
+        x = x + cross_attention(cfg, p["cross"], hx, ctx, enc_kv,
+                                enc_len=enc_len)
     h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
     if ffn == "moe":
         return x + moe_mod.moe_ffn(cfg, p["ffn"], h2, ctx)[0], state
@@ -154,6 +231,10 @@ def init_embed(generator, cfg: ArchConfig, dtype, device):
     if not cfg.tie_embeddings:
         p["head"] = init_linear(generator, cfg.d_model, cfg.vocab_size,
                                 dtype, device)
+    if cfg.frontend is not None and cfg.frontend.kind == "vision":
+        p["projector"] = init_linear(
+            generator, cfg.frontend.embed_width or cfg.d_model, cfg.d_model,
+            dtype, device)
     return p
 
 
@@ -281,3 +362,41 @@ def sample_tokens(cfg, logits_local, ctx: TPContext, *,
         return tp_argmax(cfg, logits_local, ctx)
     return sample(gather_vocab(cfg, logits_local, ctx), seeds=seeds,
                   temperature=temperature, top_k=top_k)
+
+
+# ---------------------------------------------------------------------------
+# whisper encoder (bidirectional, run once a request at prefill)
+# ---------------------------------------------------------------------------
+
+def init_encoder(generator, cfg: ArchConfig, dtype, device):
+    """``{"layers": [one dict a layer], "norm"}``; each layer is built
+    as a decoder layer, so it holds the (unused) cross sub-block too, as
+    the JAX package's does."""
+    return {"layers": [init_layer(generator, cfg, ENC_DEC, dtype, device)
+                       for _ in range(cfg.enc_dec.enc_layers)],
+            "norm": torch.ones((cfg.d_model,), dtype=dtype, device=device)}
+
+
+def encode(cfg: ArchConfig, p_enc, frames, ctx: TPContext, *,
+           frame_len=None):
+    """frames [B,F,d] (the frontend's precomputed embeddings) plus
+    sinusoidal positions through the bidirectional encoder; frames at or
+    past ``frame_len`` [B] are masked as keys. Heads are TP-sharded as
+    in the decoder (one psum after each row-parallel projection)."""
+    B, F, _ = frames.shape
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    Hl, KVl = ctx.local_units(H), ctx.local_units(KV)
+    x = frames + sinusoidal_positions(F, cfg.d_model, frames.device)[None] \
+        .to(frames.dtype)
+    for lp in p_enc["layers"]:
+        h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+        ap = lp["attn"]
+        q = (h @ ctx.activate(ap["wq"], 1, H)).reshape(B, F, Hl, hd)
+        k = (h @ ctx.activate(ap["wk"], 1, KV)).reshape(B, F, KVl, hd)
+        v = (h @ ctx.activate(ap["wv"], 1, KV)).reshape(B, F, KVl, hd)
+        o = _dense_attention(q, k, v, key_len=frame_len).to(x.dtype)
+        x = x + ctx.psum(o.reshape(B, F, Hl * hd)
+                         @ ctx.activate(ap["wo"], 0, H), H)
+        h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
+        x = x + ffn_mod.gelu_mlp(lp["ffn"], h2, ctx, cfg.d_ff)
+    return rms_norm(x, p_enc["norm"], cfg.norm_eps)

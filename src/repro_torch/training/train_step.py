@@ -27,8 +27,11 @@ def build_train_step(model: Model, plan: ParallelPlan, *,
                      opt: Optional[AdamW] = None, aux_weight: float = 0.01):
     """Returns ``step((params, opt_state), batch) -> ((params, opt_state),
     {"loss", "total"})``. ``batch`` holds ``tokens`` and ``labels`` [B,T]
-    (tensors or numpy arrays); they move to the model's device. The
-    parameters are updated in place and returned as given."""
+    (tensors or numpy arrays), and for a model with a modality frontend
+    its ``frontend_embeds``; they move to the model's device. A vision
+    prefix makes the logits longer than the labels: only the text tail
+    is scored, as in the JAX package. The parameters are updated in
+    place and returned as given."""
     if (plan.engine_rows, plan.tp_base, plan.data_rows, plan.pods) != \
             (1, 1, 1, 1):
         raise NotImplementedError(
@@ -38,10 +41,15 @@ def build_train_step(model: Model, plan: ParallelPlan, *,
     opt = opt or AdamW()
 
     def loss_fn(params, batch):
-        logits, _, aux = model.forward(params, SINGLE, mode="train",
-                                       tokens=batch["tokens"],
-                                       backend=TrainBackend())
-        loss = tp_cross_entropy(cfg, logits, batch["labels"], SINGLE)
+        logits, _, aux = model.forward(
+            params, SINGLE, mode="train", tokens=batch["tokens"],
+            backend=TrainBackend(),
+            frontend_embeds=batch.get("frontend_embeds"))
+        labels = batch["labels"]
+        if logits.shape[1] != labels.shape[1]:
+            # modality prefix (VLM): score only the text tail
+            logits = logits[:, -labels.shape[1]:]
+        loss = tp_cross_entropy(cfg, logits, labels, SINGLE)
         return loss + aux_weight * aux, loss
 
     def step(carry, batch) -> tuple:
@@ -52,7 +60,10 @@ def build_train_step(model: Model, plan: ParallelPlan, *,
         for p in leaves:
             p.requires_grad_(True)
         total, loss = loss_fn(params, batch)
-        grads = torch.autograd.grad(total, leaves)
+        # a leaf the loss does not reach (an encoder layer's unused cross
+        # sub-block) gets a zero gradient, as jax.grad gives it
+        grads = torch.autograd.grad(total, leaves, allow_unused=True,
+                                    materialize_grads=True)
         params, opt_state = opt.update(
             params, tree_unflatten(params, list(grads)), opt_state)
         mets: Dict[str, torch.Tensor] = {"loss": loss.detach(),

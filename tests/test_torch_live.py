@@ -1255,9 +1255,21 @@ def test_launcher_serves_live_through_a_kill():
     """``launch.serve --ranks 8 --tp-base 2 --strategy live --fault
     kill@4:1`` on the CPU: every request done, engine 1 quarantined at
     tick 4 and its request recovered, the quarantine and the incidents
-    printed by rank 0 alone, no host argmax. (The schedule follows the
-    host clock; by tick 4 the first request is placed on engine 1 and
-    still running.)"""
+    printed by rank 0 alone, no host argmax.
+
+    ``--step-seconds 0.01`` makes every step and rebind report 10 ms to
+    the scheduler, so the schedule is a function of the trace alone and
+    not of the host's speed. Without it the island clocks advance by the
+    measured step times: each tick moves the scheduler's clock to the
+    earliest island clock and launches only the islands due by then, so
+    under load engine 1's island could be mid-step at tick 4 (the fault
+    then surfaced at a later tick), and with the default phased arrivals
+    a slow tick also lets later requests arrive before tick 4. With the
+    fixed clock, req0 (a priority request of 12 prompt tokens and 4 out,
+    arriving at 0.26 s, 0.37 s before req1, which is 37 ticks of 10 ms)
+    is bound alone to a TP2 island over engines 0 and 1 and needs two
+    prefill chunks and three decode steps, so at tick 4 it is on engine
+    1 and still running however fast the host is."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(REPO / "src"), os.environ.get("PYTHONPATH", "")]))
     proc = subprocess.run(
@@ -1267,7 +1279,8 @@ def test_launcher_serves_live_through_a_kill():
          "--requests", "8", "--num-blocks", "64", "--block-base", "4",
          "--batch-per-engine", "2", "--prompt-range", "8", "24",
          "--output-range", "4", "8", "--prefill-chunk", "8",
-         "--max-blocks-per-req", "16", "--priority-frac", "0.25"],
+         "--max-blocks-per-req", "16", "--priority-frac", "0.25",
+         "--step-seconds", "0.01"],
         env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     out = proc.stdout
