@@ -58,6 +58,15 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    K2 and K4 at whisper-base's decoder (H 8, KV 8, hd 64) and K5 forward
    and backward at hd 64 at whisper-base's (8 x 448) and internvl2-1b's
    (H 14, KV 2, 4 x 2304) training shapes in bf16, timed beside SDPA;
+   after those, phase 18's shapes: K2 and K4 at recurrentgemma-9b's
+   local attention (H 16, KV 1, hd 256, window 2048; decode B 8 over
+   contexts 1 to 4096, prefill B 8 x 512 over priors up to 3584) in bf16
+   and with fp32 q and the LSE, timed beside SDPA under the same mask,
+   and K6 and K7 from a nonzero h0 (B 8 x 512: mamba2-2.7b's 80 heads of
+   64 with d_state 128, recurrentgemma-9b's 4096 channels) at K6's
+   tolerance; and a diagnostic line (no check) beside the bf16 op's dA
+   at T = 100: the kernel's and the fp32 plain version's distance from
+   the plain backward in fp64 on the same inputs;
 4. serve a small request trace with the reduced llama3-8b in fp32 on the
    card and on the CPU (plain versions): the greedy tokens and the phase
    log must be identical; then four requests over a 12-block pool, where
@@ -237,16 +246,39 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    internvl2-1b 4 x 2048 after its patches): finite losses, the last
    below the first, K5 launched 2 x layers x steps forward and layers x
    steps backward; median step ms, tok/s and peak printed.
+18. (run after phase 17) mamba2-2.7b and recurrentgemma-9b at step level
+   through ``build_serve_step``, their recurrent rows carried from step
+   to step: (a) the reduced mamba2-2.7b and the reduced recurrentgemma-9b
+   cut to 3 layers (a local-attention layer with its window of 64) in
+   fp32 from the same weights, 4 prompts of 80 tokens prefilled in two
+   chunks of 40 (the second from the carried state) and 4 decode steps,
+   on the card and on the CPU: greedy tokens equal, logits within rtol =
+   atol = 1e-4, K6 or K7 from h0 (and K1-K4) launched once a layer a
+   step; (b) both at full width and depth in bf16 (mamba2-2.7b 64 layers,
+   d_model 2560, 80 heads of 64, d_state 128; recurrentgemma-9b 38
+   layers, 26 RG-LRU and 12 local attention with 16 heads of 256 on one
+   kv head, window 2048, vocab 256000), seeded random weights, 8
+   requests of 3072 prompt tokens in 6 chunks of 512 (chunks 2-6 from the
+   carried state and over the prior pages; the window masks keys from
+   chunk 5 on), then 32 decode steps (K2 at hd 256 masking past 2048),
+   after an untimed warm-up; launches counted from zero and held to the
+   layers and steps, every token in the vocab, every step's logits
+   finite, two requests' served logits no farther from a dense fp32
+   forward (fp32 weights) than RECURRENT_FIDELITY times the bf16 dense
+   forward's distance from it (median row deviations; random weights
+   amplify bf16 rounding with depth, so greedy tokens are not held to a
+   near-tie bound here); the prefill chunks' ms, the median decode
+   step's ms, decode tok/s and the peak printed.
 
 Each kernel's launch count in the JSON record comes from the path that
 runs it: K1-K4 from phase 5, K5 and its backward at hd 128 from phase 8
 and at hd 256 from phase 12, K6 and its backward from phase 10, K7 and
 its backward from phase 12, mla_decode and the one-pool K1 and K3 from
 phase 15 (b)'s first run, K2 with its LSE from phase 16 (b)'s trace and
-mla_decode with its LSE from phase 16 (c)'s striped run, on rank 0
-(phase 14 prints its own K1-K4 counts, and K2's and K4's LSE launches,
-in its rank processes; phase 17 prints the K1-K5 counts of its own
-runs). The line
+mla_decode with its LSE from phase 16 (c)'s striped run, on rank 0,
+K6 and K7 from h0 and K2 and K4 at hd 256 from phase 18 (b) (phase 14
+prints its own K1-K4 counts, and K2's and K4's LSE launches, in its rank
+processes; phase 17 prints the K1-K5 counts of its own runs). The line
 before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -609,6 +641,10 @@ def kernel_checks(torch, np):
     torch.cuda.empty_cache()
     paged_rep_checks(torch, np, rng, gen, close, ((8, 8, 64, 512, 16),))
     flash_hd64_checks(torch, gen, close)
+    # phase 18's shapes, after phase 17's for the same reason: K2 and K4
+    # at hd 256 with a window, K6 and K7 from a carried state
+    torch.cuda.empty_cache()
+    rows.extend(recurrent_rows(torch, np, rng, gen, close))
     _lib.reset_launches()
     torch.cuda.empty_cache()
     return rows
@@ -711,6 +747,208 @@ def paged_rep_checks(torch, np, rng, gen, close,
               f"{ms:.4f} ms (bf16)")
         del kp_, vp_, q, o, wo
         torch.cuda.empty_cache()
+
+
+def recurrent_rows(torch, np, rng, gen, close):
+    """Phase 18's kernels at its shapes against their plain versions:
+    K2 and K4 at recurrentgemma-9b's local attention (H 16, KV 1, hd 256,
+    window 2048, page 16) over contexts past the window (decode B 8,
+    contexts 1 to 4096; prefill B 8, T 512, priors up to 3584), bf16 q
+    over bf16 pools and fp32 q with the LSE (K4's CUDA-core route); K6
+    from a nonzero h0 at mamba2-2.7b's prefill chunk (Bs 8, T 512, 80
+    heads of 64, d_state 128, chunk 128) in fp32 and bf16, and K7 from a
+    nonzero h0 at recurrentgemma-9b's (B 8, T 512, 4096 channels, fp32
+    a and g, as the RG-LRU block passes them), at K6's tolerance; each
+    timed with its plain version, K2 and K4 with SDPA over the gathered
+    context under the same mask."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_prefill import kernel as fk
+    from repro_torch.kernels.flash_prefill import ref as fr
+    from repro_torch.kernels.paged_attention import kernel as pk
+    from repro_torch.kernels.paged_attention import ref as pr
+    from repro_torch.kernels.rglru_scan import kernel as rk
+    from repro_torch.kernels.rglru_scan import ref as rr
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    from repro_torch.kernels.ssd_scan import ref as sr
+    from repro_torch.models.cache import paged_gather
+
+    dev = torch.device("cuda")
+    f32, bf16 = torch.float32, torch.bfloat16
+    H, KV, hd, page, nblk, MB, win = 16, 1, 256, 16, 4096, 256, 2048
+    rows = []
+
+    def t(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+
+    def rnd(shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+    kp_, vp_ = (rnd((nblk, page, KV, hd)).to(bf16) for _ in range(2))
+
+    def gathered(bt):
+        return tuple(paged_gather(p, bt).transpose(1, 2).repeat_interleave(
+            H // KV, 1) for p in (kp_, vp_))
+
+    # -- K2 at hd 256 ----------------------------------------------------
+    B = 8
+    ctx_np = np.concatenate([[1, MB * page], rng.integers(
+        2, MB * page, size=B - 2)]).astype(np.int32)
+    ctx = t(ctx_np, torch.int32)
+    bt = t(rng.permutation(nblk - 1)[:B * MB].reshape(B, MB), torch.int32)
+    q = rnd((B, H, hd))
+    qb = q.to(bf16)
+    tag = "paged_attention hd 256 rep 16"
+    errs = [close(pk.paged_attention_kernel(qb, kp_, vp_, bt, ctx,
+                                            window=w),
+                  pr.paged_attention_ref(qb, kp_, vp_, bt, ctx, window=w),
+                  bf16, f"{tag} bf16 window={w}") for w in (None, win)]
+    c0 = ctx.clone()
+    c0[2] = 0                                  # a row with no live key
+    o, lse = pk.paged_attention_kernel(q, kp_, vp_, bt, c0, window=win,
+                                       return_lse=True)
+    wo, wl = pr.paged_attention_with_lse_ref(q, kp_, vp_, bt, c0,
+                                             window=win)
+    close(lse, wl, f32, f"{tag} fp32 q window={win} (lse)")
+    close(o, wo, f32, f"{tag} fp32 q window={win}")
+    live = np.minimum(np.minimum(ctx_np, MB * page), win)
+    nbytes = 2 * B * H * hd * 2 + int(live.sum()) * KV * hd * 2 * 2 \
+        + int(np.ceil(live / page).sum()) * 4 + B * 4
+    bms, by = bound(nbytes, 4.0 * H * hd * int(live.sum()))
+    kg, vg = gathered(bt)
+    kpos = torch.arange(MB * page, device=dev)[None, :]
+    c = ctx[:, None].long()
+    mask = ((kpos < c) & (kpos >= c - win))[:, None, None, :]
+    n_split, split_len = pk.decode_splits(B, KV, H // KV, MB * page, dev)
+    print(f"  {tag}: {n_split} splits of {split_len} keys")
+    rows.append(dict(
+        name="paged_attention_hd256", route="cuda",
+        source="src/repro_torch/kernels/csrc/paged_attention.cu",
+        replaces="src/repro/kernels/paged_attention/kernel.py:97",
+        max_abs_err=max(errs),
+        ms=time_ms(torch, lambda: pk.paged_attention_kernel(
+            qb, kp_, vp_, bt, ctx, window=win)),
+        plain_ms=time_ms(torch, lambda: pr.paged_attention_ref(
+            qb, kp_, vp_, bt, ctx, window=win), iters=5, windows=3),
+        bound_ms=bms, bound_by=by,
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qb[:, :, None, :], kg, vg, attn_mask=mask))))
+    del kg, vg, mask, o, wo
+
+    # -- K4 at hd 256 ----------------------------------------------------
+    T = 512
+    prior_np = np.array([0, 512, 1024, 1536, 2048, 2560, 3072,
+                         MB * page - T], np.int32)
+    prior = t(prior_np, torch.int32)
+    bt = t(rng.permutation(nblk - 1)[:B * MB].reshape(B, MB), torch.int32)
+    q = rnd((B, T, H, hd))
+    qb = q.to(bf16)
+    tag = "paged_flash_prefill hd 256 rep 16 T 512"
+    errs = [close(fk.paged_flash_prefill_kernel(qb, kp_, vp_, bt, prior,
+                                                window=w),
+                  fr.paged_flash_prefill_ref(qb, kp_, vp_, bt, prior,
+                                             window=w),
+                  bf16, f"{tag} bf16 window={w}") for w in (None, win)]
+    for w, prior_only in ((win, False), (None, True)):
+        o, lse = fk.paged_flash_prefill_kernel(
+            q, kp_, vp_, bt, prior, window=w, prior_only=prior_only,
+            return_lse=True)
+        wo, wl = fr.paged_prefill_sweep_with_lse_ref(
+            q, kp_, vp_, bt, prior, window=w, prior_only=prior_only)
+        sub = f"{tag} fp32 q window={w} prior_only={prior_only}"
+        close(lse, wl, f32, f"{sub} (lse)")
+        close(o, wo, f32, sub)
+    del o, wo, lse, wl
+    print(f"  {tag}: {fk.prefill_blocks(B, T, H, KV)} blocks of 64 packed "
+          f"rows")
+    qpos = prior_np[:, None].astype(np.int64) + np.arange(T)[None, :]
+    pairs = int(np.minimum(qpos + 1, win).sum())
+    first = np.maximum(prior_np.astype(np.int64) - win + 1, 0)
+    keys = prior_np.astype(np.int64) + T - first       # keys each reads
+    nbytes = 2 * B * T * H * hd * 2 + int(keys.sum()) * KV * hd * 2 * 2 \
+        + int(np.ceil(keys / page).sum()) * 4 + B * 4
+    bms, by = bound(nbytes, 4.0 * H * hd * pairs)
+    kg, vg = gathered(bt)
+    qp = prior[:, None].long() + torch.arange(T, device=dev)[None, :]
+    kpos = torch.arange(MB * page, device=dev)[None, None, :]
+    mask = ((kpos <= qp[:, :, None]) & (kpos > qp[:, :, None] - win))[:, None]
+    qt = qb.transpose(1, 2)
+    rows.append(dict(
+        name="paged_flash_prefill_hd256", route="cuda",
+        source="src/repro_torch/kernels/csrc/paged_prefill.cu",
+        replaces="src/repro/kernels/flash_prefill/kernel.py:204",
+        max_abs_err=max(errs),
+        ms=time_ms(torch, lambda: fk.paged_flash_prefill_kernel(
+            qb, kp_, vp_, bt, prior, window=win)),
+        plain_ms=time_ms(torch, lambda: fr.paged_flash_prefill_ref(
+            qb, kp_, vp_, bt, prior, window=win), iters=3, warm=1,
+            windows=3),
+        bound_ms=bms, bound_by=by,
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kg, vg, attn_mask=mask), iters=5, windows=3)))
+    del kg, vg, mask, q, qb, qt, kp_, vp_
+    torch.cuda.empty_cache()
+
+    # -- K6 from h0 ------------------------------------------------------
+    Bs, T, Hs, hds, S, ch = 8, 512, 80, 64, 128, 128
+
+    def ssd_inputs(dtype):
+        return (F.silu(rnd((Bs, T, Hs, hds))).to(dtype),
+                F.softplus(rnd((Bs, T, Hs))),
+                -torch.linspace(1.0, 16.0, Hs, device=dev),
+                F.silu(rnd((Bs, T, S))).to(dtype),
+                F.silu(rnd((Bs, T, S))).to(dtype))
+    errs = []
+    for dtype in (f32, bf16):
+        ins = ssd_inputs(dtype)
+        h0 = rnd((Bs, Hs, hds, S))
+        y, hT, _ = sk.ssd_scan_kernel(*ins, chunk=ch, h0=h0)
+        wy, wh = sr.ssd_chunked(*ins, h0, ch)
+        tag = f"ssd_scan from h0 {dtype} [{Bs},{T},{Hs},{hds}] S={S}"
+        errs.append(max(ssd_close(torch, g, w, f"{tag} {n}")
+                        for n, g, w in (("y", y, wy), ("hT", hT, wh))))
+        del y, hT, wy, wh
+    xb, yb = Bs * T * Hs * hds * 2, Bs * T * Hs * hds * 4
+    htb = Bs * Hs * hds * S * 4
+    per = Bs * Hs * (T // ch)
+    flops = per * (2 * ch * ch * S + 2 * ch * ch * hds + 4 * ch * hds * S)
+    # x, dt, A, B, C and h0 in, y and hT out
+    bms, by = bound(xb + Bs * T * Hs * 4 + Hs * 4 + 2 * Bs * T * S * 2
+                    + htb + yb + htb, flops)
+    rows.append(dict(
+        name="ssd_scan_from", route="cuda",
+        source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan/kernel.py:67",
+        max_abs_err=max(errs),
+        ms=time_ms(torch, lambda: sk.ssd_scan_kernel(*ins, chunk=ch,
+                                                     h0=h0), iters=5),
+        plain_ms=time_ms(torch, lambda: sr.ssd_chunked(*ins, h0, ch),
+                         iters=3, warm=1, windows=3),
+        bound_ms=bms, bound_by=by, library_ms=None))
+    del ins, h0
+
+    # -- K7 from h0 ------------------------------------------------------
+    B, T, C = 8, 512, 4096
+    a = 1.0 - 1e-3 * torch.rand((B, T, C), generator=gen, device=dev)
+    g = rnd((B, T, C), 0.5)
+    h0 = rnd((B, C))
+    y, hT = rk.rglru_scan_kernel(a, g, h0)
+    wy, wh = rr.rglru_scan_ref(a, g, h0)
+    tag = f"rglru_scan from h0 fp32 [{B},{T},{C}] a near 1"
+    e = max(ssd_close(torch, got, want, f"{tag} {n}")
+            for n, got, want in (("y", y, wy), ("hT", hT, wh)))
+    n = B * T * C
+    bms, by = bound(3 * n * 4 + 2 * B * C * 4, 2.0 * n)
+    rows.append(dict(
+        name="rglru_scan_from", route="cuda",
+        source="src/repro_torch/kernels/csrc/rglru_scan.cu",
+        replaces="src/repro/kernels/rglru_scan/kernel.py:53",
+        max_abs_err=e,
+        ms=time_ms(torch, lambda: rk.rglru_scan_kernel(a, g, h0)),
+        plain_ms=time_ms(torch, lambda: rr.rglru_scan_ref(a, g, h0),
+                         iters=2, warm=1, windows=3),
+        bound_ms=bms, bound_by=by, library_ms=None))
+    del a, g, h0, y, wy
+    return rows
 
 
 def mla_rows(torch, np, rng, close):
@@ -1050,6 +1288,8 @@ def ssd_rows(torch, gen):
         wants = sr.ssd_scan_bwd_ref(*pad, F.pad(dy, (0, 0, 0, 0, 0, 28)),
                                     chunk=32)
         ssd_close(torch, y, wy[:, :100], f"ssd_scan op {dtype} T=100 y")
+        if dtype == bf16:
+            dA_fp64_diagnostic(torch, sr, pad, dy, grads[2], wants[2])
         for n, g, w in zip(("x", "dt", "A", "B", "C"), grads, wants):
             ssd_close(torch, g, w[:, :100] if w.dim() > 1 else w,
                       f"ssd_scan op {dtype} T=100 d{n}")
@@ -1103,6 +1343,24 @@ def ssd_rows(torch, gen):
           + f" (sum {sum(dev.values()):.4f} ms)")
     del ins, dy, y, hT, st
     return rows
+
+
+def dA_fp64_diagnostic(torch, sr, pad, dy, dA_kernel, dA_plain) -> None:
+    """A diagnostic line, no check: the bf16 op's dA at T = 100 (the
+    kernel's, and the plain version's, which computes in fp32 from the
+    same bf16 inputs) beside the plain backward in fp64 on those inputs,
+    so a reading near the check's margin says which of the two sits
+    nearer the exact gradient."""
+    import torch.nn.functional as F
+    ins64 = [t.double() for t in pad]
+    dA64 = sr.ssd_scan_bwd_ref(*ins64, F.pad(dy, (0, 0, 0, 0, 0, 28))
+                               .double(), chunk=32)[2]
+    scale = float(dA64.abs().max())
+    ek = float((dA_kernel.double() - dA64).abs().max())
+    ep = float((dA_plain.double() - dA64).abs().max())
+    print(f"  ssd_scan op bf16 T=100 dA against fp64 (diagnostic): kernel "
+          f"{ek:.3e}, fp32 plain version {ep:.3e} (largest entry "
+          f"{scale:.3e}; the check's atol {1e-4 * scale:.3e})")
 
 
 def rglru_rows(torch, gen):
@@ -4112,6 +4370,339 @@ def serve_frontends(torch, np, smi: str) -> None:
           f"{time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 18: Mamba-2 and RecurrentGemma at step level, from carried states
+# ---------------------------------------------------------------------------
+
+RECURRENT_ARCHS = ("mamba2-2.7b", "recurrentgemma-9b")
+# K6 and K7 from a carried state, and K1-K4 (recurrentgemma-9b's local
+# attention at hd 256)
+RECURRENT_KERNELS = ("ssd_scan_from", "rglru_scan_from") + SERVE_KERNELS
+
+
+def recurrent_config(arch: str, reduced: bool):
+    """The config phase 18 serves: the reduced recurrentgemma-9b cut to 3
+    layers (two RG-LRU, one local attention with its window of 64), the
+    reduced mamba2-2.7b as it is, or either at full width and depth."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if not reduced:
+        return cfg
+    cfg = cfg.reduced()
+    return dataclasses.replace(cfg, num_layers=3) if cfg.hybrid else cfg
+
+
+# phase 18 sets these recurrent leaves in its seeded weights: at the
+# init's dt_bias 0 and Lambda 0.7 a Mamba-2 state decays by e^-0.7 or
+# more a token and an RG-LRU state by e^-7.7, so a state dropped between
+# two prefill chunks would not show in the chunk's logits; dt_bias -8 and
+# Lambda -8 carry a state over hundreds of tokens
+SLOW_DECAY = {"dt_bias": -8.0, "lam": -8.0}
+
+
+def slow_decay(tree) -> None:
+    """Sets every ``SLOW_DECAY`` leaf of the parameter tree in place."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            if k in SLOW_DECAY:
+                v.fill_(SLOW_DECAY[k])
+            else:
+                slow_decay(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            slow_decay(v)
+
+
+def recurrent_steps(torch, np, model, params, prompts, chunk: int,
+                    decodes: int, *, num_blocks: int, block_base: int = 16,
+                    timed: bool = False) -> dict:
+    """Serves ``prompts`` [B, P] (every prompt of one length, as the step
+    level requires of a recurrent model) at ``ParallelPlan(1, 1, 1)``
+    through ``build_serve_step``: prefill chunks of ``chunk`` tokens, each
+    after the first from the recurrent rows and the prior pages the last
+    one left, then ``decodes`` decode steps, each row fed its own greedy
+    token. Returns the greedy tokens [B][decodes + 1] (the last chunk's,
+    then each decode step's), each step's logits on the CPU and, when
+    ``timed``, each step's wall ms (the card synchronised around it)."""
+    from repro_torch.core.kv_adaptor import KVCacheAdaptor, PoolGeometry
+    from repro_torch.core.modes import FlyingMode, ParallelPlan
+    from repro_torch.core.steps import build_serve_step, fresh_states
+    cfg, dev = model.cfg, model.device
+    plan = ParallelPlan(engine_rows=1, tp_base=1, data_rows=1)
+    mode = FlyingMode(plan, 1)
+    geom = PoolGeometry(cfg, plan, num_blocks=num_blocks,
+                        block_base=block_base)
+    ad = KVCacheAdaptor(geom)
+    ad.switch_mode(1)
+    B, P = prompts.shape
+    mb = -(-(P + decodes) // geom.capacity(1))
+    i32 = dict(dtype=torch.int32, device=dev)
+
+    def tables():
+        return torch.as_tensor(np.stack([ad.block_table(f"r{b}", mb)
+                                         for b in range(B)]), **i32)
+    states = fresh_states(model, mode, geom, batch=B)
+    prefill, _ = build_serve_step(model, mode, geom, phase="prefill")
+    decode, _ = build_serve_step(model, mode, geom, phase="decode")
+    res = {"tokens": [], "logits": [], "ms": [], "prefills": 0}
+
+    def run(step, batch):
+        if timed:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        logits, _ = step(params, states, batch)
+        if timed:
+            torch.cuda.synchronize()
+            res["ms"].append((time.perf_counter() - t0) * 1e3)
+        res["logits"].append(logits.float().cpu())
+        return logits.argmax(-1)
+    for pos in range(0, P, chunk):
+        T = min(chunk, P - pos)
+        slots = np.stack([ad.append_slots(f"r{b}", T) for b in range(B)])
+        tok = run(prefill, {
+            "tokens": torch.as_tensor(prompts[:, pos:pos + T], **i32),
+            "positions": torch.arange(pos, pos + T, **i32)[None].expand(B, T),
+            "slots": torch.as_tensor(slots, **i32), "block_table": tables(),
+            "prior_len": torch.full((B,), pos, **i32)})
+        res["prefills"] += 1
+    res["tokens"].append(tok)
+    for i in range(decodes):
+        dslots = [ad.append_slots(f"r{b}", 1)[0] for b in range(B)]
+        tok = run(decode, {
+            "tokens": tok[:, None].to(torch.int32),
+            "positions": torch.full((B, 1), P + i, **i32),
+            "slots": torch.as_tensor(np.asarray(dslots), **i32),
+            "block_table": tables(),
+            "context_len": torch.full((B,), P + i + 1, **i32)})
+        res["tokens"].append(tok)
+    res["tokens"] = torch.stack(res["tokens"], 1).cpu().tolist()
+    return res
+
+
+def recurrent_reduced(torch, np) -> None:
+    """Phase 18 (a): the reduced mamba2-2.7b and the 3-layer reduced
+    recurrentgemma-9b in fp32 from the same weights (seed 0, drawn on
+    the CPU, ``SLOW_DECAY`` set), 4 prompts of 80 tokens (past the window of 64) prefilled in
+    two chunks of 40, the second from the carried state, then 4 decode
+    steps, on the card and on the CPU: greedy tokens equal, every step's
+    logits within rtol = atol = 1e-4, and on the card K6 or K7 from h0
+    launched once a recurrent layer a chunk (K1-K4 at the attention
+    layer)."""
+    from repro_torch.kernels import _lib
+    from repro_torch.models.model import build_model
+    from repro_torch.training.checkpoint import tree_map
+    for arch in RECURRENT_ARCHS:
+        cfg = recurrent_config(arch, reduced=True)
+        params = build_model(cfg, torch.float32, "cpu").init(
+            torch.Generator().manual_seed(0))
+        slow_decay(params)
+        prompts = np.random.default_rng(7).integers(0, cfg.vocab_size,
+                                                    (4, 80))
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            model = build_model(cfg, torch.float32, dev)
+            _lib.reset_launches()
+            runs[dev] = recurrent_steps(
+                torch, np, model, tree_map(lambda t: t.to(dev), params),
+                prompts, 40, 4, num_blocks=128, block_base=4)
+            runs[dev]["launches"] = {k: _lib.LAUNCHES[k]
+                                     for k in RECURRENT_KERNELS}
+        card, cpu = runs["cuda"], runs["cpu"]
+        err = max(float((a - b).abs().max())
+                  for a, b in zip(card["logits"], cpu["logits"]))
+        print(f"recurrent (a): reduced {arch} fp32, {cfg.num_layers} "
+              f"layers, 4 prompts of 80 tokens in 2 prefill chunks of 40, "
+              f"then 4 decode steps: card tokens {card['tokens']}, max "
+              f"|logits card - CPU| {err:.3e}, card launches "
+              f"{ {k: v for k, v in card['launches'].items() if v} }")
+        check(card["tokens"] == cpu["tokens"],
+              f"reduced {arch}: card tokens {card['tokens']} != CPU "
+              f"{cpu['tokens']}")
+        check(all(torch.allclose(a, b, rtol=1e-4, atol=1e-4)
+                  for a, b in zip(card["logits"], cpu["logits"])),
+              f"reduced {arch}: card and CPU logits differ by {err:.3e}")
+        check(not any(cpu["launches"].values()),
+              f"reduced {arch}: CPU launches {cpu['launches']}")
+        check(card["launches"] == recurrent_launches(cfg, 2, 4),
+              f"reduced {arch}: card launches {card['launches']}, not "
+              f"{recurrent_launches(cfg, 2, 4)}")
+
+
+def recurrent_launches(cfg, chunks: int, decodes: int) -> dict:
+    """The kernel launches of ``chunks`` prefill chunks and ``decodes``
+    decode steps: K6 or K7 from h0 once a recurrent layer a chunk, K3
+    and K4 once an attention layer a chunk, K1 and K2 once an attention
+    layer a decode step."""
+    from repro_torch.models.transformer import stack_plan
+    kinds = [k[0] for seq, n in stack_plan(cfg) for k in seq * n]
+    rec, att = sum(k in ("mamba", "rglru") for k in kinds), \
+        kinds.count("gqa_win")
+    return {"ssd_scan_from": chunks * rec if cfg.ssm else 0,
+            "rglru_scan_from": 0 if cfg.ssm else chunks * rec,
+            "paged_append_token": decodes * att,
+            "paged_attention": decodes * att,
+            "paged_append_chunk": chunks * att,
+            "paged_flash_prefill": chunks * att}
+
+
+# phase 18 (b): how much farther the served logits may lie from an fp32
+# dense forward than the bf16 dense forward lies from it (the medians,
+# over the compared positions, of each position's largest difference in
+# standard deviations of the fp32 row). With random weights the stacks
+# amplify bf16 rounding with depth: on the CPU, the reduced mamba2-2.7b
+# at 64 layers in bf16 reads a median 0.55 and a largest 1.7 row
+# deviations off its fp32 forward, with 29% of the argmaxes flipped, so
+# a near-tie bound on greedy tokens (NEAR_TIE_SD) does not apply here;
+# with SLOW_DECAY set, serving from a dropped carried state moves the
+# logits by the scale of the row itself
+RECURRENT_FIDELITY = 2.0
+
+
+def recurrent_fidelity(torch, model, params, prompts, res, rows: int = 2):
+    """The served bf16 logits of the first ``rows`` requests (the last
+    prefill chunk's and each decode step's) against a dense forward of
+    the row over the prompt and the served tokens (train mode: K6 or K7
+    from zero and K5 over the whole sequence, no pool, no carried state)
+    in fp32 on an fp32 copy of the weights, beside the same dense forward
+    in bf16: each position's largest difference over the vocab in
+    standard deviations of the fp32 row, and the greedy tokens that
+    differ from the fp32 argmax."""
+    from repro_torch.core.views import SINGLE
+    from repro_torch.models.cache import TrainBackend
+    from repro_torch.models.model import build_model
+    from repro_torch.training.checkpoint import tree_map
+    dev, P = model.device, prompts.shape[1]
+    f32 = build_model(model.cfg, torch.float32, dev)
+    p32 = tree_map(lambda t: t.float(), params)
+    served, dense = [], []
+    flips = {"served": 0, "dense": 0, "tokens": 0}
+    first = res["prefills"] - 1
+    for b in range(rows):
+        seq = torch.as_tensor(list(prompts[b]) + res["tokens"][b][:-1],
+                              device=dev)[None]
+        with torch.no_grad():
+            want = f32.forward(p32, SINGLE, mode="train",
+                               backend=TrainBackend(),
+                               tokens=seq)[0][0, P - 1:].float()
+            got = model.forward(params, SINGLE, mode="train",
+                                backend=TrainBackend(),
+                                tokens=seq)[0][0, P - 1:].float()
+        sd = want.std(-1)
+        srv = torch.stack([x[b] for x in res["logits"][first:]]).to(dev)
+        served += ((srv - want).abs().amax(-1) / sd).tolist()
+        dense += ((got - want).abs().amax(-1) / sd).tolist()
+        top = want.argmax(-1)
+        flips["served"] += int((srv.argmax(-1) != top).sum())
+        flips["dense"] += int((got.argmax(-1) != top).sum())
+        flips["tokens"] += len(top)
+        del want, got, srv
+    del f32, p32
+    if dev.type == "cuda":
+        gc_collect(torch)
+    med = {k: sorted(v)[len(v) // 2] for k, v in (("served", served),
+                                                  ("dense", dense))}
+    return {"median": med, "max": {"served": max(served),
+                                   "dense": max(dense)}, "flips": flips}
+
+
+def recurrent_full_width(torch, np, smi: str) -> dict:
+    """Phase 18 (b): mamba2-2.7b (64 layers, d_model 2560, 80 heads of 64,
+    d_state 128) and recurrentgemma-9b (38 layers: 26 RG-LRU and 12 local
+    attention, 16 heads of 256 on one kv head, window 2048, vocab 256000)
+    at full width and depth in bf16, seeded random weights
+    (``SLOW_DECAY`` set): 8 requests of
+    3072 prompt tokens prefilled in 6 chunks of 512 (chunks 2-6 run K6 or
+    K7 from the carried state and K4 over the prior pages; the window
+    masks keys from chunk 5 on), then 32 decode steps (K2 at hd 256
+    masking past 2048), after an untimed warm-up of one chunk and one
+    decode step, the launch counts reset just before the timed run and
+    held to ``recurrent_launches``; every token in the vocab, every
+    step's logits finite, and two requests' served logits held against a
+    dense fp32 forward within RECURRENT_FIDELITY times the bf16 dense
+    forward's distance from it. Returns the launches of the new kernel
+    rows."""
+    from repro_torch.kernels import _lib
+    from repro_torch.models.model import build_model
+    from repro_torch.training.checkpoint import tree_leaves
+    out = {}
+    P, chunk, decodes = 3072, 512, 32
+    for arch in RECURRENT_ARCHS:
+        cfg = recurrent_config(arch, reduced=False)
+        model = build_model(cfg, torch.bfloat16, "cuda")
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        slow_decay(params)
+        prompts = np.random.default_rng(18).integers(0, cfg.vocab_size,
+                                                     (8, P))
+        recurrent_steps(torch, np, model, params, prompts[:, :chunk], chunk,
+                        1, num_blocks=8 * 34)
+        gc_collect(torch)
+        torch.cuda.reset_peak_memory_stats()
+        _lib.reset_launches()
+        res = recurrent_steps(torch, np, model, params, prompts, chunk,
+                              decodes, num_blocks=8 * 200, timed=True)
+        launches = {k: _lib.LAUNCHES[k] for k in RECURRENT_KERNELS}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        want = recurrent_launches(cfg, P // chunk, decodes)
+        check(launches == want, f"{arch}: launches {launches}, not {want}")
+        check(all(0 <= x < cfg.vocab_size for row in res["tokens"]
+                  for x in row), f"{arch}: a token outside the vocab")
+        check(all(bool(torch.isfinite(x).all()) for x in res["logits"]),
+              f"{arch}: a step's logits are not finite")
+        fid = recurrent_fidelity(torch, model, params, prompts, res)
+        pre = sorted(res["ms"][:res["prefills"]])
+        dec = sorted(res["ms"][res["prefills"]:])
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        print(f"recurrent (b): {arch} bf16 at full width and depth "
+              f"({cfg.num_layers} layers, {n_params / 1e9:.3f} B "
+              f"parameters), 8 requests of {P} prompt tokens in "
+              f"{res['prefills']} prefill chunks of {chunk}: chunk ms "
+              f"{[round(x, 2) for x in res['ms'][:res['prefills']]]} "
+              f"(median {pre[len(pre) // 2]:.2f}); {decodes} decode steps "
+              f"median {dec[len(dec) // 2]:.2f} ms (min {dec[0]:.2f}, max "
+              f"{dec[-1]:.2f}) = {8 / dec[len(dec) // 2] * 1e3:.1f} tok/s; "
+              f"peak {peak:.2f} GiB; launches "
+              f"{ {k: v for k, v in launches.items() if v} }; {smi}")
+        md, mx, fl = fid["median"], fid["max"], fid["flips"]
+        print(f"recurrent (b): {arch}, 2 requests' {fl['tokens']} served "
+              f"positions against an fp32 dense forward: served bf16 "
+              f"logits a median {md['served']:.3f} (largest "
+              f"{mx['served']:.3f}) row deviations off, the bf16 dense "
+              f"forward {md['dense']:.3f} ({mx['dense']:.3f}); greedy "
+              f"tokens off the fp32 argmax: served {fl['served']}, bf16 "
+              f"dense {fl['dense']}")
+        check(md["served"] <= RECURRENT_FIDELITY * md["dense"],
+              f"{arch}: the served logits lie a median {md['served']:.3f} "
+              f"row deviations from the fp32 dense forward, over "
+              f"{RECURRENT_FIDELITY}x the bf16 dense forward's "
+              f"{md['dense']:.3f}")
+        if cfg.ssm:
+            out["ssd_scan_from"] = launches["ssd_scan_from"]
+        else:
+            out["rglru_scan_from"] = launches["rglru_scan_from"]
+            out["paged_attention_hd256"] = launches["paged_attention"]
+            out["paged_flash_prefill_hd256"] = \
+                launches["paged_flash_prefill"]
+        del model, params, res
+        gc_collect(torch)
+    return out
+
+
+def serve_recurrent(torch, np, smi: str) -> dict:
+    """Phase 18: (a) the reduced configs card == CPU at step level from
+    carried states, (b) both models at full width and depth served at
+    step level."""
+    t0 = time.perf_counter()
+    recurrent_reduced(torch, np)
+    t1 = time.perf_counter()
+    out = recurrent_full_width(torch, np, smi)
+    print(f"recurrent: {smi}; (a) {t1 - t0:.1f} s, (b) "
+          f"{time.perf_counter() - t1:.1f} s; phase 18 took "
+          f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def gc_collect(torch) -> None:
     import gc
     gc.collect()
@@ -4212,7 +4803,7 @@ def main(argv=None) -> int:
     smem = _lib.func("paged_prefill_tc_smem")
     print("  paged_prefill.cu, dynamic shared memory of the bf16 kernel: "
           + ", ".join(f"prefill_tc<{hd}> {smem(hd)} bytes"
-                      for hd in (64, 128)))
+                      for hd in (64, 128, 256)))
     rows = kernel_checks(torch, np)
     for r in rows:
         lib_ms = "none" if r["library_ms"] is None \
@@ -4245,6 +4836,8 @@ def main(argv=None) -> int:
         launches.update(serve_striped(torch, smi, head_tick))
         gc_collect(torch)
         serve_frontends(torch, np, smi)
+        gc_collect(torch)
+        launches.update(serve_recurrent(torch, np, smi))
     for r in rows:
         r["launches"] = launches[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches",

@@ -172,25 +172,29 @@ def _rank_device(device: torch.device, rank: int) -> torch.device:
 
 
 def _check_engine_family(cfg) -> None:
-    """Refuse the families whose per-request inputs the engine does not
-    keep: an enc-dec model's cross caches are batch-dense rows of a step,
-    which the engine's batch rows (handed out anew every step) would not
-    keep with their request, and neither engine stages a request's
+    """Refuse the families whose per-request state the engine does not
+    keep: an enc-dec model's cross caches and a Mamba-2 or RG-LRU
+    layer's recurrent rows are batch-dense rows of a step, which the
+    engine's batch rows (handed out anew every step) would not keep with
+    their request, and neither engine stages a request's
     ``frontend_embeds``, so the JAX package's engine serves whisper over
     zero cross caches and InternVL2 without its image prefix. These
     models serve through ``build_serve_step`` only (ROADMAP.md, Queue 1
     item 2.4)."""
     what = ("an enc-dec model (cross caches)" if cfg.enc_dec is not None
             else "a vision-prefix model (frontend embeddings)"
-            if cfg.frontend is not None else None)
+            if cfg.frontend is not None
+            else f"a {cfg.family} model (recurrent rows)"
+            if cfg.family in ("ssm", "hybrid") else None)
     if what is not None:
         raise NotImplementedError(
             f"{cfg.name}: FlyingEngine does not serve {what}: the engine "
-            f"keeps no batch-dense cross-cache rows with their request and "
-            f"stages no frontend_embeds (the JAX engine serves such models "
-            f"over zero caches or without their prefix); engine-level "
-            f"serving of these families is ROADMAP.md Queue 1 item 2.4, "
-            f"step-level serving runs through core.steps.build_serve_step")
+            f"keeps no batch-dense rows with their request and stages no "
+            f"frontend_embeds (the JAX engine serves such models over rows "
+            f"that do not follow their request, zero caches or no "
+            f"prefix); engine-level serving of these families is "
+            f"ROADMAP.md Queue 1 item 2.4, step-level serving runs "
+            f"through core.steps.build_serve_step")
 
 
 class FlyingEngine:

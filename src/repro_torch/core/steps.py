@@ -27,6 +27,13 @@ frontend embeddings in the prefill and decode steps' batches
 package's step does. A whisper layer's state holds its cross K/V rows
 beside the paged pools (``"cross"``, batch-dense: row b is the step's
 batch row b), which the prefill writes and the decode steps read.
+
+Mamba-2 and RG-LRU layers keep no pool: their state is batch-dense
+recurrent rows (conv tail and ssm state, or conv tail and h; row b is
+the step's batch row b) that every prefill and decode step reads and
+updates in place. Within a prefill batch every row has the same prompt
+length: a padded row would run its pads through the recurrence (ROADMAP
+Queue 3).
 """
 from __future__ import annotations
 
@@ -96,7 +103,10 @@ def build_serve_step(model: Model, mode: FlyingMode, geom: PoolGeometry, *,
     runs it and drops that context). An enc-dec model refuses the mixed
     phase and the live variants, as the JAX package asserts; an enc-dec
     or frontend model refuses a striped ``geom``, which no run of the
-    JAX package covers."""
+    JAX package covers. A Mamba-2 or RecurrentGemma model refuses the
+    mixed phase (its recurrent rows belong to one batch, the mixed step
+    runs two), the live variants and a striped ``geom``, which no run of
+    the JAX package covers either."""
     if phase not in ("prefill", "decode", "mixed"):
         raise ValueError(phase)
     cfg = model.cfg
@@ -113,6 +123,11 @@ def build_serve_step(model: Model, mode: FlyingMode, geom: PoolGeometry, *,
     if striped and (cfg.enc_dec is not None or cfg.frontend is not None):
         raise ValueError("the striped pool serves decoder-only models "
                          "without a modality frontend")
+    if cfg.family in ("ssm", "hybrid") and (phase == "mixed" or striped
+                                            or live is not None):
+        raise ValueError(f"{cfg.name}: recurrent rows serve the prefill "
+                         f"and decode steps over the head-layout pool "
+                         f"only, not a mixed, live or striped step")
     mode_ctx = make_serving_ctx(mode.merge, mode.plan.engine_rows,
                                 mode.plan.tp_base,
                                 cfg.moe.num_experts if cfg.moe else 0)
@@ -245,12 +260,14 @@ def fresh_states(model: Model, mode: FlyingMode, geom: PoolGeometry, *,
     """Zeroed states as the steps of ``mode`` take them, on ``device``
     (default the model's): per group, per kind, the flat pools
     ``[n_layers, num_blocks, block_elems]`` (MLA: its one compressed
-    pool), and for an enc-dec attention layer its cross K/V rows
-    ``[n_layers, batch, enc_frames, KV_local, hd]`` at the mode's TP
-    width (a step's batch is ``batch`` rows)."""
+    pool; Mamba-2 and RG-LRU: their recurrent rows ``[n_layers, batch,
+    ...]``, ``Model.recurrent_state``), and for an enc-dec attention
+    layer its cross K/V rows ``[n_layers, batch, enc_frames, KV_local,
+    hd]``, at the mode's TP width (a step's batch is ``batch`` rows)."""
     cfg = model.cfg
-    kvl = make_serving_ctx(mode.merge, mode.plan.engine_rows,
-                           mode.plan.tp_base).local_units(cfg.num_kv_heads)
+    ctx = make_serving_ctx(mode.merge, mode.plan.engine_rows,
+                           mode.plan.tp_base)
+    kvl = ctx.local_units(cfg.num_kv_heads)
     dev = model.device if device is None else device
 
     def zeros(shape):
@@ -259,6 +276,12 @@ def fresh_states(model: Model, mode: FlyingMode, geom: PoolGeometry, *,
     for kind_seq, n in model.plan:
         per_kind = []
         for kind in kind_seq:
+            if model.pools_of(kind) == 0:
+                rows = model.recurrent_state(kind, ctx=ctx, batch=batch,
+                                             device=dev)
+                per_kind.append({"mixer": tuple(
+                    t.new_zeros((n,) + tuple(t.shape)) for t in rows)})
+                continue
             st = {"mixer": tuple(zeros((n,) + tuple(geom.flat_shape()))
                                  for _ in range(model.pools_of(kind)))}
             if cfg.enc_dec is not None and kind[0] in ("gqa", "gqa_win"):
@@ -277,10 +300,12 @@ def _view_states(model: Model, states, geom: PoolGeometry, merge: int):
     B(m), kvh/m, hd]`` (MLA's one compressed pool: ``[n_layers,
     num_blocks, B_base, W]`` at every merge): the same storage, so
     writes through the view land in the flat pool and no reverse reshape
-    is needed. Other leaves (an enc-dec layer's ``"cross"`` rows) are
-    carried as they are."""
+    is needed. Batch-dense leaves (a Mamba-2 or RG-LRU layer's recurrent
+    rows, an enc-dec layer's ``"cross"`` rows) are carried as they
+    are."""
     shape = tuple(geom.view_shape(merge))
     return [tuple({**st, "mixer": tuple(p.view((p.shape[0],) + shape)
                                         for p in st["mixer"])}
-                  for st in group)
-            for group in states]
+                  if model.pools_of(kind) else st
+                  for kind, st in zip(kind_seq, group))
+            for (kind_seq, _), group in zip(model.plan, states)]

@@ -9,7 +9,10 @@ the hash of its sources is reused as long as they are unchanged.
 Nothing here runs when a module is imported.
 
 ``LAUNCHES`` counts each kernel's launches: its wrapper adds one where it
-launches the kernel, and nowhere else. ``LSE_LAUNCHES`` counts, of K2's,
+launches the kernel, and nowhere else. K6's and K7's forwards count
+under ``ssd_scan_from`` and ``rglru_scan_from`` when they start from a
+carried state (serving), under ``ssd_scan`` and ``rglru_scan`` from
+zero (training). ``LSE_LAUNCHES`` counts, of K2's,
 K4's and ``mla_decode``'s, those that return the LSE (the live lanes'
 partial sweeps and the striped pools' stripe partials).
 """
@@ -35,7 +38,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 KERNELS = ("paged_append_token", "paged_attention", "paged_append_chunk",
            "mla_decode",
            "paged_flash_prefill", "flash_prefill", "flash_prefill_bwd",
-           "ssd_scan", "ssd_scan_bwd", "rglru_scan", "rglru_scan_bwd")
+           "ssd_scan", "ssd_scan_bwd", "rglru_scan", "rglru_scan_bwd",
+           "ssd_scan_from", "rglru_scan_from")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 LSE_LAUNCHES: Dict[str, int] = {"paged_attention": 0,
                                 "paged_flash_prefill": 0, "mla_decode": 0}
@@ -67,12 +71,12 @@ _SIGNATURES = {
         "flash_tile_check": [_P] * 3 + [_I] * 2 + [_P],
         "flash_tc_smem": [_I, _I]},
     "ssd_scan": {
-        "ssd_scan_fwd": [_P] * 8 + [_I] * 7 + [_P],
-        "ssd_scan_fwd_tc": [_P] * 9 + [_I] * 7 + [_P],
+        "ssd_scan_fwd": [_P] * 9 + [_I] * 7 + [_P],
+        "ssd_scan_fwd_tc": [_P] * 10 + [_I] * 7 + [_P],
         "ssd_scan_bwd": [_P] * 13 + [_I] * 7 + [_P],
         "ssd_scan_bwd_tc": [_P] * 17 + [_I] * 7 + [_P]},
     "rglru_scan": {
-        "rglru_scan_fwd": [_P] * 4 + [_I] * 4 + [_P],
+        "rglru_scan_fwd": [_P] * 5 + [_I] * 4 + [_P],
         "rglru_scan_bwd": [_P] * 5 + [_I] * 4 + [_P]},
 }
 _LIBS: Dict[str, ctypes.CDLL] = {}

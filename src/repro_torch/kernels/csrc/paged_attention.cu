@@ -24,7 +24,8 @@
 // - Many 16-byte loads in flight. Each lane holds 8 elements of a row, so
 //   a row takes hd / 8 lanes and a warp covers 32 / (hd / 8) rows per
 //   load instruction. A warp's chunk is NK such instructions for K and V
-//   (8 rows at hd 128, 16 at hd 64, half that at 8 heads a group); the
+//   (8 rows at hd 128, 16 at hd 64, 4 at hd 256, where a row fills a
+//   warp; half that at 8 heads a group); the
 //   next chunk's loads are issued before this one is computed, and the
 //   online softmax updates once per chunk, not per key. Page is a runtime
 //   argument: each row's address comes through the block table, one
@@ -342,6 +343,10 @@ int launch_hd(int hd, dim3 grid, int rg, cudaStream_t st, const void* q,
                                  window, scale, split_len);
   if (hd == 128)
     return launch_rg<QT, KT, 128>(grid, rg, st, q, kp, vp, bt, ctx, out,
+                                  lse, part, count, H, KV, groups, page, MB,
+                                  window, scale, split_len);
+  if (hd == 256)
+    return launch_rg<QT, KT, 256>(grid, rg, st, q, kp, vp, bt, ctx, out,
                                   lse, part, count, H, KV, groups, page, MB,
                                   window, scale, split_len);
   return (int)cudaErrorInvalidValue;

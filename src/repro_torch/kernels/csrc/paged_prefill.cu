@@ -41,16 +41,23 @@
 // fp32 q, or fp32 pools: prefill_kernel, on the CUDA cores in fp32 (the
 // tensor cores cannot hold fp32's tolerance): 256 threads, four per row,
 // sweeping 32-key tiles staged in shared memory in fp32 (flash::sweep in
-// common.cuh, which the dense fp32 kernels of flash_prefill.cu share).
-// This is what the lse-returning partial sweeps take (fp32 q over bf16
-// pools).
+// common.cuh, which the dense fp32 kernels of flash_prefill.cu share); at
+// hd 256 eight per row and 16-key tiles, so a block owns 32 rows
+// (flash::Tile). This is what the lse-returning partial sweeps take (fp32
+// q over bf16 pools).
+//
+// hd 256 (RecurrentGemma's local attention: 16 heads on one kv head,
+// window 2048) takes both routes with the hd-128 tiling doubled in width,
+// as fwd_tc<256> does in flash_prefill.cu: 32 KB tiles, 161 KB of
+// dynamic shared memory, the 64 x 256 output accumulator in 128
+// registers a thread.
 #include "common.cuh"
 #include "hopper.cuh"
 
 namespace {
 
 using flash::NT;
-using flash::ROWS;
+using flash::Tile;
 
 template <typename QT, typename KT, int HD>
 __global__ void __launch_bounds__(NT)
@@ -59,15 +66,17 @@ prefill_kernel(const QT* __restrict__ q, const KT* __restrict__ kpool,
                const int* __restrict__ prior_len, QT* __restrict__ out,
                float* __restrict__ lse, int T, int H, int KV, int page,
                int MB, int window, float scale, int prior_only) {
-  constexpr int PER = HD / 4;
+  constexpr int PER = Tile<HD>::PER;
+  constexpr int TPR = Tile<HD>::TPR;
+  constexpr int ROWS = Tile<HD>::ROWS;
   const int tile = blockIdx.x;
   const int kvh = blockIdx.y;
   const int b = blockIdx.z;
   const int rep = H / KV;
   const int R = T * rep;
   const int tid = threadIdx.x;
-  const int qq = tid & 3;
-  const int j = tile * ROWS + (tid >> 2);
+  const int qq = tid % TPR;
+  const int j = tile * ROWS + tid / TPR;
   const bool row_ok = j < R;
   const int qi = j / rep;
   const int h = kvh * rep + j % rep;
@@ -78,7 +87,7 @@ prefill_kernel(const QT* __restrict__ q, const KT* __restrict__ kpool,
 #pragma unroll
   for (int i = 0; i < PER; ++i)
     qr[i] = row_ok
-        ? to_f32(q[(((long long)b * T + qi) * H + h) * HD + 4 * i + qq])
+        ? to_f32(q[(((long long)b * T + qi) * H + h) * HD + TPR * i + qq])
         : 0.f;
 
   const int q_first = prior + tile * ROWS / rep;
@@ -103,7 +112,7 @@ prefill_kernel(const QT* __restrict__ q, const KT* __restrict__ kpool,
     const long long o = (((long long)b * T + qi) * H + h) * HD;
 #pragma unroll
     for (int i = 0; i < PER; ++i)
-      out[o + 4 * i + qq] = from_f32<QT>(l > 0.f ? acc[i] / l : 0.f);
+      out[o + TPR * i + qq] = from_f32<QT>(l > 0.f ? acc[i] / l : 0.f);
     if (lse != nullptr && qq == 0)
       lse[((long long)b * H + h) * T + qi] =
           l > 0.f ? m + logf(l) : REPRO_NEG_INF;
@@ -115,19 +124,23 @@ int launch_hd(const void* q, const void* kp, const void* vp, const void* bt,
               const void* prior, void* out, void* lse, int B, int T, int H,
               int KV, int hd, int page, int MB, int window, float scale,
               int prior_only, cudaStream_t st) {
-  dim3 grid((T * (H / KV) + ROWS - 1) / ROWS, KV, B);
+#define REPRO_PREFILL(HD_)                                                 \
+  prefill_kernel<QT, KT, HD_>                                              \
+      <<<dim3((T * (H / KV) + Tile<HD_>::ROWS - 1) / Tile<HD_>::ROWS, KV,  \
+              B),                                                          \
+         NT, 0, st>>>((const QT*)q, (const KT*)kp, (const KT*)vp,          \
+                      (const int*)bt, (const int*)prior, (QT*)out,         \
+                      (float*)lse, T, H, KV, page, MB, window, scale,      \
+                      prior_only)
   if (hd == 64)
-    prefill_kernel<QT, KT, 64><<<grid, NT, 0, st>>>(
-        (const QT*)q, (const KT*)kp, (const KT*)vp, (const int*)bt,
-        (const int*)prior, (QT*)out, (float*)lse, T, H, KV, page, MB, window,
-        scale, prior_only);
+    REPRO_PREFILL(64);
   else if (hd == 128)
-    prefill_kernel<QT, KT, 128><<<grid, NT, 0, st>>>(
-        (const QT*)q, (const KT*)kp, (const KT*)vp, (const int*)bt,
-        (const int*)prior, (QT*)out, (float*)lse, T, H, KV, page, MB, window,
-        scale, prior_only);
+    REPRO_PREFILL(128);
+  else if (hd == 256)
+    REPRO_PREFILL(256);
   else
     return (int)cudaErrorInvalidValue;
+#undef REPRO_PREFILL
   return 0;
 }
 
@@ -359,7 +372,7 @@ void launch(const void* q, const void* kp, const void* vp, const void* bt,
 
 // q [B,T,H,hd]; pools [nblk,page,KV,hd] holding the chunk's rows; bt
 // [B,MB] int32; prior [B] int32; out [B,T,H,hd] (q's dtype); lse [B,H,T]
-// fp32 or null. window <= 0: none. Any H/KV; hd 64 or 128.
+// fp32 or null. window <= 0: none. Any H/KV; hd 64, 128 or 256.
 extern "C" int paged_flash_prefill(const void* q, const void* kpool,
                                    const void* vpool, const void* bt,
                                    const void* prior, void* out, void* lse,
@@ -377,6 +390,9 @@ extern "C" int paged_flash_prefill(const void* q, const void* kpool,
                      MB, window, scale, prior_only, st);
     else if (hd == 128)
       tc::launch<128>(q, kpool, vpool, bt, prior, out, lse, B, T, H, KV,
+                      page, MB, window, scale, prior_only, st);
+    else if (hd == 256)
+      tc::launch<256>(q, kpool, vpool, bt, prior, out, lse, B, T, H, KV,
                       page, MB, window, scale, prior_only, st);
     else
       rc = (int)cudaErrorInvalidValue;
@@ -402,6 +418,8 @@ extern "C" int paged_flash_prefill(const void* q, const void* kpool,
 // The dynamic shared memory that the bf16 kernel asks for at head dim hd;
 // -1 for none.
 extern "C" int paged_prefill_tc_smem(int hd) {
-  return hd == 64 ? tc::smem_bytes<64>()
-                  : hd == 128 ? tc::smem_bytes<128>() : -1;
+  return hd == 64    ? tc::smem_bytes<64>()
+         : hd == 128 ? tc::smem_bytes<128>()
+         : hd == 256 ? tc::smem_bytes<256>()
+                     : -1;
 }

@@ -1,7 +1,9 @@
-// RG-LRU linear recurrence h_t = a_t * h_{t-1} + g_t from h_{-1} = 0,
-// forward and backward, over contiguous a/g [B,T,C] (fp32 or bf16, read
-// as fp32), y [B,T,C] fp32 (the training path's recurrence of
-// RecurrentGemma's RG-LRU block).
+// RG-LRU linear recurrence h_t = a_t * h_{t-1} + g_t, forward and
+// backward, over contiguous a/g [B,T,C] (fp32 or bf16, read as fp32), y
+// [B,T,C] fp32 (the recurrence of RecurrentGemma's RG-LRU block). The
+// forward starts from a carried h_{-1} = h0 [B,C] fp32 (a serving
+// prefill's chunk after the first) or from 0 when h0 is null (training;
+// the backward assumes 0).
 //
 // Replaces the TPU kernel rglru_scan_kernel of
 // src/repro/kernels/rglru_scan/kernel.py. There a grid (batch, channel
@@ -51,8 +53,8 @@ __device__ __forceinline__ float load_or(const T* x, long long i, bool ok,
 template <typename T>
 __global__ void __launch_bounds__(NTH)
 rglru_fwd_kernel(const T* __restrict__ a, const T* __restrict__ g,
-                 float* __restrict__ y, float* __restrict__ hT, int Tn,
-                 int C) {
+                 const float* __restrict__ h0, float* __restrict__ y,
+                 float* __restrict__ hT, int Tn, int C) {
   const int c = blockIdx.x * NTH + threadIdx.x;
   if (c >= C) return;
   const int b = blockIdx.y;
@@ -63,7 +65,7 @@ rglru_fwd_kernel(const T* __restrict__ a, const T* __restrict__ g,
     an[u] = load_or(a, base + (long long)u * C, u < Tn, 1.f);
     gn[u] = load_or(g, base + (long long)u * C, u < Tn, 0.f);
   }
-  float h = 0.f;
+  float h = h0 ? h0[(long long)b * C + c] : 0.f;
   for (int t0 = 0; t0 < Tn; t0 += U) {
     float ac[U], gc[U];
 #pragma unroll
@@ -140,20 +142,22 @@ rglru_bwd_kernel(const T* __restrict__ a, const float* __restrict__ y,
 
 }  // namespace
 
-// a/g [B,T,C] of one dtype; writes y [B,T,C] and hT [B,C], fp32.
-extern "C" int rglru_scan_fwd(const void* a, const void* g, void* y,
-                              void* hT, int B, int T, int C, int dtype,
-                              void* stream) {
+// a/g [B,T,C] of one dtype, h0 [B,C] fp32 or null (a zero start);
+// writes y [B,T,C] and hT [B,C], fp32.
+extern "C" int rglru_scan_fwd(const void* a, const void* g, const void* h0,
+                              void* y, void* hT, int B, int T, int C,
+                              int dtype, void* stream) {
   if (B == 0 || C == 0) return (int)cudaGetLastError();
   cudaStream_t st = (cudaStream_t)stream;
   dim3 grid((C + NTH - 1) / NTH, B);
   if (dtype == DT_F32)
     rglru_fwd_kernel<float><<<grid, NTH, 0, st>>>(
-        (const float*)a, (const float*)g, (float*)y, (float*)hT, T, C);
+        (const float*)a, (const float*)g, (const float*)h0, (float*)y,
+        (float*)hT, T, C);
   else if (dtype == DT_BF16)
     rglru_fwd_kernel<__nv_bfloat16><<<grid, NTH, 0, st>>>(
-        (const __nv_bfloat16*)a, (const __nv_bfloat16*)g, (float*)y,
-        (float*)hT, T, C);
+        (const __nv_bfloat16*)a, (const __nv_bfloat16*)g, (const float*)h0,
+        (float*)y, (float*)hT, T, C);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

@@ -1,6 +1,9 @@
-// Mamba-2 SSD chunked scan (h0 = 0), forward and backward, over
-// contiguous x [Bs,T,H,hd], dt [Bs,T,H] fp32, A [H] fp32, B/C [Bs,T,S]
-// (ngroups 1: B and C belong to the batch row, not the head).
+// Mamba-2 SSD chunked scan, forward and backward, over contiguous x
+// [Bs,T,H,hd], dt [Bs,T,H] fp32, A [H] fp32, B/C [Bs,T,S] (ngroups 1: B
+// and C belong to the batch row, not the head). The forward starts from
+// a carried state h0 [Bs,H,hd,S] fp32 (a serving prefill's chunk after
+// the first), or from zero when h0 is null (training; the backward
+// assumes zero).
 //
 // Replaces the TPU kernel ssd_scan_kernel of
 // src/repro/kernels/ssd_scan/kernel.py, whose grid (batch, head, chunk)
@@ -37,9 +40,10 @@
 //     e^{s_end-s_j} dt_j x_j B_j^T [hd,S] (the shape of the backward's
 //     D_c), written into the states slot of chunk c+1 (hT for the last
 //     chunk), and s_end into a scratch row;
-//  2. state_pass: the forward pass over the chunks in place, h_0 = 0,
-//     h_{c+1} = e^{s_end(c)} h_c + S_c, which leaves each slot holding the
-//     state before its chunk and hT the final state;
+//  2. state_pass: the forward pass over the chunks in place, h_0 the
+//     carried state (or 0), h_{c+1} = e^{s_end(c)} h_c + S_c, which
+//     leaves each slot holding the state before its chunk and hT the
+//     final state;
 //  3. chunk_scan_tc: G = C B^T once for all heads of the group, then per
 //     head y_t = sum_{j<=t} (G o L)_{tj} dt_j x_j + e^{s_t} C_t.h_c.
 // x, B and C enter the products as exact bf16 operands; w dt x, h_c and
@@ -201,9 +205,9 @@ template <typename T, int HD, int S>
 __global__ void __launch_bounds__(NT)
 fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
            const float* __restrict__ A, const T* __restrict__ Bm,
-           const T* __restrict__ Cm, float* __restrict__ y,
-           float* __restrict__ hT, float* __restrict__ states, int Tn, int H,
-           int ch) {
+           const T* __restrict__ Cm, const float* __restrict__ h0,
+           float* __restrict__ y, float* __restrict__ hT,
+           float* __restrict__ states, int Tn, int H, int ch) {
   constexpr int SP = S + 1, HP = HD + 1, DPT = HD / 32;
   constexpr int NG = NT / S, DPG = HD / NG;
   extern __shared__ float smem[];
@@ -223,7 +227,9 @@ fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   const int sn = tid % S, d0 = (tid / S) * DPG;  // this thread's state cells
   const int nc = Tn / ch;
   const float a = A[h];
-  for (int e = tid; e < HD * S; e += NT) hs[(e / S) * SP + e % S] = 0.f;
+  const float* hin = h0 ? h0 + ((long long)b * H + h) * HD * S : nullptr;
+  for (int e = tid; e < HD * S; e += NT)
+    hs[(e / S) * SP + e % S] = hin ? hin[e] : 0.f;
 
   for (int c = 0; c < nc; ++c) {
     const long long row0 = (long long)b * Tn + (long long)c * ch;
@@ -1613,19 +1619,22 @@ chunk_state_tc(const bf16* __restrict__ x, const float* __restrict__ dt,
 
 // The forward pass over the chunks, in place: the states slot of chunk
 // c + 1 holds S_c (hT S_last) and is left holding h_{c+1} = e^{s_end(c)}
-// h_c + S_c, slot 0 h_0 = 0, hT the final state. Elementwise and
+// h_c + S_c, slot 0 h_0 (``h0``, or 0 when null), hT the final state. Elementwise and
 // bytes-bound, as carry_kernel: one thread per four elements of [HD, S]
 // of a (batch row, head), loading the S_c of CB chunks before it stores
 // any.
 __global__ void state_pass(float* states, float* hT,
-                           const float* __restrict__ send, long long per,
+                           const float* __restrict__ send,
+                           const float* __restrict__ h0, long long per,
                            long long n, int nc) {
   constexpr int CB = 8;
   const long long e = (blockIdx.x * (long long)blockDim.x + threadIdx.x) * 4;
   if (e >= n) return;
   const long long bh = e / per, r = e % per;
   float4* last = reinterpret_cast<float4*>(hT + bh * per + r);
-  float4 carry = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 carry =
+      h0 ? *reinterpret_cast<const float4*>(h0 + bh * per + r)
+         : make_float4(0.f, 0.f, 0.f, 0.f);
   for (int c0 = 0; c0 < nc; c0 += CB) {  // chunks [c0, c0 + CB)
     float4 d[CB];
     float f[CB];
@@ -1816,15 +1825,16 @@ cudaError_t allow_smem(K kernel, int bytes) {
 
 template <typename T, int HD, int S>
 cudaError_t launch_fwd(const void* x, const void* dt, const void* A,
-                       const void* B, const void* C, void* y, void* hT,
-                       void* states, int Bs, int Tn, int H, int ch,
+                       const void* B, const void* C, const void* h0, void* y,
+                       void* hT, void* states, int Bs, int Tn, int H, int ch,
                        cudaStream_t st) {
   const int bytes = Smem<HD, S>::fwd * (int)sizeof(float);
   cudaError_t e = allow_smem(fwd_kernel<T, HD, S>, bytes);
   if (e != cudaSuccess) return e;
   fwd_kernel<T, HD, S><<<dim3(H, Bs), NT, bytes, st>>>(
       (const T*)x, (const float*)dt, (const float*)A, (const T*)B,
-      (const T*)C, (float*)y, (float*)hT, (float*)states, Tn, H, ch);
+      (const T*)C, (const float*)h0, (float*)y, (float*)hT, (float*)states,
+      Tn, H, ch);
   return cudaGetLastError();
 }
 
@@ -1891,9 +1901,9 @@ cudaError_t launch_bwd_tc(const void* x, const void* dt, const void* A,
 
 template <int HD, int S>
 cudaError_t launch_fwd_tc(const void* x, const void* dt, const void* A,
-                          const void* B, const void* C, void* y, void* hT,
-                          void* states, void* send, int Bs, int Tn, int H,
-                          int ch, int group, cudaStream_t st) {
+                          const void* B, const void* C, const void* h0,
+                          void* y, void* hT, void* states, void* send, int Bs,
+                          int Tn, int H, int ch, int group, cudaStream_t st) {
   using tc::bf16;
   const int nc = Tn / ch, groups = (H + group - 1) / group;
   constexpr int s1 = tc::state_smem<S>(), s3 = tc::scan_smem<S>();
@@ -1907,7 +1917,8 @@ cudaError_t launch_fwd_tc(const void* x, const void* dt, const void* A,
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   const long long per = (long long)HD * S, n = (long long)Bs * H * per;
   tc::state_pass<<<(unsigned)((n / 4 + 255) / 256), 256, 0, st>>>(
-      (float*)states, (float*)hT, (const float*)send, per, n, nc);
+      (float*)states, (float*)hT, (const float*)send, (const float*)h0, per,
+      n, nc);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   tc::chunk_scan_tc<HD, S><<<grid, tc::NTB, s3, st>>>(
       (const bf16*)x, (const float*)dt, (const float*)A, (const bf16*)B,
@@ -1948,34 +1959,36 @@ bool bad_shape(int Bs, int T, int H, int chunk) {
 }  // namespace
 
 // x [Bs,T,H,hd] (dtype), dt [Bs,T,H] fp32, A [H] fp32, B/C [Bs,T,S]
-// (dtype); T a multiple of chunk (<= 128); hd 32 or 64, S 32 or 128.
-// Writes y [Bs,T,H,hd] fp32, hT [Bs,H,hd,S] fp32 and the state before
-// each chunk [Bs,H,T/chunk,hd,S] fp32.
+// (dtype), h0 [Bs,H,hd,S] fp32 or null (a zero start); T a multiple of
+// chunk (<= 128); hd 32 or 64, S 32 or 128. Writes y [Bs,T,H,hd] fp32,
+// hT [Bs,H,hd,S] fp32 and the state before each chunk [Bs,H,T/chunk,hd,S]
+// fp32.
 extern "C" int ssd_scan_fwd(const void* x, const void* dt, const void* A,
-                            const void* B, const void* C, void* y, void* hT,
-                            void* states, int Bs, int T, int H, int hd,
-                            int S, int chunk, int dtype, void* stream) {
+                            const void* B, const void* C, const void* h0,
+                            void* y, void* hT, void* states, int Bs, int T,
+                            int H, int hd, int S, int chunk, int dtype,
+                            void* stream) {
   if (bad_shape(Bs, T, H, chunk)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   SSD_DISPATCH(dtype, hd, S, (launch_fwd<T_, HD, S_>(
-      x, dt, A, B, C, y, hT, states, Bs, T, H, chunk, st)));
+      x, dt, A, B, C, h0, y, hT, states, Bs, T, H, chunk, st)));
 }
 
 // The bf16 route (tensor cores): the forward's inputs and outputs, with
 // bf16 x, B and C; ``group`` heads a block; send [Bs,H,T/chunk] fp32 is
 // scratch.
 extern "C" int ssd_scan_fwd_tc(const void* x, const void* dt, const void* A,
-                               const void* B, const void* C, void* y,
-                               void* hT, void* states, void* send, int Bs,
-                               int T, int H, int hd, int S, int chunk,
+                               const void* B, const void* C, const void* h0,
+                               void* y, void* hT, void* states, void* send,
+                               int Bs, int T, int H, int hd, int S, int chunk,
                                int group, void* stream) {
   if (bad_shape(Bs, T, H, chunk) || group <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
 #define SSD_TC(HD_, S_)                                                    \
   if (hd == HD_ && S == S_)                                                \
-    return (int)launch_fwd_tc<HD_, S_>(x, dt, A, B, C, y, hT, states, send, \
-                                      Bs, T, H, chunk, group, st);
+    return (int)launch_fwd_tc<HD_, S_>(x, dt, A, B, C, h0, y, hT, states, \
+                                      send, Bs, T, H, chunk, group, st);
   SSD_TC(32, 32)
   SSD_TC(32, 128)
   SSD_TC(64, 32)

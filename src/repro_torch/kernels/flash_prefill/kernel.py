@@ -23,7 +23,7 @@ def paged_flash_prefill_kernel(q, k_pool, v_pool, block_table, prior_len, *,
     the ragged last tile is masked in the kernel); pools
     [nblk,page,KV,hd] already holding the chunk's rows; block_table
     [B,MB]; prior_len [B] -> out [B,T,H,hd] in q's dtype (+ lse [B,H,T]
-    fp32). Any H/KV; hd 64 or 128. bf16 q over bf16 pools runs on the
+    fp32). Any H/KV; hd 64, 128 or 256. bf16 q over bf16 pools runs on the
     tensor cores, every other dtype pair on the CUDA cores in fp32."""
     q = _lib.aligned(q.contiguous())
     k_pool, v_pool = _lib.aligned(k_pool), _lib.aligned(v_pool)
@@ -35,9 +35,9 @@ def paged_flash_prefill_kernel(q, k_pool, v_pool, block_table, prior_len, *,
     if hd_k != hd or v_pool.shape != k_pool.shape or H % KV:
         raise ValueError(f"paged_flash_prefill: q {tuple(q.shape)} vs "
                          f"pools {tuple(k_pool.shape)}")
-    if hd not in (64, 128):
-        raise ValueError(f"paged_flash_prefill kernel takes hd 64 or 128, "
-                         f"not {hd}")
+    if hd not in (64, 128, 256):
+        raise ValueError(f"paged_flash_prefill kernel takes hd 64, 128 or "
+                         f"256, not {hd}")
     out = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device) \
         if return_lse else None

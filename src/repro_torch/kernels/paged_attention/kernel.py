@@ -92,7 +92,7 @@ def paged_attention_kernel(q, k_pool, v_pool, block_table, context_len, *,
                            splits: Optional[int] = None):
     """q [B,H,hd]; pools [nblk,page,KV,hd]; block_table [B,MB];
     context_len [B] -> [B,H,hd] in q's dtype (+ lse [B,H] fp32). Any
-    H/KV; hd 64 or 128. ``splits`` overrides the split count that
+    H/KV; hd 64, 128 or 256. ``splits`` overrides the split count that
     ``decode_splits`` picks from the card (tests only)."""
     q = q.contiguous()
     k_pool, v_pool = _lib.aligned(k_pool), _lib.aligned(v_pool)
@@ -104,9 +104,9 @@ def paged_attention_kernel(q, k_pool, v_pool, block_table, context_len, *,
     if hd_k != hd or v_pool.shape != k_pool.shape or H % KV:
         raise ValueError(f"paged_attention: q {tuple(q.shape)} vs pools "
                          f"{tuple(k_pool.shape)}")
-    if hd not in (64, 128):
-        raise ValueError(f"paged_attention kernel takes hd 64 or 128, not "
-                         f"{hd}")
+    if hd not in (64, 128, 256):
+        raise ValueError(f"paged_attention kernel takes hd 64, 128 or 256, "
+                         f"not {hd}")
     MB = bt.shape[1]
     rep = H // KV
     n, split_len = decode_splits(B, KV, rep, MB * page, q.device, splits)

@@ -28,21 +28,31 @@ def _args(a, other, what: str):
     return a.shape
 
 
-def rglru_scan_kernel(a, g):
-    """a/g [B,T,C] of one dtype (fp32 or bf16); h0 = 0. Returns (y
-    [B,T,C] fp32, hT [B,C] fp32)."""
+def rglru_scan_kernel(a, g, h0=None):
+    """a/g [B,T,C] of one dtype (fp32 or bf16), from the state ``h0``
+    [B,C] fp32 (None: zero, the training path). Returns (y [B,T,C] fp32,
+    hT [B,C] fp32); counted as ``rglru_scan_from`` when ``h0`` is
+    given."""
     a, g = a.contiguous(), g.contiguous()
     B, T, C = _args(a, g, "rglru_scan")
     if a.dtype != g.dtype:
         raise TypeError(f"rglru_scan: a and g of one dtype, not {a.dtype}, "
                         f"{g.dtype}")
+    if h0 is not None:
+        h0 = h0.contiguous()
+        _lib.require_cuda(a, h0)
+        if h0.shape != (B, C) or h0.dtype != torch.float32:
+            raise ValueError(f"rglru_scan: h0 {tuple(h0.shape)} {h0.dtype},"
+                             f" not [{B},{C}] fp32")
     y = torch.empty((B, T, C), dtype=torch.float32, device=a.device)
     hT = torch.empty((B, C), dtype=torch.float32, device=a.device)
     rc = _lib.func("rglru_scan_fwd")(
-        a.data_ptr(), g.data_ptr(), y.data_ptr(), hT.data_ptr(), B, T, C,
-        _lib.dtype_code(a), _lib.stream_of(a))
-    _lib.LAUNCHES["rglru_scan"] += 1
-    _lib.check(rc, "rglru_scan")
+        a.data_ptr(), g.data_ptr(),
+        h0.data_ptr() if h0 is not None else None, y.data_ptr(),
+        hT.data_ptr(), B, T, C, _lib.dtype_code(a), _lib.stream_of(a))
+    what = "rglru_scan" if h0 is None else "rglru_scan_from"
+    _lib.LAUNCHES[what] += 1
+    _lib.check(rc, what)
     return y, hT
 
 

@@ -1,5 +1,7 @@
 """RG-LRU dispatch layer: the recurrence ``h_t = a_t h_{t-1} + g_t`` from
-h0 = 0 as a ``torch.autograd.Function`` whose backward is a kernel too.
+h0 = 0 as a ``torch.autograd.Function`` whose backward is a kernel too
+(training), and the forward alone from a carried state
+(``rglru_scan_from``, a serving prefill).
 
 As in the other ops modules, the tensors' device picks the
 implementation in both directions: the CUDA kernels on the card, the
@@ -51,3 +53,17 @@ def rglru_scan(a, g):
                          f"{tuple(g.shape)} {g.dtype} must be one [B,T,C] "
                          f"shape and dtype")
     return _RGLRUScan.apply(a, g)
+
+
+def rglru_scan_from(a, g, h0):
+    """The forward from a carried state h0 [B,C] fp32 (a serving
+    prefill; no autograd): a/g [B,T,C] of one dtype -> (y [B,T,C] fp32,
+    hT [B,C] fp32). CUDA tensors run K7 with its h0 input, CPU tensors
+    ``ref.rglru_scan_ref``."""
+    if a.dim() != 3 or g.shape != a.shape or a.dtype != g.dtype:
+        raise ValueError(f"rglru_scan: a {tuple(a.shape)} {a.dtype} and g "
+                         f"{tuple(g.shape)} {g.dtype} must be one [B,T,C] "
+                         f"shape and dtype")
+    if on_cuda(a):
+        return K.rglru_scan_kernel(a, g, h0)
+    return R.rglru_scan_ref(a, g, h0)

@@ -2,7 +2,8 @@
 CPU tensors, and what the CUDA kernels are held against.
 
 ``rglru_scan_ref`` is the forward kernel's function, the sequential
-recurrence ``h_t = a_t * h_{t-1} + g_t`` from h0 = 0 in fp32;
+recurrence ``h_t = a_t * h_{t-1} + g_t`` from h0 (0 unless given) in
+fp32;
 ``rglru_scan_bwd_ref`` the backward kernel's, written as its formula: the
 same recurrence run backwards in time.
 """
@@ -11,12 +12,13 @@ from __future__ import annotations
 import torch
 
 
-def rglru_scan_ref(a, g):
-    """a/g [B,T,C] (any float, upcast to fp32); h0 = 0. Returns (y
-    [B,T,C] fp32, hT [B,C] fp32)."""
+def rglru_scan_ref(a, g, h0=None):
+    """a/g [B,T,C] (any float, upcast to fp32); h0 [B,C] fp32 (None:
+    zero). Returns (y [B,T,C] fp32, hT [B,C] fp32)."""
     af, gf = a.float(), g.float()
     y = torch.empty_like(af)
-    h = af.new_zeros((a.shape[0], a.shape[2]))
+    h = af.new_zeros((a.shape[0], a.shape[2])) if h0 is None \
+        else h0.float()
     for t in range(a.shape[1]):
         h = af[:, t] * h + gf[:, t]
         y[:, t] = h

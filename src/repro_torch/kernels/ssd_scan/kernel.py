@@ -53,14 +53,23 @@ def _args(x, dt, A, B, C, chunk: int):
     return Bs, T, H, hd, S
 
 
-def ssd_scan_kernel(x, dt, A, B, C, *, chunk: int, group=None):
-    """h0 = 0. Returns (y [Bs,T,H,hd] fp32, hT [Bs,H,hd,S] fp32, the state
+def ssd_scan_kernel(x, dt, A, B, C, *, chunk: int, group=None, h0=None):
+    """From the state ``h0`` [Bs,H,hd,S] fp32 (None: zero, the training
+    path). Returns (y [Bs,T,H,hd] fp32, hT [Bs,H,hd,S] fp32, the state
     before each chunk [Bs,H,T/chunk,hd,S] fp32, which the backward
-    reads). Two routes by dtype, one launch count: bf16 x, B, C run the
-    tensor-core kernels (``group`` heads a block, ``head_group``'s choice
-    unless given: tests only); fp32 runs the CUDA-core kernel."""
+    reads). Two routes by dtype, one launch count (``ssd_scan_from`` when
+    ``h0`` is given): bf16 x, B, C run the tensor-core kernels (``group``
+    heads a block, ``head_group``'s choice unless given: tests only);
+    fp32 runs the CUDA-core kernel."""
     x, dt, A, B, C = (t.contiguous() for t in (x, dt, A, B, C))
     Bs, T, H, hd, S = _args(x, dt, A, B, C, chunk)
+    if h0 is not None:
+        h0 = _lib.aligned(h0.contiguous())
+        _lib.require_cuda(x, h0)
+        if h0.shape != (Bs, H, hd, S) or h0.dtype != torch.float32:
+            raise ValueError(f"ssd_scan: h0 {tuple(h0.shape)} {h0.dtype}, "
+                             f"not [{Bs},{H},{hd},{S}] fp32")
+    h0p = h0.data_ptr() if h0 is not None else None
     nc = T // chunk
     f32 = dict(dtype=torch.float32, device=x.device)
     y = torch.empty((Bs, T, H, hd), **f32)
@@ -70,16 +79,18 @@ def ssd_scan_kernel(x, dt, A, B, C, *, chunk: int, group=None):
         send = torch.empty((Bs, H, nc), **f32)
         rc = _lib.func("ssd_scan_fwd_tc")(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-            C.data_ptr(), y.data_ptr(), hT.data_ptr(), states.data_ptr(),
-            send.data_ptr(), Bs, T, H, hd, S, chunk,
+            C.data_ptr(), h0p, y.data_ptr(), hT.data_ptr(),
+            states.data_ptr(), send.data_ptr(), Bs, T, H, hd, S, chunk,
             group or head_group(Bs, nc, H, x.device), _lib.stream_of(x))
     else:
         rc = _lib.func("ssd_scan_fwd")(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-            C.data_ptr(), y.data_ptr(), hT.data_ptr(), states.data_ptr(),
-            Bs, T, H, hd, S, chunk, _lib.dtype_code(x), _lib.stream_of(x))
-    _lib.LAUNCHES["ssd_scan"] += 1
-    _lib.check(rc, "ssd_scan")
+            C.data_ptr(), h0p, y.data_ptr(), hT.data_ptr(),
+            states.data_ptr(), Bs, T, H, hd, S, chunk, _lib.dtype_code(x),
+            _lib.stream_of(x))
+    what = "ssd_scan" if h0 is None else "ssd_scan_from"
+    _lib.LAUNCHES[what] += 1
+    _lib.check(rc, what)
     return y, hT, states
 
 

@@ -1,5 +1,7 @@
 """SSD scan dispatch layer: the Mamba-2 chunked scan with h0 = 0 as a
-``torch.autograd.Function`` whose backward is a kernel too.
+``torch.autograd.Function`` whose backward is a kernel too (training),
+and the forward alone from a carried state (``ssd_scan_from``, a serving
+prefill).
 
 As in the other ops modules, the tensors' device picks the
 implementation in both directions: the CUDA kernels on the card, the
@@ -46,11 +48,10 @@ class _SSDScan(torch.autograd.Function):
         return (*bwd(*saved, dy, chunk=fctx.chunk), None)
 
 
-def ssd_scan(x, dt, A, B, C, *, chunk: int = 128):
-    """x [Bs,T,H,hd]; dt [Bs,T,H]; A [H] fp32; B/C [Bs,T,S]; h0 = 0.
-    Returns (y [Bs,T,H,hd] fp32, hT [Bs,H,hd,S] fp32), differentiable in
-    x, dt, A, B and C through y. T is padded with zeros up to a multiple
-    of min(chunk, T): a zero dt makes a pad an identity step."""
+def _pad(x, dt, B, C, chunk: int):
+    """T padded with zeros up to a multiple of min(chunk, T), as the JAX
+    package pads it: a zero dt makes a pad an identity step, so hT is
+    the state after the last real row."""
     T = x.shape[1]
     ch = min(chunk, T)
     pad = (-T) % ch
@@ -60,5 +61,28 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 128):
         dt = F.pad(dt, (0, 0, 0, pad))
         B = F.pad(B, (0, 0, 0, pad))
         C = F.pad(C, (0, 0, 0, pad))
+    return x, dt, B, C, ch
+
+
+def ssd_scan(x, dt, A, B, C, *, chunk: int = 128):
+    """x [Bs,T,H,hd]; dt [Bs,T,H]; A [H] fp32; B/C [Bs,T,S]; h0 = 0.
+    Returns (y [Bs,T,H,hd] fp32, hT [Bs,H,hd,S] fp32), differentiable in
+    x, dt, A, B and C through y. T is padded as ``_pad`` says."""
+    T = x.shape[1]
+    x, dt, B, C, ch = _pad(x, dt, B, C, chunk)
     y, hT = _SSDScan.apply(x, dt, A, B, C, ch)
+    return y[:, :T], hT
+
+
+def ssd_scan_from(x, dt, A, B, C, h0, *, chunk: int = 128):
+    """The forward from a carried state h0 [Bs,H,hd,S] fp32 (a serving
+    prefill; no autograd). Returns (y [Bs,T,H,hd] fp32, hT [Bs,H,hd,S]
+    fp32); T is padded as ``_pad`` says. CUDA tensors run K6 with its h0
+    input, CPU tensors ``ref.ssd_chunked``."""
+    T = x.shape[1]
+    x, dt, B, C, ch = _pad(x, dt, B, C, chunk)
+    if on_cuda(x):
+        y, hT, _ = K.ssd_scan_kernel(x, dt, A, B, C, chunk=ch, h0=h0)
+    else:
+        y, hT = R.ssd_chunked(x, dt, A, B, C, h0, ch)
     return y[:, :T], hT

@@ -17,16 +17,18 @@ import torch
 
 def _chunked(xh, dt, A, Bm, Cm, h0, chunk: int):
     """The chunked scan -> (y [B,T,H,hd] fp32, hT [B,H,hd,S] fp32, the
-    state before each chunk [B,H,nc,hd,S] fp32)."""
+    state before each chunk [B,H,nc,hd,S] fp32); in fp64 for fp64 x (a
+    diagnostic's oracle)."""
     Bsz, T, H, hd = xh.shape
     S = Bm.shape[-1]
     nc = T // chunk
-    xs = xh.reshape(Bsz, nc, chunk, H, hd).float()
-    dts = dt.reshape(Bsz, nc, chunk, H).float()
-    Bs = Bm.reshape(Bsz, nc, chunk, S).float()
-    Cs = Cm.reshape(Bsz, nc, chunk, S).float()
+    f = torch.float64 if xh.dtype == torch.float64 else torch.float32
+    xs = xh.reshape(Bsz, nc, chunk, H, hd).to(f)
+    dts = dt.reshape(Bsz, nc, chunk, H).to(f)
+    Bs = Bm.reshape(Bsz, nc, chunk, S).to(f)
+    Cs = Cm.reshape(Bsz, nc, chunk, S).to(f)
 
-    loga = dts * A.float()[None, None, None]          # [B,nc,c,H] (<= 0)
+    loga = dts * A.to(f)[None, None, None]            # [B,nc,c,H] (<= 0)
     s = torch.cumsum(loga, dim=2)                     # within each chunk
     # intra-chunk: Y[i] = C_i . sum_{j<=i} exp(s_i - s_j) dt_j B_j x_j^T
     li = s[:, :, :, None, :] - s[:, :, None, :, :]    # [B,nc,ci,cj,H]
@@ -45,7 +47,7 @@ def _chunked(xh, dt, A, Bm, Cm, h0, chunk: int):
     ssum = torch.einsum("bnjh,bnjh,bnjhd,bnjs->bnhds", decay_out, dts, xs,
                         Bs)                           # [B,nc,H,hd,S]
     chunk_decay = torch.exp(s[:, :, -1, :])           # [B,nc,H]
-    h = h0.float()
+    h = h0.to(f)
     prev = []
     for n in range(nc):
         prev.append(h)
@@ -81,11 +83,12 @@ def _zero_state(x, B):
 def ssd_scan_bwd_ref(x, dt, A, B, C, dy, *, chunk: int):
     """The backward kernel's function: the gradients (dx, ddt, dA, dB,
     dC) of ``<dy, y>``, y the forward's output, each in its input's
-    dtype; autograd through the chunked form in fp32."""
+    dtype; autograd through the chunked form in fp32 (fp64 for fp64
+    inputs: the oracle of a diagnostic)."""
     ins = [t.detach().requires_grad_(True) for t in (x, dt, A, B, C)]
     with torch.enable_grad():
         y, _, _ = _chunked(*ins, _zero_state(x, B), chunk)
-        grads = torch.autograd.grad(y, ins, dy.float())
+        grads = torch.autograd.grad(y, ins, dy.to(y.dtype))
     return tuple(g.to(t.dtype) for g, t in zip(grads, (x, dt, A, B, C)))
 
 

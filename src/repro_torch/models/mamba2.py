@@ -1,16 +1,20 @@
-"""Mamba-2 SSD layer (arXiv:2405.21060), attention-free, train mode.
+"""Mamba-2 SSD layer (arXiv:2405.21060), attention-free.
 
-The full-sequence layer of the JAX package's ``models/mamba2.py``: z, x,
-BC and dt projections, a causal depthwise convolution with SiLU over
-[x, B, C], ``dt = softplus(dt + dt_bias)``, ``A = -exp(A_log)``, the SSD
-scan from h0 = 0 (``kernels/ssd_scan``, K6), the ``D`` skip, a gated
-per-head RMSNorm and the out projection. B and C have one group (shared
-by every head).
+The layer of the JAX package's ``models/mamba2.py``: z, x, BC and dt
+projections, a causal depthwise convolution with SiLU over [x, B, C],
+``dt = softplus(dt + dt_bias)``, ``A = -exp(A_log)``, the SSD scan, the
+``D`` skip, a gated per-head RMSNorm and the out projection. B and C
+have one group (shared by every head). TP shards the heads (and their
+channels) through ``ctx.activate``; B and C are replicated, and the
+row-parallel out projection ends in one psum.
 
-Only train mode is ported. Prefill and decode carry the recurrent state
-(conv tail and ssm state) from call to call, which needs K6 with an h0
-and a decision on the JAX engine's recurrent state (ROADMAP Queue 3);
-they raise.
+Train mode scans from h0 = 0 through K6's autograd op. Serving carries a
+per-request state ``(conv [B, cw-1, nhl*hd + 2S], ssm [B, nhl, hd, S]
+fp32)`` from call to call, batch-dense (row b is the step's batch row
+b): a prefill runs K6 from the carried ssm state (``ssd_scan_from``)
+after the convolution from the carried tail, a decode step the
+one-token update in plain torch (the JAX package's is jnp too). The
+state leaves are written in place.
 """
 from __future__ import annotations
 
@@ -58,50 +62,79 @@ def init_mamba2(generator, cfg: ArchConfig, dtype, device):
     }
 
 
-def _causal_conv(xBC, w, b, cw: int):
-    """xBC [B,T,C] after a zero prefix of cw - 1 rows (train mode: no
-    carried conv state) -> silu(depthwise causal conv + b), summed tap by
-    tap in xBC's dtype as the JAX package does."""
+def _causal_conv(xBC, w, b, cw: int, conv_state=None):
+    """xBC [B,T,C] after the carried prefix ``conv_state`` [B,cw-1,C]
+    (None: zeros, train mode) -> (silu(depthwise causal conv + b), the
+    new prefix: the last cw - 1 rows), summed tap by tap in xBC's dtype
+    as the JAX package does."""
     T = xBC.shape[1]
-    full = torch.cat([xBC.new_zeros((xBC.shape[0], cw - 1, xBC.shape[2])),
-                      xBC], dim=1)
+    if conv_state is None:
+        conv_state = xBC.new_zeros((xBC.shape[0], cw - 1, xBC.shape[2]))
+    full = torch.cat([conv_state, xBC], dim=1)
     out = full[:, 0:T] * w[0][None, None]
     for i in range(1, cw):
         out = out + full[:, i:i + T] * w[i][None, None]
-    return silu(out + b[None, None])
+    return silu(out + b[None, None]), full[:, T:]
+
+
+def ssd_decode_step(x1, dt1, A, B1, C1, h):
+    """One-token update. x1 [B,H,hd]; dt1 [B,H]; B1/C1 [B,S]; h
+    [B,H,hd,S] fp32 -> (y [B,H,hd] fp32, h')."""
+    a = torch.exp(dt1 * A[None])                         # [B,H]
+    upd = torch.einsum("bh,bhd,bs->bhds", dt1, x1.float(), B1.float())
+    h = h * a[..., None, None] + upd
+    return torch.einsum("bs,bhds->bhd", C1.float(), h), h
 
 
 def mamba2_layer(cfg: ArchConfig, p, x, ctx: TPContext, state, *,
                  mode: str):
-    """x [B,T,d] -> (y [B,T,d], None). Train mode only (``state`` None)."""
-    if mode != "train" or state is not None:
-        raise NotImplementedError(
-            f"mamba2 {mode}: the port trains Mamba-2 only; serving needs "
-            f"K6 with a carried h0 and a decision on the JAX engine's "
-            f"recurrent state (ROADMAP Queue 3)")
+    """x [B,T,d] replicated -> (y replicated, state). ``state`` is None
+    in train mode, else the layer's (conv, ssm) leaves, updated in place
+    and returned."""
     d_in, nh, hd, S, cw = dims(cfg)
+    if (state is None) != (mode == "train"):
+        raise ValueError(f"mamba2 {mode} with state "
+                         f"{'None' if state is None else 'given'}")
     B_, T, _ = x.shape
+    nhl = ctx.local_units(nh)
 
-    z = x @ p["w_z"]
-    xr = x @ p["w_x"]
+    z = x @ ctx.activate(p["w_z"], 1, nh)
+    xr = x @ ctx.activate(p["w_x"], 1, nh)
     BC = x @ p["w_BC"]
-    dt = x @ p["w_dt"]
-    conv_w = torch.cat([p["conv_x"], p["conv_BC"]], dim=1)
-    conv_b = torch.cat([p["conv_b_x"], p["conv_b_BC"]], dim=0)
-    xBC = _causal_conv(torch.cat([xr, BC], dim=-1), conv_w, conv_b, cw)
-    xr = xBC[..., :d_in].reshape(B_, T, nh, hd)
-    Bm = xBC[..., d_in:d_in + S]
-    Cm = xBC[..., d_in + S:]
+    dt = x @ ctx.activate(p["w_dt"], 1, nh)
+    conv_w = torch.cat([ctx.activate(p["conv_x"], 1, nh), p["conv_BC"]],
+                       dim=1)
+    conv_b = torch.cat([ctx.activate(p["conv_b_x"], 0, nh),
+                        p["conv_b_BC"]], dim=0)
+    conv_state, h0 = state if state is not None else (None, None)
+    xBC, conv_new = _causal_conv(torch.cat([xr, BC], dim=-1), conv_w,
+                                 conv_b, cw, conv_state)
+    xr = xBC[..., :nhl * hd].reshape(B_, T, nhl, hd)
+    Bm = xBC[..., nhl * hd:nhl * hd + S]
+    Cm = xBC[..., nhl * hd + S:]
 
-    A = -torch.exp(p["A_log"])
-    dtf = softplus(dt.float() + p["dt_bias"][None, None])
-    y, _ = ssd_ops.ssd_scan(xr, dtf, A, Bm, Cm, chunk=cfg.ssm.chunk)
+    A = -torch.exp(ctx.activate(p["A_log"], 0, nh))
+    dtf = softplus(dt.float()
+                   + ctx.activate(p["dt_bias"], 0, nh)[None, None])
+    if mode == "decode":
+        y1, h = ssd_decode_step(xr[:, 0], dtf[:, 0], A, Bm[:, 0], Cm[:, 0],
+                                h0)
+        y = y1[:, None]
+    elif state is None:
+        y, h = ssd_ops.ssd_scan(xr, dtf, A, Bm, Cm, chunk=cfg.ssm.chunk)
+    else:
+        y, h = ssd_ops.ssd_scan_from(xr, dtf, A, Bm, Cm, h0,
+                                     chunk=cfg.ssm.chunk)
 
-    y = y + xr.float() * p["D"][None, None, :, None]
-    y = y.to(x.dtype).reshape(B_, T, d_in)
-    # gated grouped RMSNorm: normalize per head
-    g = (y * silu(z)).reshape(B_, T, nh, hd)
+    y = y + xr.float() * ctx.activate(p["D"], 0, nh)[None, None, :, None]
+    y = y.to(x.dtype).reshape(B_, T, nhl * hd)
+    # gated grouped RMSNorm: normalize per head (TP-invariant)
+    g = (y * silu(z)).reshape(B_, T, nhl, hd)
     g = rms_norm(g, torch.ones((hd,), dtype=g.dtype, device=g.device),
                  cfg.norm_eps)
-    y = g.reshape(B_, T, d_in) * p["norm_w"]
-    return y @ p["w_out"], None
+    y = g.reshape(B_, T, nhl * hd) * ctx.activate(p["norm_w"], 0, nh)
+    out = ctx.psum(y @ ctx.activate(p["w_out"], 0, nh), nh)
+    if state is not None:
+        conv_state.copy_(conv_new)
+        h0.copy_(h)
+    return out, state

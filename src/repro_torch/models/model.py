@@ -9,10 +9,10 @@ prefill or decode with a cache backend; the JAX package scans each group
 of layers, the port loops over them. Per-layer states (the paged KV pool
 views) are written in place and returned as given. Train mode keeps the
 autograd graph and, as the JAX package's ``remat``, recomputes each
-layer's activations in the backward pass. Mamba-2 and RecurrentGemma
-stacks run in train mode only: their serving states are not ported, and
-asking for them raises (``check_serving``, ``layer_state``); MoE stacks
-(DeepSeek-V2, Phi-3.5-MoE) serve only, and train mode raises. Parameter
+layer's activations in the backward pass. A Mamba-2 or RG-LRU layer's
+serving state is its batch-dense recurrent rows (row b is the step's
+batch row b), updated in place too; MoE stacks (DeepSeek-V2,
+Phi-3.5-MoE) serve only, and train mode raises. Parameter
 leaves keep the dtypes the JAX package gives them, so the RG-LRU's
 decay and gate leaves stay fp32 in a bf16 model.
 
@@ -39,6 +39,9 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import sinusoidal_positions
+from repro_torch.models.mamba2 import dims as mamba_dims
+from repro_torch.models.rglru import CONV_W as RG_CONV_W
+from repro_torch.models.rglru import width as rg_width
 
 
 def _stack_into(per_layer, n: int):
@@ -113,20 +116,43 @@ class Model:
     # ------------------------------------------------------------------
     @staticmethod
     def pools_of(kind) -> int:
-        """Paged pools of a layer kind: MLA's one compressed pool, or the
-        (k, v) pair."""
-        return 1 if kind[0] == "mla" else 2
+        """Paged pools of a layer kind: MLA's one compressed pool, the
+        (k, v) pair, or none for a Mamba-2 or RG-LRU layer."""
+        return {"mla": 1, "mamba": 0, "rglru": 0}.get(kind[0], 2)
+
+    def recurrent_state(self, kind, *, ctx: TPContext, batch: int,
+                        device=None):
+        """A Mamba-2 or RG-LRU layer's recurrent rows, zeroed, at the TP
+        width of ``ctx`` (``compute_shards``, as the JAX package's
+        ``layer_state``): Mamba-2's (conv [batch, cw-1, nhl*hd + 2S],
+        ssm [batch, nhl, hd, S] fp32), RG-LRU's (conv [batch, 3, Wl], h
+        [batch, Wl] fp32); on ``device`` (default the model's)."""
+        dev = self.device if device is None else device
+        if kind[0] == "mamba":
+            _, nh, hd, S, cw = mamba_dims(self.cfg)
+            nhl = ctx.local_units(nh)
+            shapes = ((batch, cw - 1, nhl * hd + 2 * S),
+                      (batch, nhl, hd, S))
+        else:
+            wl = ctx.local_units(rg_width(self.cfg))
+            shapes = ((batch, RG_CONV_W - 1, wl), (batch, wl))
+        return (torch.zeros(shapes[0], dtype=self.dtype, device=dev),
+                torch.zeros(shapes[1], dtype=torch.float32, device=dev))
 
     def layer_state(self, kind, *, ctx: TPContext, num_blocks: int,
                     page: int, batch: int = 0, enc_frames: int = 0):
         """One layer's state, zeroed: the (k, v) pool pair [num_blocks,
         page, kvh_local, hd], or for MLA the one compressed pool
         [num_blocks, page, W] as a 1-tuple (replicated over the TP
-        group); an enc-dec attention layer adds ``"cross"``, its cross
-        K/V pair [batch, enc_frames, kvh_local, hd] (batch-dense rows of
-        the step's batch)."""
-        tfm.check_kind(kind, serving=True)
+        group), or a Mamba-2 or RG-LRU layer's ``recurrent_state`` of
+        ``batch`` rows; an enc-dec attention layer adds ``"cross"``, its
+        cross K/V pair [batch, enc_frames, kvh_local, hd] (batch-dense
+        rows of the step's batch)."""
+        tfm.check_kind(kind)
         cfg = self.cfg
+        if self.pools_of(kind) == 0:
+            return {"mixer": self.recurrent_state(kind, ctx=ctx,
+                                                  batch=batch)}
         kvl, hd = ctx.local_units(cfg.num_kv_heads), cfg.resolved_head_dim
         if kind[0] == "mla":
             shape = (num_blocks, page, attn_mod.mla_cache_width(cfg))
@@ -146,13 +172,14 @@ class Model:
         """Raise unless every layer kind of the stack can serve."""
         for kind_seq, _ in self.plan:
             for kind in kind_seq:
-                tfm.check_kind(kind, serving=True)
+                tfm.check_kind(kind)
 
     def init_states(self, *, ctx: TPContext, num_blocks: int, page: int,
                     batch: int = 0, enc_frames: int = 0):
         """Full stacked state tree aligned with the stack plan: per group,
         per kind, {"mixer": (k [n, ...], v [n, ...])} (MLA: (pool [n,
-        ...],)), and for an enc-dec stack {"cross": (k [n, batch,
+        ...],); Mamba-2 and RG-LRU: their recurrent rows [n, batch,
+        ...]), and for an enc-dec stack {"cross": (k [n, batch,
         enc_frames, ...], v [n, ...])} beside it."""
         groups = []
         for kind_seq, n in self.plan:

@@ -1,23 +1,25 @@
-"""RG-LRU recurrent block (RecurrentGemma / Griffin, arXiv:2402.19427),
-train mode.
+"""RG-LRU recurrent block (RecurrentGemma / Griffin, arXiv:2402.19427).
 
-The full-sequence block of the JAX package's ``models/rglru.py``: the
-input and gate projections, a 4-tap causal depthwise convolution (no
-activation) over the input branch, the fp32 gates
+The block of the JAX package's ``models/rglru.py``: the input and gate
+projections, a 4-tap causal depthwise convolution (no activation) over
+the input branch, the fp32 gates
 
     r_t = sigmoid(w_a * u_t + b_a),  i_t = sigmoid(w_i * u_t + b_i),
     log a_t = -8 * softplus(Lambda) * r_t,
     g_t = sqrt(max(1 - a_t^2, 1e-12)) * (i_t * u_t),
 
-the recurrence ``h_t = a_t h_{t-1} + g_t`` from h0 = 0
-(``kernels/rglru_scan``, K7), the GeLU gate and the out projection. The
-gates are per-channel (diagonal) weights, as in the JAX package, and
-their leaves and Lambda are fp32 in a model of any dtype.
+the recurrence ``h_t = a_t h_{t-1} + g_t``, the GeLU gate and the out
+projection. The gates are per-channel (diagonal) weights, as in the JAX
+package, and their leaves and Lambda are fp32 in a model of any dtype.
+TP shards the channels through ``ctx.activate``; the row-parallel out
+projection ends in one psum.
 
-Only train mode is ported. Prefill and decode carry the recurrent state
-(conv tail and h) from call to call, which needs K7 with an h0 and a
-decision on the JAX engine's recurrent state (ROADMAP Queue 3); they
-raise.
+Train mode runs the recurrence from h0 = 0 through K7's autograd op.
+Serving carries a per-request state ``(conv [B, 3, Wl], h [B, Wl]
+fp32)`` from call to call, batch-dense (row b is the step's batch row
+b): a prefill runs K7 from the carried h (``rglru_scan_from``) after the
+convolution from the carried tail, a decode step one plain elementwise
+update. The state leaves are written in place.
 """
 from __future__ import annotations
 
@@ -60,31 +62,47 @@ def init_rglru(generator, cfg: ArchConfig, dtype, device):
 
 def rglru_block(cfg: ArchConfig, p, x, ctx: TPContext, state, *,
                 mode: str):
-    """x [B,T,d] -> (y [B,T,d], None). Train mode only (``state`` None)."""
-    if mode != "train" or state is not None:
-        raise NotImplementedError(
-            f"rglru {mode}: the port trains RecurrentGemma only; serving "
-            f"needs K7 with a carried h0 and a decision on the JAX engine's "
-            f"recurrent state (ROADMAP Queue 3)")
+    """x [B,T,d] replicated -> (y replicated, state). ``state`` is None
+    in train mode, else the layer's (conv, h) leaves, updated in place
+    and returned."""
+    if (state is None) != (mode == "train"):
+        raise ValueError(f"rglru {mode} with state "
+                         f"{'None' if state is None else 'given'}")
+    w = width(cfg)
     T = x.shape[1]
-    u = x @ p["w_x"]
-    gate = gelu(x @ p["w_gate"])
-    # causal conv from a zero state, summed tap by tap in x's dtype as the
-    # JAX package sums it, then the bias
-    full = torch.cat([u.new_zeros((u.shape[0], CONV_W - 1, u.shape[2])), u],
-                     dim=1)
-    u = full[:, 0:T] * p["conv_w"][0][None, None]
+    u = x @ ctx.activate(p["w_x"], 1, w)
+    gate = gelu(x @ ctx.activate(p["w_gate"], 1, w))
+    cw = ctx.activate(p["conv_w"], 1, w)
+    conv_state, h0 = state if state is not None else (None, None)
+    if conv_state is None:
+        conv_state = u.new_zeros((u.shape[0], CONV_W - 1, u.shape[2]))
+    # causal conv from the carried tail, summed tap by tap in x's dtype
+    # as the JAX package sums it, then the bias
+    full = torch.cat([conv_state, u], dim=1)
+    u = full[:, 0:T] * cw[0][None, None]
     for i in range(1, CONV_W):
-        u = u + full[:, i:i + T] * p["conv_w"][i][None, None]
-    u = u + p["conv_b"][None, None]
+        u = u + full[:, i:i + T] * cw[i][None, None]
+    u = u + ctx.activate(p["conv_b"], 0, w)[None, None]
 
     uf = u.float()
-    r = torch.sigmoid(uf * p["gate_a_w"] + p["gate_a_b"])
-    i = torch.sigmoid(uf * p["gate_i_w"] + p["gate_i_b"])
-    log_a = -8.0 * softplus(p["lam"]) * r                 # <= 0
+    r = torch.sigmoid(uf * ctx.activate(p["gate_a_w"], 0, w)
+                      + ctx.activate(p["gate_a_b"], 0, w))
+    i = torch.sigmoid(uf * ctx.activate(p["gate_i_w"], 0, w)
+                      + ctx.activate(p["gate_i_b"], 0, w))
+    log_a = -8.0 * softplus(ctx.activate(p["lam"], 0, w)) * r   # <= 0
     a = torch.exp(log_a)
     g = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12)) \
         * (i * uf)
-    y, _ = rg_ops.rglru_scan(a, g)
+    if mode == "decode":
+        h = a[:, 0] * h0 + g[:, 0]
+        y = h[:, None]
+    elif state is None:
+        y, h = rg_ops.rglru_scan(a, g)
+    else:
+        y, h = rg_ops.rglru_scan_from(a, g, h0)
     y = y.to(x.dtype) * gate
-    return y @ p["w_out"], None
+    out = ctx.psum(y @ ctx.activate(p["w_out"], 0, w), w)
+    if state is not None:
+        state[0].copy_(full[:, T:])
+        h0.copy_(h)
+    return out, state

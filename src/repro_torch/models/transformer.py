@@ -9,12 +9,13 @@ gated ``mlp``, or whisper's ``("gqa", "gelu_mlp")``: an enc-dec decoder
 layer adds a cross-attention sub-block over the encoder's output), serves
 MLA and MoE stacks (DeepSeek-V2's ``("mla", "mlp")`` then ``("mla",
 "moe")``, Phi-3.5-MoE's ``("gqa", "moe")``; MoE training, with its
-load-balance loss, is not ported), trains Mamba-2 stacks (``("mamba",
-"none")``: no ``norm2`` and no FFN, so the parameter tree is the JAX
-package's leaf for leaf) and trains the hybrid stack (``("rglru",
+load-balance loss, is not ported), and serves and trains Mamba-2 stacks
+(``("mamba", "none")``: no ``norm2`` and no FFN, so the parameter tree
+is the JAX package's leaf for leaf) and the hybrid stack (``("rglru",
 "gelu_mlp")`` and ``("gqa_win", "gelu_mlp")``: the RG-LRU block or
-windowed attention, then the ungated GeLU MLP); it raises on the other
-kinds, and on serving a Mamba-2 or hybrid stack.
+windowed attention over the paged pool with the config's window, then
+the ungated GeLU MLP); it raises on the other kinds. A Mamba-2 or RG-LRU
+layer's serving state is its batch-dense recurrent rows, not a pool.
 
 Whisper's encoder (``encode``) and the cross-attention are plain torch,
 as they are plain jnp in the JAX package: bidirectional attention with
@@ -74,28 +75,17 @@ LOCAL_ATTN: Kind = ("gqa_win", "gelu_mlp")
 ENC_DEC: Kind = ("gqa", "gelu_mlp")
 
 
-def check_kind(kind: Kind, *, serving: bool = False) -> None:
-    """Raise unless the port runs this kind (in serving, if asked)."""
+def check_kind(kind: Kind) -> None:
+    """Raise unless the port runs this kind (it serves and trains every
+    kind it runs; MoE training raises in ``Model.forward``)."""
     mixer, ffn = kind
-    if kind == MAMBA:
-        if serving:
-            raise NotImplementedError(
-                "Mamba-2 serving is not ported: it needs K6 with a carried "
-                "h0 and a decision on the JAX engine's recurrent state "
-                "(ROADMAP Queue 3); the port trains Mamba-2 stacks only")
-    elif kind in (RGLRU, LOCAL_ATTN):
-        if serving:
-            raise NotImplementedError(
-                "RecurrentGemma serving is not ported: it needs K7 with a "
-                "carried h0 and a decision on the JAX engine's recurrent "
-                "state (ROADMAP Queue 3); the port trains hybrid stacks "
-                "only")
-    elif kind != ENC_DEC and (mixer not in ("gqa", "gqa_win", "mla")
-                              or ffn not in ("mlp", "moe")):
+    if kind not in (MAMBA, RGLRU, LOCAL_ATTN, ENC_DEC) and (
+            mixer not in ("gqa", "gqa_win", "mla")
+            or ffn not in ("mlp", "moe")):
         raise NotImplementedError(
             f"layer kind {kind}: the port runs GQA and MLA stacks with a "
-            f"gated MLP or MoE and whisper's GQA with the GeLU MLP, and "
-            f"trains Mamba-2 and RecurrentGemma stacks")
+            f"gated MLP or MoE, whisper's GQA with the GeLU MLP, Mamba-2 "
+            f"and RecurrentGemma stacks")
 
 
 def init_layer(generator, cfg: ArchConfig, kind: Kind, dtype, device):
@@ -171,8 +161,8 @@ def apply_layer(cfg: ArchConfig, kind: Kind, p, x, ctx: TPContext, backend,
                 window: Optional[int] = None, cross=None, enc_out=None,
                 enc_len=None):
     """One pre-norm decoder layer. ``state`` is the layer's (k, v) pool
-    pair, or its one compressed pool for MLA (None for a Mamba-2 or
-    RG-LRU layer, which runs in train mode only); returns (x, state).
+    pair, its one compressed pool for MLA, or a Mamba-2 or RG-LRU layer's
+    recurrent rows (None in train mode); returns (x, state).
 
     An enc-dec layer runs its cross-attention sub-block between the mixer
     and the FFN: over K/V projected from ``enc_out`` when the encoder ran

@@ -19,13 +19,15 @@ same tolerance (both sides compute in fp32 from the same bf16 values),
 its bf16 gradients one bf16 unit (rtol 1e-2, atol 1e-2 of the largest
 entry). The RG-LRU recurrence (K7) at rtol 1e-4 and an atol of 1e-4
 times each output's largest entry (da sums up to T products), its bf16
-gradients one bf16 unit (rtol 2^-7) more. K5's bf16 kernels run on the
+gradients one bf16 unit (rtol 2^-7) more; K6's and K7's forwards from a
+carried h0 (serving) at the same tolerances. K5's bf16 kernels run on the
 tensor cores with P and dS as bf16 hi + lo halves (16 bits), so they
 too round about once: the bf16 tolerance above. Their tile products
 and the bf16 training runs state their own bounds. The paged decode (K2,
 split-K) and prefill (K4; bf16 on the tensor cores, every other dtype
 pair on the CUDA cores) kernels are held at rep = H/KV of 1, 4, 7 and
-12, hd 64 and 128, pages of 4, 16 and 128, all four q/pool dtype pairs:
+12, hd 64 and 128 (and hd 256 at rep 16 on one kv head, with a window),
+pages of 4, 16 and 128, all four q/pool dtype pairs:
 their outputs at the tolerance of q's dtype, their lse (from fp32 q, or
 from bf16 q with exact bf16 products) at the fp32 one. The MLA decode
 kernel (K2 at MLA width: KV 1, fp32 q over a bf16 or fp32 compressed
@@ -1285,3 +1287,115 @@ def test_live_sp_fault_traces_on_the_card_match_the_cpu(cuda, tmp_path):
             runs.append(json.load(f))
     got = chip_smoke.check_live_runs(runs)
     assert got["live"]["preempt"]["live_riders"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Bs,T,H,hd,S,chunk", [
+    (2, 100, 3, 32, 32, 32), (2, 512, 4, 64, 128, 128)])
+def test_ssd_scan_from_h0_matches_plain(cuda, dtype, Bs, T, H, hd, S,
+                                        chunk):
+    """K6's forward from a nonzero h0 (a serving prefill's later chunk)
+    through ``ops.ssd_scan_from`` (T padded) against ``ref.ssd_chunked``
+    from the same h0: y and hT at K6's tolerance, one launch counted as
+    ``ssd_scan_from`` and none as the training route's ``ssd_scan``."""
+    rng = np.random.default_rng(11)
+    ch = min(chunk, T)
+    Tp = T + (-T) % ch
+
+    def t(shape, scale=1.0, dt_=dtype):
+        return torch.from_numpy(rng.standard_normal(shape) * scale).to(
+            cuda, dt_)
+    x, B, C = t((Bs, Tp, H, hd)), t((Bs, Tp, S), 0.5), t((Bs, Tp, S), 0.5)
+    dt = torch.nn.functional.softplus(t((Bs, Tp, H), dt_=torch.float32))
+    dt[:, T:] = 0.0                       # the op's pad: identity steps
+    A = -torch.exp(t((H,), dt_=torch.float32))
+    h0 = t((Bs, H, hd, S), dt_=torch.float32)
+    _lib.reset_launches()
+    y, hT = sops.ssd_scan_from(x[:, :T], dt[:, :T], A, B[:, :T], C[:, :T],
+                               h0, chunk=chunk)
+    assert _lib.LAUNCHES["ssd_scan_from"] == 1
+    assert _lib.LAUNCHES["ssd_scan"] == 0
+    wy, wh = sref.ssd_chunked(x, dt, A, B, C, h0, ch)
+    _ssd_close(y, wy[:, :T])
+    _ssd_close(hT, wh)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,C", [(2, 64, 128), (3, 5, 130), (1, 1, 96)])
+def test_rglru_scan_from_h0_matches_plain(cuda, dtype, B, T, C):
+    """K7's forward from a nonzero h0 (a within 1e-3 of 1, so h0 reaches
+    every step) against the plain recurrence from it, one launch counted
+    as ``rglru_scan_from``."""
+    rng = np.random.default_rng(12)
+    a = torch.from_numpy(1.0 - 1e-3 * rng.random((B, T, C))).to(cuda, dtype)
+    g = torch.from_numpy(0.5 * rng.standard_normal((B, T, C))).to(cuda,
+                                                                 dtype)
+    h0 = torch.from_numpy(rng.standard_normal((B, C))).to(cuda,
+                                                          torch.float32)
+    _lib.reset_launches()
+    y, hT = rops.rglru_scan_from(a, g, h0)
+    assert _lib.LAUNCHES["rglru_scan_from"] == 1
+    assert _lib.LAUNCHES["rglru_scan"] == 0
+    wy, wh = rref.rglru_scan_ref(a, g, h0)
+    _ssd_close(y, wy)
+    _ssd_close(hT, wh)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pair", list(DTYPE_PAIRS))
+def test_paged_kernels_at_hd256_match_plain(cuda, pair):
+    """K2 and K4 at RecurrentGemma's local attention (16 heads of 256 on
+    one kv head) over contexts past a window of 37, at page 16 and 4:
+    K2 split and unsplit with its lse, K4 at a ragged T of 70 (the causal
+    sweep with and without the window, and prior_only), against their
+    plain versions."""
+    from repro_torch.kernels.paged_attention import kernel as pker
+    qdt, kvdt = DTYPE_PAIRS[pair]
+    T_ = 70
+    for page, MB_ in ((16, 20), (4, 40)):
+        c = _paged(cuda, 16, 1, 256, page, MB_, qdt, kvdt, T_=T_)
+        ctx = torch.tensor([0, 1, MB_ * page], dtype=torch.int32,
+                           device=cuda)
+        args = (c["q1"], c["kp"], c["vp"], c["bt"], ctx)
+        for window in (None, 37):
+            for splits in (None, 1):
+                torch.testing.assert_close(
+                    pker.paged_attention_kernel(*args, window=window,
+                                                splits=splits),
+                    pref.paged_attention_ref(*args, window=window),
+                    **_tol(qdt))
+                o, lse = pker.paged_attention_kernel(
+                    *args, window=window, splits=splits, return_lse=True)
+                wo, wl = pref.paged_attention_with_lse_ref(
+                    c["q1"].float(), *args[1:], window=window)
+                torch.testing.assert_close(o.float(), wo, **_tol(qdt))
+                torch.testing.assert_close(lse, wl, **_tol(torch.float32))
+        prior = torch.tensor([0, 5, MB_ * page - T_], dtype=torch.int32,
+                             device=cuda)
+        args = (c["qT"], c["kp"], c["vp"], c["bt"], prior)
+        for window, prior_only in ((None, False), (37, False), (None, True)):
+            o, lse = fker.paged_flash_prefill_kernel(
+                *args, window=window, prior_only=prior_only,
+                return_lse=True)
+            wo, wl = fref.paged_prefill_sweep_with_lse_ref(
+                c["qT"].float(), *args[1:], window=window,
+                prior_only=prior_only)
+            torch.testing.assert_close(o.float(), wo, **_tol(qdt))
+            torch.testing.assert_close(lse, wl, **_tol(torch.float32))
+
+
+@pytest.mark.gpu
+def test_recurrent_steps_on_the_card_match_the_cpu(cuda):
+    """``chip_smoke.py`` phase 18 (a): the reduced mamba2-2.7b and the
+    3-layer reduced recurrentgemma-9b in fp32, 4 prompts of 80 tokens in
+    two prefill chunks (the second from the carried state) and 4 decode
+    steps, on the card and on the CPU: greedy tokens equal, logits within
+    1e-4, K6 or K7 from h0 (and K1-K4) launched as many times as the
+    layers and steps say."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    chip_smoke.recurrent_reduced(torch, np)

@@ -182,7 +182,16 @@ def test_unported_paths_raise():
         mla_attention(cfg, p["groups"][0][0]["attn"],
                       torch.zeros((1, 1, cfg.d_model)), SINGLE, live, None,
                       positions=torch.zeros((1, 1), dtype=torch.long))
-    for arch in ("mamba2-2.7b", "recurrentgemma-9b"):  # trains, not serves
-        with pytest.raises(NotImplementedError):
-            build_model(get_config(arch).reduced(), torch.float32,
-                        "cpu").check_serving()
+    # Mamba-2 and RecurrentGemma serve at step level; the engine keeps no
+    # batch-dense recurrent rows with their request (Queue 1 item 2.4)
+    from repro_torch.core.engine import FlyingEngine
+    from repro_torch.core.kv_adaptor import PoolGeometry
+    from repro_torch.core.modes import ParallelPlan
+    plan = ParallelPlan(1, 1, 1)
+    for arch in ("mamba2-2.7b", "recurrentgemma-9b"):
+        m = build_model(get_config(arch).reduced(), torch.float32, "cpu")
+        m.check_serving()
+        with pytest.raises(NotImplementedError, match="Queue 1 item 2.4"):
+            FlyingEngine(m, plan, PoolGeometry(m.cfg, plan, num_blocks=16,
+                                               block_base=4), None,
+                         device="cpu")

@@ -277,8 +277,8 @@ def test_rglru_block_matches_jax(hybrid, T):
         np.testing.assert_allclose(g.detach().numpy(), w, rtol=1e-4,
                                    atol=1e-4 * np.abs(w).max(),
                                    err_msg=name)
-    for mode in ("prefill", "decode"):
-        with pytest.raises(NotImplementedError):
+    for mode in ("prefill", "decode"):   # serving needs the carried rows
+        with pytest.raises(ValueError):
             rglru.rglru_block(cfg, tl, tx, SINGLE, None, mode=mode)
 
 
@@ -404,18 +404,23 @@ def test_serving_refuses_the_hybrid_stack(hybrid):
     from repro_torch.core.modes import ParallelPlan
     from repro_torch.launch.serve import ServeConfig, build_stack
     _, _, cfg, tm, tp = hybrid
-    for kind in (("rglru", "gelu_mlp"), ("gqa_win", "gelu_mlp")):
-        with pytest.raises(NotImplementedError):
-            tm.layer_state(kind, ctx=SINGLE, num_blocks=4, page=4)
-    with pytest.raises(NotImplementedError):
-        tm.check_serving()
-    with pytest.raises(NotImplementedError):
-        tm.init_states(ctx=SINGLE, num_blocks=4, page=4)
+    # the stack serves at step level (tests/test_torch_recurrent.py): an
+    # RG-LRU layer's state is its recurrent rows, a local-attention
+    # layer's its pool pair
+    conv, h = tm.layer_state(("rglru", "gelu_mlp"), ctx=SINGLE,
+                             num_blocks=4, page=4, batch=2)["mixer"]
+    assert conv.shape == (2, 3, cfg.d_model) and h.dtype == torch.float32
+    assert len(tm.layer_state(("gqa_win", "gelu_mlp"), ctx=SINGLE,
+                              num_blocks=4, page=4)["mixer"]) == 2
+    tm.check_serving()
+    tm.init_states(ctx=SINGLE, num_blocks=4, page=4, batch=2)
+    # the engine and the launcher keep no batch-dense rows with their
+    # request (ROADMAP Queue 1 item 2.4)
     plan = ParallelPlan(engine_rows=1, tp_base=1, data_rows=1)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 2.4"):
         FlyingEngine(tm, plan, PoolGeometry(cfg, plan, num_blocks=16,
                                             block_base=4), tp,
                      device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 2.4"):
         build_stack(ServeConfig(arch=ARCH, real=True, reduced=True,
                                 device="cpu", dtype="float32"))

@@ -289,8 +289,8 @@ def test_mamba2_layer_matches_jax(mamba, T):
                                    None, mode="train")
     assert st is None and tst is None
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
-    for mode in ("prefill", "decode"):
-        with pytest.raises(NotImplementedError):
+    for mode in ("prefill", "decode"):   # serving needs the carried rows
+        with pytest.raises(ValueError):
             mamba2.mamba2_layer(cfg, layer, torch.from_numpy(x), SINGLE,
                                 None, mode=mode)
 
@@ -397,16 +397,22 @@ def test_serving_refuses_ssm(mamba):
     from repro_torch.core.modes import ParallelPlan
     from repro_torch.launch.serve import ServeConfig, build_stack
     _, _, cfg, tm, tp = mamba
-    with pytest.raises(NotImplementedError):
-        tm.layer_state(("mamba", "none"), ctx=SINGLE, num_blocks=4, page=4)
-    with pytest.raises(NotImplementedError):
-        tm.init_states(ctx=SINGLE, num_blocks=4, page=4)
+    # the stack serves at step level (tests/test_torch_recurrent.py): a
+    # layer's state is its recurrent rows, no pool
+    conv, ssm = tm.layer_state(("mamba", "none"), ctx=SINGLE, num_blocks=4,
+                               page=4, batch=2)["mixer"]
+    d_in, nh, hd, S, cw = mamba2.dims(cfg)
+    assert conv.shape == (2, cw - 1, d_in + 2 * S)
+    assert ssm.shape == (2, nh, hd, S) and ssm.dtype == torch.float32
+    tm.init_states(ctx=SINGLE, num_blocks=4, page=4, batch=2)
+    # the engine and the launcher keep no batch-dense rows with their
+    # request (ROADMAP Queue 1 item 2.4)
     plan = ParallelPlan(engine_rows=1, tp_base=1, data_rows=1)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 2.4"):
         FlyingEngine(tm, plan, PoolGeometry(cfg, plan, num_blocks=16,
                                             block_base=4), tp,
                      device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 2.4"):
         build_stack(ServeConfig(arch="mamba2-2.7b", real=True,
                                 reduced=True, device="cpu",
                                 dtype="float32"))
