@@ -64,7 +64,9 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    and with fp32 q and the LSE, timed beside SDPA under the same mask,
    and K6 and K7 from a nonzero h0 (B 8 x 512: mamba2-2.7b's 80 heads of
    64 with d_state 128, recurrentgemma-9b's 4096 channels) at K6's
-   tolerance; and a diagnostic line (no check) beside the bf16 op's dA
+   tolerance, then (phase 19's) both again on a masked ragged batch (8
+   rows of 0 to 512 real positions, dt zero or a = 1 and g = 0 past
+   them; K6 in fp32 and bf16); and a diagnostic line (no check) beside the bf16 op's dA
    at T = 100: the kernel's and the fp32 plain version's distance from
    the plain backward in fp64 on the same inputs;
 4. serve a small request trace with the reduced llama3-8b in fp32 on the
@@ -269,6 +271,30 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    amplify bf16 rounding with depth, so greedy tokens are not held to a
    near-tie bound here); the prefill chunks' ms, the median decode
    step's ms, decode tok/s and the peak printed.
+19. (run after phase 18) mamba2-2.7b and recurrentgemma-9b through
+   ``DynamicScheduler`` -> ``FlyingEngine``, each request holding one
+   recurrent row from its first prefill chunk to its end, every step
+   staging ``valid`` (pads and idle rows leave the states alone), no
+   mixed step: (a) the reduced configs of phase 18 (a) in fp32 from the
+   same weights, 8 requests of 24-88 prompt tokens in chunks of 32 (a
+   step holds chunks of 8, 24 and 32) and 4-12 out over 4 batch rows
+   (later requests reuse finished ones' rows), every step reporting 10
+   ms: card tokens equal the CPU's and each request's tokens equal its
+   own batch-1 run through ``build_serve_step`` on the card (the same
+   chunks, then greedy decode steps), K6 or K7 from h0 launched; (b)
+   both at full width cut to 4 layers in fp32 (recurrentgemma-9b's third
+   layer its local attention at hd 256), ``SLOW_DECAY``, 6 requests of
+   300-1500 prompt tokens in chunks of 512 and 8-16 out over 4 rows,
+   through the engine and each alone at batch 1 through the step:
+   tokens equal, or equal up to a near-tie within NEAR_TIE_SD of the
+   step's logits; (c) both at full width and depth in bf16
+   (``SLOW_DECAY``) through the launcher's real path (``serve_config``:
+   16 requests at Poisson 20/s, prompts 256-3072, outputs 32-64, 8 rows,
+   chunks of 512), launches counted from zero: every request done, every
+   token in the vocab, K6 or K7 from h0 once a recurrent layer a prefill
+   step, K3/K4 once an attention layer a prefill step, K1/K2 once a
+   decode step; the steps by phase, TTFT p50/p90, TPOT p50, output tok/s
+   and the peak printed.
 
 Each kernel's launch count in the JSON record comes from the path that
 runs it: K1-K4 from phase 5, K5 and its backward at hd 128 from phase 8
@@ -276,9 +302,9 @@ and at hd 256 from phase 12, K6 and its backward from phase 10, K7 and
 its backward from phase 12, mla_decode and the one-pool K1 and K3 from
 phase 15 (b)'s first run, K2 with its LSE from phase 16 (b)'s trace and
 mla_decode with its LSE from phase 16 (c)'s striped run, on rank 0,
-K6 and K7 from h0 and K2 and K4 at hd 256 from phase 18 (b) (phase 14
+K6 and K7 from h0 and K2 and K4 at hd 256 from phase 19 (c) (phase 14
 prints its own K1-K4 counts, and K2's and K4's LSE launches, in its rank
-processes; phase 17 prints the K1-K5 counts of its own runs). The line
+processes; phases 17 and 18 print the counts of their own runs). The line
 before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -645,6 +671,10 @@ def kernel_checks(torch, np):
     # at hd 256 with a window, K6 and K7 from a carried state
     torch.cuda.empty_cache()
     rows.extend(recurrent_rows(torch, np, rng, gen, close))
+    # phase 19's masked ragged batches, after phase 18's for the same
+    # reason
+    torch.cuda.empty_cache()
+    masked_recurrent_checks(torch, gen)
     _lib.reset_launches()
     torch.cuda.empty_cache()
     return rows
@@ -949,6 +979,52 @@ def recurrent_rows(torch, np, rng, gen, close):
         bound_ms=bms, bound_by=by, library_ms=None))
     del a, g, h0, y, wy
     return rows
+
+
+def masked_recurrent_checks(torch, gen) -> None:
+    """K6 and K7 from a nonzero h0 on a masked ragged batch, as phase 19's
+    engine stages a prefill chunk: 8 rows of 512 positions with 512, 1,
+    0, 300, 511, 77, 256 and 129 real ones, dt zero (K6) or a = 1 and g =
+    0 (K7) past each row's count; K6 at mamba2-2.7b's shape in fp32 and
+    bf16, K7 at recurrentgemma-9b's in fp32, against their plain versions
+    at K6's tolerance (every position, and hT)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.rglru_scan import kernel as rk
+    from repro_torch.kernels.rglru_scan import ref as rr
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    from repro_torch.kernels.ssd_scan import ref as sr
+    dev = torch.device("cuda")
+    valid = torch.tensor([512, 1, 0, 300, 511, 77, 256, 129], device=dev)
+    B, T = len(valid), 512
+    pad = torch.arange(T, device=dev)[None] >= valid[:, None]
+
+    def rnd(shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    Hs, hds, S, ch = 80, 64, 128, 128
+    for dtype in (torch.float32, torch.bfloat16):
+        x = F.silu(rnd((B, T, Hs, hds))).to(dtype)
+        dt = torch.where(pad[..., None], 0.0, F.softplus(rnd((B, T, Hs))))
+        A = -torch.linspace(1.0, 16.0, Hs, device=dev)
+        Bm, Cm = (F.silu(rnd((B, T, S))).to(dtype) for _ in range(2))
+        h0 = rnd((B, Hs, hds, S))
+        y, hT, _ = sk.ssd_scan_kernel(x, dt, A, Bm, Cm, chunk=ch, h0=h0)
+        wy, wh = sr.ssd_chunked(x, dt, A, Bm, Cm, h0, ch)
+        tag = f"ssd_scan from h0 {dtype} masked ragged [{B},{T},{Hs},{hds}]"
+        for n, g, w in (("y", y, wy), ("hT", hT, wh)):
+            ssd_close(torch, g, w, f"{tag} {n}")
+        del x, dt, Bm, Cm, h0, y, hT, wy, wh
+    C = 4096
+    a = torch.where(pad[..., None], 1.0,
+                    1.0 - 1e-3 * torch.rand((B, T, C), generator=gen,
+                                            device=dev))
+    g = torch.where(pad[..., None], 0.0, 0.5 * rnd((B, T, C)))
+    h0 = rnd((B, C))
+    y, hT = rk.rglru_scan_kernel(a, g, h0)
+    wy, wh = rr.rglru_scan_ref(a, g, h0)
+    tag = f"rglru_scan from h0 fp32 masked ragged [{B},{T},{C}]"
+    for n, got, want in (("y", y, wy), ("hT", hT, wh)):
+        ssd_close(torch, got, want, f"{tag} {n}")
 
 
 def mla_rows(torch, np, rng, close):
@@ -4607,7 +4683,7 @@ def recurrent_fidelity(torch, model, params, prompts, res, rows: int = 2):
                                    "dense": max(dense)}, "flips": flips}
 
 
-def recurrent_full_width(torch, np, smi: str) -> dict:
+def recurrent_full_width(torch, np, smi: str) -> None:
     """Phase 18 (b): mamba2-2.7b (64 layers, d_model 2560, 80 heads of 64,
     d_state 128) and recurrentgemma-9b (38 layers: 26 RG-LRU and 12 local
     attention, 16 heads of 256 on one kv head, window 2048, vocab 256000)
@@ -4621,12 +4697,10 @@ def recurrent_full_width(torch, np, smi: str) -> dict:
     held to ``recurrent_launches``; every token in the vocab, every
     step's logits finite, and two requests' served logits held against a
     dense fp32 forward within RECURRENT_FIDELITY times the bf16 dense
-    forward's distance from it. Returns the launches of the new kernel
-    rows."""
+    forward's distance from it."""
     from repro_torch.kernels import _lib
     from repro_torch.models.model import build_model
     from repro_torch.training.checkpoint import tree_leaves
-    out = {}
     P, chunk, decodes = 3072, 512, 32
     for arch in RECURRENT_ARCHS:
         cfg = recurrent_config(arch, reduced=False)
@@ -4677,6 +4751,261 @@ def recurrent_full_width(torch, np, smi: str) -> dict:
               f"row deviations from the fp32 dense forward, over "
               f"{RECURRENT_FIDELITY}x the bf16 dense forward's "
               f"{md['dense']:.3f}")
+        del model, params, res
+        gc_collect(torch)
+
+
+def serve_recurrent(torch, np, smi: str) -> None:
+    """Phase 18: (a) the reduced configs card == CPU at step level from
+    carried states, (b) both models at full width and depth served at
+    step level."""
+    t0 = time.perf_counter()
+    recurrent_reduced(torch, np)
+    t1 = time.perf_counter()
+    recurrent_full_width(torch, np, smi)
+    print(f"recurrent: {smi}; (a) {t1 - t0:.1f} s, (b) "
+          f"{time.perf_counter() - t1:.1f} s; phase 18 took "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 19: Mamba-2 and RecurrentGemma through the engine and the scheduler
+# ---------------------------------------------------------------------------
+
+# (prompt, output) of phase 19 (a)'s requests: those of
+# tests/test_torch_recurrent_engine.py, prefilled in chunks of 32 (last
+# chunks of 24, 8 and 32 tokens), four batch rows
+ENGINE_TRACE = ((24, 6), (56, 12), (88, 4), (40, 9), (72, 5), (24, 11),
+                (88, 7), (40, 4))
+# phase 19 (b)'s, at full width: prefill chunks of 512
+WIDE_TRACE = ((300, 8), (1500, 16), (812, 12), (1024, 9), (517, 16),
+              (1333, 10))
+
+
+def engine_serve(torch, model, params, trace, *, chunk: int, bpe: int,
+                 num_blocks: int, block_base: int, max_blocks: int) -> dict:
+    """Serves ``trace`` [(prompt, output)] through DynamicScheduler over
+    FlyingEngine at ``ParallelPlan(1, 1, 1)`` (HARD, the layout pinned),
+    requests arriving 5 ms apart, every step reporting 10 ms
+    (``FixedClock``), so that any two runs batch alike. Returns each
+    request's tokens and prompt ids, and the scheduler's phases."""
+    from repro_torch.core.engine import FlyingEngine
+    from repro_torch.core.kv_adaptor import PoolGeometry
+    from repro_torch.core.modes import ParallelPlan
+    from repro_torch.core.scheduler import DynamicScheduler, SchedulerConfig
+    from repro_torch.core.task_pool import Request
+    plan = ParallelPlan(engine_rows=1, tp_base=1, data_rows=1)
+    geom = PoolGeometry(model.cfg, plan, num_blocks=num_blocks,
+                        block_base=block_base)
+    eng = FlyingEngine(model, plan, geom, params, batch_per_engine=bpe,
+                       max_blocks_per_req=max_blocks, device=model.device)
+    sched = DynamicScheduler(plan, geom, FixedClock(eng), SchedulerConfig(
+        strategy="hard", max_batch_per_group=bpe, prefill_chunk=chunk))
+    reqs = [Request(req_id=f"r{i}", arrival=0.005 * i, prompt_len=p,
+                    output_len=o) for i, (p, o) in enumerate(trace)]
+    for r in reqs:
+        sched.submit(r)
+    sched.run(max_steps=5000)
+    check(all(r.state == "done" for r in reqs),
+          f"{model.cfg.name}: engine requests not done")
+    return {"tokens": {r.req_id: list(map(int, eng.generated_tokens(
+                r.req_id))) for r in reqs},
+            "prompts": {r.req_id: eng.prompt_tokens(r) for r in reqs},
+            "phases": [e.phase for e in sched.log]}
+
+
+def step_reference(torch, np, model, params, run: dict, trace, chunk: int,
+                   block_base: int) -> dict:
+    """Each request of an ``engine_serve`` run alone at batch 1 through
+    ``build_serve_step`` (``recurrent_steps``: the same prefill chunks,
+    then greedy decode steps): its tokens and each step's logits."""
+    out = {}
+    for (rid, prompt), (P, o) in zip(run["prompts"].items(), trace):
+        res = recurrent_steps(torch, np, model, params,
+                              np.asarray(prompt)[None], chunk, o - 1,
+                              num_blocks=-(-(P + o) // block_base) + 2,
+                              block_base=block_base)
+        out[rid] = {"tokens": res["tokens"][0],
+                    "logits": res["logits"][res["prefills"] - 1:]}
+    return out
+
+
+def hold_to_reference(torch, run: dict, ref: dict, what: str,
+                      near_ties: bool) -> dict:
+    """Each request's engine tokens against its batch-1 step tokens:
+    equal, or with ``near_ties`` equal up to a first difference where
+    the step's logits put the engine's token within NEAR_TIE_SD of the
+    row's deviation of the step's own (past it the two sequences
+    continue from different tokens). Returns the tokens held and the
+    near-ties taken."""
+    held = ties = 0
+    worst = 0.0
+    for rid, got in run["tokens"].items():
+        want = ref[rid]["tokens"]
+        check(len(got) == len(want), f"{what} {rid}: {len(got)} tokens, "
+              f"the step gave {len(want)}")
+        j = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                 None)
+        held += len(got) if j is None else j
+        if j is None:
+            continue
+        row = ref[rid]["logits"][j][0].float()
+        margin = float(row.max() - row[got[j]])
+        worst = max(worst, margin / (NEAR_TIE_SD * float(row.std())))
+        check(near_ties and margin <= NEAR_TIE_SD * float(row.std()),
+              f"{what} {rid}: token {j} is {got[j]}, the batch-1 step's "
+              f"{want[j]} (margin {margin:.4g}, {worst:.2f}x the near-tie "
+              f"bound)")
+        ties += 1
+    return {"held": held, "ties": ties, "worst": worst}
+
+
+def engine_reduced(torch, np) -> None:
+    """Phase 19 (a): ENGINE_TRACE with the reduced mamba2-2.7b and the
+    3-layer reduced recurrentgemma-9b in fp32 (seed 0, ``SLOW_DECAY``)
+    through the engine on the card and on the CPU: tokens equal, K6 or
+    K7 from h0 launched on the card and none on the CPU; and each
+    request's card tokens equal the batch-1 step's on the card."""
+    from repro_torch.kernels import _lib
+    from repro_torch.models.model import build_model
+    from repro_torch.training.checkpoint import tree_map
+    kw = dict(chunk=32, bpe=4, num_blocks=256, block_base=4, max_blocks=32)
+    for arch in RECURRENT_ARCHS:
+        cfg = recurrent_config(arch, reduced=True)
+        params = build_model(cfg, torch.float32, "cpu").init(
+            torch.Generator().manual_seed(0))
+        slow_decay(params)
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            model = build_model(cfg, torch.float32, dev)
+            p = tree_map(lambda t: t.to(dev), params)
+            _lib.reset_launches()
+            runs[dev] = engine_serve(torch, model, p, ENGINE_TRACE, **kw)
+            runs[dev]["launches"] = {k: _lib.LAUNCHES[k]
+                                     for k in RECURRENT_KERNELS}
+            if dev == "cuda":
+                ref = step_reference(torch, np, model, p, runs[dev],
+                                     ENGINE_TRACE, 32, 4)
+        card, cpu = runs["cuda"], runs["cpu"]
+        scan = "ssd_scan_from" if cfg.ssm else "rglru_scan_from"
+        print(f"engine (a): reduced {arch} fp32, {len(ENGINE_TRACE)} "
+              f"requests in chunks of 32 over 4 rows: card tokens "
+              f"{card['tokens']}; card launches "
+              f"{ {k: v for k, v in card['launches'].items() if v} }")
+        check(card["tokens"] == cpu["tokens"],
+              f"reduced {arch} engine: card tokens {card['tokens']} != CPU "
+              f"{cpu['tokens']}")
+        check(card["phases"] == cpu["phases"] and "mixed" not in
+              card["phases"], f"reduced {arch} engine: phases differ or "
+              f"mixed")
+        check(card["launches"][scan] > 0 and not any(
+            cpu["launches"].values()), f"reduced {arch} engine: launches "
+              f"card {card['launches']}, CPU {cpu['launches']}")
+        hold_to_reference(torch, card, ref, f"reduced {arch} engine",
+                          near_ties=False)
+
+
+def engine_wide(torch, np, dev: str = "cuda") -> None:
+    """Phase 19 (b): both models at full width cut to 4 layers in fp32
+    (seed 0, ``SLOW_DECAY``): mamba2-2.7b's 80 heads of 64 with d_state
+    128, recurrentgemma-9b's RG-LRU of 4096 and a local-attention layer
+    at hd 256 (its 4th layer RG-LRU again); WIDE_TRACE through the engine
+    (prefill chunks of 512, 4 batch rows, so chunks of several lengths
+    share steps and rows are reused) and each request alone at batch 1
+    through the step on the card: tokens equal, or equal up to a near-tie
+    within NEAR_TIE_SD."""
+    import dataclasses
+
+    from repro_torch.models.model import build_model
+    for arch in RECURRENT_ARCHS:
+        cfg = dataclasses.replace(recurrent_config(arch, reduced=False),
+                                  num_layers=4)
+        model = build_model(cfg, torch.float32, dev)
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        slow_decay(params)
+        t0 = time.perf_counter()
+        run = engine_serve(torch, model, params, WIDE_TRACE, chunk=512,
+                           bpe=4, num_blocks=1024, block_base=16,
+                           max_blocks=128)
+        t1 = time.perf_counter()
+        ref = step_reference(torch, np, model, params, run, WIDE_TRACE,
+                             512, 16)
+        res = hold_to_reference(torch, run, ref, f"{arch} 4 layers fp32",
+                                near_ties=True)
+        print(f"engine (b): {arch} fp32 at full width, 4 layers, "
+              f"{len(WIDE_TRACE)} requests (prompts "
+              f"{[p for p, _ in WIDE_TRACE]}) in chunks of 512 over 4 "
+              f"rows: {res['held']} tokens equal to the batch-1 step's, "
+              f"{res['ties']} near-ties (worst {res['worst']:.2f}x the "
+              f"bound); engine {t1 - t0:.1f} s, steps "
+              f"{time.perf_counter() - t1:.1f} s")
+        del model, params, run, ref
+        gc_collect(torch)
+
+
+def engine_full(torch, np, smi: str, dev: str = "cuda") -> dict:
+    """Phase 19 (c): both models at full width and depth in bf16 (seed 0,
+    ``SLOW_DECAY``) through the launcher's real path (``serve_config``:
+    16 requests at Poisson 20/s, prompts 256-3072, outputs 32-64, 8
+    batch rows, prefill chunks of 512), the launch counts reset just
+    before and read just after: every request done, every token in the
+    vocab, K6 or K7 from h0 once a recurrent layer a prefill step and
+    K1-K4 once an attention layer a step (``recurrent_launches``). Prints
+    TTFT p50/p90, TPOT p50, output tok/s and the peak. Returns the
+    launches of the kernel rows it runs."""
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.serve import build_stack, replay
+    from repro_torch.models.model import build_model
+    out = {}
+    for arch in RECURRENT_ARCHS:
+        sc = serve_config(arch=arch, requests=16, device=dev,
+                          prompt_range=(256, 3072), output_range=(32, 64))
+        cfg = recurrent_config(arch, reduced=False)
+        model = build_model(cfg, torch.bfloat16, dev)
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        slow_decay(params)
+        stack = build_stack(sc, weights=(model, params))
+        sched = stack[0]
+        clock = StepClock(sched.backend)
+        sched.backend = clock
+        gc_collect(torch)
+        torch.cuda.reset_peak_memory_stats()
+        _lib.reset_launches()
+        sched, wall = replay(sc, stack)
+        launches = {k: _lib.LAUNCHES[k] for k in RECURRENT_KERNELS}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        reqs = list(sched.pool.all.values())
+        eng = clock.eng
+        toks = {r.req_id: eng.generated_tokens(r.req_id) for r in reqs}
+        kinds = [k for k, _, _ in clock.log]
+        check(all(r.state == "done" and len(toks[r.req_id]) == r.output_len
+                  for r in reqs), f"{arch}: a request not done in full")
+        check(all(0 <= x < cfg.vocab_size for v in toks.values() for x in v),
+              f"{arch}: a token outside the vocab")
+        check("mixed" not in kinds, f"{arch}: a mixed step ran")
+        want = recurrent_launches(cfg, kinds.count("prefill"),
+                                  kinds.count("decode"))
+        check(launches == want, f"{arch}: launches {launches}, not {want}")
+        durs = {k: sorted(dt for kind, _, dt in clock.log if kind == k)
+                for k in ("prefill", "decode")}
+        ttft = sorted(r.first_token_t - r.arrival for r in reqs)
+        tpot = sorted((r.token_times[-1] - r.first_token_t)
+                      / max(len(r.token_times) - 1, 1) for r in reqs)
+        n_out = sum(len(v) for v in toks.values())
+        print(f"engine (c): {arch} bf16 at full width and depth "
+              f"({cfg.num_layers} layers) through the launcher, 16 "
+              f"requests, prompts 256-3072, outputs 32-64, 8 rows, chunks "
+              f"of 512: {kinds.count('prefill')} prefill and "
+              f"{kinds.count('decode')} decode steps ("
+              + ", ".join(f"{k} {sum(v):.2f} s, median "
+                          f"{v[len(v) // 2] * 1e3:.2f} ms"
+                          for k, v in durs.items()) + "); TTFT p50 "
+              f"{ttft[len(ttft) // 2] * 1e3:.1f} ms p90 "
+              f"{ttft[int(0.9 * (len(ttft) - 1))] * 1e3:.1f} ms, TPOT p50 "
+              f"{tpot[len(tpot) // 2] * 1e3:.2f} ms, {n_out} tokens in "
+              f"{wall:.2f} s = {n_out / wall:.1f} tok/s; peak {peak:.2f} "
+              f"GiB; launches {({k: v for k, v in launches.items() if v})}"
+              f"; {smi}")
         if cfg.ssm:
             out["ssd_scan_from"] = launches["ssd_scan_from"]
         else:
@@ -4684,21 +5013,23 @@ def recurrent_full_width(torch, np, smi: str) -> dict:
             out["paged_attention_hd256"] = launches["paged_attention"]
             out["paged_flash_prefill_hd256"] = \
                 launches["paged_flash_prefill"]
-        del model, params, res
+        del model, params, stack, sched, clock, eng
         gc_collect(torch)
     return out
 
 
-def serve_recurrent(torch, np, smi: str) -> dict:
-    """Phase 18: (a) the reduced configs card == CPU at step level from
-    carried states, (b) both models at full width and depth served at
-    step level."""
+def serve_engine_recurrent(torch, np, smi: str) -> dict:
+    """Phase 19: (a) the reduced configs through the engine, card == CPU
+    == the batch-1 step, (b) 4 full-width layers in fp32 against the
+    batch-1 step, (c) both full models through the launcher."""
     t0 = time.perf_counter()
-    recurrent_reduced(torch, np)
+    engine_reduced(torch, np)
     t1 = time.perf_counter()
-    out = recurrent_full_width(torch, np, smi)
-    print(f"recurrent: {smi}; (a) {t1 - t0:.1f} s, (b) "
-          f"{time.perf_counter() - t1:.1f} s; phase 18 took "
+    engine_wide(torch, np)
+    t2 = time.perf_counter()
+    out = engine_full(torch, np, smi)
+    print(f"engine: {smi}; (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) "
+          f"{time.perf_counter() - t2:.1f} s; phase 19 took "
           f"{time.perf_counter() - t0:.1f} s")
     return out
 
@@ -4837,7 +5168,9 @@ def main(argv=None) -> int:
         gc_collect(torch)
         serve_frontends(torch, np, smi)
         gc_collect(torch)
-        launches.update(serve_recurrent(torch, np, smi))
+        serve_recurrent(torch, np, smi)
+        gc_collect(torch)
+        launches.update(serve_engine_recurrent(torch, np, smi))
     for r in rows:
         r["launches"] = launches[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches",

@@ -68,6 +68,20 @@ slices with absolute positions and per-request prior lengths, and when
 prefill chunks co-reside with a decode batch the scheduler drives
 ``mixed()`` — one step covering both phases, with promoted requests'
 first tokens routed on device.
+
+Mamba-2 and RecurrentGemma keep part of a request's state in recurrent
+rows, batch-dense per island (``Model.recurrent_state``: the group's
+``bpe * merge`` rows at the island's TP width). A request takes a row of
+its group at its first prefill chunk, zeroed, and keeps it until it
+finishes, is aborted, recovered or dropped (``release_row``); every step
+stages ``valid``, each row's real positions (the chunk's tokens, 1 in a
+decode step, 0 for a row that sits the step out), so ragged chunks and
+idle rows leave the states where their requests' tokens put them. These
+families run no mixed step. A rebind that reshapes an island rebuilds
+its rows, so the scheduler re-prefills that island's requests first
+(``has_request_rows``). The JAX engine does none of this: its rows are
+handed out anew every step, its pads run through the recurrence and its
+reshapes restart the states from zero (ROADMAP.md, Queue 3).
 """
 from __future__ import annotations
 
@@ -87,6 +101,7 @@ from repro_torch.core.modes import (FleetLayout, FlyingMode, Island,
                                     ParallelPlan)
 from repro_torch.core.steps import fresh_states
 from repro_torch.core.task_pool import Request, prompt_token_ids
+from repro_torch.core.views import make_serving_ctx
 from repro_torch.core.weights_manager import WeightsManager, _ptrs
 from repro_torch.device import resolve_device
 from repro_torch.models.model import Model
@@ -141,14 +156,17 @@ class _IslandRT:
     rebinds of OTHER islands: the partial-drain contract rides on this
     isolation."""
     __slots__ = ("island", "seat", "params", "states", "B", "stats",
-                 "pending", "last_tok", "last_src", "last_key", "steady")
+                 "pending", "last_tok", "last_src", "last_key", "steady",
+                 "held")
 
     def __init__(self, island: Island, seat: Optional[Seat], params, states,
                  B: int):
         self.island = island
         self.seat = seat        # this rank's rows and TP group, or None
         self.params = params
-        self.states = states    # per group, per kind: flat (k, v) pools
+        # per group, per kind: flat (k, v) pools, or the island's own
+        # recurrent rows
+        self.states = states
         self.B = B              # island batch rows = n_engines * bpe
         self.stats = SyncStats()
         # async token ring: this rank's device token tensors not yet
@@ -161,6 +179,9 @@ class _IslandRT:
         self.last_src: Optional[torch.Tensor] = None
         self.last_key = None
         self.steady: Optional[_DecodeCache] = None
+        # recurrent families: req_id -> the island row it holds (host
+        # bookkeeping, the same on every rank)
+        self.held: Dict[str, int] = {}
 
 
 def _rank_device(device: torch.device, rank: int) -> torch.device:
@@ -172,29 +193,22 @@ def _rank_device(device: torch.device, rank: int) -> torch.device:
 
 
 def _check_engine_family(cfg) -> None:
-    """Refuse the families whose per-request state the engine does not
-    keep: an enc-dec model's cross caches and a Mamba-2 or RG-LRU
-    layer's recurrent rows are batch-dense rows of a step, which the
-    engine's batch rows (handed out anew every step) would not keep with
-    their request, and neither engine stages a request's
+    """Refuse the modality families: neither engine stages a request's
     ``frontend_embeds``, so the JAX package's engine serves whisper over
     zero cross caches and InternVL2 without its image prefix. These
     models serve through ``build_serve_step`` only (ROADMAP.md, Queue 1
     item 2.4)."""
     what = ("an enc-dec model (cross caches)" if cfg.enc_dec is not None
             else "a vision-prefix model (frontend embeddings)"
-            if cfg.frontend is not None
-            else f"a {cfg.family} model (recurrent rows)"
-            if cfg.family in ("ssm", "hybrid") else None)
+            if cfg.frontend is not None else None)
     if what is not None:
         raise NotImplementedError(
-            f"{cfg.name}: FlyingEngine does not serve {what}: the engine "
-            f"keeps no batch-dense rows with their request and stages no "
-            f"frontend_embeds (the JAX engine serves such models over rows "
-            f"that do not follow their request, zero caches or no "
-            f"prefix); engine-level serving of these families is "
-            f"ROADMAP.md Queue 1 item 2.4, step-level serving runs "
-            f"through core.steps.build_serve_step")
+            f"{cfg.name}: FlyingEngine does not serve {what}: no engine "
+            f"stages a request's frontend_embeds (the JAX engine serves "
+            f"such models over zero caches or without their prefix); "
+            f"engine-level serving of these families is ROADMAP.md Queue "
+            f"1 item 2.4, step-level serving runs through "
+            f"core.steps.build_serve_step")
 
 
 class FlyingEngine:
@@ -246,6 +260,9 @@ class FlyingEngine:
             "the legacy host path samples greedily; temperature/top_k " \
             "need fused_sampling=True"
 
+        # Mamba-2 / RG-LRU: per-request recurrent rows in each island
+        self._recurrent = any(model.pools_of(k) == 0
+                              for seq, _ in model.plan for k in seq)
         self.wm = WeightsManager(self.cfg, plan)
         tile = plan.engine_rows * plan.tp_base
         # canonical placement: this rank's storage shard; every island
@@ -255,8 +272,10 @@ class FlyingEngine:
         # the rank's flat pools: one set, viewed by whichever island
         # holds the rank under every layout
         self._pools = self._fresh_states()
-        # what check_zero_copy holds every island's views to
-        self._resident = (_ptrs(self.params), _ptrs(self._pools))
+        # what check_zero_copy holds every island's views to (an island's
+        # recurrent rows are its own)
+        self._resident = (_ptrs(self.params),
+                          _ptrs(self._paged(self._pools)))
         self.adaptors = [KVCacheAdaptor(geom)
                          for _ in range(plan.dp_engines * plan.pods)]
         self.layout = layout or FleetLayout.uniform(plan, 1)
@@ -325,6 +344,39 @@ class FlyingEngine:
         return fresh_states(self.model, FlyingMode(self.plan, 1), self.geom,
                             device=self.device)
 
+    def _paged(self, states):
+        """``states`` without the recurrent rows: the flat pools every
+        island views."""
+        return [[st for kind, st in zip(kind_seq, group)
+                 if self.model.pools_of(kind)]
+                for (kind_seq, _), group in zip(self.model.plan, states)]
+
+    def _island_states(self, isl: Island):
+        """The states ``isl``'s steps take on this rank: the flat pools,
+        and for a Mamba-2 or RG-LRU layer the island's own recurrent rows,
+        zeroed: its group's ``bpe * merge`` rows at its TP width."""
+        if not self._recurrent:
+            return self._pools
+        ctx = make_serving_ctx(isl.merge, self.plan.engine_rows,
+                               self.plan.tp_base)
+        model = self.model
+
+        def rows(kind, n):
+            one = model.recurrent_state(kind, ctx=ctx,
+                                        batch=self.bpe * isl.merge,
+                                        device=self.device)
+            return {"mixer": tuple(t.new_zeros((n,) + tuple(t.shape))
+                                   for t in one)}
+        return [tuple(rows(kind, n) if model.pools_of(kind) == 0 else st
+                      for kind, st in zip(kind_seq, group))
+                for (kind_seq, n), group in zip(model.plan, self._pools)]
+
+    def _row_leaves(self, states) -> List[torch.Tensor]:
+        """Every recurrent leaf ``[n_layers, rows, ...]`` of ``states``."""
+        return [t for (kind_seq, _), group in zip(self.model.plan, states)
+                for kind, st in zip(kind_seq, group)
+                if self.model.pools_of(kind) == 0 for t in st["mixer"]]
+
     def _check_islands(self, layout: FleetLayout) -> None:
         """An SP island reads every block through the live lanes: its
         write tag and merge must be tag-readable."""
@@ -342,7 +394,7 @@ class FlyingEngine:
         params = states = None
         if seat is not None:
             params = self.wm.island_view(self.params)
-            states = self._pools
+            states = self._island_states(isl)
         return _IslandRT(isl, seat, params, states,
                          isl.n_engines * self.bpe)
 
@@ -356,7 +408,10 @@ class FlyingEngine:
         reshaped islands hit the step-boundary safe point, then their
         param and pool views re-scope over the tensors the rank already
         holds (asserted under ``check_zero_copy``: every ``data_ptr``
-        unchanged). Returns the duration, the max over the ranks."""
+        unchanged). A reshaped island's recurrent rows are built anew,
+        zeroed, and its held rows forgotten (``has_request_rows``: the
+        scheduler re-prefills their requests first). Returns the
+        duration, the max over the ranks."""
         if isinstance(layout, int):
             layout = FleetLayout.uniform(self.plan, layout)
         assert layout.plan == self.plan
@@ -410,7 +465,8 @@ class FlyingEngine:
             # every island holding this rank views the buffers bound at
             # construction
             w, p = self._resident
-            assert all(_ptrs(rt.params) == w and _ptrs(rt.states) == p
+            assert all(_ptrs(rt.params) == w
+                       and _ptrs(self._paged(rt.states)) == p
                        for rt in self.islands if rt.seat is not None), \
                 "rebind moved bytes!"
         dt = self.pool.host_max(time.perf_counter() - t0)
@@ -432,19 +488,79 @@ class FlyingEngine:
     def _rows(self, reqs: Sequence[Request],
               isl: Island) -> Dict[str, int]:
         """Assign each request a padded-batch row within its island's
-        group."""
+        group: in order of the list, or for a recurrent family the row it
+        holds (``_take_rows``)."""
         bpg = self.bpe * isl.merge
         counters: Dict[int, int] = {}
         rows: Dict[str, int] = {}
+        held = self._rt_of[isl].held
         for r in reqs:
             assert isl.start <= r.engine_group < isl.stop, \
                 (r.req_id, r.engine_group, isl)
+            if self._recurrent:
+                row = held.get(r.req_id)
+                assert row is not None, \
+                    (r.req_id, "holds no recurrent row in", isl)
+                rows[r.req_id] = row
+                continue
             g = (r.engine_group - isl.start) // isl.merge
             i = counters.get(g, 0)
             assert i < bpg, "group batch overflow"
             rows[r.req_id] = g * bpg + i
             counters[g] = i + 1
         return rows
+
+    def _take_rows(self, rt: _IslandRT, reqs: Sequence[Request]) -> None:
+        """Give each of ``reqs`` (requests whose prefill starts from
+        zero) the lowest free row of its group and zero that row in every
+        recurrent leaf on this rank, so that a reused row never carries
+        another request's state. A row held from an earlier start is
+        released first."""
+        isl = rt.island
+        bpg = self.bpe * isl.merge
+        fresh = []
+        for r in reqs:
+            self.release_row(r)
+            g = (r.engine_group - isl.start) // isl.merge
+            taken = set(rt.held.values())
+            row = next((g * bpg + i for i in range(bpg)
+                        if g * bpg + i not in taken), None)
+            assert row is not None, "group batch overflow"
+            rt.held[r.req_id] = row
+            fresh.append(row)
+        seat = rt.seat
+        local = [row - seat.lo for row in fresh
+                 if seat is not None and seat.lo <= row < seat.hi]
+        if local:
+            idx = self._h2d(np.asarray(local, np.int64))
+            for leaf in self._row_leaves(rt.states):
+                leaf.index_fill_(1, idx, 0)
+
+    def release_row(self, r: Request) -> None:
+        """Scheduler hook: free the recurrent row ``r`` holds, if any (it
+        finished, or its prefill restarts from zero). A decode cache or
+        token feed-back keyed on a batch that held it is dropped, since
+        the same requests may come back on other rows."""
+        rid = r.req_id
+        for rt in self.islands:
+            if rt.held.pop(rid, None) is not None and rt.steady is not None \
+                    and rid in rt.steady.key[1]:
+                rt.steady = None
+                rt.last_key = None
+
+    def has_request_rows(self) -> bool:
+        """Scheduler capability hook: does part of a request's state live
+        in a batch row of its island (Mamba-2 and RG-LRU rows), outside
+        the paged blocks? Such a row does not survive a rebind that
+        reshapes its island (the island's rows are rebuilt at its new
+        group size and TP width), so the scheduler re-prefills those
+        requests from a folded prompt instead of pausing them or letting
+        them ride; and a prefix cache, which shares KV blocks, cannot
+        share it. The JAX engine has no such hook: it rebuilds a reshaped
+        island's recurrent states from zeros and resumes its requests on
+        them (``src/repro/core/engine.py:385-391``), which loses their
+        state; the port departs from it here (ROADMAP.md, Queue 3)."""
+        return self._recurrent
 
     def _bufs(self, key: Tuple) -> Dict[str, np.ndarray]:
         """Persistent preallocated host staging buffers, keyed by
@@ -459,7 +575,8 @@ class FlyingEngine:
                  "pos": np.zeros((B, 1), np.int32),
                  "slots": np.full((B,), -1, np.int32),
                  "btab": np.zeros((B, mb), np.int32),
-                 "ctxl": np.ones((B,), np.int32)}
+                 "ctxl": np.ones((B,), np.int32),
+                 "valid": np.zeros((B,), np.int32)}
         else:
             T = key[4]
             b = {"toks": np.zeros((B, T), np.int32),
@@ -467,7 +584,8 @@ class FlyingEngine:
                  "slots": np.full((B, T), -1, np.int32),
                  "btab": np.zeros((B, mb), np.int32),
                  "prior": np.zeros((B,), np.int32),
-                 "lastp": np.zeros((B,), np.int32)}
+                 "lastp": np.zeros((B,), np.int32),
+                 "valid": np.zeros((B,), np.int32)}
         self._host_bufs[key] = b
         return b
 
@@ -654,6 +772,7 @@ class FlyingEngine:
         tokens; the decode cache keys on batch membership, so the next
         launch rebuilds without the row."""
         rid = r.req_id
+        self.release_row(r)
         self._retired.add(rid)
         self._token_buf.pop(rid, None)
         self._prompt_cache.pop(rid, None)
@@ -718,8 +837,6 @@ class FlyingEngine:
         B = rt.B
         n = len(reqs)
         prompts = [self._prompt_tokens(r) for r in reqs]
-        rows_map = self._rows(reqs, isl)
-        rows = np.fromiter((rows_map[r.req_id] for r in reqs), np.int64, n)
         entries = [self.adaptors[r.engine_group].table[r.req_id]
                    for r in reqs]
         plens = np.fromiter((len(p) for p in prompts), np.int64, n)
@@ -730,6 +847,10 @@ class FlyingEngine:
         prior = np.fromiter((max(int(r.prefilled), 0) for r in reqs),
                             np.int64, n)
         prior = np.minimum(prior, end)
+        if self._recurrent:
+            self._take_rows(rt, [r for r, p in zip(reqs, prior) if p == 0])
+        rows_map = self._rows(reqs, isl)
+        rows = np.fromiter((rows_map[r.req_id] for r in reqs), np.int64, n)
         if self.geom.layout == "striped" and prior.any():
             raise ValueError(
                 "a striped prefill is fresh only: prompts must fit one "
@@ -832,6 +953,12 @@ class FlyingEngine:
             "slots": self._up(rt, slots),
             "last_pos": self._up(rt, lastp),
         }
+        if self._recurrent:
+            # the chunk's real tokens; 0 leaves a row's state untouched
+            validb = bufs["valid"]
+            validb.fill(0)
+            validb[rows] = chunk
+            batch["valid"] = self._up(rt, validb)
         if live is None:
             batch["block_table"] = self._up(rt, btab)
             batch["prior_len"] = self._up(rt, priorb)
@@ -897,7 +1024,7 @@ class FlyingEngine:
         if self.check_zero_copy:
             # the step wrote the pools it was given, in place
             assert rt.states is states \
-                and _ptrs(states) == self._resident[1], \
+                and _ptrs(self._paged(states)) == self._resident[1], \
                 "a step moved the pools"
         return out
 
@@ -945,9 +1072,10 @@ class FlyingEngine:
 
     def supports_mixed(self) -> bool:
         """Mixed steps cover the head-layout pool: a striped pool runs
-        prefill and decode as two launches."""
+        prefill and decode as two launches, and so do the recurrent
+        families (a mixed step would run their rows in two batches)."""
         return (self.mixed_step and self.fused
-                and self.geom.layout != "striped")
+                and self.geom.layout != "striped" and not self._recurrent)
 
     def mixed(self, prefills: Sequence[Request], decodes: Sequence[Request],
               island: Union[Island, int], chunk_tokens: int) -> float:
@@ -1215,6 +1343,8 @@ class FlyingEngine:
         bufs["btab"].fill(0)
         bufs["ctxl"].fill(1)
         bufs["pos"].fill(0)
+        bufs["valid"].fill(0)
+        bufs["valid"][rows] = 1
         self._fill_block_tables(bufs["btab"], rows, reqs)
         row_reqs = tuple((int(row), r.req_id) for row, r in zip(rows, reqs))
         c = _DecodeCache(key, rows, row_reqs, entries, lengths, nblk,
@@ -1347,6 +1477,9 @@ class FlyingEngine:
         if c.live is None:
             batch["block_table"] = self._up(rt, bufs["btab"])
             batch["context_len"] = self._up(rt, bufs["ctxl"])
+            if self._recurrent:
+                # rows outside this decode batch keep their state
+                batch["valid"] = self._up(rt, bufs["valid"])
         else:
             # no total context length: the live step masks from the
             # lanes' counts alone
@@ -1398,8 +1531,11 @@ class FlyingEngine:
         were kept. Called before the scheduler's fold bookkeeping, so
         ``r`` still carries its pre-fold prompt and placement. An island
         with a dead engine is discarded instead: its in-flight tokens
-        died with it, and everyone resident there is being recovered."""
+        died with it, and everyone resident there is being recovered. The
+        request's recurrent row, if any, is released: its re-prefill
+        starts from a zeroed row."""
         rid = r.req_id
+        self.release_row(r)
         g = r.engine_group
         if g >= 0:
             rt = self._rt_of.get(self.layout.island_of(g))
@@ -1410,7 +1546,11 @@ class FlyingEngine:
                     self._discard_island(rt)
                 else:
                     self._drain_island(rt)
-        orig = np.asarray(self._prompt_tokens(r)[:r.prompt_len],
+        # the prompt before any earlier fold: the token buffer holds every
+        # token the request produced (the JAX engine takes the folded
+        # prompt here, so a second recovery pins the first fold's tokens
+        # twice)
+        orig = np.asarray(self._prompt_tokens(r)[:r.prompt_len - r.folded],
                           dtype=np.int64)
         toks = self._token_buf.get(rid, [])
         self._pinned_prompts[rid] = np.concatenate(

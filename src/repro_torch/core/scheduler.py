@@ -37,8 +37,19 @@ incompatible; everything else keeps serving through the rebind.
     straight through the rebind, their frozen segments read in place by
     per-segment partial attention + an LSE combine, their pending write
     slot retagged to the new mode. Merge-downs and non-readable
-    architectures (MLA/MQA head layouts, recurrent states, sliding
-    windows) degrade per request to the HARD behavior.
+    architectures (MLA/MQA head layouts, sliding windows) degrade per
+    request to the HARD behavior.
+
+A backend whose requests keep state in batch rows of their island
+(``has_request_rows``: Mamba-2 and RG-LRU rows, which a reshape
+rebuilds) never pauses nor carries a request of a reshaped island under
+HARD, SOFT or LIVE: the island is drained and each such request takes
+the fault-recovery fold (``_recover``: its harvested tokens folded into
+a pinned prompt, requeued to re-prefill), so greedy decoding continues
+token for token and ``recomputed_tokens`` counts the cost. Requests on
+untouched islands keep their rows. SEQUENTIAL waits for the reshaped
+islands to drain, as for every backend. The JAX package's scheduler
+pauses them onto zeroed states (ROADMAP.md, Queue 3).
 
 Invariants (paper §5.3): all engines in a TP group observe the same
 request order (single worklist per island), and transitions happen only
@@ -283,6 +294,15 @@ class DynamicScheduler:
         # cross-layout attach; geometry per tag is checked at lookup)
         blr = getattr(backend, "live_readable", None)
         self._live_backend = bool(blr()) if callable(blr) else True
+        # whether part of a request's state lives in a batch row of its
+        # island, which a reshape rebuilds (the recurrent families)
+        hrr = getattr(backend, "has_request_rows", None)
+        self._request_rows = bool(hrr()) if callable(hrr) else False
+        if self.prefix_cache is not None and self._request_rows:
+            raise ValueError(
+                "prefix_cache shares KV blocks, never a recurrent state: a "
+                "request that attached a cached prefix would start its "
+                "recurrent rows from zero past the prefix")
         # per-request prompt token ids (content hashing); dropped once
         # the prompt fully prefills or the request is recovered
         self._tok_cache: Dict[str, object] = {}
@@ -654,8 +674,14 @@ class DynamicScheduler:
         LIVE, tag-readable requests drop out of the set entirely (for a
         readable architecture a merge-up returns EMPTY): their frozen
         segments stay readable in place, so the rebind owes them
-        nothing — no pause, no recompute."""
+        nothing — no pause, no recompute. A backend with request rows
+        (``has_request_rows``) keeps them per island: every request of an
+        island the target reshapes counts, its group kept or not."""
         changed = self.layout.changed_engines(target)
+        if self._request_rows:
+            kept = set(target.islands)
+            changed |= {e for isl in self.layout.islands
+                        if isl not in kept for e in isl.engines()}
         bound = list(self.running) + [r for r in self.waiting
                                       if r.prefilled > 0]
         hit = [r for r in bound if r.engine_group in changed]
@@ -670,6 +696,12 @@ class DynamicScheduler:
             self.pending_layout = None
             return True
         incompatible = self._incompatible(target)
+        if incompatible and self._request_rows and strat != SEQUENTIAL:
+            # their rows do not survive the reshape: drain, fold and
+            # re-prefill them instead of pausing them or letting them ride
+            for r in incompatible:
+                self._recover(r, "reshape")
+            incompatible = []
         if strat == LIVE:
             # riders: running decodes on reshaped engines that stay
             # compatible by reading their segments in place. Their one
@@ -708,6 +740,7 @@ class DynamicScheduler:
                         self.preempt_stats["recomputed_tokens"] += \
                             self._adaptor(g).drop_for_recompute(r.req_id)
                         r.prefilled = 0
+                        self._release_row(r)
                         r.state = "queued"
                         if r in self.running:
                             self.running.remove(r)
@@ -747,10 +780,18 @@ class DynamicScheduler:
             self.preempt_stats["recomputed_tokens"] += \
                 ad.drop_for_recompute(r.req_id)
             r.prefilled = 0
+            self._release_row(r)
             r.state = "queued"
             if r in self.running:
                 self.running.remove(r)
                 self.waiting.insert(0, r)
+
+    def _release_row(self, r: Request) -> None:
+        """Tell the backend that ``r`` no longer needs its batch row (it
+        finished, or its prefill restarts from zero)."""
+        hook = getattr(self.backend, "release_row", None)
+        if hook is not None:
+            hook(r)
 
     def _apply_switch(self, target: FleetLayout,
                       newly_paused: Sequence[Tuple[Request, str]] = (),
@@ -1331,6 +1372,7 @@ class DynamicScheduler:
         for r in done:
             self.running.remove(r)
             self._adaptor(r.engine_group).release(r.req_id)
+            self._release_row(r)
         for g, rids in alive.items():
             self._alloc_with_backpressure(g, rids, [1] * len(rids),
                                           evict_self=True)

@@ -31,9 +31,14 @@ batch row b), which the prefill writes and the decode steps read.
 Mamba-2 and RG-LRU layers keep no pool: their state is batch-dense
 recurrent rows (conv tail and ssm state, or conv tail and h; row b is
 the step's batch row b) that every prefill and decode step reads and
-updates in place. Within a prefill batch every row has the same prompt
-length: a padded row would run its pads through the recurrence (ROADMAP
-Queue 3).
+updates in place. A batch may carry ``valid`` [B] int32, each row's real
+positions (a prefill chunk's tokens; 1 or 0 in a decode step): the
+recurrent layers then leave a row's state where its last real token put
+it, so the rows of a prefill batch may differ in length and a row of 0
+sits the step out with its state untouched (the engine's rows, which
+stay with their request). Without ``valid`` every position is real, and
+every row of a prefill batch must have one length: a padded row would
+run its pads through the recurrence.
 """
 from __future__ import annotations
 
@@ -203,7 +208,8 @@ def build_serve_step(model: Model, mode: FlyingMode, geom: PoolGeometry, *,
             params, ctx, mode="prefill", tokens=batch[pre + "tokens"],
             positions=batch[pre + "positions"], backend=backend,
             states=sts, last_pos=batch.get(pre + "last_pos"),
-            window=window, **frontend(batch, pre))
+            window=window, valid=batch.get(pre + "valid"),
+            **frontend(batch, pre))
         return logits
 
     def decode(ctx, params, sts, batch, tokens, pre=""):
@@ -222,7 +228,8 @@ def build_serve_step(model: Model, mode: FlyingMode, geom: PoolGeometry, *,
         logits, _, _ = model.forward(
             params, ctx, mode="decode", tokens=tokens,
             positions=batch[pre + "positions"], backend=backend,
-            states=sts, window=window, **frontend(batch, pre))
+            states=sts, window=window, valid=batch.get(pre + "valid"),
+            **frontend(batch, pre))
         return logits
 
     @torch.no_grad()

@@ -46,11 +46,20 @@ from a JSON file (``--config serve.json``) with CLI flags as overrides:
       --port 8000 --pace virtual --forecast
   curl -N localhost:8000/v1/completions -d \\
       '{"prompt": "hello", "max_tokens": 16, "stream": true}'
+  # Mamba-2 and RecurrentGemma (their recurrent rows stay with each
+  # request; no mixed step; --prefix-cache refused: a prefix cache
+  # shares KV blocks, never a recurrent state)
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \\
+      --reduced --device cpu --dtype float32 --requests 4 \\
+      --num-blocks 256 --prompt-range 16 96 --output-range 4 12 \\
+      --prefill-chunk 32 --max-blocks-per-req 16
 
 At one engine the layout policy has nothing to merge: a one-rank run
 never rebinds, and the scheduler refuses a ``--fixed-merge`` other than 1
 (a merge wider than its one engine). ``--serve`` runs one rank: HTTP
 requests reach one process, and the SPMD ranks must all see them.
+whisper-base and internvl2-1b do not serve on the real path (the engine
+stages no frontend embeddings; ROADMAP.md Queue 1 item 2.4).
 """
 from __future__ import annotations
 

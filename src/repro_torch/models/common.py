@@ -81,3 +81,32 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     the same formula keeps the two packages' gradients alike as well."""
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
                                           device=x.device))
+
+
+# per-row valid lengths of a serving step (ragged recurrent rows) --------
+
+def pad_mask(valid: torch.Tensor, T: int) -> torch.Tensor:
+    """[B, T] bool: True at each row's positions at or past ``valid``
+    [B] (the row's pads)."""
+    return torch.arange(T, device=valid.device)[None] >= valid[:, None]
+
+
+def conv_tail(full: torch.Tensor, n: int, valid=None) -> torch.Tensor:
+    """The ``n`` rows of ``full`` [B, n + T, C] (a conv's carried prefix,
+    then the T new rows) before each row's end: ``full[b, v : v + n]``
+    at v = ``valid[b]``, the last n rows when ``valid`` is None. A row
+    of 0 gets its prefix back unchanged."""
+    if valid is None:
+        return full[:, full.shape[1] - n:]
+    idx = valid.long()[:, None] + torch.arange(n, device=full.device)[None]
+    return torch.gather(full, 1, idx[..., None].expand(-1, -1,
+                                                       full.shape[2]))
+
+
+def keep_rows(new: torch.Tensor, old: torch.Tensor, valid=None):
+    """``new`` where a row has a real position (``valid`` [B] > 0), else
+    ``old`` bit for bit; ``new`` when ``valid`` is None."""
+    if valid is None:
+        return new
+    live = (valid > 0).reshape((-1,) + (1,) * (new.dim() - 1))
+    return torch.where(live, new, old)

@@ -25,7 +25,8 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.views import TPContext
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
-from repro_torch.models.common import init_linear, rms_norm, silu, softplus
+from repro_torch.models.common import (conv_tail, init_linear, keep_rows,
+                                      pad_mask, rms_norm, silu, softplus)
 
 
 def dims(cfg: ArchConfig):
@@ -62,11 +63,11 @@ def init_mamba2(generator, cfg: ArchConfig, dtype, device):
     }
 
 
-def _causal_conv(xBC, w, b, cw: int, conv_state=None):
+def _causal_conv(xBC, w, b, cw: int, conv_state=None, valid=None):
     """xBC [B,T,C] after the carried prefix ``conv_state`` [B,cw-1,C]
     (None: zeros, train mode) -> (silu(depthwise causal conv + b), the
-    new prefix: the last cw - 1 rows), summed tap by tap in xBC's dtype
-    as the JAX package does."""
+    new prefix: the cw - 1 rows before each row's end, ``valid`` [B] or
+    T), summed tap by tap in xBC's dtype as the JAX package does."""
     T = xBC.shape[1]
     if conv_state is None:
         conv_state = xBC.new_zeros((xBC.shape[0], cw - 1, xBC.shape[2]))
@@ -74,7 +75,7 @@ def _causal_conv(xBC, w, b, cw: int, conv_state=None):
     out = full[:, 0:T] * w[0][None, None]
     for i in range(1, cw):
         out = out + full[:, i:i + T] * w[i][None, None]
-    return silu(out + b[None, None]), full[:, T:]
+    return silu(out + b[None, None]), conv_tail(full, cw - 1, valid)
 
 
 def ssd_decode_step(x1, dt1, A, B1, C1, h):
@@ -87,10 +88,14 @@ def ssd_decode_step(x1, dt1, A, B1, C1, h):
 
 
 def mamba2_layer(cfg: ArchConfig, p, x, ctx: TPContext, state, *,
-                 mode: str):
+                 mode: str, valid=None):
     """x [B,T,d] replicated -> (y replicated, state). ``state`` is None
     in train mode, else the layer's (conv, ssm) leaves, updated in place
-    and returned."""
+    and returned. ``valid`` [B] (serving only; None: every position)
+    counts each row's real positions: past it dt is zero, so the scan
+    leaves the state where the row's last real token put it, the conv
+    tail is taken at the row's end, and a row of 0 keeps its leaves bit
+    for bit."""
     d_in, nh, hd, S, cw = dims(cfg)
     if (state is None) != (mode == "train"):
         raise ValueError(f"mamba2 {mode} with state "
@@ -108,7 +113,7 @@ def mamba2_layer(cfg: ArchConfig, p, x, ctx: TPContext, state, *,
                         p["conv_b_BC"]], dim=0)
     conv_state, h0 = state if state is not None else (None, None)
     xBC, conv_new = _causal_conv(torch.cat([xr, BC], dim=-1), conv_w,
-                                 conv_b, cw, conv_state)
+                                 conv_b, cw, conv_state, valid)
     xr = xBC[..., :nhl * hd].reshape(B_, T, nhl, hd)
     Bm = xBC[..., nhl * hd:nhl * hd + S]
     Cm = xBC[..., nhl * hd + S:]
@@ -116,6 +121,8 @@ def mamba2_layer(cfg: ArchConfig, p, x, ctx: TPContext, state, *,
     A = -torch.exp(ctx.activate(p["A_log"], 0, nh))
     dtf = softplus(dt.float()
                    + ctx.activate(p["dt_bias"], 0, nh)[None, None])
+    if valid is not None:
+        dtf = torch.where(pad_mask(valid, T)[..., None], 0.0, dtf)
     if mode == "decode":
         y1, h = ssd_decode_step(xr[:, 0], dtf[:, 0], A, Bm[:, 0], Cm[:, 0],
                                 h0)
@@ -136,5 +143,5 @@ def mamba2_layer(cfg: ArchConfig, p, x, ctx: TPContext, state, *,
     out = ctx.psum(y @ ctx.activate(p["w_out"], 0, nh), nh)
     if state is not None:
         conv_state.copy_(conv_new)
-        h0.copy_(h)
+        h0.copy_(keep_rows(h, h0, valid))
     return out, state

@@ -126,7 +126,10 @@ class Model:
         width of ``ctx`` (``compute_shards``, as the JAX package's
         ``layer_state``): Mamba-2's (conv [batch, cw-1, nhl*hd + 2S],
         ssm [batch, nhl, hd, S] fp32), RG-LRU's (conv [batch, 3, Wl], h
-        [batch, Wl] fp32); on ``device`` (default the model's)."""
+        [batch, Wl] fp32); on ``device`` (default the model's). An
+        engine island's rows are ``bpe * merge`` a rank (its group's
+        batch) at the island's ctx: merge x tp_base shards of the heads
+        or channels."""
         dev = self.device if device is None else device
         if kind[0] == "mamba":
             _, nh, hd, S, cw = mamba_dims(self.cfg)
@@ -200,7 +203,7 @@ class Model:
     def forward(self, params, ctx: TPContext, *, mode: str, tokens,
                 backend, states=None, positions=None, last_pos=None,
                 window: Optional[int] = None, frontend_embeds=None,
-                enc_len=None):
+                enc_len=None, valid=None):
         """Returns (fp32 logits, states, aux_loss).
 
         mode: 'train' | 'prefill' | 'decode'. ``positions`` [B,T] absolute
@@ -214,6 +217,10 @@ class Model:
         ``enc_len`` [B] masks frames at or past it, in the encoder's keys
         and the cross-attention; a serving call writes the cross caches)
         or InternVL2's patches (projected and put before the tokens).
+        ``valid`` [B] (serving) counts each row's real positions for the
+        Mamba-2 and RG-LRU layers: a ragged prefill batch, or a decode
+        step's rows (1) beside rows that sit it out (0), whose recurrent
+        rows stay as they are; None means every position is real.
         Serving ``states`` are updated in place and returned as given;
         train mode takes none, and is the only mode that records the
         autograd graph."""
@@ -226,8 +233,9 @@ class Model:
                                  f"{frontend_embeds.dtype} for a "
                                  f"{self.dtype} model")
         if mode == "train":
-            if states is not None:
-                raise ValueError("train mode runs without cache states")
+            if states is not None or valid is not None:
+                raise ValueError("train mode runs without cache states "
+                                 "or valid counts")
             if any(kind[1] == "moe" for seq, _ in self.plan for kind in seq):
                 raise NotImplementedError(
                     "MoE training (the router's load-balance loss) is not "
@@ -239,16 +247,16 @@ class Model:
                                  backend=backend, states=None,
                                  positions=positions, last_pos=None,
                                  window=window, fe=frontend_embeds,
-                                 enc_len=enc_len)
+                                 enc_len=enc_len, valid=None)
         with torch.no_grad():
             return self._forward(params, ctx, mode=mode, tokens=tokens,
                                  backend=backend, states=states,
                                  positions=positions, last_pos=last_pos,
                                  window=window, fe=frontend_embeds,
-                                 enc_len=enc_len)
+                                 enc_len=enc_len, valid=valid)
 
     def _forward(self, params, ctx, *, mode, tokens, backend, states,
-                 positions, last_pos, window, fe, enc_len):
+                 positions, last_pos, window, fe, enc_len, valid):
         cfg = self.cfg
         enc_out = None
         if cfg.enc_dec is not None and fe is not None:
@@ -286,7 +294,8 @@ class Model:
                                     backend=backend, state=st,
                                     positions=positions, mode=mode,
                                     window=window, cross=cross,
-                                    enc_out=enc_out, enc_len=enc_len)
+                                    enc_out=enc_out, enc_len=enc_len,
+                                    valid=valid)
                     if remat:
                         x, _ = checkpoint(layer, x, use_reentrant=False)
                     else:

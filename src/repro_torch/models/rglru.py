@@ -30,7 +30,8 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.views import TPContext
 from repro_torch.kernels.rglru_scan import ops as rg_ops
-from repro_torch.models.common import gelu, init_linear, softplus
+from repro_torch.models.common import (conv_tail, gelu, init_linear,
+                                      keep_rows, pad_mask, softplus)
 
 CONV_W = 4
 
@@ -61,10 +62,14 @@ def init_rglru(generator, cfg: ArchConfig, dtype, device):
 
 
 def rglru_block(cfg: ArchConfig, p, x, ctx: TPContext, state, *,
-                mode: str):
+                mode: str, valid=None):
     """x [B,T,d] replicated -> (y replicated, state). ``state`` is None
     in train mode, else the layer's (conv, h) leaves, updated in place
-    and returned."""
+    and returned. ``valid`` [B] (serving only; None: every position)
+    counts each row's real positions: past it log a and g are zero (a =
+    1, nothing added), so h stays where the row's last real token put
+    it, the conv tail is taken at the row's end, and a row of 0 keeps
+    its leaves bit for bit."""
     if (state is None) != (mode == "train"):
         raise ValueError(f"rglru {mode} with state "
                          f"{'None' if state is None else 'given'}")
@@ -93,6 +98,10 @@ def rglru_block(cfg: ArchConfig, p, x, ctx: TPContext, state, *,
     a = torch.exp(log_a)
     g = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12)) \
         * (i * uf)
+    if valid is not None:
+        pad = pad_mask(valid, T)[..., None]
+        a = torch.where(pad, 1.0, a)
+        g = torch.where(pad, 0.0, g)
     if mode == "decode":
         h = a[:, 0] * h0 + g[:, 0]
         y = h[:, None]
@@ -103,6 +112,6 @@ def rglru_block(cfg: ArchConfig, p, x, ctx: TPContext, state, *,
     y = y.to(x.dtype) * gate
     out = ctx.psum(y @ ctx.activate(p["w_out"], 0, w), w)
     if state is not None:
-        state[0].copy_(full[:, T:])
-        h0.copy_(h)
+        state[0].copy_(conv_tail(full, CONV_W - 1, valid))
+        h0.copy_(keep_rows(h, h0, valid))
     return out, state

@@ -159,10 +159,12 @@ def cross_attention(cfg, p, x, ctx: TPContext, enc_kv, *, enc_len=None):
 def apply_layer(cfg: ArchConfig, kind: Kind, p, x, ctx: TPContext, backend,
                 state, *, positions, mode: str,
                 window: Optional[int] = None, cross=None, enc_out=None,
-                enc_len=None):
+                enc_len=None, valid=None):
     """One pre-norm decoder layer. ``state`` is the layer's (k, v) pool
     pair, its one compressed pool for MLA, or a Mamba-2 or RG-LRU layer's
-    recurrent rows (None in train mode); returns (x, state).
+    recurrent rows (None in train mode); returns (x, state). ``valid``
+    [B] counts each row's real positions for a recurrent layer (None:
+    all of them); attention layers mask pads by their slots.
 
     An enc-dec layer runs its cross-attention sub-block between the mixer
     and the FFN: over K/V projected from ``enc_out`` when the encoder ran
@@ -172,10 +174,12 @@ def apply_layer(cfg: ArchConfig, kind: Kind, p, x, ctx: TPContext, backend,
     mixer, ffn = kind
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if kind == MAMBA:
-        out, state = mamba2_layer(cfg, p["mixer"], h, ctx, state, mode=mode)
+        out, state = mamba2_layer(cfg, p["mixer"], h, ctx, state, mode=mode,
+                                  valid=valid)
         return x + out, state
     if mixer == "rglru":
-        out, state = rglru_block(cfg, p["mixer"], h, ctx, state, mode=mode)
+        out, state = rglru_block(cfg, p["mixer"], h, ctx, state, mode=mode,
+                                 valid=valid)
     elif mixer == "mla":
         out, state = attn_mod.mla_attention(cfg, p["attn"], h, ctx, backend,
                                             state, positions=positions,

@@ -182,16 +182,22 @@ def test_unported_paths_raise():
         mla_attention(cfg, p["groups"][0][0]["attn"],
                       torch.zeros((1, 1, cfg.d_model)), SINGLE, live, None,
                       positions=torch.zeros((1, 1), dtype=torch.long))
-    # Mamba-2 and RecurrentGemma serve at step level; the engine keeps no
-    # batch-dense recurrent rows with their request (Queue 1 item 2.4)
+    # Mamba-2 and RecurrentGemma serve through the engine (their rows stay
+    # with each request, no mixed step); the engine stages no frontend
+    # embeddings, so whisper and InternVL2 still raise (Queue 1 item 2.4)
     from repro_torch.core.engine import FlyingEngine
     from repro_torch.core.kv_adaptor import PoolGeometry
     from repro_torch.core.modes import ParallelPlan
     plan = ParallelPlan(1, 1, 1)
-    for arch in ("mamba2-2.7b", "recurrentgemma-9b"):
+    for arch in ("mamba2-2.7b", "recurrentgemma-9b", "whisper-base",
+                 "internvl2-1b"):
         m = build_model(get_config(arch).reduced(), torch.float32, "cpu")
         m.check_serving()
+        geom = PoolGeometry(m.cfg, plan, num_blocks=16, block_base=4)
+        p = m.init(torch.Generator().manual_seed(0))
+        if m.cfg.family in ("ssm", "hybrid"):
+            eng = FlyingEngine(m, plan, geom, p, device="cpu")
+            assert eng.has_request_rows() and not eng.supports_mixed()
+            continue
         with pytest.raises(NotImplementedError, match="Queue 1 item 2.4"):
-            FlyingEngine(m, plan, PoolGeometry(m.cfg, plan, num_blocks=16,
-                                               block_base=4), None,
-                         device="cpu")
+            FlyingEngine(m, plan, geom, p, device="cpu")

@@ -22,15 +22,10 @@ Tolerances: fp32 throughout, atol = rtol = 1e-4 for the steps, the
 layers and K6's plain version (its chunked fp32 sums run in another
 order than jnp's; check_serve_consistency's 3e-3 would also do) and
 greedy tokens identical; 1e-5 for K7's and the paged kernels' plain
-versions. Then the refusals: the
-engine and the launcher refuse both families (ROADMAP Queue 1 item 2.4),
-and the mixed, live and striped steps refuse them.
+versions. Then the refusals: the mixed, live and striped steps refuse
+both families (the engine serves them: tests/test_torch_recurrent_engine.py).
 """
 import dataclasses
-import os
-import subprocess
-import sys
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -65,7 +60,6 @@ from repro_torch.models import mamba2, rglru
 from repro_torch.models.model import build_model
 from test_torch_kernels import _case, _close, _jax_sweep, _t
 
-REPO = Path(__file__).resolve().parents[1]
 ARCHS = ("mamba2-2.7b", "recurrentgemma-9b")
 TOL = dict(atol=1e-4, rtol=1e-4)
 B, PROMPT, DECODES = 2, 80, 3
@@ -414,35 +408,6 @@ def test_serve_steps_match_jax_step(zoo, arch, split):
 # ---------------------------------------------------------------------------
 # refusals
 # ---------------------------------------------------------------------------
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_engine_refuses_the_recurrent_families(zoo, arch):
-    from repro_torch.core.engine import FlyingEngine
-    _, _, tm, tp = zoo(arch)
-    plan = ParallelPlan(1, 1, 1)
-    geom = PoolGeometry(tm.cfg, plan, num_blocks=16, block_base=4)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2.4"):
-        FlyingEngine(tm, plan, geom, tp, device="cpu")
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_launcher_refuses_the_recurrent_families(arch):
-    """The launcher's real path exits non-zero, naming the ROADMAP
-    item."""
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [str(REPO / "src"), os.environ.get("PYTHONPATH", "")]))
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--reduced",
-         "--device", "cpu", "--dtype", "float32", "--arch", arch,
-         "--requests", "2", "--num-blocks", "64", "--prompt-range", "8",
-         "16", "--output-range", "2", "4", "--prefill-chunk", "8",
-         "--max-blocks-per-req", "8"],
-        env=env, capture_output=True, text=True, timeout=300)
-    assert proc.returncode != 0
-    assert "NotImplementedError" in proc.stderr
-    assert "Queue 1 item 2.4" in proc.stderr
-    assert "requests done" not in proc.stdout
-
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_steps_refuse_mixed_live_and_striped(zoo, arch):

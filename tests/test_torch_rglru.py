@@ -23,7 +23,8 @@ atol 1e-5 and its gradients against ``jax.vjp`` at atol 1e-4, as
 parameter tree of the 4-layer test config (one super-layer of two RG-LRU
 layers and a local-attention layer, then one more RG-LRU layer) converts
 and checkpoints both ways in the JAX layout, fp32 leaves in a bf16 model
-included; and every serving entry point refuses the hybrid config.
+included; and the engine and the launcher serve the hybrid config but
+refuse a mixed step and a prefix cache for it.
 """
 import dataclasses
 import os
@@ -414,13 +415,17 @@ def test_serving_refuses_the_hybrid_stack(hybrid):
                               num_blocks=4, page=4)["mixer"]) == 2
     tm.check_serving()
     tm.init_states(ctx=SINGLE, num_blocks=4, page=4, batch=2)
-    # the engine and the launcher keep no batch-dense rows with their
-    # request (ROADMAP Queue 1 item 2.4)
+    # the engine and the launcher serve it, each request keeping its
+    # rows, and refuse what would split or share them: the mixed step and
+    # a prefix cache (tests/test_torch_recurrent_engine.py)
     plan = ParallelPlan(engine_rows=1, tp_base=1, data_rows=1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2.4"):
-        FlyingEngine(tm, plan, PoolGeometry(cfg, plan, num_blocks=16,
-                                            block_base=4), tp,
-                     device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2.4"):
-        build_stack(ServeConfig(arch=ARCH, real=True, reduced=True,
-                                device="cpu", dtype="float32"))
+    eng = FlyingEngine(tm, plan, PoolGeometry(cfg, plan, num_blocks=16,
+                                              block_base=4), tp,
+                       device="cpu")
+    assert eng.has_request_rows() and not eng.supports_mixed()
+    sc = ServeConfig(arch=ARCH, real=True, reduced=True, device="cpu",
+                     dtype="float32")
+    build_stack(sc, weights=(tm, tp))
+    with pytest.raises(ValueError, match="never a recurrent state"):
+        build_stack(dataclasses.replace(sc, prefix_cache=True),
+                    weights=(tm, tp))

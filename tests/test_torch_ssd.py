@@ -14,9 +14,11 @@ oracle on dA entries of 1.5 beside entries of 90). The
 Mamba-2 layer in train mode is held against the JAX layer on the
 reduced mamba2-2.7b weights at the same tolerance, and in bf16 against
 the fp32 layer no less closely than the JAX layer; the parameter tree
-converts and checkpoints both ways in the JAX layout; and every serving
-entry point refuses an SSM config.
+converts and checkpoints both ways in the JAX layout; and the engine and
+the launcher serve an SSM config but refuse a mixed step and a prefix
+cache for it.
 """
+import dataclasses
 import os
 
 import numpy as np
@@ -405,14 +407,17 @@ def test_serving_refuses_ssm(mamba):
     assert conv.shape == (2, cw - 1, d_in + 2 * S)
     assert ssm.shape == (2, nh, hd, S) and ssm.dtype == torch.float32
     tm.init_states(ctx=SINGLE, num_blocks=4, page=4, batch=2)
-    # the engine and the launcher keep no batch-dense rows with their
-    # request (ROADMAP Queue 1 item 2.4)
+    # the engine and the launcher serve it, each request keeping its
+    # rows, and refuse what would split or share them: the mixed step and
+    # a prefix cache (tests/test_torch_recurrent_engine.py)
     plan = ParallelPlan(engine_rows=1, tp_base=1, data_rows=1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2.4"):
-        FlyingEngine(tm, plan, PoolGeometry(cfg, plan, num_blocks=16,
-                                            block_base=4), tp,
-                     device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2.4"):
-        build_stack(ServeConfig(arch="mamba2-2.7b", real=True,
-                                reduced=True, device="cpu",
-                                dtype="float32"))
+    eng = FlyingEngine(tm, plan, PoolGeometry(cfg, plan, num_blocks=16,
+                                              block_base=4), tp,
+                       device="cpu")
+    assert eng.has_request_rows() and not eng.supports_mixed()
+    sc = ServeConfig(arch="mamba2-2.7b", real=True, reduced=True,
+                     device="cpu", dtype="float32")
+    build_stack(sc, weights=(tm, tp))
+    with pytest.raises(ValueError, match="never a recurrent state"):
+        build_stack(dataclasses.replace(sc, prefix_cache=True),
+                    weights=(tm, tp))
