@@ -295,6 +295,25 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    step, K3/K4 once an attention layer a prefill step, K1/K2 once a
    decode step; the steps by phase, TTFT p50/p90, TPOT p50, output tok/s
    and the peak printed.
+20. (run after phase 19) ``--serve`` on two rank processes sharing the
+   card over gloo, rank 0's ``AsyncServeLoop`` leading and rank 1's
+   ``lockstep.Follower`` replaying its inputs: (a) the reduced llama3-8b
+   in fp32 at ``ParallelPlan(1, 1, 2)``, ``LOCKSTEP_TRACE`` (14 requests,
+   a TP island carved, dissolved and carved again, one client leaving
+   after its first token) at virtual pace with every step reporting 10
+   ms, on the card and then on the CPU in each rank: streams, phase
+   logs and switches equal, digests equal; (b) llama3-8b at full width
+   and depth in bf16 at phase 5's geometry (two one-rank engines of
+   2048 blocks a rank, which the layout policy merges to TP2 for
+   priority traffic) over HTTP at wall pace through the launcher's rank
+   entry (``launch.serve._rank_main``), 24 requests at Poisson 2/s, a
+   quarter priority, sent by ``loadgen.drive_http`` from a process of
+   its own, which then stops the server with SIGINT: every stream done
+   with its full output in the vocab, at least one rebind, K1-K4
+   launched on both ranks, the digests equal, every rank exited 0;
+   client TTFT p50/p90 per tier, server TPOT p50, output tok/s, the
+   rebinds' ms, rank 0's broadcast ms (median, p99) and host
+   collectives a tick printed.
 
 Each kernel's launch count in the JSON record comes from the path that
 runs it: K1-K4 from phase 5, K5 and its backward at hd 128 from phase 8
@@ -5034,6 +5053,391 @@ def serve_engine_recurrent(torch, np, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: --serve on two ranks, rank 0 leading over HTTP
+# ---------------------------------------------------------------------------
+
+# (prompt, output, tier, arrival) of phase 20 (a)'s requests (and of
+# tests/test_torch_serve_ranks.py's): two priority requests among the
+# first six carve a TP island; a burst of seven queues deep enough to
+# dissolve it; a late priority request carves it again
+LOCKSTEP_TRACE = (
+    (8, 6, "standard", 0.0), (12, 24, "standard", 0.0),
+    (8, 6, "priority", 0.01), (16, 5, "standard", 0.02),
+    (10, 12, "standard", 0.03), (12, 7, "priority", 0.04),
+    (20, 4, "standard", 0.16), (8, 8, "standard", 0.16),
+    (12, 6, "standard", 0.16), (8, 5, "standard", 0.16),
+    (16, 6, "standard", 0.16), (10, 4, "standard", 0.16),
+    (8, 4, "standard", 0.16), (12, 6, "priority", 0.45))
+LOCKSTEP_CANCEL = "s4"      # its client leaves after its first token
+
+
+def lockstep_requests(Request):
+    return [Request(req_id=f"s{i}", arrival=t, prompt_len=p, output_len=o,
+                    tier=tier)
+            for i, (p, o, tier, t) in enumerate(LOCKSTEP_TRACE)]
+
+
+def adaptor_state(sched):
+    """Each adaptor's free blocks and the requests it holds blocks of."""
+    return [[len(a._free_set), sorted(a.table)] for a in sched.adaptors]
+
+
+async def lockstep_drive(loop, reqs, snap):
+    """Submit ``reqs`` to the async loop ``loop`` and consume every
+    stream; the client of LOCKSTEP_CANCEL aborts after its first token
+    (``snap["cancel"]`` then takes the adaptors). Returns each stream's
+    tokens and terminal state."""
+    import asyncio
+    await loop.start()
+    out = {}
+
+    async def consume(r, st):
+        toks = []
+        async for ev in st:
+            toks.append(int(ev[2]))
+            if r.req_id == LOCKSTEP_CANCEL and len(toks) == 1:
+                loop.abort(r.req_id)
+                snap["cancel"] = adaptor_state(loop.door.sched)
+        out[r.req_id] = [toks, st.final_state]
+
+    streams = [(r, loop.submit(r)) for r in reqs]
+    await asyncio.gather(*(consume(r, st) for r, st in streams))
+    await loop.stop()
+    return out
+
+
+def lockstep_trace(torch, device, rank: int) -> dict:
+    """Phase 20 (a) on one rank: the reduced llama3-8b in fp32 (weights
+    seeded on the CPU) at ``ParallelPlan(1, 1, 2)`` on ``device``,
+    LOCKSTEP_TRACE through rank 0's virtual-pace loop and rank 1's
+    follower, ``FlyingPolicy`` under HARD, every step and rebind
+    reporting 10 ms, tokens harvested every 4 steps."""
+    import asyncio
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import FlyingEngine
+    from repro_torch.core.kv_adaptor import PoolGeometry
+    from repro_torch.core.modes import ParallelPlan
+    from repro_torch.core.policy import FlyingPolicy
+    from repro_torch.core.scheduler import DynamicScheduler, SchedulerConfig
+    from repro_torch.core.task_pool import Request
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.serve import ServeConfig, build_door
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.asyncloop import AsyncServeLoop
+    from repro_torch.serving.lockstep import Follower, digest
+
+    cfg = get_config("llama3-8b").reduced()
+    plan = ParallelPlan(engine_rows=1, tp_base=1, data_rows=2)
+    params = build_model(cfg, torch.float32, "cpu").init(
+        torch.Generator().manual_seed(0))
+    geom = PoolGeometry(cfg, plan, num_blocks=64, block_base=4)
+    eng = FlyingEngine(build_model(cfg, torch.float32, device), plan, geom,
+                       params, batch_per_engine=2, max_blocks_per_req=16,
+                       device=device, harvest_limit=4)
+    sched = DynamicScheduler(plan, geom, FixedClock(eng), SchedulerConfig(
+        strategy="hard", max_batch_per_group=2, prefill_chunk=8),
+        policy=FlyingPolicy())
+    door = build_door(ServeConfig(), sched)
+    _lib.reset_launches()
+    if rank == 0:
+        node = AsyncServeLoop(door, pace="virtual", pool=eng.pool)
+        streams = asyncio.run(lockstep_drive(
+            node, lockstep_requests(Request), {}))
+        node.shutdown()
+    else:
+        node = Follower(door, eng.pool)
+        node.run()
+        streams = {rid: [list(map(int, eng.generated_tokens(rid))), r.state]
+                   for rid, r in door.requests.items()}
+    return {"streams": streams, "phases": [l.phase for l in sched.log],
+            "merges": [l.merge for l in sched.log],
+            "switches": sched.switches, "digest": digest(door, node.ticks),
+            "launches": {k: _lib.LAUNCHES[k] for k in SERVE_KERNELS}}
+
+
+def mark_streams() -> dict:
+    """Patch the serving classes to log, per request id, the monotonic
+    times of its submission to the async loop, of its first token pushed
+    into its stream and of that token taken by the stream's consumer,
+    and under "accepts" each connection's accept time."""
+    from repro_torch.serving.asyncloop import AsyncServeLoop, TokenStream
+    from repro_torch.serving.server import ServeHTTP
+    marks: dict = {}
+    submit, push = AsyncServeLoop.submit, TokenStream.push
+    handle, anext = ServeHTTP._handle, TokenStream.__anext__
+
+    async def marked_handle(self, reader, writer):
+        marks.setdefault("accepts", []).append(time.monotonic())
+        await handle(self, reader, writer)
+
+    async def marked_anext(self):
+        ev = await anext(self)
+        marks[self.req_id].setdefault("taken", time.monotonic())
+        return ev
+
+    def marked_submit(self, req, tier=None):
+        marks[req.req_id] = {"submit": time.monotonic()}
+        return submit(self, req, tier)
+
+    def marked_push(self, ev):
+        ok = push(self, ev)
+        if ok:
+            marks[self.req_id].setdefault("first", time.monotonic())
+        return ok
+    AsyncServeLoop.submit = marked_submit
+    TokenStream.push = marked_push
+    ServeHTTP._handle = marked_handle
+    TokenStream.__anext__ = marked_anext
+    return marks
+
+
+def serve_ranks_rank(rank: int, world: int, cfg, d: str, trace: bool,
+                     marks: bool) -> None:
+    """One rank of phase 20: (a) when ``trace``, then (b): ``cfg`` served
+    over HTTP through the launcher's rank entry (``launch.serve.
+    _rank_main``): rank 0's server writes its port and pid to
+    ``{d}/port`` for the client and runs until the client's SIGINT,
+    rank 1 follows; then each rank's readings (with rank 0's
+    ``mark_streams`` marks when ``marks``) into ``{d}/rank{rank}.json``."""
+    import os
+
+    import torch
+
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.serve import _rank_main
+    from repro_torch.serving.lockstep import digest
+    from repro_torch.serving.metrics import summarize
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(4)
+    res = {}
+    if trace:
+        t0 = time.perf_counter()
+        res["a"] = {dev: lockstep_trace(torch, dev, rank)
+                    for dev in ("cuda", "cpu")}
+        res["a_s"] = time.perf_counter() - t0
+    stamps = mark_streams() if marks and rank == 0 else None
+
+    def ready(port):
+        Path(d, "port.part").write_text(f"{port} {os.getpid()}")
+        os.replace(Path(d, "port.part"), Path(d, "port"))
+
+    _lib.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    node = _rank_main(rank, world, cfg, ready if rank == 0 else None)
+    door = node.door
+    sched, eng = door.sched, door.sched.backend
+    st = eng.pool.stats
+    b = {"launches": {k: _lib.LAUNCHES[k] for k in SERVE_KERNELS},
+         "switches": sched.switches,
+         "rebind_ms": [dt * 1e3 for dt in eng.switch_log],
+         "merges": [l.merge for l in sched.log],
+         "log": [[l.phase, l.merge, l.t] for l in sched.log],
+         "preempt": dict(sched.preempt_stats),
+         "ticks": node.ticks, "host_collectives": st.host_collectives,
+         "broadcasts": st.broadcasts, "digest": digest(door, node.ticks),
+         "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+         "rank_s": time.perf_counter() - t0, "backend": eng.pool.describe()}
+    if rank == 0:
+        m = summarize(list(door.requests.values()))
+        b["broadcast_ms"] = list(node.broadcast_ms)
+        b["tpot_ms"] = m.median_tpot * 1e3
+        b["server_ttft"] = {rid: [r.tier, r.first_token_t - r.arrival]
+                            for rid, r in door.requests.items()
+                            if r.first_token_t is not None}
+        if stamps is not None:
+            b["marks"] = stamps
+    res["b"] = b
+    with open(Path(d, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def serve_ranks_client(d: str, reqs, conn) -> None:
+    """Phase 20 (b)'s client, in a process of its own: waits for rank 0's
+    port, sends ``reqs`` with ``loadgen.drive_http``, reads ``/metrics``,
+    then stops the server with SIGINT (as a launcher passes on an
+    operator's); the records go over ``conn``."""
+    import asyncio
+    import os
+    import signal
+
+    from repro_torch.serving.loadgen import drive_http
+    port_file = Path(d, "port")
+    t_end = time.monotonic() + 600
+    while not port_file.exists():
+        if time.monotonic() > t_end:
+            conn.send(None)
+            return
+        time.sleep(0.1)
+    port, pid = map(int, port_file.read_text().split())
+    out = None
+    try:
+        out = asyncio.run(drive_http("127.0.0.1", port, reqs,
+                                     collect_tokens=True))
+        out["metrics"] = asyncio.run(http_get(port, "/metrics"))
+    finally:
+        os.kill(pid, signal.SIGINT)
+        conn.send(out)
+        conn.close()
+
+
+async def http_get(port: int, path: str) -> dict:
+    import asyncio
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    writer.write(f"GET {path} HTTP/1.1\r\nHost: smoke\r\n\r\n".encode())
+    await writer.drain()
+    raw = await reader.read()
+    writer.close()
+    return json.loads(raw.split(b"\r\n\r\n", 1)[1])
+
+
+def ranks_http_run(cfg, *, trace: bool = False, marks: bool = False):
+    """``cfg`` over HTTP on ``cfg.ranks`` rank processes sharing the card
+    (``serve_ranks_rank``), its trace sent by ``serve_ranks_client``
+    from a process of its own. Every rank must exit 0. Returns the
+    requests, the client's records and each rank's readings."""
+    import copy
+    import multiprocessing
+    import tempfile
+
+    from repro_torch.launch.ranks import spawn
+    from repro_torch.launch.serve import real_spec
+    from repro_torch.serving.workload import generate
+    reqs = [copy.deepcopy(r) for r in generate(real_spec(cfg))]
+    with tempfile.TemporaryDirectory() as d:
+        ctx = multiprocessing.get_context("spawn")
+        recv, send = ctx.Pipe(duplex=False)
+        client = ctx.Process(target=serve_ranks_client, args=(d, reqs, send))
+        client.start()
+        send.close()
+        try:
+            spawn(serve_ranks_rank, cfg.ranks, (cfg, d, trace, marks),
+                  device_type="cuda", timeout=900)
+            check(recv.poll(60), "phase 20: the client sent no records")
+            out = recv.recv()
+        finally:
+            client.join(timeout=60)
+            if client.is_alive():
+                client.terminate()
+                client.join()
+        check(out is not None, "phase 20: the client failed")
+        runs = []
+        for r in range(cfg.ranks):
+            with open(Path(d, f"rank{r}.json")) as f:
+                runs.append(json.load(f))
+    return reqs, out, runs
+
+
+def check_lockstep_trace(runs) -> dict:
+    """Phase 20 (a)'s verdict: on each rank the card's streams, phase log
+    and switches equal the CPU's; every rank's digest rank 0's; every
+    request done but the one its client left, which was aborted; the
+    policy carved a TP island and released it; K1-K4 launched on the
+    card."""
+    def run(x):
+        return {k: v for k, v in x.items() if k != "launches"}
+    got = runs[0]["cuda"]
+    for r, res in enumerate(runs):
+        check(run(res["cuda"]) == run(res["cpu"]),
+              f"rank {r}: card run {res['cuda']['streams']} != CPU "
+              f"{res['cpu']['streams']}")
+        check(res["cuda"]["digest"] == got["digest"],
+              f"rank {r}'s digest differs from rank 0's")
+        for k in SERVE_KERNELS:
+            check(res["cuda"]["launches"][k] > 0,
+                  f"rank {r}: {k} never launched in (a)")
+    states = {rid: s for rid, (_, s) in got["streams"].items()}
+    check(states.pop(LOCKSTEP_CANCEL) == "aborted" and
+          all(s == "done" for s in states.values()),
+          f"phase 20 (a): terminal states {states}")
+    merges = got["merges"]
+    check(2 in merges and 1 in merges[merges.index(2):],
+          f"phase 20 (a): the policy did not carve and release a TP "
+          f"island: merges {merges}")
+    return got
+
+
+def serve_ranks(torch, np, smi: str) -> None:
+    """Phase 20: (a) LOCKSTEP_TRACE through the leader and the follower,
+    card against CPU; (b) llama3-8b at full width and depth in bf16 on
+    two ranks over HTTP at wall pace (phase 5's geometry, 24 requests at
+    Poisson 2/s, a quarter priority), stopped by SIGINT. Its prefill
+    chunks on the TP2 island (its row-parallel all_reduces host-staged
+    by gloo, a few seconds a chunk) take most of the phase."""
+    t0 = time.perf_counter()
+    cfg = serve_config(ranks=2, serve=True, pace="wall", port=0,
+                       requests=24, rate=2.0, priority_frac=0.25,
+                       num_blocks=2048)
+    reqs, out, runs = ranks_http_run(cfg, trace=True)
+    a = check_lockstep_trace([res["a"] for res in runs])
+    print(f"ranks (a): reduced llama3-8b fp32 at ParallelPlan(1, 1, 2), "
+          f"{len(LOCKSTEP_TRACE)} requests through rank 0's loop and rank "
+          f"1's follower, merges by tick {a['merges']} ({a['switches']} "
+          f"switches): card streams, phase logs and switches equal the "
+          f"CPU's on both ranks, digests equal, {LOCKSTEP_CANCEL} aborted "
+          f"by its client after its first token "
+          f"({max(res['a_s'] for res in runs):.1f} s)")
+    from repro_torch.configs import get_config
+    vocab = get_config("llama3-8b").vocab_size
+    recs = {rec["req_id"]: rec for rec in out["records"]}
+    for q in reqs:
+        rec = recs[q.req_id]
+        check(rec["state"] == "done" and rec["n_tokens"] == q.output_len,
+              f"ranks (b) {q.req_id}: state {rec['state']}, "
+              f"{rec['n_tokens']}/{q.output_len} tokens")
+        check(all(0 <= t < vocab for t in rec["tokens"]),
+              f"ranks (b) {q.req_id}: token outside the vocab")
+    b = [res["b"] for res in runs]
+    for r, x in enumerate(b):
+        for k in SERVE_KERNELS:
+            check(x["launches"][k] > 0,
+                  f"ranks (b) rank {r}: {k} never launched")
+        check(x["digest"] == b[0]["digest"],
+              f"ranks (b): rank {r}'s digest differs from rank 0's")
+    check(b[0]["switches"] >= 1 and b[0]["rebind_ms"],
+          f"ranks (b): no rebind ({b[0]['switches']} switches)")
+    check(out["metrics"]["layout"] in ("[2xDP]", "[DP | DP]", "[TP2]"),
+          f"ranks (b): /metrics layout {out['metrics']['layout']}")
+    ttft = {}
+    for rec in out["records"]:
+        ttft.setdefault(rec["tier"], []).append(rec["ttft_wall_s"] * 1e3)
+    n_tok = sum(rec["n_tokens"] for rec in out["records"])
+    bms = np.asarray(b[0]["broadcast_ms"])
+    per_tick = b[0]["host_collectives"] / b[0]["ticks"]
+    print(f"ranks (b): llama3-8b bf16, 32 layers, {b[0]['backend']}; "
+          f"{len(reqs)} requests at Poisson {cfg.rate}/s over HTTP at wall "
+          f"pace, rank 0 leading, rank 1 following: all done, every token "
+          f"in the vocab, digests equal, every rank exited 0 after SIGINT; "
+          f"K1-K4 launches a rank {[x['launches'] for x in b]}")
+    for tier, xs in sorted(ttft.items()):
+        print(f"ranks (b): client TTFT {tier} p50 {np.percentile(xs, 50):.1f} "
+              f"p90 {np.percentile(xs, 90):.1f} ms over {len(xs)} requests")
+    print(f"ranks (b): server TPOT p50 {b[0]['tpot_ms']:.2f} ms; "
+          f"{n_tok / out['wall_s']:.1f} output tok/s over "
+          f"{out['wall_s']:.3f} s wall; {b[0]['switches']} switches, "
+          f"rebinds {', '.join(f'{x:.2f}' for x in b[0]['rebind_ms'])} ms; "
+          f"preempt_stats {b[0]['preempt']}")
+    # a step's time on the scheduler's clock (it tracks the wall at wall
+    # pace): from its log entry to the next, by merge and phase
+    log = b[0]["log"]
+    by = {}
+    for (phase, merge, t), nxt in zip(log, log[1:]):
+        by.setdefault((merge, phase), []).append((nxt[2] - t) * 1e3)
+    print("ranks (b): steps by merge and phase: " + "; ".join(
+        f"merge {m} {p} {len(xs)}, median {np.median(xs):.1f} ms"
+        for (m, p), xs in sorted(by.items())))
+    print(f"ranks (b): broadcast {np.median(bms):.3f} ms median, "
+          f"{np.percentile(bms, 99):.3f} ms p99 over {len(bms)} broadcasts "
+          f"({b[0]['ticks']} ticks); {per_tick:.2f} host collectives a "
+          f"tick on rank 0; peak memory "
+          f"{[round(x['peak_gib'], 2) for x in b]} GiB; /metrics layout "
+          f"{out['metrics']['layout']}; {smi}")
+    print(f"ranks: {smi}; phase 20 took {time.perf_counter() - t0:.1f} s")
+
+
 def gc_collect(torch) -> None:
     import gc
     gc.collect()
@@ -5171,6 +5575,8 @@ def main(argv=None) -> int:
         serve_recurrent(torch, np, smi)
         gc_collect(torch)
         launches.update(serve_engine_recurrent(torch, np, smi))
+        gc_collect(torch)
+        serve_ranks(torch, np, smi)
     for r in rows:
         r["launches"] = launches[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches",

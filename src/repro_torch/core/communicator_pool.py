@@ -20,7 +20,8 @@ paper's live switch against its cold start).
 Backend, by topology: ``nccl`` when every rank has a card of its own,
 ``gloo`` when ranks share one or run on the CPU (``world_backend``);
 ``describe`` says which runs. Host-side agreement (step durations,
-token harvests) goes over a gloo group of the whole world.
+token harvests, and under ``--serve`` rank 0's per-tick inputs,
+``host_broadcast``) goes over a gloo group of the whole world.
 
 The pool also hands out one step function per runner key, looked up in
 O(1) on the serving path and built once. The keys are the JAX
@@ -76,6 +77,8 @@ class PoolStats(CommStats):
     group_build_s: float = 0.0
     lookups: int = 0
     lookup_s: float = 0.0
+    broadcasts: int = 0       # host_broadcast calls (the serve lockstep)
+    broadcast_s: float = 0.0  # their wall time on this rank
 
 
 class Seat(NamedTuple):
@@ -181,6 +184,20 @@ class CommunicatorPool:
         dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.host_group)
         self.stats.host_collectives += 1
         return float(t[0])
+
+    def host_broadcast(self, obj=None):
+        """Rank 0's ``obj`` on every rank (one pickled broadcast over the
+        host group; the other ranks pass nothing). At one rank it is
+        ``obj`` itself, with no collective and nothing counted."""
+        if self.world == 1:
+            return obj
+        t0 = time.perf_counter()
+        box = [obj if self.rank == 0 else None]
+        dist.broadcast_object_list(box, src=0, group=self.host_group)
+        self.stats.host_collectives += 1
+        self.stats.broadcasts += 1
+        self.stats.broadcast_s += time.perf_counter() - t0
+        return box[0]
 
     def host_sum(self, t: torch.Tensor) -> torch.Tensor:
         """Sum a CPU tensor over every rank, in place (one all_reduce)."""

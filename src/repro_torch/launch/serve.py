@@ -22,7 +22,17 @@ Modes:
   --serve: boot the async serving core, the OpenAI-style HTTP/SSE
          endpoint (``serving/server.py``) over the event-driven
          continuous-batching loop, instead of replaying a trace. Tokens
-         reach the streams every ``STREAM_HARVEST`` engine steps.
+         reach the streams every ``STREAM_HARVEST`` engine steps. On
+         ``--ranks N`` rank 0 owns the socket and the clock and leads:
+         before each action of its loop it broadcasts the inputs that
+         reached it alone (requests, aborts, the wall clock) with a
+         digest of its state, and ranks 1..N-1 replay them through the
+         same calls (``serving/lockstep.py``), so every rank's scheduler
+         stays rank 0's and a rank whose digest differs raises. A
+         parked rank 0 sends a heartbeat every 10 s. SIGINT or SIGTERM
+         to the launcher reaches rank 0, which stops the loop and drains
+         every rank through ``FrontDoor.shutdown``; every rank then
+         exits 0, and a rank that dies fails the launcher.
 
 Every knob lives on the :class:`ServeConfig` dataclass and can come
 from a JSON file (``--config serve.json``) with CLI flags as overrides:
@@ -44,6 +54,11 @@ from a JSON file (``--config serve.json``) with CLI flags as overrides:
       --max-blocks-per-req 16 --priority-frac 0.25
   PYTHONPATH=src python -m repro_torch.launch.serve --sim --serve \\
       --port 8000 --pace virtual --forecast
+  # ... over HTTP on 4 CPU ranks (--port 0: the port it prints)
+  PYTHONPATH=src python -m repro_torch.launch.serve --serve --ranks 4 \\
+      --tp-base 2 --device cpu --reduced --dtype float32 --port 0 \\
+      --num-blocks 64 --block-base 4 --batch-per-engine 2 \\
+      --prefill-chunk 8 --max-blocks-per-req 16
   curl -N localhost:8000/v1/completions -d \\
       '{"prompt": "hello", "max_tokens": 16, "stream": true}'
   # Mamba-2 and RecurrentGemma (their recurrent rows stay with each
@@ -56,8 +71,7 @@ from a JSON file (``--config serve.json``) with CLI flags as overrides:
 
 At one engine the layout policy has nothing to merge: a one-rank run
 never rebinds, and the scheduler refuses a ``--fixed-merge`` other than 1
-(a merge wider than its one engine). ``--serve`` runs one rank: HTTP
-requests reach one process, and the SPMD ranks must all see them.
+(a merge wider than its one engine). ``--sim`` runs one process.
 whisper-base and internvl2-1b do not serve on the real path (the engine
 stages no frontend embeddings; ROADMAP.md Queue 1 item 2.4).
 """
@@ -165,9 +179,9 @@ class ServeConfig:
             raise SystemExit(f"config: ranks={self.ranks} must be a "
                              f"power-of-two count of tp_base="
                              f"{self.tp_base}-rank engines")
-        if self.ranks > 1 and (self.serve or not self.real):
-            raise SystemExit("config: --ranks > 1 replays a trace on the "
-                             "real engine (not --serve, not --sim)")
+        if self.ranks > 1 and not self.real:
+            raise SystemExit("config: --ranks > 1 runs the real engine "
+                             "(not --sim)")
 
     def policy(self):
         """The layout policy this config asks for (None = pinned)."""
@@ -318,15 +332,7 @@ def build_stack(cfg: ServeConfig, weights=None, **engine):
                             prefix_cache=cfg.prefix_cache,
                             fixed_merge=cfg.fixed_merge or None),
             policy=cfg.policy())
-        spec = WorkloadSpec(n_requests=cfg.requests, seed=cfg.seed,
-                            prompt_range=cfg.prompt_range,
-                            output_range=cfg.output_range,
-                            priority_frac=cfg.priority_frac)
-        if cfg.prefix_cache:
-            lo = cfg.prompt_range[0]
-            spec.prefix_pool = cfg.prefix_pool
-            spec.prefix_hit = cfg.prefix_hit
-            spec.prefix_range = (max(lo // 2, 1), lo)
+        spec = real_spec(cfg)
     else:
         mcfg = get_config(cfg.arch)
         plan = ParallelPlan(engine_rows=mcfg.engine_rows, tp_base=16,
@@ -353,12 +359,33 @@ def build_stack(cfg: ServeConfig, weights=None, **engine):
             spec.prefix_pool = cfg.prefix_pool
             spec.prefix_hit = cfg.prefix_hit
             spec.prefix_range = (512, 2048)
+        _traffic(cfg, spec)
+    return sched, spec, injector
 
+
+def _traffic(cfg: ServeConfig, spec) -> None:
     spec.arrival = cfg.arrival
     spec.rate = cfg.rate
     spec.background_frac = cfg.background_frac
     spec.cancel_frac = cfg.cancel_frac
-    return sched, spec, injector
+
+
+def real_spec(cfg: ServeConfig):
+    """The trace a real-engine run of ``cfg`` replays (``build_stack``'s
+    spec, built without the model: a client of ``--serve`` draws its
+    requests from it)."""
+    from repro_torch.serving.workload import WorkloadSpec
+    spec = WorkloadSpec(n_requests=cfg.requests, seed=cfg.seed,
+                        prompt_range=cfg.prompt_range,
+                        output_range=cfg.output_range,
+                        priority_frac=cfg.priority_frac)
+    if cfg.prefix_cache:
+        lo = cfg.prompt_range[0]
+        spec.prefix_pool = cfg.prefix_pool
+        spec.prefix_hit = cfg.prefix_hit
+        spec.prefix_range = (max(lo // 2, 1), lo)
+    _traffic(cfg, spec)
+    return spec
 
 
 def build_door(cfg: ServeConfig, sched):
@@ -375,20 +402,25 @@ def build_door(cfg: ServeConfig, sched):
 
 
 def build_loop(cfg: ServeConfig, door):
-    """The async serving loop over ``door``, as ``--serve`` runs it."""
+    """The async serving loop over ``door``, as ``--serve`` runs it; on
+    ranks it leads the others through the engine's communicator pool."""
     from repro_torch.serving.asyncloop import AsyncServeLoop
     from repro_torch.serving.metrics import RollingTierMetrics
     return AsyncServeLoop(
         door, pace=cfg.pace, stream_buf=cfg.stream_buf,
         wall_dilation=cfg.wall_dilation,
-        rolling=RollingTierMetrics(window_s=cfg.metrics_window))
+        rolling=RollingTierMetrics(window_s=cfg.metrics_window),
+        pool=getattr(door.sched.backend, "pool", None))
 
 
 # ---------------------------------------------------------------------------
 # --serve: the always-on HTTP server
 # ---------------------------------------------------------------------------
 
-def serve_http(cfg: ServeConfig) -> None:
+def serve_http(cfg: ServeConfig, ready=None):
+    """The HTTP server until SIGINT, then a graceful drain (on every rank
+    when it leads ranks). ``ready(port)`` is called once it listens.
+    Returns the loop."""
     import asyncio
 
     from repro_torch.serving.server import ServeHTTP
@@ -399,24 +431,50 @@ def serve_http(cfg: ServeConfig) -> None:
 
     async def main():
         srv = await ServeHTTP(loop).start(cfg.host, cfg.port)
+        ranks = f", {cfg.ranks} ranks" if cfg.ranks > 1 else ""
         print(f"serving on http://{cfg.host}:{srv.port}  "
               f"(pace={cfg.pace}, forecast={cfg.forecast}, "
               f"arch={cfg.arch}, backend="
-              f"{'real' if cfg.real else 'sim: TPU v5e cost model'})")
+              f"{'real' if cfg.real else 'sim: TPU v5e cost model'}"
+              f"{ranks})", flush=True)
         print("  POST /v1/completions | /v1/chat/completions   "
-              "GET /metrics /healthz")
+              "GET /metrics /healthz", flush=True)
+        if ready is not None:
+            ready(srv.port)
         try:
             await srv.serve_forever()
         except asyncio.CancelledError:
             pass
         finally:
             await srv.stop()
-            door.shutdown(cfg.diagnostic or None)
+            loop.shutdown(cfg.diagnostic or None)
 
     try:
         asyncio.run(main())
     except KeyboardInterrupt:
         print("\nshutdown")
+    if loop.pool is not None:
+        st = loop.pool.stats
+        ms = sorted(loop.broadcast_ms)
+        print(f"lockstep: {st.broadcasts} broadcasts over {loop.ticks} "
+              f"ticks, {ms[len(ms) // 2]:.3f} ms median; "
+              f"{st.host_collectives} host collectives", flush=True)
+    return loop
+
+
+def serve_follow(cfg: ServeConfig):
+    """Ranks 1..N-1 of ``--serve --ranks N``: the same stack, driven by
+    rank 0's broadcasts until its shutdown has drained here too. SIGINT
+    is ignored: rank 0 stops the fleet. Returns the follower."""
+    import signal
+
+    from repro_torch.serving.lockstep import Follower
+
+    signal.signal(signal.SIGINT, signal.SIG_IGN)
+    sched, _spec, _inj = build_stack(cfg)
+    follower = Follower(build_door(cfg, sched), sched.backend.pool)
+    follower.run()
+    return follower
 
 
 # ---------------------------------------------------------------------------
@@ -543,12 +601,17 @@ def run_offline(cfg: ServeConfig) -> None:
         write_diag(sched._diagnostic().to_dict())
 
 
-def _rank_main(rank: int, world: int, cfg: ServeConfig) -> None:
+def _rank_main(rank: int, world: int, cfg: ServeConfig, ready=None):
     """One rank of a ``--ranks N`` run: the whole offline replay, as
-    every other rank runs it; rank 0 alone prints."""
+    every other rank runs it, or under ``--serve`` the HTTP server on
+    rank 0 (``ready`` as ``serve_http``'s) and a follower on every other
+    rank (returned); rank 0 alone prints."""
     if rank:
         sys.stdout = open(os.devnull, "w")
     try:
+        if cfg.serve:
+            return serve_http(cfg, ready) if rank == 0 \
+                else serve_follow(cfg)
         run_offline(cfg)
     finally:
         if rank:
@@ -567,7 +630,10 @@ def main(argv=None):
               device_type="cpu" if cpu else "cuda", timeout=None,
               hash_seed=os.environ.get("PYTHONHASHSEED", "0"),
               threads=max((os.cpu_count() or 1) // cfg.ranks, 1)
-              if cpu else None)
+              if cpu else None, forward_signals=cfg.serve,
+              on_start=(lambda pids: print(f"rank pids {pids}",
+                                           flush=True))
+              if cfg.serve else None)
     elif cfg.serve:
         serve_http(cfg)
     else:

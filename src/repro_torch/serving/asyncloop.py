@@ -41,14 +41,31 @@ identical to what the offline path reads back after ``run()``.  Sim
 backends model cost, not content — the stream synthesizes a
 DETERMINISTIC token id per (request, index) so the identity property is
 still testable end-to-end over HTTP.
+
+On ranks (``pool``: the engine's communicator pool over more than one
+rank) the loop LEADS the fleet from rank 0, which alone owns the socket
+and the clock. Every input that reaches rank 0 alone is recorded as it
+happens, in order: each submission (the whole request after the arrival
+clamp, with its tier), each client abort, the stream pump's cancels of
+slow consumers, and each wall-clock value written into ``sched.now``.
+Before every ``door.tick()``, ``door.idle_advance()`` and
+``sched.drain_backend()`` the loop broadcasts them with the action and
+a digest of its state (one ``host_broadcast``); the followers
+(``serving/lockstep.py``) apply them through the same calls and check
+the digest, so every rank's scheduler stays rank 0's. A parked leader
+sends a heartbeat every ``heartbeat_s`` seconds, so that no follower
+waits out gloo's 30-minute timeout.
 """
 from __future__ import annotations
 
 import asyncio
-from typing import Dict, List, Optional, Tuple
+import copy
+from collections import deque
+from typing import Deque, Dict, List, Optional, Tuple
 
 from repro_torch.core.task_pool import TERMINAL_STATES, Request
 from repro_torch.serving.frontdoor import FrontDoor
+from repro_torch.serving.lockstep import digest
 from repro_torch.serving.metrics import RollingTierMetrics
 
 # sim backends carry no token content: synthesize a deterministic id
@@ -138,9 +155,12 @@ class TokenStream:
 class AsyncServeLoop:
     """The always-on continuous-batching driver (§D13)."""
 
+    heartbeat_s = 10.0      # a parked leader's broadcast period
+
     def __init__(self, door: FrontDoor, *, pace: str = "virtual",
                  stream_buf: int = 256, wall_dilation: float = 1.0,
-                 rolling: Optional[RollingTierMetrics] = None):
+                 rolling: Optional[RollingTierMetrics] = None,
+                 pool=None):
         assert pace in ("virtual", "wall"), pace
         self.door = door
         self.pace = pace
@@ -154,6 +174,11 @@ class AsyncServeLoop:
         self._task: Optional[asyncio.Task] = None
         self._t0: Optional[float] = None    # wall anchor for pace="wall"
         self.ticks = 0
+        # leading the followers of a multi-rank fleet: the inputs since
+        # the last broadcast, and each broadcast's ms on this rank
+        self.pool = pool if pool is not None and pool.world > 1 else None
+        self._inputs: List[Tuple] = []
+        self.broadcast_ms: Deque[float] = deque(maxlen=4096)
 
     # -- client API ----------------------------------------------------
     def submit(self, req: Request, tier: Optional[str] = None) -> TokenStream:
@@ -163,6 +188,9 @@ class AsyncServeLoop:
         pace) are honored — the front door holds them until the clock
         gets there."""
         req.arrival = max(req.arrival, self._now())
+        if self.pool is not None:
+            # as submitted: the door stamps the request it is handed
+            self._inputs.append(("submit", copy.deepcopy(req), tier))
         st = TokenStream(req.req_id, maxsize=self.stream_buf)
         self.streams[req.req_id] = st
         ok = self.door.submit(req, tier)
@@ -176,6 +204,8 @@ class AsyncServeLoop:
         """Client disconnect / explicit cancel: propagates into the
         lifecycle (KV released transactionally); the stream finalizes
         on the next pump."""
+        if self.pool is not None:
+            self._inputs.append(("cancel", req_id, reason))
         out = self.door.cancel(req_id, reason)
         self._wake.set()
         return out
@@ -184,13 +214,40 @@ class AsyncServeLoop:
         self._task = asyncio.ensure_future(self.run())
 
     async def stop(self) -> None:
-        """Stop the loop (in-flight work is left to ``door.shutdown``
-        for a graceful drain — stopping is not draining)."""
+        """Stop the loop (in-flight work is left to ``shutdown`` for a
+        graceful drain — stopping is not draining)."""
         self._stopping = True
         self._wake.set()
         if self._task is not None:
             await self._task
             self._task = None
+
+    def shutdown(self, path: Optional[str] = None) -> Dict:
+        """``door.shutdown(path)`` on every rank: the followers drain
+        with rank 0 (the inputs that came after the loop stopped go out
+        first), and a last broadcast checks the drained states."""
+        self._sync("stop")
+        diag = self.door.shutdown(path)
+        self._sync("end")
+        return diag
+
+    # -- lockstep (leader) ---------------------------------------------
+    def _set_now(self, t: float) -> None:
+        self.door.sched.now = t
+        if self.pool is not None:
+            self._inputs.append(("now", t))
+
+    def _sync(self, action: str) -> None:
+        """Broadcast the inputs recorded since the last call, ``action``
+        and this rank's digest: the followers apply the inputs, check the
+        digest, then take the action. Nothing at one rank."""
+        if self.pool is None:
+            return
+        msg = (action, self._inputs, digest(self.door, self.ticks))
+        self._inputs = []
+        s0 = self.pool.stats.broadcast_s
+        self.pool.host_broadcast(msg)
+        self.broadcast_ms.append((self.pool.stats.broadcast_s - s0) * 1e3)
 
     # -- clock ---------------------------------------------------------
     def _now(self) -> float:
@@ -216,7 +273,8 @@ class AsyncServeLoop:
         door._idle_spins = 0
         while not self._stopping:
             if self.pace == "wall":
-                sched.now = max(sched.now, self._wall_virt())
+                self._set_now(max(sched.now, self._wall_virt()))
+            self._sync("tick")
             progressed = door.tick()
             self.ticks += 1
             self._pump()
@@ -245,24 +303,42 @@ class AsyncServeLoop:
                     delay = (nxt - self._wall_virt()) / self.wall_dilation
                     if delay > 1e-4:
                         await self._park(delay)
-                        sched.now = max(sched.now, self._wall_virt())
+                        self._set_now(max(sched.now, self._wall_virt()))
                         continue
+                self._sync("idle")
                 if not door.idle_advance():
                     await self._park(None)
             else:
+                self._sync("idle")
                 if not door.idle_advance():
                     await self._park(None)
                 else:
                     await asyncio.sleep(0)
+        self._sync("drain")
         sched.drain_backend()
         self._pump()
 
     async def _park(self, timeout: Optional[float]) -> None:
-        """Sleep until woken (new submission, abort, stop) or timeout."""
-        try:
-            await asyncio.wait_for(self._wake.wait(), timeout)
-        except asyncio.TimeoutError:
-            pass
+        """Sleep until woken (new submission, abort, stop) or timeout.
+        A leader wakes every ``heartbeat_s`` meanwhile to broadcast a
+        heartbeat (with any inputs that came), so that its followers,
+        blocked in the broadcast, never reach the collective's
+        timeout."""
+        loop = asyncio.get_event_loop()
+        end = None if timeout is None else loop.time() + timeout
+        while True:
+            wait = timeout
+            if self.pool is not None:
+                wait = self.heartbeat_s if end is None else \
+                    min(self.heartbeat_s, max(end - loop.time(), 0.0))
+            try:
+                await asyncio.wait_for(self._wake.wait(), wait)
+                break
+            except asyncio.TimeoutError:
+                if self.pool is None or (end is not None
+                                         and loop.time() >= end):
+                    break
+                self._sync("beat")
         self._wake.clear()
 
     # -- stream pump ---------------------------------------------------
@@ -300,6 +376,7 @@ class AsyncServeLoop:
         requests. O(live streams) per tick."""
         now = self.door.sched.now
         by_tier: Dict[str, int] = {}
+        overflowed: List[str] = []
         for rid, st in list(self.streams.items()):
             r = self.door.requests.get(rid)
             if r is None:
@@ -318,6 +395,7 @@ class AsyncServeLoop:
                         # untouched. Tokens already queued stay
                         # readable; nothing more is produced or kept.
                         st.overflowed = True
+                        overflowed.append(rid)
                         self.door.cancel(rid, "aborted")
                         break
                 by_tier[r.tier] = by_tier.get(r.tier, 0) + pushed
@@ -328,6 +406,8 @@ class AsyncServeLoop:
                 self._seen[rid] = seen + pushed
             if r.state in TERMINAL_STATES:
                 self._finalize(r, st)
+        if self.pool is not None and overflowed:
+            self._inputs.append(("overflow", tuple(overflowed)))
         for tier, n in by_tier.items():
             self.rolling.note_tokens(now, tier, n)
 

@@ -37,6 +37,8 @@ import json
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
+import torch.distributed as dist
+
 from repro_torch.core.modes import Island
 from repro_torch.core.scheduler import DynamicScheduler, SchedulerWedged
 from repro_torch.core.task_pool import (PRIORITY_HIGH, PRIORITY_NORMAL,
@@ -480,7 +482,8 @@ class FrontDoor:
         """Graceful drain: stop admission (queued work exits as shed),
         serve in-flight requests for up to ``drain_grace`` virtual
         seconds, abort whatever remains, and emit the structured
-        diagnostic artifact (written to ``path`` when given)."""
+        diagnostic artifact (written to ``path`` when given). On ranks
+        every rank drains, in step; rank 0 alone writes ``path``."""
         self._admission_open = False
         for r in list(self._queue):
             self._queue.remove(r)
@@ -494,7 +497,8 @@ class FrontDoor:
         for r in self._live_in_sched():
             self.sched.abort(r.req_id, "aborted")
         diag = self.diagnostic(reason)
-        if path is not None:
+        if path is not None and not (dist.is_initialized()
+                                     and dist.get_rank()):
             with open(path, "w") as f:
                 json.dump(diag, f, indent=2, sort_keys=True, default=str)
                 f.write("\n")

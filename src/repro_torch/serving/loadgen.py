@@ -136,6 +136,7 @@ async def _one_http(host: str, port: int, r: Request, t0: float,
             if payload == b"[DONE]":
                 break
             ev = json.loads(payload)
+            rec["id"] = ev.get("id")       # the server's request id
             if "token" in ev:
                 if first is None:
                     first = aloop.time()

@@ -869,7 +869,7 @@ def test_launcher_serves_on_eight_cpu_ranks():
 
 @pytest.mark.parametrize("argv", [["--ranks", "3"],
                                   ["--ranks", "4", "--tp-base", "3"],
-                                  ["--ranks", "2", "--serve"],
+                                  ["--ranks", "2", "--serve", "--sim"],
                                   ["--ranks", "2", "--sim"]])
 def test_launcher_refuses_rank_counts_it_cannot_serve(argv):
     from repro_torch.launch import serve
