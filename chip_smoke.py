@@ -306,14 +306,36 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    and depth in bf16 at phase 5's geometry (two one-rank engines of
    2048 blocks a rank, which the layout policy merges to TP2 for
    priority traffic) over HTTP at wall pace through the launcher's rank
-   entry (``launch.serve._rank_main``), 24 requests at Poisson 2/s, a
-   quarter priority, sent by ``loadgen.drive_http`` from a process of
+   entry (``launch.serve._rank_main``), 12 requests at Poisson 2/s (4
+   of them priority), sent by ``loadgen.drive_http`` from a process of
    its own, which then stops the server with SIGINT: every stream done
    with its full output in the vocab, at least one rebind, K1-K4
    launched on both ranks, the digests equal, every rank exited 0;
    client TTFT p50/p90 per tier, server TPOT p50, output tok/s, the
    rebinds' ms, rank 0's broadcast ms (median, p99) and host
    collectives a tick printed.
+21. (run after phase 20) sharded training (``build_train_step`` at a
+   plan of two ranks: TP over 'model', the batch over 'data') on two
+   rank processes sharing the card over gloo: (a) reduced llama3-8b and
+   Phi-3.5-MoE in fp32 at TP2 and DP2, reduced mamba2-2.7b and the
+   4-layer RecurrentGemma at TP2, 3 steps of 4 x 128 tokens on the card
+   and on the CPU side by side in each rank, from the same seeded
+   weights: the losses (rtol 1e-4), the gathered gradients before step
+   1 and the gathered parameters (atol 1e-4; mamba2-2.7b from the
+   card's state at every step, its near-zero gradients' elements left
+   out, at most 1%) equal, K5, K6 and K7 launched at their rank-local
+   shapes; (b) llama3-8b at full width cut to 4 of 32 layers, bf16,
+   TP2, 10 steps of 4 x 2048 tokens; (c) Phi-3.5-MoE at full width cut
+   to 2 of 32 layers, bf16, TP2 (8 experts a rank), 5 steps of 2 x 2048
+   tokens; (d) mamba2-2.7b (2 of 64 layers) and recurrentgemma-9b (3 of
+   38) at full width, bf16, TP2, 3 steps of 4 x 2048 tokens: finite
+   losses ((b) and (c) falling) equal on both ranks, each kernel
+   launched twice forward and once backward a layer of its kind a
+   step; the median step over steps 2 on and tok/s, the peak a rank,
+   TP collectives a step, the launches and (c)'s aux loss printed.
+   Phase 3 holds, last, K5 at llama3-8b's TP2-local heads (H 16, KV 4,
+   hd 128) and at RecurrentGemma's (H 8, KV 1, hd 256, window 2048),
+   K6 at 40 heads of 64 and K7 at 2048 channels, each at 4 x 2048.
 
 Each kernel's launch count in the JSON record comes from the path that
 runs it: K1-K4 from phase 5, K5 and its backward at hd 128 from phase 8
@@ -321,7 +343,10 @@ and at hd 256 from phase 12, K6 and its backward from phase 10, K7 and
 its backward from phase 12, mla_decode and the one-pool K1 and K3 from
 phase 15 (b)'s first run, K2 with its LSE from phase 16 (b)'s trace and
 mla_decode with its LSE from phase 16 (c)'s striped run, on rank 0,
-K6 and K7 from h0 and K2 and K4 at hd 256 from phase 19 (c) (phase 14
+K6 and K7 from h0 and K2 and K4 at hd 256 from phase 19 (c), K5 and
+its backward at llama3-8b's TP2-local heads from phase 21 (b) and K5,
+K6 and K7 at the other TP2-local shapes from phase 21 (d), on rank 0
+(phase 14
 prints its own K1-K4 counts, and K2's and K4's LSE launches, in its rank
 processes; phases 17 and 18 print the counts of their own runs). The line
 before the last is the kernels' JSON record, the last line
@@ -694,6 +719,21 @@ def kernel_checks(torch, np):
     # reason
     torch.cuda.empty_cache()
     masked_recurrent_checks(torch, gen)
+    # phase 21's shapes, after phase 19's for the same reason: K5 at the
+    # TP2-local heads of llama3-8b and Phi-3.5-MoE (16 of 32, 4 of 8 KV),
+    # then RecurrentGemma's local attention at TP2 (8 of 16 heads on its
+    # one KV head, hd 256, window 2048), K6 at 40 of mamba2-2.7b's 80
+    # heads and K7 at 2048 of recurrentgemma-9b's 4096 channels
+    torch.cuda.empty_cache()
+    rows.extend(flash_rows(torch, gen, close, "_tp2", H // 2, KV // 2, hd,
+                           [(4, 2048)], (None,)))
+    torch.cuda.empty_cache()
+    rows.extend(flash_rows(torch, gen, close, "_hd256_tp2", 8, 1, 256,
+                           [(2, 4096), (4, 2048)], (2048,)))
+    torch.cuda.empty_cache()
+    rows.extend(ssd_rows(torch, gen, "_tp2", H=40, ragged=False))
+    torch.cuda.empty_cache()
+    rows.extend(rglru_rows(torch, gen, "_tp2", C=2048, ragged=False))
     _lib.reset_launches()
     torch.cuda.empty_cache()
     return rows
@@ -1320,14 +1360,16 @@ def ssd_close(torch, got, want, what):
     return e
 
 
-def ssd_rows(torch, gen):
+def ssd_rows(torch, gen, suffix: str = "", H: int = 80,
+             ragged: bool = True):
     """K6 forward and backward against their plain versions at the
-    training shape of mamba2-2.7b (batch 4 x 2048 tokens, 80 heads of
-    64, d_state 128, chunk 128) and at a small ragged shape through the
-    autograd op, in fp32 and with bf16 x, B and C (the tensor-core
-    routes; the backward is fed the forward's states); then timed in
-    bf16 at the training shape, with each bf16 forward kernel's device
-    time a call."""
+    training shape of mamba2-2.7b (batch 4 x 2048 tokens, ``H`` heads of
+    64: all 80, or a rank's share under TP; d_state 128, chunk 128) and,
+    with ``ragged``, at a small ragged shape through the autograd op, in
+    fp32 and with bf16 x, B and C (the tensor-core routes; the backward
+    is fed the forward's states); then timed in bf16 at the training
+    shape (with ``ragged``, with each bf16 forward kernel's device time a
+    call). Rows ``ssd_scan{suffix}`` and ``ssd_scan_bwd{suffix}``."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.ssd_scan import kernel as sk
@@ -1350,7 +1392,7 @@ def ssd_rows(torch, gen):
                 F.silu(rnd((Bs, T, S))).to(dtype),
                 F.silu(rnd((Bs, T, S))).to(dtype))
     errs = {"fwd": [], "bwd": []}
-    Bs, T, H, hd, S, ch = 4, 2048, 80, 64, 128, 128
+    Bs, T, hd, S, ch = 4, 2048, 64, 128, 128
     for dtype in (f32, bf16):
         ins = inputs(Bs, T, H, hd, S, dtype)
         dy = rnd((Bs, T, H, hd))
@@ -1371,7 +1413,7 @@ def ssd_rows(torch, gen):
         del grads, wants, y, hT, st
         torch.cuda.empty_cache()
     # a ragged T through the autograd op (padded to a multiple of 32)
-    for dtype in (f32, bf16):
+    for dtype in (f32, bf16) if ragged else ():
         ins = inputs(2, 100, 3, 32, 32, dtype)
         leaves = [t.clone().requires_grad_(True) for t in ins]
         dy = rnd((2, 100, 3, 32))
@@ -1414,7 +1456,7 @@ def ssd_rows(torch, gen):
     def fwd():
         sk.ssd_scan_kernel(*ins, chunk=ch)
     rows = [dict(
-        name="ssd_scan", route="cuda",
+        name=f"ssd_scan{suffix}", route="cuda",
         source="src/repro_torch/kernels/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan/kernel.py:67",
         max_abs_err=max(errs["fwd"]),
@@ -1422,7 +1464,7 @@ def ssd_rows(torch, gen):
         plain_ms=time_ms(torch, lambda: sr.ssd_scan_fwd_ref(*ins, chunk=ch),
                          iters=3, warm=1, windows=3),
         bound_ms=fwd_b[0], bound_by=fwd_b[1], library_ms=None), dict(
-        name="ssd_scan_bwd", route="cuda",
+        name=f"ssd_scan_bwd{suffix}", route="cuda",
         source="src/repro_torch/kernels/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan/kernel.py:67",
         max_abs_err=max(errs["bwd"]),
@@ -1431,11 +1473,13 @@ def ssd_rows(torch, gen):
         plain_ms=time_ms(torch, lambda: sr.ssd_scan_bwd_ref(
             *ins, dy, chunk=ch), iters=2, warm=1, windows=3),
         bound_ms=bwd_b[0], bound_by=bwd_b[1], library_ms=None)]
-    dev = {k: launch_device_ms(torch, fwd, k, iters=5) for k in SSD_FWD_TC}
-    print(f"  ssd_scan bf16 [{Bs},{T},{H},{hd}] S={S}: events "
-          f"{rows[0]['ms']:.4f} ms a call; device a call (profiler): "
-          + ", ".join(f"{k} {v:.4f} ms" for k, v in dev.items())
-          + f" (sum {sum(dev.values()):.4f} ms)")
+    if ragged:
+        dev = {k: launch_device_ms(torch, fwd, k, iters=5)
+               for k in SSD_FWD_TC}
+        print(f"  ssd_scan bf16 [{Bs},{T},{H},{hd}] S={S}: events "
+              f"{rows[0]['ms']:.4f} ms a call; device a call (profiler): "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in dev.items())
+              + f" (sum {sum(dev.values()):.4f} ms)")
     del ins, dy, y, hT, st
     return rows
 
@@ -1458,12 +1502,15 @@ def dA_fp64_diagnostic(torch, sr, pad, dy, dA_kernel, dA_plain) -> None:
           f"{scale:.3e}; the check's atol {1e-4 * scale:.3e})")
 
 
-def rglru_rows(torch, gen):
+def rglru_rows(torch, gen, suffix: str = "", C: int = 4096,
+               ragged: bool = True):
     """K7 forward and backward against their plain versions at the
-    training shape of recurrentgemma-9b (batch 4 x 2048 tokens, 4096
-    channels, fp32, as the RG-LRU block passes them) with two draws of
-    a, and at a ragged shape through the autograd op in fp32 and bf16;
-    then timed at the training shape."""
+    training shape of recurrentgemma-9b (batch 4 x 2048 tokens, ``C``
+    channels: all 4096, or a rank's share under TP; fp32, as the RG-LRU
+    block passes them) with two draws of a, and with ``ragged`` at a
+    ragged shape through the autograd op in fp32 and bf16; then timed at
+    the training shape. Rows ``rglru_scan{suffix}`` and
+    ``rglru_scan_bwd{suffix}``."""
     from repro_torch.kernels.rglru_scan import kernel as rk
     from repro_torch.kernels.rglru_scan import ops as ro
     from repro_torch.kernels.rglru_scan import ref as rr
@@ -1481,7 +1528,7 @@ def rglru_rows(torch, gen):
             1.0 - 1e-3 * torch.rand((B, T, C), generator=gen, device=dev)
         return a.to(dtype), (0.5 * rnd((B, T, C))).to(dtype)
     errs = {"fwd": [], "bwd": []}
-    B, T, C = 4, 2048, 4096
+    B, T = 4, 2048
     for draw in ("sigmoid", "near 1"):
         a, g = inputs(B, T, C, draw)
         dy = rnd((B, T, C))
@@ -1497,7 +1544,7 @@ def rglru_rows(torch, gen):
             ssd_close(torch, got, want, f"rglru_scan_bwd {tag} d{n}")
             for n, got, want in zip("ag", grads, wants)))
         del grads, wants, wy, wh, y, hT, dy
-    for dtype in (f32, bf16):
+    for dtype in (f32, bf16) if ragged else ():
         a, g = inputs(1, 100, 96, "near 1", dtype)
         leaves = [a.clone().requires_grad_(True),
                   g.clone().requires_grad_(True)]
@@ -1520,7 +1567,7 @@ def rglru_rows(torch, gen):
     fwd_b = bound(3 * n * 4 + B * C * 4, 2.0 * n)
     bwd_b = bound(5 * n * 4, 3.0 * n)
     rows = [dict(
-        name="rglru_scan", route="cuda",
+        name=f"rglru_scan{suffix}", route="cuda",
         source="src/repro_torch/kernels/csrc/rglru_scan.cu",
         replaces="src/repro/kernels/rglru_scan/kernel.py:53",
         max_abs_err=max(errs["fwd"]),
@@ -1528,7 +1575,7 @@ def rglru_rows(torch, gen):
         plain_ms=time_ms(torch, lambda: rr.rglru_scan_ref(a, g), iters=2,
                          warm=1, windows=3),
         bound_ms=fwd_b[0], bound_by=fwd_b[1], library_ms=None), dict(
-        name="rglru_scan_bwd", route="cuda",
+        name=f"rglru_scan_bwd{suffix}", route="cuda",
         source="src/repro_torch/kernels/csrc/rglru_scan.cu",
         replaces="src/repro/kernels/rglru_scan/kernel.py:53",
         max_abs_err=max(errs["bwd"]),
@@ -5363,13 +5410,15 @@ def check_lockstep_trace(runs) -> dict:
 def serve_ranks(torch, np, smi: str) -> None:
     """Phase 20: (a) LOCKSTEP_TRACE through the leader and the follower,
     card against CPU; (b) llama3-8b at full width and depth in bf16 on
-    two ranks over HTTP at wall pace (phase 5's geometry, 24 requests at
+    two ranks over HTTP at wall pace (phase 5's geometry, 12 requests at
     Poisson 2/s, a quarter priority), stopped by SIGINT. Its prefill
     chunks on the TP2 island (its row-parallel all_reduces host-staged
-    by gloo, a few seconds a chunk) take most of the phase."""
+    by gloo, a few seconds a chunk) take most of the phase, so it
+    serves the first 12 requests of the trace (4 of them priority) to
+    keep the script inside its time limit."""
     t0 = time.perf_counter()
     cfg = serve_config(ranks=2, serve=True, pace="wall", port=0,
-                       requests=24, rate=2.0, priority_frac=0.25,
+                       requests=12, rate=2.0, priority_frac=0.25,
                        num_blocks=2048)
     reqs, out, runs = ranks_http_run(cfg, trace=True)
     a = check_lockstep_trace([res["a"] for res in runs])
@@ -5436,6 +5485,335 @@ def serve_ranks(torch, np, smi: str) -> None:
           f"{[round(x['peak_gib'], 2) for x in b]} GiB; /metrics layout "
           f"{out['metrics']['layout']}; {smi}")
     print(f"ranks: {smi}; phase 20 took {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 21: sharded training on two ranks sharing the card over gloo
+# ---------------------------------------------------------------------------
+
+# phase 21 (a)'s plans, (engine_rows, tp_base, data_rows), and configs:
+# reduced llama3-8b and Phi-3.5-MoE at both plans, reduced mamba2-2.7b
+# and the 4-layer RecurrentGemma at TP2 (K6 and K7 at their local heads
+# and channels)
+SHARDED_PLANS = {"TP2": (1, 2, 1), "DP2": (1, 1, 2)}
+SHARDED_RUNS = (("llama3-8b", "TP2"), ("llama3-8b", "DP2"),
+                ("phi3.5-moe-42b-a6.6b", "TP2"),
+                ("phi3.5-moe-42b-a6.6b", "DP2"),
+                ("mamba2-2.7b", "TP2"), ("recurrentgemma-9b", "TP2"))
+SHARDED_KERNELS = TRAIN_KERNELS + MAMBA_KERNELS + ("rglru_scan",
+                                                   "rglru_scan_bwd")
+# phase 21 (a): the arch whose card and CPU steps start from a common
+# state, the card's, at every step, and the gradient size under which an
+# element whose gradient differs on the two devices is left out of that
+# step's parameters (at most 1% of them): Adam moves a weight by about
+# lr * sign(g) while its moments are young, so a gradient within
+# rounding of zero moves it up to 2 lr apart (tests/test_torch_train.py)
+SHARDED_COMMON = "mamba2-2.7b"
+SHARDED_NEAR_ZERO = 1e-6
+# phase 21 (d)'s rows of the kernels' JSON record and the kernels whose
+# launches they take
+SHARDED_ROWS = {"ssd_scan_tp2": "ssd_scan", "ssd_scan_bwd_tp2": "ssd_scan_bwd",
+                "rglru_scan_tp2": "rglru_scan",
+                "rglru_scan_bwd_tp2": "rglru_scan_bwd",
+                "flash_prefill_hd256_tp2": "flash_prefill",
+                "flash_prefill_bwd_hd256_tp2": "flash_prefill_bwd"}
+
+
+def sharded_reduced(torch) -> dict:
+    """Phase 21 (a) on this rank: each run of ``SHARDED_RUNS`` in fp32,
+    3 steps of batch 4 x 128 tokens through ``build_train_step`` on the
+    card and on the CPU side by side, over the same gloo groups, from
+    the same seeded logical weights. Before step 1, each leaf's
+    gradient gathered to its logical shape on both devices; after each
+    step the losses and the gathered parameters (for
+    ``SHARDED_COMMON``, the CPU starting every step from the card's
+    state, the elements whose gradient there is near zero on both
+    devices and differs left out). Returns the largest differences and
+    the card's launches."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.modes import ParallelPlan
+    from repro_torch.core.weights_manager import WeightsManager
+    from repro_torch.kernels import _lib
+    from repro_torch.models.model import build_model
+    from repro_torch.training.checkpoint import (tree_leaves, tree_map,
+                                                 tree_unflatten)
+    from repro_torch.training.data import DataConfig, batches
+    from repro_torch.training.optimizer import AdamW, AdamWState
+    from repro_torch.training.train_step import (build_train_step,
+                                                 logical_specs, train_mesh)
+
+    out = {}
+    for arch, name in SHARDED_RUNS:
+        cfg = get_config(arch).reduced()
+        if arch == "recurrentgemma-9b":
+            cfg = dataclasses.replace(cfg, num_layers=4)
+        plan = ParallelPlan(*SHARDED_PLANS[name])
+        mesh = train_mesh(plan)
+        wm = WeightsManager(cfg, plan)
+        logical = build_model(cfg, torch.float32, "cpu").init(
+            torch.Generator().manual_seed(0))
+        specs = logical_specs(build_model(cfg, torch.float32, "cpu"), plan)
+        side = {}
+        for dev in ("cuda", "cpu"):
+            model = build_model(cfg, torch.float32, dev)
+            opt = AdamW(lr=1e-3, warmup=1)
+            shards = wm.train_shard(logical, mesh.pod, mesh.data,
+                                    mesh.model, device=dev)
+            side[dev] = {"step": build_train_step(model, plan, opt=opt,
+                                                  mesh=mesh),
+                         "carry": (shards, opt.init(shards))}
+
+        def gathered(leaves, like):
+            whole = wm.gather_train(tree_unflatten(like, list(leaves)),
+                                    specs, mesh.groups)
+            return [t.detach().cpu().numpy() for t in tree_leaves(whole)]
+        common = arch == SHARDED_COMMON
+        it = batches(DataConfig(cfg.vocab_size, 128, 4, seed=0))
+        r = {"card": [], "cpu": [], "grad_abs": 0.0, "param_abs": 0.0,
+             "masked_share": 0.0}
+        _lib.reset_launches()
+        for s in range(3):
+            b = next(it)
+            if common and s:
+                # the CPU takes the card's parameters and Adam state
+                p, o = side["cuda"]["carry"]
+                cp = side["cpu"]["carry"][0]
+                with torch.no_grad():
+                    for dst, src in zip(tree_leaves(cp), tree_leaves(p)):
+                        dst.copy_(src.cpu())
+                side["cpu"]["carry"] = (cp, AdamWState(
+                    o.step, tree_map(lambda t: t.to("cpu", copy=True), o.m),
+                    tree_map(lambda t: t.to("cpu", copy=True), o.v)))
+            grads = None
+            if s == 0 or common:
+                grads = {dev: gathered(x["step"].gradients(
+                    x["carry"][0], b)[0], x["carry"][0])
+                    for dev, x in side.items()}
+                if s == 0:
+                    r["grad_abs"] = max(
+                        float(np.abs(a - w).max()) if a.size else 0.0
+                        for a, w in zip(grads["cuda"], grads["cpu"]))
+            for dev, x in side.items():
+                x["carry"], mets = x["step"](x["carry"], b)
+                r["card" if dev == "cuda" else "cpu"].append(
+                    float(mets["loss"]))
+            if common or s == 2:
+                pc, ph = (gathered(tree_leaves(side[dev]["carry"][0]),
+                                   side[dev]["carry"][0])
+                          for dev in ("cuda", "cpu"))
+                masked = size = 0
+                for i, (a, w) in enumerate(zip(pc, ph)):
+                    m = np.zeros(a.shape, bool)
+                    if common:
+                        ga, gw = grads["cuda"][i], grads["cpu"][i]
+                        m = (np.abs(ga) <= SHARDED_NEAR_ZERO) \
+                            & (np.abs(gw) <= SHARDED_NEAR_ZERO) & (ga != gw)
+                    masked, size = masked + int(m.sum()), size + a.size
+                    if a.size > m.sum():
+                        r["param_abs"] = max(r["param_abs"], float(
+                            np.abs(a - w)[~m].max()))
+                r["masked_share"] = max(r["masked_share"], masked / size)
+        r["launches"] = {k: _lib.LAUNCHES[k] for k in SHARDED_KERNELS}
+        r["loss_rel"] = max(abs(a - b_) / abs(b_)
+                            for a, b_ in zip(r["card"], r["cpu"]))
+        out[f"{arch} {name}"] = r
+        del side
+    return out
+
+
+def sharded_full_width(torch, arch: str, layers: int, batch: int,
+                       steps: int) -> dict:
+    """Phase 21 (b), (c) and (d) on this rank: ``arch`` at full width,
+    cut to ``layers`` layers, bf16 parameters and fp32 AdamW moments, at
+    TP2, ``steps`` steps of ``batch`` x 2048 tokens: losses and totals,
+    step times, the peak memory, TP collectives a step, the kernels'
+    launches and the layers of each kind."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.modes import ParallelPlan
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.train import train
+    from repro_torch.models.transformer import stack_plan
+    from repro_torch.training.checkpoint import tree_leaves
+
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    kinds = [k[0] for seq_, n in stack_plan(cfg) for _ in range(n)
+             for k in seq_]
+    gc_collect(torch)
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launches()
+    res = train(cfg, steps=steps, batch=batch, seq=2048, device="cuda",
+                dtype=torch.bfloat16, plan=ParallelPlan(1, 2, 1),
+                log=lambda s: None)
+    out = {"losses": res.losses, "totals": res.totals,
+           "step_s": res.step_s, "tokens": res.tokens_per_step,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches": {k: _lib.LAUNCHES[k] for k in SHARDED_KERNELS},
+           "kinds": {k: kinds.count(k) for k in set(kinds)},
+           "tp_collectives": res.mesh.stats["model"].collectives / steps,
+           "world_collectives": res.mesh.stats["world"].collectives / steps,
+           "params_rank": sum(t.numel() for t in tree_leaves(res.params))}
+    del res
+    gc_collect(torch)
+    return out
+
+
+# phase 21's full-width runs: (tag, arch, layers, batch, steps, whether
+# the loss must fall over them)
+SHARDED_FULL = (("b", "llama3-8b", 4, 4, 10, True),
+                ("c", "phi3.5-moe-42b-a6.6b", 2, 2, 5, True),
+                ("d", "mamba2-2.7b", 2, 4, 3, False),
+                ("d", "recurrentgemma-9b", 3, 4, 3, False))
+
+
+def train_ranks_rank(rank: int, world: int, d: str) -> None:
+    """One rank of phase 21: (a) to (d); its readings into
+    ``{d}/rank{rank}.json``."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(4)
+    t0 = time.perf_counter()
+    res = {"a": sharded_reduced(torch)}
+    res["a_s"] = time.perf_counter() - t0
+    for tag, arch, layers, batch, steps, _ in SHARDED_FULL:
+        t0 = time.perf_counter()
+        res[f"{tag} {arch}"] = sharded_full_width(torch, arch, layers, batch,
+                                                  steps)
+        res[f"{tag} {arch} s"] = time.perf_counter() - t0
+    with open(Path(d, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def print_sharded(tag: str, what: str, x: dict, smi: str,
+                  falling: bool) -> None:
+    import math
+    steady = sorted(x["step_s"][1:])
+    med = steady[len(steady) // 2]
+    print(f"{tag}: {what}; {x['params_rank'] / 1e9:.3f} B parameters a "
+          f"rank; losses " + " ".join(f"{v:.4f}" for v in x["losses"]))
+    print(f"{tag}: step median {med * 1e3:.1f} ms over steps 2-"
+          f"{len(x['step_s'])} (min {steady[0] * 1e3:.1f}, max "
+          f"{steady[-1] * 1e3:.1f}; first {x['step_s'][0] * 1e3:.1f} ms) = "
+          f"{x['tokens'] / med:.1f} tok/s; peak {x['peak_gib']:.2f} GiB a "
+          f"rank; {x['tp_collectives']:.1f} TP collectives and "
+          f"{x['world_collectives']:.1f} world collectives a step; "
+          f"launches { {k: v for k, v in x['launches'].items() if v} }; "
+          f"{smi}")
+    check(all(math.isfinite(v) for v in x["losses"] + x["totals"]),
+          f"{tag}: a loss is not finite")
+    check(not falling or x["losses"][-1] < x["losses"][0],
+          f"{tag}: loss did not decrease: {x['losses'][0]} -> "
+          f"{x['losses'][-1]}")
+
+
+def train_ranks(torch, np, smi: str) -> dict:
+    """Phase 21: sharded training (``build_train_step`` at a plan of two
+    ranks) on two rank processes sharing the card over gloo. (a) reduced
+    llama3-8b and Phi-3.5-MoE in fp32 at TP2 and DP2, reduced mamba2-2.7b
+    and the 4-layer RecurrentGemma at TP2, on the card and on the two
+    ranks' CPUs: the losses (rtol 1e-4), the gradients before step 1 and
+    the parameters (atol 1e-4; mamba2-2.7b from a common state each step
+    with its near-zero gradients' elements left out, at most 1% of
+    them) equal, K5, K6 and K7 launched; (b) llama3-8b at full width cut
+    to 4 of 32 layers, bf16, TP2, 10 steps of 4 x 2048 tokens; (c)
+    Phi-3.5-MoE at full width cut to 2 of 32 layers, bf16, TP2 (8
+    experts a rank), 5 steps of 2 x 2048 tokens; (d) mamba2-2.7b (2 of
+    64 layers) and recurrentgemma-9b (3 of 38) at full width, bf16, TP2,
+    3 steps of 4 x 2048 tokens (K6 at 40 heads of 64, K7 at 2048
+    channels, K5 at 8 heads of 256 a rank): finite losses ((b) and (c)
+    falling), equal on both ranks, each kernel launched twice forward
+    and once backward a layer of its kind a step on each rank. Returns
+    rank 0's launches in (b) and (d) under the rows of the kernels at
+    the TP2-local shapes."""
+    import tempfile
+
+    from repro_torch.launch.ranks import spawn
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        spawn(train_ranks_rank, 2, (d,), device_type="cuda", timeout=900)
+        runs = []
+        for r in range(2):
+            with open(Path(d, f"rank{r}.json")) as f:
+                runs.append(json.load(f))
+    for key, x in runs[0]["a"].items():
+        arch, plan = key.split()
+        print(f"sharded (a): reduced {arch} fp32 at {plan} on two ranks: "
+              f"card losses {x['card']}, CPU {x['cpu']}; largest relative "
+              f"loss difference {x['loss_rel']:.3e}, gradients before step "
+              f"1 {x['grad_abs']:.3e} apart, parameters "
+              f"{x['param_abs']:.3e} apart"
+              + (f" ({SHARDED_COMMON}: from the card's state each step, "
+                 f"at most {x['masked_share']:.3%} of the elements left "
+                 f"out)" if arch == SHARDED_COMMON else "")
+              + f"; card launches "
+              f"{ {k: v for k, v in x['launches'].items() if v} }")
+        for r, run in enumerate(runs):
+            y = run["a"][key]
+            check(y["card"] == x["card"] and y["cpu"] == x["cpu"],
+                  f"sharded (a) {key}: rank {r}'s losses differ")
+            check(y["loss_rel"] <= 1e-4,
+                  f"sharded (a) {key}: card and CPU losses differ by "
+                  f"{y['loss_rel']:.3e} on rank {r}")
+            check(y["grad_abs"] <= 1e-4,
+                  f"sharded (a) {key}: card and CPU gradients "
+                  f"{y['grad_abs']:.3e} apart on rank {r}")
+            check(y["param_abs"] <= 1e-4 and y["masked_share"] <= 0.01,
+                  f"sharded (a) {key}: card and CPU parameters "
+                  f"{y['param_abs']:.3e} apart on rank {r} (with "
+                  f"{y['masked_share']:.3%} of the elements left out)")
+        want = {"llama3-8b": TRAIN_KERNELS,
+                "phi3.5-moe-42b-a6.6b": TRAIN_KERNELS,
+                "mamba2-2.7b": MAMBA_KERNELS,
+                "recurrentgemma-9b": TRAIN_KERNELS + ("rglru_scan",
+                                                      "rglru_scan_bwd")}
+        for k in want[arch]:
+            check(all(run["a"][key]["launches"][k] > 0 for run in runs),
+                  f"sharded (a) {key}: {k} never launched")
+    print(f"sharded (a): {max(run['a_s'] for run in runs):.1f} s")
+    # a kernel's launches a step for each layer of a kind: its forward,
+    # its recomputation under remat and one backward
+    per_kind = {"flash_prefill": ("gqa", "gqa_win"),
+                "ssd_scan": ("mamba",), "rglru_scan": ("rglru",)}
+    for tag, arch, layers, batch, steps, falling in SHARDED_FULL:
+        key = f"{tag} {arch}"
+        x = runs[0][key]
+        print_sharded(f"sharded ({tag})",
+                      f"{arch} at full width, {layers} layers "
+                      f"{x['kinds']}, bf16, TP2 on two ranks over gloo, "
+                      f"{steps} steps of {batch} x 2048 tokens", x, smi,
+                      falling)
+        if arch == "phi3.5-moe-42b-a6.6b":
+            aux = [(t - l) / 0.01 for t, l in zip(x["totals"], x["losses"])]
+            print(f"sharded ({tag}): aux loss " + " ".join(f"{v:.4f}"
+                                                         for v in aux))
+        for r, run in enumerate(runs):
+            check(run[key]["losses"] == x["losses"],
+                  f"sharded ({tag}) {arch}: rank {r}'s losses differ")
+            for k, kinds in per_kind.items():
+                n = sum(x["kinds"].get(kind, 0) for kind in kinds) * steps
+                for name, want_n in ((k, 2 * n), (k + "_bwd", n)):
+                    got = run[key]["launches"][name]
+                    check(got == want_n,
+                          f"sharded ({tag}) {arch} rank {r}: {name} "
+                          f"launched {got} times, not {want_n}")
+        print(f"sharded ({tag}) {arch}: "
+              f"{max(run[key + ' s'] for run in runs):.1f} s")
+    print(f"sharded: {smi}; phase 21 took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    b = runs[0]["b llama3-8b"]["launches"]
+    out = {"flash_prefill_tp2": b["flash_prefill"],
+           "flash_prefill_bwd_tp2": b["flash_prefill_bwd"]}
+    mamba = runs[0]["d mamba2-2.7b"]["launches"]
+    rg = runs[0]["d recurrentgemma-9b"]["launches"]
+    out.update({row: (mamba if k.startswith("ssd") else rg)[k]
+                for row, k in SHARDED_ROWS.items()})
+    return out
 
 
 def gc_collect(torch) -> None:
@@ -5577,6 +5955,8 @@ def main(argv=None) -> int:
         launches.update(serve_engine_recurrent(torch, np, smi))
         gc_collect(torch)
         serve_ranks(torch, np, smi)
+        gc_collect(torch)
+        launches.update(train_ranks(torch, np, smi))
     for r in rows:
         r["launches"] = launches[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches",

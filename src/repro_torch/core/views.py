@@ -28,6 +28,23 @@ so the same model code serves one rank and trains. Where the JAX
 package reads ``lax.axis_index`` over the TP axes ``('merge', 'ed',
 'model')``, the port reads this rank's index in its TP group, whose
 ranks are listed in that order (``core/modes.py::island_ranks``).
+
+Training (``make_train_ctx``) runs the same model code under autograd,
+where the JAX package lets GSPMD place the collectives. Every rank of a
+TP group computes the replicated part of the model (norms, routing, the
+loss) alike, and the train step seeds its backward with ``1 / tp``, so
+the gradient of a tensor replicated over the group is held as per-rank
+partials that sum to the whole, while a sharded tensor's gradient is
+whole on its rank. ``psum`` under autograd (``_PSum``) is therefore an
+all_reduce both ways: forward it sums the row-parallel partials, and
+backward it sums the partial gradients its replicated output received
+into the whole gradient of each rank's input. The pre-scale by
+``1 / replication`` is an ordinary op, so autograd mirrors it. A leaf
+that no rank shards over 'model' (a norm, the router, K/V projections
+of fewer heads than ``tp``) thus ends with a partial gradient on each
+rank, and the train step sums those over the group; nothing in the
+model marks where replicated values enter sharded compute. Under
+``no_grad`` (serving) the collectives are the plain ones.
 """
 from __future__ import annotations
 
@@ -93,6 +110,20 @@ class RankGroup:
         dist.all_gather(out, x, group=self.handle)
         self.stats.collectives += 1
         return out
+
+
+class _PSum(torch.autograd.Function):
+    """The sum over a TP group, differentiable: the backward sums the
+    output's per-rank partial gradients (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, x, group: RankGroup):
+        ctx.group = group
+        return group.all_reduce(x, "sum")
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.group.all_reduce(grad.contiguous(), "sum"), None
 
 
 @dataclass(frozen=True)
@@ -248,6 +279,8 @@ class TPContext:
             return x
         if rep > 1:
             x = x / rep
+        if torch.is_grad_enabled() and x.requires_grad:
+            return _PSum.apply(x, self.group)
         return self.group.all_reduce(x, "sum")
 
     def pmax(self, x: torch.Tensor) -> torch.Tensor:
@@ -306,6 +339,14 @@ class TPContext:
 
 
 SINGLE = TPContext()
+
+
+def make_train_ctx(tp_base: int, group: Optional[RankGroup] = None
+                   ) -> TPContext:
+    """TPContext of one training rank: TP over its 'model' group of
+    ``tp_base`` ranks, storage over 'model' alone (no merge views)."""
+    ctx = TPContext(tp=tp_base)
+    return ctx.bind(group) if group is not None else ctx
 
 
 def make_serving_ctx(merge: int, engine_rows: int, tp_base: int,

@@ -15,11 +15,19 @@ TP execution then *activates* per-rank views inside the step
 (core/views.py), never resharding storage. This module owns the
 name->rule mapping that keeps the storage shards and
 ``TPContext.activate`` consistent (copied from the JAX package's).
+
+Training has a layout of its own, the JAX package's ``_spec_for(train=
+True)`` over the mesh ``('pod', 'data', 'model')``: DENSE and EXPERT
+dims over 'model' (MODEL_ONLY where no dim took 'model'), and for
+``engine_rows > 1`` ZeRO-3 over 'data' on the first free dim of at least
+1024 that divides (``train_dims``). ``train_shard`` cuts a logical tree
+into one rank's shards, ``gather_train`` puts the shards of every rank
+back together (collective).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from typing import TYPE_CHECKING, Dict, List, Optional, Tuple
 
 import torch
 
@@ -28,6 +36,9 @@ from repro_torch.core.modes import ParallelPlan
 from repro_torch.models.mamba2 import dims as mamba_dims
 from repro_torch.models.rglru import width as rg_width
 from repro_torch.training.checkpoint import tree_leaves
+
+if TYPE_CHECKING:
+    from repro_torch.core.views import RankGroup
 
 # rule kinds
 DENSE = "dense"       # partition dim over ('ed','model') jointly
@@ -128,6 +139,16 @@ def _map_with_path(fn, tree, path=()):
     return fn(path, tree)
 
 
+@dataclass(frozen=True)
+class Spec:
+    """A leaf's training partition spec, the JAX package's
+    ``PartitionSpec``: one mesh axis (or None) a dim."""
+    axes: Tuple[Optional[str], ...]
+
+    def __contains__(self, axis: str) -> bool:
+        return axis in self.axes
+
+
 class WeightsManager:
     """Owns the canonical layout and the zero-copy island views."""
 
@@ -158,6 +179,82 @@ class WeightsManager:
                 out.append((d, self.plan.tp_base, "model"))
         return out
 
+    def train_dims(self, path: Tuple[str, ...], shape: Tuple[int, ...]
+                   ) -> "Spec":
+        """The training partition spec of the leaf at ``path``: one entry
+        a dim, ``"model"``, ``"data"`` or None (the JAX package's
+        ``_spec_for`` with ``train=True``)."""
+        ndim, tp = len(shape), self.plan.tp_base
+        entries: List[Optional[str]] = [None] * ndim
+        for (from_end, n, kind) in rule_for(self.cfg, path).dims:
+            d = ndim + from_end
+            if d < 0 or n <= 0:
+                continue
+            if kind in (DENSE, EXPERT) and n % tp == 0:
+                entries[d] = "model"
+            elif kind == MODEL_ONLY and n % tp == 0 \
+                    and "model" not in entries:
+                entries[d] = "model"
+        if self.plan.engine_rows > 1:
+            for d in range(ndim):
+                if entries[d] is None and shape[d] >= 1024 \
+                        and shape[d] % self.plan.data_rows == 0:
+                    entries[d] = "data"
+                    break
+        return Spec(tuple(entries))
+
+    def partition_specs(self, params):
+        """The tree of ``train_dims`` of ``params`` (the JAX package's
+        ``partition_specs(train=True)``; the serving layout is
+        ``shard_dims``)."""
+        return _map_with_path(
+            lambda path, t: self.train_dims(path, tuple(t.shape)), params)
+
+    def _counts(self) -> Dict[str, int]:
+        return {"model": self.plan.tp_base, "data": self.plan.data_rows}
+
+    def train_shard(self, params, pod: int, data: int, model: int,
+                    device=None):
+        """The shards of the logical tree ``params`` that the rank at
+        ``(pod, data, model)`` of the training mesh holds, each a copy of
+        its own on ``device`` (default: where the leaf lies). Raises if a
+        sharded dim does not divide (a tree of another config)."""
+        if not (0 <= pod < self.plan.pods and 0 <= data < self.plan.data_rows
+                and 0 <= model < self.plan.tp_base):
+            raise ValueError(f"({pod}, {data}, {model}) is off the mesh of "
+                             f"{self.plan}")
+        index, counts = {"model": model, "data": data}, self._counts()
+
+        def one(path, t: torch.Tensor):
+            spec = self.train_dims(path, tuple(t.shape))
+            for d, axis in enumerate(spec.axes):
+                if axis is None:
+                    continue
+                if t.shape[d] % counts[axis]:
+                    raise ValueError(
+                        f"{'/'.join(path)}: dim {d} of {tuple(t.shape)} "
+                        f"does not split {counts[axis]} ways over '{axis}'")
+                size = t.shape[d] // counts[axis]
+                t = t.narrow(d, index[axis] * size, size)
+            dev = t.device if device is None else torch.device(device)
+            return t.to(dev, copy=True).contiguous()
+        return _map_with_path(one, params)
+
+    def gather_train(self, shards, specs, groups: Dict[str, "RankGroup"]):
+        """The logical tree from every rank's ``train_shard``: each leaf
+        all-gathered over the groups of the axes its spec (``specs``, the
+        ``partition_specs`` of the logical tree) shards it on
+        (``groups["model"]``, ``groups["data"]``). Collective: every rank
+        of the mesh calls it, and each gets the whole tree."""
+        counts = self._counts()
+
+        def one(t: torch.Tensor, spec: Spec):
+            for d, axis in enumerate(spec.axes):
+                if axis is not None and counts[axis] > 1:
+                    t = torch.cat(groups[axis].all_gather(t), dim=d)
+            return t
+        return zip_map(one, shards, specs)
+
     def storage_shard(self, params, storage_rank: int, device=None):
         """This rank's canonical storage shard of the full parameter tree
         ``params``: each sharded dim narrowed to position ``storage_rank``
@@ -186,6 +283,15 @@ class WeightsManager:
         ('ed','model') and replicates over the DP axes an island subsets,
         so every rank already holds what any island asks of it."""
         return _map_with_path(lambda _, a: shard_view(a), params)
+
+
+def zip_map(fn, tree, other):
+    """``fn(leaf, other_leaf)`` over two trees of one structure."""
+    if isinstance(tree, dict):
+        return {k: zip_map(fn, v, other[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(zip_map(fn, v, o) for v, o in zip(tree, other))
+    return fn(tree, other)
 
 
 def shard_view(a: torch.Tensor) -> torch.Tensor:

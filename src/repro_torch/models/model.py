@@ -11,8 +11,9 @@ views) are written in place and returned as given. Train mode keeps the
 autograd graph and, as the JAX package's ``remat``, recomputes each
 layer's activations in the backward pass. A Mamba-2 or RG-LRU layer's
 serving state is its batch-dense recurrent rows (row b is the step's
-batch row b), updated in place too; MoE stacks (DeepSeek-V2,
-Phi-3.5-MoE) serve only, and train mode raises. Parameter
+batch row b), updated in place too. A MoE stack (DeepSeek-V2,
+Phi-3.5-MoE) returns the sum of its layers' load-balance losses as
+``forward``'s aux loss (0.0 for a stack without MoE). Parameter
 leaves keep the dtypes the JAX package gives them, so the RG-LRU's
 decay and gate leaves stay fp32 in a bf16 model.
 
@@ -223,7 +224,9 @@ class Model:
         rows stay as they are; None means every position is real.
         Serving ``states`` are updated in place and returned as given;
         train mode takes none, and is the only mode that records the
-        autograd graph."""
+        autograd graph. Under TP, train mode takes a training ctx
+        (``views.make_train_ctx``) and the rank's shards of the
+        training layout."""
         cfg = self.cfg
         if frontend_embeds is not None:
             if cfg.frontend is None:
@@ -236,10 +239,6 @@ class Model:
             if states is not None or valid is not None:
                 raise ValueError("train mode runs without cache states "
                                  "or valid counts")
-            if any(kind[1] == "moe" for seq, _ in self.plan for kind in seq):
-                raise NotImplementedError(
-                    "MoE training (the router's load-balance loss) is not "
-                    "ported (ROADMAP.md, Queue 1); MoE stacks serve only")
             if cfg.enc_dec is not None and frontend_embeds is None:
                 raise ValueError("an enc-dec decoder trains on its "
                                  "encoder's output: pass frontend_embeds")
@@ -279,6 +278,7 @@ class Model:
             pe = sinusoidal_positions(n_pos, cfg.d_model, x.device)
             x = x + pe[positions.long()].to(x.dtype)
         remat = mode == "train" and self.remat
+        aux_total = 0.0
         for gi, (kind_seq, n) in enumerate(self.plan):
             p_group = params["groups"][gi]
             for li in range(n):
@@ -297,9 +297,10 @@ class Model:
                                     enc_out=enc_out, enc_len=enc_len,
                                     valid=valid)
                     if remat:
-                        x, _ = checkpoint(layer, x, use_reentrant=False)
+                        x, _, aux = checkpoint(layer, x, use_reentrant=False)
                     else:
-                        x, _ = layer(x)
+                        x, _, aux = layer(x)
+                    aux_total = aux_total + aux
         x = tfm.rms_norm(x, params["embed"]["norm_f"], cfg.norm_eps)
         if mode == "prefill":
             if last_pos is not None:
@@ -308,7 +309,7 @@ class Model:
             else:
                 x = x[:, -1:]
         logits = tfm.lm_head(cfg, params["embed"], x, ctx)
-        return logits, states, 0.0
+        return logits, states, aux_total
 
 
 def build_model(cfg: ArchConfig, dtype: torch.dtype = torch.bfloat16,

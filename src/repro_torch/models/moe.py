@@ -13,6 +13,16 @@ here), so the layer's one psum sums disjoint partials. Nothing here is
 a kernel: the JAX package computes it outside any Pallas call, and the
 products go to ``torch.bmm``.
 
+In training (the train specs' layout, ``WeightsManager.train_dims``)
+a TP rank may hold ``E / tp`` whole experts: the stored expert count
+says which, and the rank computes its experts' share of every token of
+its data shard, the psum summing the ranks' disjoint shares (where the
+layout cuts neither E nor the expert d_ff, every rank computes it all
+and the psum pre-scales by ``tp``). A training rank's tokens are one
+dispatch group of the JAX package's per-data-shard dispatch
+(``moe_groups = pods * data_rows``), so routing, positions, the
+capacity and the scatter see only them.
+
 Expert parallelism (``ctx.ep > 1``: experts stored over 'ed', an
 all_to_all of the dispatch buffers) raises: no real-execution
 reference script runs it yet (ROADMAP.md, Queue 1).
@@ -106,26 +116,36 @@ def moe_ffn(cfg: ArchConfig, p, x, ctx: TPContext):
     N, E, k = B * T, e.num_experts, e.top_k
     tokens = x.reshape(N, d)
     experts, weights, aux = route(p["router"], tokens, k)
-    e_flat = experts.reshape(N * k)
+    e_flat = experts.reshape(N * k).long()
     w_flat = weights.reshape(N * k)
     t_flat = torch.arange(N * k, device=x.device) // k
-    pos = _positions_in_expert(e_flat, E)
+    pos = _positions_in_expert(e_flat, E).long()
     cap = capacity(cfg, N)
-    slot = torch.where(pos < cap, e_flat.long() * cap + pos.long(), E * cap)
-    buf = x.new_zeros((E * cap + 1, d))
+    # the experts this rank stores: a slice of E over 'model' (training)
+    # or all of them
+    El = p["e_gate"].shape[0]
+    lo = ctx.stripe_index() * El if El < E else 0
+    mine = (pos < cap) & (e_flat >= lo) & (e_flat < lo + El)
+    slot = torch.where(mine, (e_flat - lo) * cap + pos, El * cap)
+    buf = x.new_zeros((El * cap + 1, d))
     buf[slot] = tokens[t_flat]
-    buf = buf[:-1].reshape(E, cap, d)
+    buf = buf[:-1].reshape(El, cap, d)
     wg = ctx.activate_view(p["e_gate"], 2)
     wu = ctx.activate_view(p["e_up"], 2)
     wd = ctx.activate_view(p["e_down"], 1)
     h = silu(torch.bmm(buf, wg)) * torch.bmm(buf, wu)
-    out = torch.bmm(h, wd)                        # [E, cap, d] partial
-    flat_out = torch.cat([out.reshape(E * cap, d), out.new_zeros((1, d))])
+    out = torch.bmm(h, wd)                        # [El, cap, d] partial
+    flat_out = torch.cat([out.reshape(El * cap, d), out.new_zeros((1, d))])
     gathered = flat_out[slot] * w_flat[:, None].to(out.dtype)
     # entry i is choice i % k of token i // k: a token's k rows are
     # adjacent, so the scatter-add is a sum over them
     y = gathered.float().reshape(B, T, k, d).sum(dim=2)
-    y = (ctx.psum(y) if ctx.tp > 1 else y).to(x.dtype)
+    if ctx.tp > 1:
+        # every rank computes every expert whole where neither E nor the
+        # expert d_ff is cut
+        whole = El == E and wg.shape[2] == e.d_ff_expert
+        y = ctx.psum_scaled(y, ctx.tp if whole else 1)
+    y = y.to(x.dtype)
     if e.num_shared_experts:
         y = y + mlp(p["shared"], x, ctx,
                     e.num_shared_experts * e.d_ff_expert)

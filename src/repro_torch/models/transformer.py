@@ -6,10 +6,10 @@ groups of a repeating kind sequence, as in the JAX package (which scans
 each group); the port loops over the layers of a group. The port serves
 and trains dense decoder stacks (mixers ``gqa``/``gqa_win`` with the
 gated ``mlp``, or whisper's ``("gqa", "gelu_mlp")``: an enc-dec decoder
-layer adds a cross-attention sub-block over the encoder's output), serves
-MLA and MoE stacks (DeepSeek-V2's ``("mla", "mlp")`` then ``("mla",
-"moe")``, Phi-3.5-MoE's ``("gqa", "moe")``; MoE training, with its
-load-balance loss, is not ported), and serves and trains Mamba-2 stacks
+layer adds a cross-attention sub-block over the encoder's output), MLA
+and MoE stacks (DeepSeek-V2's ``("mla", "mlp")`` then ``("mla",
+"moe")``, Phi-3.5-MoE's ``("gqa", "moe")``; a MoE layer hands its
+load-balance loss up through ``apply_layer``), Mamba-2 stacks
 (``("mamba", "none")``: no ``norm2`` and no FFN, so the parameter tree
 is the JAX package's leaf for leaf) and the hybrid stack (``("rglru",
 "gelu_mlp")`` and ``("gqa_win", "gelu_mlp")``: the RG-LRU block or
@@ -77,7 +77,7 @@ ENC_DEC: Kind = ("gqa", "gelu_mlp")
 
 def check_kind(kind: Kind) -> None:
     """Raise unless the port runs this kind (it serves and trains every
-    kind it runs; MoE training raises in ``Model.forward``)."""
+    kind it runs)."""
     mixer, ffn = kind
     if kind not in (MAMBA, RGLRU, LOCAL_ATTN, ENC_DEC) and (
             mixer not in ("gqa", "gqa_win", "mla")
@@ -170,13 +170,14 @@ def apply_layer(cfg: ArchConfig, kind: Kind, p, x, ctx: TPContext, backend,
     and the FFN: over K/V projected from ``enc_out`` when the encoder ran
     in this call (train and prefill; ``cross``, the layer's cross cache
     pair [B,F,KVl,hd], is then written with them in place), else over
-    the cached ``cross`` (decode)."""
+    the cached ``cross`` (decode). Returns (x, state, aux): aux is a MoE
+    layer's load-balance loss, 0.0 for every other layer."""
     mixer, ffn = kind
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if kind == MAMBA:
         out, state = mamba2_layer(cfg, p["mixer"], h, ctx, state, mode=mode,
                                   valid=valid)
-        return x + out, state
+        return x + out, state, 0.0
     if mixer == "rglru":
         out, state = rglru_block(cfg, p["mixer"], h, ctx, state, mode=mode,
                                  valid=valid)
@@ -207,10 +208,11 @@ def apply_layer(cfg: ArchConfig, kind: Kind, p, x, ctx: TPContext, backend,
                                 enc_len=enc_len)
     h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
     if ffn == "moe":
-        return x + moe_mod.moe_ffn(cfg, p["ffn"], h2, ctx)[0], state
+        y, aux = moe_mod.moe_ffn(cfg, p["ffn"], h2, ctx)
+        return x + y, state, aux
     ffn_fn = ffn_mod.gelu_mlp if ffn == "gelu_mlp" else ffn_mod.mlp
     x = x + ffn_fn(p["ffn"], h2, ctx, cfg.d_ff)
-    return x, state
+    return x, state, 0.0
 
 
 # ---------------------------------------------------------------------------
@@ -299,25 +301,27 @@ def gather_vocab(cfg, logits_local, ctx: TPContext):
 
 
 def tp_cross_entropy(cfg, logits_local, labels, ctx: TPContext, mask=None):
-    """Softmax cross entropy over the whole vocab (tp = 1: the local
-    shard is the vocab), as the JAX package computes it: max-shifted
-    log-sum-exp minus the gold logit; labels outside the vocab score a
-    gold logit of 0. ``mask`` [..] weights positions; the mean over the
-    weighted positions is returned. The shift's gradient is zero (the
-    JAX package's carries only rounding), so the max is taken without
-    one: ``amax``'s backward would count ties in an int64 copy of the
-    whole [tokens, vocab] mask, 16.8 GB at 8192 tokens of a 256000-word
-    vocab."""
-    if ctx.tp != 1:
-        raise NotImplementedError("sharded training is not ported: the "
-                                  "cross entropy takes the whole vocab")
-    V = logits_local.shape[-1]
-    m = logits_local.detach().amax(dim=-1)
-    denom = torch.exp(logits_local - m[..., None]).sum(dim=-1)
-    labels = labels.long()
-    ok = (labels >= 0) & (labels < V)
-    gold = logits_local.gather(-1, labels.clamp(0, V - 1)[..., None])[..., 0]
-    gold = torch.where(ok, gold, 0.0)
+    """Softmax cross entropy over the whole vocab from this rank's vocab
+    slice of the logits [.., Vl], as the JAX package computes it, never
+    gathering the vocab: the pmax of the slices' maxima shifts, the
+    psum (pre-scaled by the vocab's replication) of the slices' sums of
+    exponentials is the denominator and that of the slices' gold logits
+    the gold logit, one rank's slice holding it; labels outside the
+    vocab score a gold logit of 0. ``mask`` [..] weights positions; the
+    mean over the weighted positions is returned. The shift's gradient
+    is zero (the JAX package's carries only rounding), so the max is
+    taken without one: ``amax``'s backward would count ties in an int64
+    copy of the whole [tokens, vocab] mask, 16.8 GB at 8192 tokens of a
+    256000-word vocab."""
+    off, Vl = vocab_offset(cfg, ctx)
+    rep = ctx.replication(cfg.vocab_size) if ctx.tp > 1 else 1
+    m = ctx.pmax(logits_local.detach().amax(dim=-1))
+    denom = ctx.psum_scaled(
+        torch.exp(logits_local - m[..., None]).sum(dim=-1), rep)
+    local = labels.long() - off
+    ok = (local >= 0) & (local < Vl)
+    gold = logits_local.gather(-1, local.clamp(0, Vl - 1)[..., None])[..., 0]
+    gold = ctx.psum_scaled(torch.where(ok, gold, 0.0), rep)
     nll = torch.log(denom.clamp_min(1e-30)) + m - gold
     if mask is not None:
         nll = nll * mask

@@ -7,6 +7,12 @@ in ``jax.tree.flatten`` order: dict keys sorted, lists and tuples in
 order. The port's parameter tree has the JAX package's nesting, so a
 checkpoint either package wrote restores into the other. bf16 leaves are
 stored as numpy writes ml_dtypes' bfloat16, raw 2-byte words (``<V2``).
+
+Sharded training keeps the same files: ``save_sharded`` gathers the
+ranks' shards into the logical tree and rank 0 writes it, and
+``restore_sharded`` reads the logical tree and hands each rank its
+shards (``WeightsManager.train_shard``), so a checkpoint of any plan
+restores at any other, or into the JAX package.
 """
 from __future__ import annotations
 
@@ -75,7 +81,8 @@ def save(path: str, tree, step: int = 0) -> None:
 def restore(path: str, like_tree) -> Tuple[Any, int]:
     """(tree, step): the leaves of the checkpoint at ``path`` in
     ``like_tree``'s structure, each on its like leaf's device and in its
-    dtype; shapes must match."""
+    dtype (a like leaf on the meta device: on the CPU as stored); shapes
+    must match."""
     like = tree_leaves(like_tree)
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -88,7 +95,8 @@ def restore(path: str, like_tree) -> Tuple[Any, int]:
         if tuple(t.shape) != tuple(old.shape):
             raise ValueError(f"leaf {i}: {tuple(t.shape)} vs "
                              f"{tuple(old.shape)}")
-        new.append(t.to(device=old.device, dtype=old.dtype))
+        new.append(t if old.device.type == "meta"
+                   else t.to(device=old.device, dtype=old.dtype))
     return tree_unflatten(like_tree, new), manifest["step"]
 
 
@@ -98,3 +106,38 @@ def latest_step(path: str) -> int:
             return json.load(f)["step"]
     except FileNotFoundError:
         return -1
+
+
+def save_sharded(path: str, shards, mesh, model, step: int = 0) -> None:
+    """Save the logical tree of the training ranks' ``shards`` (this
+    rank's, under ``mesh``, a ``train_step.TrainMesh``): every rank of
+    the mesh calls it (the gather is collective), rank 0 writes."""
+    from repro_torch.core.weights_manager import WeightsManager
+    from repro_torch.training.train_step import logical_specs
+    tree = WeightsManager(model.cfg, mesh.plan).gather_train(
+        shards, logical_specs(model, mesh.plan), mesh.groups)
+    if mesh.rank == 0:
+        save(path, tree, step)
+    if mesh.groups["world"] is not None:
+        mesh.groups["world"].all_reduce(torch.zeros(1, device=model.device))
+
+
+def restore_sharded(path: str, like_shards, mesh, model) -> Tuple[Any, int]:
+    """(this rank's shards, step) of the logical checkpoint at ``path``:
+    the leaves checked against the model's logical shapes, cut to the
+    rank's (pod, data, model) coordinate, each on its like shard's
+    device and in its dtype."""
+    from repro_torch.core.weights_manager import WeightsManager
+    from repro_torch.models.model import Model
+    meta = Model(model.cfg, model.dtype, torch.device("meta")).init(
+        torch.Generator(device="cpu"))
+    logical, step = restore(path, meta)
+    shards = WeightsManager(model.cfg, mesh.plan).train_shard(
+        logical, mesh.pod, mesh.data, mesh.model)
+    out = []
+    for got, like in zip(tree_leaves(shards), tree_leaves(like_shards)):
+        if tuple(got.shape) != tuple(like.shape):
+            raise ValueError(f"shard {tuple(got.shape)} vs "
+                             f"{tuple(like.shape)}")
+        out.append(got.to(device=like.device, dtype=like.dtype))
+    return tree_unflatten(like_shards, out), step

@@ -6,11 +6,16 @@ the parameter tensors and the moments in place under ``no_grad`` (an
 optimizer step at full width would otherwise hold a second copy of the
 parameters and moments). ``update`` returns the same tensors it was
 given.
+
+On sharded ranks the trees are the rank's shards, so the moments exist
+for the shard alone; the global gradient norm is the logical tree's,
+which the caller's ``global_sq`` assembles from the shards' sums of
+squares (``training/train_step.py``).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, List, NamedTuple
+from typing import Any, Callable, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -48,16 +53,20 @@ class AdamW:
         return float(np.float32(self.lr) * np.minimum(np.float32(1), ramp))
 
     @torch.no_grad()
-    def update(self, params, grads, state: AdamWState):
+    def update(self, params, grads, state: AdamWState, *,
+               global_sq: Optional[Callable[[torch.Tensor],
+                                            torch.Tensor]] = None):
         """One step: clip by the global gradient norm, update the fp32
         moments, and move each parameter by the bias-corrected Adam
         direction plus decoupled weight decay on its fp32 upcast. Returns
-        (params, state), both updated in place."""
+        (params, state), both updated in place. ``global_sq`` maps the
+        leaves' sums of squares [n_leaves] to the squared norm of the
+        whole gradient (default: their sum)."""
         ps: List[torch.Tensor] = tree_leaves(params)
         gs: List[torch.Tensor] = tree_leaves(grads)
         ms, vs = tree_leaves(state.m), tree_leaves(state.v)
-        gnorm = torch.stack([g.float().square().sum() for g in gs]).sum() \
-            .sqrt()
+        sq = torch.stack([g.float().square().sum() for g in gs])
+        gnorm = (sq.sum() if global_sq is None else global_sq(sq)).sqrt()
         scale = torch.clamp(self.grad_clip / (gnorm + 1e-9), max=1.0)
         step = state.step + 1
         lr = self._schedule(step)

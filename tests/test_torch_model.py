@@ -160,10 +160,19 @@ def test_unported_paths_raise():
         m = build_model(cfg, torch.float32, "cpu")
         m.check_serving()                     # both build and serve
         p = m.init(torch.Generator().manual_seed(0))
-        # MoE training (the router's aux loss) is not ported
-        with pytest.raises(NotImplementedError):
-            m.forward(p, SINGLE, mode="train", backend=TrainBackend(),
-                      tokens=torch.zeros((1, 4), dtype=torch.long))
+        # MoE training is ported: the train forward keeps the graph and
+        # returns the router's load-balance loss, summed over the layers
+        from repro_torch.training.checkpoint import tree_map
+        tp = tree_map(lambda t: t.requires_grad_(True), p)
+        logits, _, aux = m.forward(
+            tp, SINGLE, mode="train", backend=TrainBackend(),
+            tokens=torch.arange(8, dtype=torch.long).reshape(1, 8))
+        n_moe = sum(n for seq, n in m.plan for k in seq if k[1] == "moe")
+        assert logits.requires_grad and aux.requires_grad
+        assert n_moe >= 1 and np.isfinite(float(aux.detach())) \
+            and float(aux.detach()) > 0
+        (g,) = torch.autograd.grad(aux, tp["groups"][-1][0]["ffn"]["router"])
+        assert torch.isfinite(g).all() and g.abs().sum() > 0
         # expert parallelism over 'ed' (engine_rows > 1) is not ported
         full = get_config(arch)
         ctx = make_serving_ctx(1, full.engine_rows, 1, full.moe.num_experts)

@@ -458,13 +458,6 @@ def _three_steps_match_jax(jm, jp, cfg, tm, *, seq, near_zero=0.0):
                                    rtol=0.0)
 
 
-def test_train_step_rejects_sharded_plans(reduced):
-    tm = reduced[3]
-    with pytest.raises(NotImplementedError):
-        build_train_step(tm, ParallelPlan(engine_rows=1, tp_base=2,
-                                          data_rows=1))
-
-
 def test_launcher_trains_on_the_cpu_when_asked(capsys, tmp_path):
     _launch_on_the_cpu(capsys, tmp_path, "llama3-8b")
 
