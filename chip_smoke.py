@@ -82,7 +82,16 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    before and
    read just after: every request must finish with its full output,
    every token must be in the vocab, K1-K4 must have launched,
-   and no token may have been read back one at a time;
+   and no token may have been read back one at a time; then, on the
+   same stack, its dry run (``dryrun_against_the_card``): the decode
+   step at 8 rows over 256-block tables and a prefill step of 8 rows of
+   512 tokens counted on the meta device (``launch/dryrun.py``, the
+   plan of one card) and run once on the card through the same step
+   program: the dry run's argument bytes must equal the engine's
+   parameters', pools' and batch's to the byte, and its GEMM FLOPs
+   those ``FlopCounterMode`` counts around the card's step exactly; the
+   roofline's ms (H100 data sheet) printed beside phase 5's median step
+   of each phase, and the predicted peak beside the card's;
 6. serve the same trace again under torch.profiler and print the device
    time by kernel class, the device's busy share of the wall time, and
    K2's, K4's and the appends' launches and mean time a launch;
@@ -325,7 +334,7 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    card's state at every step, its near-zero gradients' elements left
    out, at most 1%) equal, K5, K6 and K7 launched at their rank-local
    shapes; (b) llama3-8b at full width cut to 4 of 32 layers, bf16,
-   TP2, 10 steps of 4 x 2048 tokens; (c) Phi-3.5-MoE at full width cut
+   TP2, 6 steps of 4 x 2048 tokens; (c) Phi-3.5-MoE at full width cut
    to 2 of 32 layers, bf16, TP2 (8 experts a rank), 5 steps of 2 x 2048
    tokens; (d) mamba2-2.7b (2 of 64 layers) and recurrentgemma-9b (3 of
    38) at full width, bf16, TP2, 3 steps of 4 x 2048 tokens: finite
@@ -333,9 +342,14 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    launched twice forward and once backward a layer of its kind a
    step; the median step over steps 2 on and tok/s, the peak a rank,
    TP collectives a step, the launches and (c)'s aux loss printed.
-   Phase 3 holds, last, K5 at llama3-8b's TP2-local heads (H 16, KV 4,
-   hd 128) and at RecurrentGemma's (H 8, KV 1, hd 256, window 2048),
-   K6 at 40 heads of 64 and K7 at 2048 channels, each at 4 x 2048.
+   Phase 3 holds, after the shapes above, K5 at llama3-8b's TP2-local
+   heads (H 16, KV 4, hd 128) and at RecurrentGemma's (H 8, KV 1, hd
+   256, window 2048), K6 at 40 heads of 64 and K7 at 2048 channels,
+   each at 4 x 2048; and last K5 forward and backward on its fp32 route
+   at rep 7 (H 14, KV 2, hd 64) and rep 12 (H 96, KV 8, hd 128), which
+   do not divide a block's 64 rows, with and without a window, at the
+   fp32 tolerance. Every bound takes its bytes and operations from
+   ``kernels/cost.py``.
 
 Each kernel's launch count in the JSON record comes from the path that
 runs it: K1-K4 from phase 5, K5 and its backward at hd 128 from phase 8
@@ -442,13 +456,13 @@ def launch_device_ms(torch, fn, pattern: str, iters: int = 20) -> float:
     return us / n / 1e3 if n else float("nan")
 
 
-def bound(nbytes: float, flops: float):
-    """The card's least time (ms) for ``nbytes`` moved and ``flops``
-    done, at the H100's data-sheet HBM rate and dense bf16 peak."""
-    from repro_torch.serving.hardware import H100
-    t_b = nbytes / H100.hbm_bw * 1e3
-    t_f = flops / H100.peak_flops_bf16 * 1e3
-    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+def bound(c):
+    """The card's least time (ms) for the cost ``c`` of
+    ``kernels/cost.py`` (the bytes a kernel moves, the operations it
+    does), at the H100's data-sheet HBM rate and dense bf16 peak, and
+    which of the two sets it."""
+    from repro_torch.kernels import cost
+    return cost.bound_ms(c)
 
 
 # ---------------------------------------------------------------------------
@@ -458,7 +472,7 @@ def bound(nbytes: float, flops: float):
 def kernel_checks(torch, np):
     import torch.nn.functional as F
 
-    from repro_torch.kernels import _lib
+    from repro_torch.kernels import _lib, cost
     from repro_torch.kernels.flash_prefill import kernel as fk
     from repro_torch.kernels.flash_prefill import ref as fr
     from repro_torch.kernels.paged_attention import kernel as pk
@@ -533,8 +547,7 @@ def kernel_checks(torch, np):
         def library():
             for f, v in zip(flat, rows_v):
                 f.index_copy_(0, idx, v)
-        nbytes = 2 * n * w * (2 + 2) + 4 * n
-        bms, by = bound(nbytes, 0.0)
+        bms, by = bound(cost.append(n, w, 2, 2, 2))
         row = dict(
             name=name, route="cuda",
             source="src/repro_torch/kernels/csrc/paged_append.cu",
@@ -584,10 +597,8 @@ def kernel_checks(torch, np):
             if dtype == bf16:
                 errs.append(e)
     live = np.minimum(ctx_np, MB * page)
-    nbytes = 2 * B * H * hd * 2 + int(live.sum()) * KV * hd * 2 * 2 \
-        + int(np.ceil(live / page).sum()) * 4 + B * 4
-    flops = 4.0 * H * hd * int(live.sum())
-    bms, by = bound(nbytes, flops)
+    keys, pages = cost.live_keys(live, page)
+    bms, by = bound(cost.paged_decode(B, H, KV, hd, keys, pages, 2, 2, 2))
     kg = paged_gather(kp_, bt).transpose(1, 2).repeat_interleave(H // KV, 1)
     vg = paged_gather(vp_, bt).transpose(1, 2).repeat_interleave(H // KV, 1)
     mask = (torch.arange(MB * page, device=dev)[None, :]
@@ -613,7 +624,8 @@ def kernel_checks(torch, np):
     # lanes' sweeps): fp32 q, fp32 out and lse, over the bf16 pools
     qf, qf4 = q.float(), q4.float()
     kgf, vgf = kg.float(), vg.float()
-    bms, by = bound(nbytes + 2 * B * H * hd * 2 + B * H * 4, flops)
+    bms, by = bound(cost.paged_decode(B, H, KV, hd, keys, pages, 4, 4, 2,
+                                      lse=True))
     rows.append(dict(
         name="paged_attention_lse", route="cuda",
         source="src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -661,12 +673,11 @@ def kernel_checks(torch, np):
                 errs.append(e)
     print(f"  paged_flash_prefill: {fk.prefill_blocks(B, T, H, KV)} blocks "
           f"of 64 packed rows")
-    keys = prior_np.astype(np.int64) + T                 # keys per request
+    # keys per request: the prior and the chunk
+    keys, pages = cost.live_keys(prior_np.astype(np.int64) + T, page)
     pairs = int(sum(T * int(p) + T * (T + 1) // 2 for p in prior_np))
-    nbytes = 2 * B * T * H * hd * 2 + int(keys.sum()) * KV * hd * 2 * 2 \
-        + int(np.ceil(keys / page).sum()) * 4 + B * 4
-    flops = 4.0 * H * hd * pairs
-    bms, by = bound(nbytes, flops)
+    bms, by = bound(cost.paged_prefill(B, T, H, KV, hd, keys, pages, pairs,
+                                       2, 2, 2))
     kg = paged_gather(kp_, bt).transpose(1, 2).repeat_interleave(H // KV, 1)
     vg = paged_gather(vp_, bt).transpose(1, 2).repeat_interleave(H // KV, 1)
     qpos = prior[:, None].long() + torch.arange(T, device=dev)[None, :]
@@ -734,6 +745,10 @@ def kernel_checks(torch, np):
     rows.extend(ssd_rows(torch, gen, "_tp2", H=40, ragged=False))
     torch.cuda.empty_cache()
     rows.extend(rglru_rows(torch, gen, "_tp2", C=2048, ragged=False))
+    # K5's fp32 route at query-head ratios that do not divide a block's
+    # 64 rows, last for the same reason
+    torch.cuda.empty_cache()
+    flash_fp32_rep_checks(torch, close)
     _lib.reset_launches()
     torch.cuda.empty_cache()
     return rows
@@ -852,6 +867,7 @@ def recurrent_rows(torch, np, rng, gen, close):
     context under the same mask."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels import cost
     from repro_torch.kernels.flash_prefill import kernel as fk
     from repro_torch.kernels.flash_prefill import ref as fr
     from repro_torch.kernels.paged_attention import kernel as pk
@@ -899,10 +915,9 @@ def recurrent_rows(torch, np, rng, gen, close):
                                              window=win)
     close(lse, wl, f32, f"{tag} fp32 q window={win} (lse)")
     close(o, wo, f32, f"{tag} fp32 q window={win}")
-    live = np.minimum(np.minimum(ctx_np, MB * page), win)
-    nbytes = 2 * B * H * hd * 2 + int(live.sum()) * KV * hd * 2 * 2 \
-        + int(np.ceil(live / page).sum()) * 4 + B * 4
-    bms, by = bound(nbytes, 4.0 * H * hd * int(live.sum()))
+    keys, pages = cost.live_keys(
+        np.minimum(np.minimum(ctx_np, MB * page), win), page)
+    bms, by = bound(cost.paged_decode(B, H, KV, hd, keys, pages, 2, 2, 2))
     kg, vg = gathered(bt)
     kpos = torch.arange(MB * page, device=dev)[None, :]
     c = ctx[:, None].long()
@@ -952,10 +967,11 @@ def recurrent_rows(torch, np, rng, gen, close):
     qpos = prior_np[:, None].astype(np.int64) + np.arange(T)[None, :]
     pairs = int(np.minimum(qpos + 1, win).sum())
     first = np.maximum(prior_np.astype(np.int64) - win + 1, 0)
-    keys = prior_np.astype(np.int64) + T - first       # keys each reads
-    nbytes = 2 * B * T * H * hd * 2 + int(keys.sum()) * KV * hd * 2 * 2 \
-        + int(np.ceil(keys / page).sum()) * 4 + B * 4
-    bms, by = bound(nbytes, 4.0 * H * hd * pairs)
+    # the keys each request reads
+    keys, pages = cost.live_keys(prior_np.astype(np.int64) + T - first,
+                                 page)
+    bms, by = bound(cost.paged_prefill(B, T, H, KV, hd, keys, pages, pairs,
+                                       2, 2, 2))
     kg, vg = gathered(bt)
     qp = prior[:, None].long() + torch.arange(T, device=dev)[None, :]
     kpos = torch.arange(MB * page, device=dev)[None, None, :]
@@ -996,13 +1012,8 @@ def recurrent_rows(torch, np, rng, gen, close):
         errs.append(max(ssd_close(torch, g, w, f"{tag} {n}")
                         for n, g, w in (("y", y, wy), ("hT", hT, wh))))
         del y, hT, wy, wh
-    xb, yb = Bs * T * Hs * hds * 2, Bs * T * Hs * hds * 4
-    htb = Bs * Hs * hds * S * 4
-    per = Bs * Hs * (T // ch)
-    flops = per * (2 * ch * ch * S + 2 * ch * ch * hds + 4 * ch * hds * S)
     # x, dt, A, B, C and h0 in, y and hT out
-    bms, by = bound(xb + Bs * T * Hs * 4 + Hs * 4 + 2 * Bs * T * S * 2
-                    + htb + yb + htb, flops)
+    bms, by = bound(cost.ssd(Bs, T, Hs, hds, S, ch, 2, 2, h0=True))
     rows.append(dict(
         name="ssd_scan_from", route="cuda",
         source="src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -1025,8 +1036,7 @@ def recurrent_rows(torch, np, rng, gen, close):
     tag = f"rglru_scan from h0 fp32 [{B},{T},{C}] a near 1"
     e = max(ssd_close(torch, got, want, f"{tag} {n}")
             for n, got, want in (("y", y, wy), ("hT", hT, wh)))
-    n = B * T * C
-    bms, by = bound(3 * n * 4 + 2 * B * C * 4, 2.0 * n)
+    bms, by = bound(cost.rglru(B, T, C, 4, h0=True))
     rows.append(dict(
         name="rglru_scan_from", route="cuda",
         source="src/repro_torch/kernels/csrc/rglru_scan.cu",
@@ -1100,7 +1110,7 @@ def mla_rows(torch, np, rng, close):
     of each request's context; ``index_copy_`` for the appends."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels import _lib
+    from repro_torch.kernels import _lib, cost
     from repro_torch.kernels.paged_attention import kernel as pk
     from repro_torch.kernels.paged_attention import ref as pr
     from repro_torch.models.cache import paged_gather
@@ -1155,10 +1165,10 @@ def mla_rows(torch, np, rng, close):
               f"mla_decode B {B} H {H_} W {W_} R {R_} page {page_}")
     n_split, split_len = pk.mla_splits(B, H, MB * page, dev)
     live = ctx_np.astype(np.int64)
-    nbytes = int(live.sum()) * W * 2 + B * H * (W + R) * 4 \
-        + int(np.ceil(live / page).sum()) * 4 + B * 4
-    flops = 2.0 * (W + R) * H * int(live.sum())
-    bms, by = bound(nbytes, flops)
+    keys, pages = cost.live_keys(live, page)
+    c_mla = cost.mla_decode(B, H, W, R, keys, pages, 4, 2)
+    nbytes, flops = c_mla.nbytes, c_mla.flops
+    bms, by = bound(c_mla)
     kg = paged_gather(pool, bt).float()[:, None]          # [B,1,Tk,W]
     vg = kg[..., :R]
     mask = (torch.arange(MB * page, device=dev)[None, :]
@@ -1181,7 +1191,8 @@ def mla_rows(torch, np, rng, close):
         library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
             qs, kg, vg, attn_mask=mask, scale=1.0)))
     rows.append(row)
-    bms_l, by_l = bound(nbytes + B * H * 4, flops)
+    bms_l, by_l = bound(cost.mla_decode(B, H, W, R, keys, pages, 4, 2,
+                                        lse=True))
     row_lse = dict(
         name="mla_decode_lse", route="cuda",
         source="src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -1248,8 +1259,7 @@ def mla_rows(torch, np, rng, close):
         idx = torch.where(slots.reshape(-1) >= 0, slots.reshape(-1).long(),
                           nblk * page - 1)
         rows_v = vals[0].reshape(n, W)
-        nbytes = n * W * (2 + 2) + 4 * n
-        bms, by = bound(nbytes, 0.0)
+        bms, by = bound(cost.append(n, W, 1, 2, 2))
         row = dict(
             name=name, route="cuda",
             source="src/repro_torch/kernels/csrc/paged_append.cu",
@@ -1372,6 +1382,7 @@ def ssd_rows(torch, gen, suffix: str = "", H: int = 80,
     call). Rows ``ssd_scan{suffix}`` and ``ssd_scan_bwd{suffix}``."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels import cost
     from repro_torch.kernels.ssd_scan import kernel as sk
     from repro_torch.kernels.ssd_scan import ops as so
     from repro_torch.kernels.ssd_scan import ref as sr
@@ -1436,22 +1447,10 @@ def ssd_rows(torch, gen, suffix: str = "", H: int = 80,
     dy = rnd((Bs, T, H, hd))
     y, hT, st = sk.ssd_scan_kernel(*ins, chunk=ch)
     # the bounds count the function's own inputs and outputs, not the
-    # per-chunk states this design passes from its forward to its backward
-    xb, yb = Bs * T * H * hd * 2, Bs * T * H * hd * 4
-    bcb, dtb = 2 * Bs * T * S * 2, Bs * T * H * 4
-    htb = Bs * H * hd * S * 4
-    per = Bs * H * (T // ch)            # (row, head, chunk) blocks of work
-    # operations as the TPU kernel counts them: C.B^T, the intra-chunk
-    # product, the inter-chunk term and the state update
-    fwd_f = per * (2 * ch * ch * S + 2 * ch * ch * hd + 4 * ch * hd * S)
-    # the backward's products, each counted once: C.B^T and dy.xd^T, the
-    # three chunk products with them (dxd, dB, dC), and five terms
-    # against a state-sized matrix (R twice, the R update, h twice)
-    bwd_f = per * (2 * ch * ch * (3 * S + 2 * hd) + 10 * ch * hd * S)
-    # forward: x, dt, A, B, C in, y and hT out; backward: the same five
-    # and dy (fp32) in, their five gradients out
-    fwd_b = bound(xb + dtb + H * 4 + bcb + yb + htb, fwd_f)
-    bwd_b = bound(2 * (xb + dtb + H * 4 + bcb) + yb, bwd_f)
+    # per-chunk states this design passes from its forward to its
+    # backward (``kernels/cost.py::ssd``)
+    fwd_b = bound(cost.ssd(Bs, T, H, hd, S, ch, 2, 2))
+    bwd_b = bound(cost.ssd(Bs, T, H, hd, S, ch, 2, 2, backward=True))
 
     def fwd():
         sk.ssd_scan_kernel(*ins, chunk=ch)
@@ -1511,6 +1510,7 @@ def rglru_rows(torch, gen, suffix: str = "", C: int = 4096,
     ragged shape through the autograd op in fp32 and bf16; then timed at
     the training shape. Rows ``rglru_scan{suffix}`` and
     ``rglru_scan_bwd{suffix}``."""
+    from repro_torch.kernels import cost
     from repro_torch.kernels.rglru_scan import kernel as rk
     from repro_torch.kernels.rglru_scan import ops as ro
     from repro_torch.kernels.rglru_scan import ref as rr
@@ -1561,11 +1561,9 @@ def rglru_rows(torch, gen, suffix: str = "", C: int = 4096,
     a, g = inputs(B, T, C, "sigmoid")
     dy = rnd((B, T, C))
     y, _ = rk.rglru_scan_kernel(a, g)
-    n = B * T * C
-    # forward: a and g in, y and hT out; backward: a, y, dy in, da and dg
-    # out; all fp32. Two and three flops an element.
-    fwd_b = bound(3 * n * 4 + B * C * 4, 2.0 * n)
-    bwd_b = bound(5 * n * 4, 3.0 * n)
+    # all fp32 (``kernels/cost.py::rglru``)
+    fwd_b = bound(cost.rglru(B, T, C, 4))
+    bwd_b = bound(cost.rglru(B, T, C, 4, backward=True))
     rows = [dict(
         name=f"rglru_scan{suffix}", route="cuda",
         source="src/repro_torch/kernels/csrc/rglru_scan.cu",
@@ -1587,6 +1585,41 @@ def rglru_rows(torch, gen, suffix: str = "", C: int = 4096,
     return rows
 
 
+# flash_fp32_rep_checks' shapes: (B, T, H, KV, hd, window)
+FP32_REP_SHAPES = ((2, 300, 14, 2, 64, None), (2, 300, 14, 2, 64, 40),
+                   (1, 256, 96, 8, 128, None), (1, 256, 96, 8, 128, 64))
+
+
+def flash_fp32_rep_checks(torch, close) -> None:
+    """K5 forward and backward on its fp32 route (the CUDA cores) at rep
+    = H/KV of 7 (internvl2-1b's H 14, KV 2, hd 64) and 12
+    (mistral-large-123b's H 96, KV 8, hd 128), which do not divide a
+    block's 64 rows (its rows past 63 and 60 idle), with and without a
+    window, against the plain version at the fp32 tolerance; the errors
+    printed."""
+    from repro_torch.kernels.flash_prefill import kernel as fk
+    from repro_torch.kernels.flash_prefill import ref as fr
+    dev, f32 = torch.device("cuda"), torch.float32
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def rnd(shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    for B, T, H, KV, hd, window in FP32_REP_SHAPES:
+        q, do = rnd((B, T, H, hd)), rnd((B, T, H, hd))
+        k, v = rnd((B, T, KV, hd)), rnd((B, T, KV, hd))
+        tag = f"fp32 rep {H // KV} hd {hd} [{B},{T}] window={window}"
+        o, lse = fk.flash_prefill_kernel(q, k, v, window=window)
+        wo, wl = fr.flash_prefill_fwd_ref(q, k, v, window=window)
+        close(lse, wl, f32, f"flash_prefill {tag} (lse)")
+        close(o, wo, f32, f"flash_prefill {tag}")
+        grads = fk.flash_prefill_bwd_kernel(q, k, v, o, lse, do,
+                                            window=window)
+        wants = fr.flash_prefill_bwd_ref(q, k, v, o, lse, do, window=window)
+        for n, g, w_ in zip("qkv", grads, wants):
+            close(g, w_, f32, f"flash_prefill_bwd {tag} d{n}")
+        del q, do, k, v, o, lse, wo, wl, grads, wants
+
+
 def flash_hd64_checks(torch, gen, close) -> None:
     """K5 forward and backward at hd 64, the attention of phase 17's
     training runs: whisper-base's decoder (H 8, KV 8) at batch 8 x 448
@@ -1596,6 +1629,7 @@ def flash_hd64_checks(torch, gen, close) -> None:
     time, its bound (as ``flash_rows`` counts it) and SDPA's time."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels import cost
     from repro_torch.kernels.flash_prefill import kernel as fk
     from repro_torch.kernels.flash_prefill import ref as fr
 
@@ -1618,12 +1652,8 @@ def flash_hd64_checks(torch, gen, close) -> None:
         for n, g, w_ in zip("qkv", grads, wants):
             close(g, w_, bf16, f"flash_prefill_bwd {tag} d{n}")
         del grads, wants, wo, wl
-        pairs = B * H * T * (T + 1) // 2
-        qbytes, kbytes = B * T * H * hd * 2, B * T * KV * hd * 2
-        fwd_b = bound(2 * qbytes + 2 * kbytes + B * H * T * 4,
-                      4.0 * hd * pairs)
-        bwd_b = bound(4 * qbytes + 4 * kbytes + B * H * T * 4,
-                      10.0 * hd * pairs)
+        fwd_b = bound(cost.flash(B, T, H, KV, hd, 2))
+        bwd_b = bound(cost.flash(B, T, H, KV, hd, 2, backward=True))
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
         lo = F.scaled_dot_product_attention(
@@ -1656,6 +1686,7 @@ def flash_rows(torch, gen, close, suffix: str, H: int, KV: int, hd: int,
     ``flash_prefill_bwd{suffix}``."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels import cost
     from repro_torch.kernels.flash_prefill import kernel as fk
     from repro_torch.kernels.flash_prefill import ref as fr
 
@@ -1692,11 +1723,9 @@ def flash_rows(torch, gen, close, suffix: str, H: int, KV: int, hd: int,
     (B, T), window = shapes[-1], windows[0]
     o, lse = fk.flash_prefill_kernel(q, k, v, window=window)
     # live (query row, key) pairs under the causal mask and the window
-    pairs = B * H * sum(min(t + 1, window or T) for t in range(T))
-    qbytes, kbytes = B * T * H * hd * 2, B * T * KV * hd * 2
-    stat = B * H * T * 4                        # the fp32 lse
-    fwd_b = bound(2 * qbytes + 2 * kbytes + stat, 4.0 * hd * pairs)
-    bwd_b = bound(4 * qbytes + 4 * kbytes + stat, 10.0 * hd * pairs)
+    pairs = B * H * cost.causal_pairs(T, window)
+    fwd_b = bound(cost.flash(B, T, H, KV, hd, 2, window))
+    bwd_b = bound(cost.flash(B, T, H, KV, hd, 2, window, backward=True))
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
     lo = F.scaled_dot_product_attention(
@@ -1943,7 +1972,112 @@ def serve_full_width(torch):
                                f"path")
     offline = dict(tokens={r.req_id: engine.generated_tokens(r.req_id)
                            for r in reqs}, log=clock.log)
+    dryrun_against_the_card(torch, engine, clock.log)
     return {k: launches[k] for k in SERVE_KERNELS}, offline
+
+
+def _median_ms(log, kind: str) -> float:
+    ts = sorted(dt for k, _, dt in log if k == kind)
+    return ts[len(ts) // 2] * 1e3 if ts else float("nan")
+
+
+def dryrun_against_the_card(torch, engine, log) -> None:
+    """Phase 5's dry run, on phase 5's stack after its replay: the
+    llama3-8b decode step at 8 rows over 256-block tables and its prefill
+    step of 8 rows of a 512-token chunk, counted on the meta device
+    (``launch/dryrun.py::count_serve_step``, the plan of one card) and
+    run once on the card through the same step program over the engine's
+    parameters and pools (every write parked on the scratch row, so the
+    pools keep their contents). Gates: (a) the dry run's argument bytes
+    equal the bytes of the engine's parameters and pools and the step's
+    batch, to the byte; (b) ``FlopCounterMode`` around the real step
+    counts exactly the dry run's GEMM FLOPs (the kernels are ctypes
+    calls: neither side counts them as GEMMs). Printed: (c) the
+    roofline's ms (H100 data sheet) beside phase 5's median step of that
+    phase (``StepClock``), as a multiple; (d) the predicted peak
+    (arguments plus the dry run's temporaries) beside
+    ``torch.cuda.max_memory_allocated()`` over the step."""
+    import numpy as np
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.analysis import roofline as rl
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.core.modes import FlyingMode
+    from repro_torch.core.steps import build_serve_step
+    from repro_torch.launch import dryrun as D
+
+    t0 = time.perf_counter()
+    cfg, plan, geom = engine.cfg, engine.plan, engine.geom
+    check(plan.pods * plan.devices_per_pod == 1,
+          f"phase 5's plan {plan} is not one card")
+    dev = torch.device("cuda")
+    B, MB, T, page = 8, 256, 512, geom.block_base
+    rng = np.random.default_rng(5)
+    mode = FlyingMode(plan, 1)
+    for phase in ("decode", "prefill"):
+        ctx_tokens = MB * page if phase == "decode" else T
+        meta_batch, _ = D.abstract_batch(
+            cfg, InputShape(f"phase5_{phase}", ctx_tokens, B, phase), plan,
+            1, B, ctx_tokens, MB)
+        res = D.count_serve_step(cfg, plan, 1, geom, phase, meta_batch,
+                                 bpg=B, dtype=engine.model.dtype)
+        c, mem = res["counts"], res["memory"]
+        # the real batch: live keys 1-4096 (decode) or priors 0-3584
+        # (prefill) over distinct blocks, every write parked
+        table = rng.permutation(geom.num_blocks - 1)[:B * MB].reshape(B, MB)
+        batch = {"block_table": table}
+        if phase == "decode":
+            lens = rng.integers(1, MB * page + 1, size=B)
+            batch.update(tokens=rng.integers(0, cfg.vocab_size, (B, 1)),
+                         positions=(lens - 1)[:, None], slots=np.full(B, -1),
+                         context_len=lens)
+        else:
+            prior = rng.integers(0, MB * page - T + 1, size=B) // page * page
+            batch.update(tokens=rng.integers(0, cfg.vocab_size, (B, T)),
+                         positions=prior[:, None] + np.arange(T)[None],
+                         slots=np.full((B, T), -1), prior_len=prior)
+        batch = {k: torch.from_numpy(np.asarray(v, np.int32)).to(dev)
+                 for k, v in batch.items()}
+        check(sorted(batch) == sorted(meta_batch) and all(
+            batch[k].shape == meta_batch[k].shape for k in batch),
+              f"{phase}: the card's batch is not the dry run's")
+        args = rl.tree_bytes(engine.params) + rl.tree_bytes(engine._pools) \
+            + rl.tree_bytes(batch)
+        print(f"dryrun: {phase} argument bytes, dry run "
+              f"{mem['argument_bytes']}, card {args}")
+        check(mem["argument_bytes"] == args,
+              f"{phase}: the dry run's argument bytes "
+              f"{mem['argument_bytes']} are not the card's {args}")
+        run, _ = build_serve_step(engine.model, mode, geom, phase=phase)
+        torch.cuda.synchronize()
+        with FlopCounterMode(display=False) as fc:
+            run(engine.params, engine._pools, batch)
+        torch.cuda.synchronize()
+        gemm = fc.get_total_flops()
+        print(f"dryrun: {phase} GEMM FLOPs, dry run {c.gemm_flops:.0f}, "
+              f"card {gemm}; kernel calls {c.kernels.calls}")
+        check(c.gemm_flops == gemm,
+              f"{phase}: the dry run's GEMM FLOPs {c.gemm_flops:.0f} are "
+              f"not the card's {gemm}")
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        run(engine.params, engine._pools, batch)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        row = rl.RooflineTerms(flops=c.flops, hbm_bytes=c.hbm_bytes,
+                               coll_bytes=0.0, chips=1).row()
+        t_ms = max(row["t_compute_s"], row["t_memory_s"]) * 1e3
+        med = _median_ms(log, phase)
+        print(f"dryrun: {phase} roofline {t_ms:.3f} ms ({row['dominant']}: "
+              f"{c.flops / 1e9:.2f} GFLOP, {c.hbm_bytes / 1e9:.3f} GB; H100 "
+              f"data sheet) against phase 5's median {phase} step "
+              f"{med:.3f} ms: {med / t_ms:.2f}x")
+        print(f"dryrun: {phase} peak, predicted "
+              f"{(mem['argument_bytes'] + mem['temp_bytes']) / 2**30:.3f} "
+              f"GiB (temporaries {mem['temp_bytes'] / 2**20:.1f} MiB), card "
+              f"{peak / 2**30:.3f} GiB (above the step's start "
+              f"{(peak - base) / 2**20:.1f} MiB)")
+    print(f"dryrun: phase 5's dry run took {time.perf_counter() - t0:.1f} s")
 
 
 def serve_breakdown(torch):
@@ -5665,7 +5799,7 @@ def sharded_full_width(torch, arch: str, layers: int, batch: int,
 
 # phase 21's full-width runs: (tag, arch, layers, batch, steps, whether
 # the loss must fall over them)
-SHARDED_FULL = (("b", "llama3-8b", 4, 4, 10, True),
+SHARDED_FULL = (("b", "llama3-8b", 4, 4, 6, True),
                 ("c", "phi3.5-moe-42b-a6.6b", 2, 2, 5, True),
                 ("d", "mamba2-2.7b", 2, 4, 3, False),
                 ("d", "recurrentgemma-9b", 3, 4, 3, False))
@@ -5721,7 +5855,8 @@ def train_ranks(torch, np, smi: str) -> dict:
     the parameters (atol 1e-4; mamba2-2.7b from a common state each step
     with its near-zero gradients' elements left out, at most 1% of
     them) equal, K5, K6 and K7 launched; (b) llama3-8b at full width cut
-    to 4 of 32 layers, bf16, TP2, 10 steps of 4 x 2048 tokens; (c)
+    to 4 of 32 layers, bf16, TP2, 6 steps of 4 x 2048 tokens (10 until
+    the script's run neared its time limit); (c)
     Phi-3.5-MoE at full width cut to 2 of 32 layers, bf16, TP2 (8
     experts a rank), 5 steps of 2 x 2048 tokens; (d) mamba2-2.7b (2 of
     64 layers) and recurrentgemma-9b (3 of 38) at full width, bf16, TP2,

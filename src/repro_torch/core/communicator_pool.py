@@ -33,6 +33,7 @@ slice. Batch and sequence extents are bucketed with ``bucket_pow2``.
 """
 from __future__ import annotations
 
+import pickle
 import time
 from dataclasses import dataclass
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
@@ -44,7 +45,7 @@ from repro_torch.core.kv_adaptor import PoolGeometry
 from repro_torch.core.modes import (Island, ParallelPlan, island_mode,
                                     tp_group_ranks)
 from repro_torch.core.steps import build_serve_step
-from repro_torch.core.views import CommStats, RankGroup
+from repro_torch.core.views import CommStats, RankGroup, tensor_bytes
 
 
 def bucket_pow2(n: int, lo: int = 1) -> int:
@@ -183,6 +184,7 @@ class CommunicatorPool:
         t = torch.tensor([x], dtype=torch.float64)
         dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.host_group)
         self.stats.host_collectives += 1
+        self.stats.add_bytes("all-reduce", tensor_bytes(t))
         return float(t[0])
 
     def host_broadcast(self, obj=None):
@@ -195,6 +197,10 @@ class CommunicatorPool:
         box = [obj if self.rank == 0 else None]
         dist.broadcast_object_list(box, src=0, group=self.host_group)
         self.stats.host_collectives += 1
+        # the pickled object (what broadcast_object_list sends) and its
+        # int64 length
+        self.stats.add_bytes("collective-broadcast",
+                             len(pickle.dumps(box[0])) + 8)
         self.stats.broadcasts += 1
         self.stats.broadcast_s += time.perf_counter() - t0
         return box[0]
@@ -204,6 +210,7 @@ class CommunicatorPool:
         if self.world > 1:
             dist.all_reduce(t, group=self.host_group)
             self.stats.host_collectives += 1
+            self.stats.add_bytes("all-reduce", tensor_bytes(t))
         return t
 
     def runner(self, island: Island, phase: str, *, sampled: bool = False,

@@ -63,9 +63,11 @@ def build_serve_step(model: Model, mode: FlyingMode, geom: PoolGeometry, *,
                      live: Optional[Tuple[int, ...]] = None, sp: int = 1,
                      window: Optional[int] = None):
     """Build the step fn ``run(params, states, batch, comm=None,
-    view=None)`` for (mode, phase); ``comm`` is the island group's
-    ``RankGroup`` (None at tp 1), ``view`` its view group at this rank's
-    storage rank (None at merge 1).
+    view=None, ed=None)`` for (mode, phase); ``comm`` is the island
+    group's ``RankGroup`` (None at tp 1), ``view`` its view group at this
+    rank's storage rank (None at merge 1), ``ed`` its 'ed' group at this
+    rank's merge and 'model' index (a MoE model's expert parallelism at
+    ``engine_rows > 1``; None otherwise).
 
     ``phase`` is 'prefill' (one chunked-prefill launch), 'decode', or
     'mixed' (prefill chunk rows ``p_*`` and the decode batch ``d_*`` in
@@ -107,11 +109,17 @@ def build_serve_step(model: Model, mode: FlyingMode, geom: PoolGeometry, *,
     prompt's later chunk would lose its prior context (the JAX package
     runs it and drops that context). An enc-dec model refuses the mixed
     phase and the live variants, as the JAX package asserts; an enc-dec
-    or frontend model refuses a striped ``geom``, which no run of the
-    JAX package covers. A Mamba-2 or RecurrentGemma model refuses the
-    mixed phase (its recurrent rows belong to one batch, the mixed step
-    runs two), the live variants and a striped ``geom``, which no run of
-    the JAX package covers either."""
+    model refuses a striped ``geom``, and a vision-prefix model a striped
+    prefill, which no run of the JAX package covers. A Mamba-2 or
+    RecurrentGemma model refuses the mixed phase (its recurrent rows
+    belong to one batch, the mixed step runs two), the live variants and
+    a striped prefill, which no run of the JAX package covers either. A
+    striped decode step of a vision-prefix, Mamba-2 or RecurrentGemma
+    model (its language model's decoder over the striped pool; the
+    recurrent rows as on the head layout) builds, for the dry run's
+    long-context decode (``launch/dryrun.py``), and runs on meta tensors
+    only: no run holds its tokens, so on CPU or CUDA tensors it
+    raises."""
     if phase not in ("prefill", "decode", "mixed"):
         raise ValueError(phase)
     cfg = model.cfg
@@ -125,14 +133,19 @@ def build_serve_step(model: Model, mode: FlyingMode, geom: PoolGeometry, *,
     if cfg.enc_dec is not None and live is not None:
         raise ValueError("live reads need the head-layout paged pool and "
                          "no cross caches")
-    if striped and (cfg.enc_dec is not None or cfg.frontend is not None):
-        raise ValueError("the striped pool serves decoder-only models "
-                         "without a modality frontend")
-    if cfg.family in ("ssm", "hybrid") and (phase == "mixed" or striped
-                                            or live is not None):
+    if striped and (cfg.enc_dec is not None or (
+            cfg.frontend is not None and phase != "decode")):
+        raise ValueError("the striped pool serves decoder-only models, "
+                         "and the decode step of a vision-prefix model")
+    if cfg.family in ("ssm", "hybrid") and (
+            phase == "mixed" or live is not None
+            or (striped and phase != "decode")):
         raise ValueError(f"{cfg.name}: recurrent rows serve the prefill "
-                         f"and decode steps over the head-layout pool "
-                         f"only, not a mixed, live or striped step")
+                         f"and decode steps over the head-layout pool and "
+                         f"the decode step over a striped one, not a "
+                         f"mixed, live or striped prefill step")
+    meta_only = striped and phase == "decode" and (
+        cfg.frontend is not None or cfg.family in ("ssm", "hybrid"))
     mode_ctx = make_serving_ctx(mode.merge, mode.plan.engine_rows,
                                 mode.plan.tp_base,
                                 cfg.moe.num_experts if cfg.moe else 0)
@@ -193,7 +206,9 @@ def build_serve_step(model: Model, mode: FlyingMode, geom: PoolGeometry, *,
         if live is not None:
             backend = live_backend(ctx, batch)
         elif striped:
-            if bool((batch["prior_len"] > 0).any()):
+            prior = batch["prior_len"]
+            # meta tensors (the dry run) hold no lengths to check
+            if not prior.is_meta and bool((prior > 0).any()):
                 raise ValueError("a striped prefill is fresh only: a chunk "
                                  "after a prior context would not attend "
                                  "to it")
@@ -233,8 +248,11 @@ def build_serve_step(model: Model, mode: FlyingMode, geom: PoolGeometry, *,
         return logits
 
     @torch.no_grad()
-    def run(params, states, batch, comm=None, view=None):
-        ctx = mode_ctx.bind(comm, view)
+    def run(params, states, batch, comm=None, view=None, ed=None):
+        if meta_only and not batch["tokens"].is_meta:
+            raise ValueError(f"{cfg.name}: the striped decode step runs on "
+                             f"meta tensors only (the dry run's count)")
+        ctx = mode_ctx.bind(comm, view, ed)
         sts = _view_states(model, states, geom, merge)
         if phase == "prefill":
             out = finish(ctx, prefill(ctx, params, sts, batch),

@@ -50,7 +50,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -75,9 +75,20 @@ def pow2_shards(n: int, tp: int) -> int:
 @dataclass
 class CommStats:
     """Collectives issued, by the TP groups (device tensors) and by the
-    host group (step durations, token harvests)."""
+    host group (step durations, token harvests), and their result bytes
+    by kind under the JAX package's names (``all-reduce``,
+    ``all-gather``, ``all-to-all``, ``collective-broadcast``; the
+    roofline's ``wire_bytes`` takes them)."""
     collectives: int = 0
     host_collectives: int = 0
+    nbytes: Dict[str, int] = dataclasses.field(default_factory=dict)
+
+    def add_bytes(self, kind: str, n: int) -> None:
+        self.nbytes[kind] = self.nbytes.get(kind, 0) + int(n)
+
+
+def tensor_bytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 class RankGroup:
@@ -102,6 +113,7 @@ class RankGroup:
         dist.all_reduce(y, op=getattr(dist.ReduceOp, op.upper()),
                         group=self.handle)
         self.stats.collectives += 1
+        self.stats.add_bytes("all-reduce", tensor_bytes(y))
         return y
 
     def all_gather(self, x: torch.Tensor) -> List[torch.Tensor]:
@@ -109,7 +121,18 @@ class RankGroup:
         out = [torch.empty_like(x) for _ in self.ranks]
         dist.all_gather(out, x, group=self.handle)
         self.stats.collectives += 1
+        self.stats.add_bytes("all-gather", tensor_bytes(x) * len(out))
         return out
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` [size * m, ...] cut along dim 0 into ``size`` chunks,
+        chunk j to rank j; returns the chunks received, rank i's at i."""
+        x = x.contiguous()
+        y = torch.empty_like(x)
+        dist.all_to_all_single(y, x, group=self.handle)
+        self.stats.collectives += 1
+        self.stats.add_bytes("all-to-all", tensor_bytes(y))
+        return y
 
 
 class _PSum(torch.autograd.Function):
@@ -141,6 +164,11 @@ class TPContext:
     # and at view_m 1, where it is this rank alone
     view_group: Optional[RankGroup] = dataclasses.field(default=None,
                                                         compare=False)
+    # the 'ed' axis alone: the TP group's ranks at this rank's merge and
+    # 'model' index (expert parallelism's all_to_all); None until bound,
+    # and at ep 1
+    ed_group: Optional[RankGroup] = dataclasses.field(default=None,
+                                                      compare=False)
 
     def __post_init__(self):
         if self.group is not None and self.group.size != self.tp:
@@ -150,20 +178,35 @@ class TPContext:
                 and self.view_group.size != self.view_m:
             raise ValueError(f"a view group of {self.view_group.size} "
                              f"ranks for view_m={self.view_m}")
+        if self.ed_group is not None and self.ed_group.size != self.ep:
+            raise ValueError(f"an 'ed' group of {self.ed_group.size} "
+                             f"ranks for ep={self.ep}")
 
     @property
     def storage_shards(self) -> int:
         return self.tp // self.view_m
 
     def bind(self, group: Optional[RankGroup],
-             view_group: Optional[RankGroup] = None) -> "TPContext":
+             view_group: Optional[RankGroup] = None,
+             ed_group: Optional[RankGroup] = None) -> "TPContext":
         """This geometry over one island's TP group and, for the live
-        reads' merges, its view group (tp 1: itself)."""
+        reads' merges, its view group, and for expert parallelism its
+        'ed' group (tp 1: itself)."""
         if self.tp == 1:
             return self
         if group is None:
             raise ValueError(f"tp={self.tp} needs its rank group")
-        return dataclasses.replace(self, group=group, view_group=view_group)
+        return dataclasses.replace(self, group=group, view_group=view_group,
+                                   ed_group=ed_group)
+
+    def ed_members(self, index: int) -> Tuple[int, ...]:
+        """The TP-group indices of the 'ed' group of the rank at
+        ``index``: its merge and 'model' index, every 'ed' index."""
+        shards = self.storage_shards
+        per = shards // self.ep                  # 'model' ranks an 'ed' row
+        m, rest = divmod(index, shards)
+        return tuple(m * shards + e * per + rest % per
+                     for e in range(self.ep))
 
     # ---- ranks (the JAX package's traced lax.axis_index) ---------------
     def _index(self) -> int:
@@ -356,8 +399,9 @@ def make_serving_ctx(merge: int, engine_rows: int, tp_base: int,
     """TPContext for a flying-serving mode over ('dp', 'merge', 'ed',
     'model'); ``group`` and ``view_group`` bind it to one island's TP and
     view groups (see ``TPContext.bind``). ``ep`` is the JAX package's:
-    ``engine_rows`` when a MoE model's ``n_experts`` split over them
-    (the MoE layer then raises: expert parallelism is not ported)."""
+    ``engine_rows`` when a MoE model's ``n_experts`` split over them (the
+    MoE layer's all_to_all then runs over the 'ed' group ``bind``
+    takes)."""
     ep = engine_rows if (n_experts and n_experts % engine_rows == 0
                          and engine_rows > 1) else 1
     ctx = TPContext(tp=merge * engine_rows * tp_base, view_m=merge, ep=ep)

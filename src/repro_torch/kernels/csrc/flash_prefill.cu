@@ -53,8 +53,10 @@
 //    registers, looping over the live query rows of all rep heads.
 // At hd 256 a query row has eight threads and a key tile 16 positions
 // (flash::Tile), so every fp32 tile stays in 32 KB of static shared
-// memory; the query heads of a kv head must divide a block's rows (64,
-// 32 at hd 256).
+// memory; a block takes bq = ROWS / rep query positions of each of the
+// rep = H/KV query heads (ROWS: 64, 32 at hd 256), and its rows at or
+// past bq * rep idle when rep does not divide ROWS. rep above ROWS is
+// refused.
 //
 // Both routes: scores scaled by hd^-0.5, the output divided by max(l,
 // 1e-30), the row's log-sum-exp written in fp32 (REPRO_NEG_INF for a row
@@ -83,7 +85,9 @@ template <int HD> struct RowMap {
     qq = threadIdx.x % TPR;
     h = kvh * rep + row / bq;
     qi = tile * bq + row % bq;
-    ok = qi < T;
+    // rows at or past bq * rep (rep not dividing ROWS) sit idle: they
+    // stage and shuffle with the block but read and write nothing
+    ok = qi < T && row < bq * rep;
     q_first = tile * bq;
     q_last = min(q_first + bq, T) - 1;
     lo = window > 0 ? max(0, q_first - window + 1) : 0;
@@ -947,13 +951,14 @@ void launch_bwd(const void* q, const void* k, const void* v, const void* out,
     default: return (int)cudaErrorInvalidValue;                          \
   }
 
-// In fp32 the query heads of a kv head must divide the rows of a block:
-// 64 at hd 64 and 128, 32 at hd 256. The bf16 kernels take any rep.
+// In fp32 a block holds at least one query position of each of the rep
+// query heads of a kv head: rep at most its rows, 64 at hd 64 and 128,
+// 32 at hd 256. The bf16 kernels take any rep.
 bool bad_heads(int H, int KV, int hd, int dtype) {
   if (KV <= 0 || H % KV != 0) return true;
   if (dtype == DT_BF16) return false;
   const int rows = hd > 128 ? Tile<256>::ROWS : Tile<128>::ROWS;
-  return dtype != DT_F32 || rows % (H / KV) != 0;
+  return dtype != DT_F32 || H / KV > rows;
 }
 
 }  // namespace

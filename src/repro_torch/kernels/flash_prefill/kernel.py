@@ -77,9 +77,10 @@ def _dense_args(q, k, v):
         raise ValueError(f"flash_prefill kernels take hd 64, 128 or 256, "
                          f"not {hd}")
     rows = 32 if hd == 256 else 64          # query rows of an fp32 block
-    if q.dtype == torch.float32 and rows % (H // KV):
-        raise ValueError(f"flash_prefill's fp32 kernels take H/KV dividing "
-                         f"{rows} at hd {hd}, not {H // KV}")
+    if q.dtype == torch.float32 and H // KV > rows:
+        raise ValueError(f"flash_prefill's fp32 kernels hold the {H // KV} "
+                         f"query heads of a kv head in one block of {rows} "
+                         f"rows at hd {hd}: at most {rows}")
     return B, T, H, KV, hd
 
 

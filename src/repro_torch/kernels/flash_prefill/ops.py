@@ -8,7 +8,8 @@ chunk's K/V rows are appended in place, then one paged flash sweep over
 the block table covers in-chunk causal attention and attention over
 prior pages alike. As in ``kernels/paged_attention/ops``, the tensors'
 device picks the implementation: the CUDA kernels on the card, the plain
-versions on the CPU.
+versions on the CPU, the meta route (outputs on meta, the call's cost
+recorded; forward and backward) for meta tensors.
 """
 from __future__ import annotations
 
@@ -16,10 +17,18 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import cost
 from repro_torch.kernels.flash_prefill import kernel as K
 from repro_torch.kernels.flash_prefill import ref as R
-from repro_torch.kernels.paged_attention.ops import (on_cuda,
-                                                     paged_append_chunk)
+from repro_torch.kernels.paged_attention.ops import (meta_keys,
+                                                     paged_append_chunk,
+                                                     route)
+
+
+def _flash_cost(q, k, window, backward: bool) -> cost.Cost:
+    B, T, H, hd = q.shape
+    return cost.flash(B, T, H, k.shape[2], hd, q.element_size(),
+                      window=window, backward=backward)
 
 
 class _FlashPrefill(torch.autograd.Function):
@@ -28,8 +37,15 @@ class _FlashPrefill(torch.autograd.Function):
 
     @staticmethod
     def forward(fctx, q, k, v, window):
-        if on_cuda(q):
+        r = route(q)
+        if r == "cuda":
             out, lse = K.flash_prefill_kernel(q, k, v, window=window)
+        elif r == "meta":
+            B, T, H, _ = q.shape
+            cost.record("flash_prefill", _flash_cost(q, k, window, False),
+                        q, k, v)
+            out = torch.empty_like(q)
+            lse = torch.empty((B, H, T), dtype=torch.float32, device="meta")
         else:
             out, lse = R.flash_prefill_fwd_ref(q, k, v, window=window)
         fctx.save_for_backward(q, k, v, out, lse)
@@ -39,7 +55,14 @@ class _FlashPrefill(torch.autograd.Function):
     @staticmethod
     def backward(fctx, dout):
         q, k, v, out, lse = fctx.saved_tensors
-        bwd = K.flash_prefill_bwd_kernel if on_cuda(q) \
+        r = route(q)
+        if r == "meta":
+            cost.record("flash_prefill_bwd",
+                        _flash_cost(q, k, fctx.window, True), q, k, v, out,
+                        lse, dout)
+            return (torch.empty_like(q), torch.empty_like(k),
+                    torch.empty_like(v), None)
+        bwd = K.flash_prefill_bwd_kernel if r == "cuda" \
             else R.flash_prefill_bwd_ref
         dq, dk, dv = bwd(q, k, v, out, lse, dout, window=fctx.window)
         return dq, dk, dv, None
@@ -63,10 +86,14 @@ def paged_flash_prefill(q, k_new, v_new, k_pool, v_pool, slots, block_table,
     pages AND the chunk's own pages; prior_len [B]. Returns out
     [B,T,H,hd]."""
     paged_append_chunk((k_pool, v_pool), (k_new, v_new), slots)
-    if on_cuda(q):
+    r = route(q)
+    if r == "cuda":
         return K.paged_flash_prefill_kernel(
             q, k_pool, v_pool, block_table, prior_len, window=window,
             softmax_scale=softmax_scale)
+    if r == "meta":
+        return _prefill_meta(q, k_pool, v_pool, block_table, prior_len,
+                             window, False)
     return R.paged_flash_prefill_ref(q, k_pool, v_pool, block_table,
                                      prior_len, window=window,
                                      softmax_scale=softmax_scale)
@@ -82,11 +109,33 @@ def paged_prefill_sweep_with_lse(q, k_pool, v_pool, block_table, prior_len,
     otherwise the causal current-segment sweep). Returns (out [B,T,H,hd]
     fp32, lse [B,H,T] fp32); rows with nothing to attend get lse
     ``NEG_INF``. No append."""
-    if on_cuda(q):
+    r = route(q)
+    if r == "cuda":
         return K.paged_flash_prefill_kernel(
             q.float(), k_pool, v_pool, block_table, prior_len,
             window=window, softmax_scale=softmax_scale,
             prior_only=prior_only, return_lse=True)
+    if r == "meta":
+        return _prefill_meta(q, k_pool, v_pool, block_table, prior_len,
+                             window, True)
     return R.paged_prefill_sweep_with_lse_ref(
         q, k_pool, v_pool, block_table, prior_len, prior_only=prior_only,
         window=window, softmax_scale=softmax_scale)
+
+
+def _prefill_meta(q, k_pool, v_pool, block_table, prior_len, window,
+                  lse: bool):
+    """K4's meta route: each query row attends every key of its row's
+    table (within a window, the window's)."""
+    B, T, H, hd = q.shape
+    _, page, KV, _ = k_pool.shape
+    keys, pages = meta_keys(B, block_table, page, window)
+    qb = 4 if lse else q.element_size()
+    cost.record("paged_flash_prefill", cost.paged_prefill(
+        B, T, H, KV, hd, keys, pages, T * keys, qb, qb, k_pool.element_size(),
+        lse=lse), q, k_pool, v_pool, block_table, prior_len)
+    if lse:
+        return (torch.empty((B, T, H, hd), dtype=torch.float32,
+                            device="meta"),
+                torch.empty((B, H, T), dtype=torch.float32, device="meta"))
+    return torch.empty_like(q)

@@ -5,17 +5,26 @@ h0 = 0 as a ``torch.autograd.Function`` whose backward is a kernel too
 
 As in the other ops modules, the tensors' device picks the
 implementation in both directions: the CUDA kernels on the card, the
-plain loops on the CPU; any other device raises. T and C take any size
-(the JAX package pads them to its kernel's tiles; the CUDA kernels mask
-the ragged ends).
+plain loops on the CPU, the meta route (outputs on meta, the call's cost
+recorded) for meta tensors; any other device raises. T and C take any
+size (the JAX package pads them to its kernel's tiles; the CUDA kernels
+mask the ragged ends).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.paged_attention.ops import on_cuda
+from repro_torch.kernels import cost
+from repro_torch.kernels.paged_attention.ops import route
 from repro_torch.kernels.rglru_scan import kernel as K
 from repro_torch.kernels.rglru_scan import ref as R
+
+
+def _meta(name, a, *reads, h0=False):
+    B, T, C = a.shape
+    cost.record(name, cost.rglru(B, T, C, a.element_size(), h0=h0), *reads)
+    return (torch.empty((B, T, C), dtype=torch.float32, device="meta"),
+            torch.empty((B, C), dtype=torch.float32, device="meta"))
 
 
 class _RGLRUScan(torch.autograd.Function):
@@ -25,8 +34,11 @@ class _RGLRUScan(torch.autograd.Function):
     @staticmethod
     def forward(fctx, a, g):
         fctx.set_materialize_grads(False)
-        if on_cuda(a):
+        r = route(a)
+        if r == "cuda":
             y, hT = K.rglru_scan_kernel(a, g)
+        elif r == "meta":
+            y, hT = _meta("rglru_scan", a, a, g)
         else:
             y, hT = R.rglru_scan_ref(a, g)
         fctx.save_for_backward(a, y)
@@ -41,7 +53,13 @@ class _RGLRUScan(torch.autograd.Function):
         if dy is None:
             return None, None
         a, y = fctx.saved_tensors
-        bwd = K.rglru_scan_bwd_kernel if on_cuda(a) else R.rglru_scan_bwd_ref
+        r = route(a)
+        if r == "meta":
+            B, T, C = a.shape
+            cost.record("rglru_scan_bwd", cost.rglru(
+                B, T, C, a.element_size(), backward=True), a, y, dy)
+            return torch.empty_like(a), torch.empty_like(a)
+        bwd = K.rglru_scan_bwd_kernel if r == "cuda" else R.rglru_scan_bwd_ref
         return bwd(a, y, dy)
 
 
@@ -64,6 +82,9 @@ def rglru_scan_from(a, g, h0):
         raise ValueError(f"rglru_scan: a {tuple(a.shape)} {a.dtype} and g "
                          f"{tuple(g.shape)} {g.dtype} must be one [B,T,C] "
                          f"shape and dtype")
-    if on_cuda(a):
+    r = route(a)
+    if r == "cuda":
         return K.rglru_scan_kernel(a, g, h0)
+    if r == "meta":
+        return _meta("rglru_scan_from", a, a, g, h0, h0=True)
     return R.rglru_scan_ref(a, g, h0)

@@ -6,16 +6,28 @@ prefill).
 As in the other ops modules, the tensors' device picks the
 implementation in both directions: the CUDA kernels on the card, the
 plain versions on the CPU (the chunked form forward, autograd through it
-backward); any other device raises.
+backward), the meta route (outputs on meta, the call's cost recorded)
+for meta tensors; any other device raises.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.paged_attention.ops import on_cuda
+from repro_torch.kernels import cost
+from repro_torch.kernels.paged_attention.ops import route
 from repro_torch.kernels.ssd_scan import kernel as K
 from repro_torch.kernels.ssd_scan import ref as R
+
+
+def _meta(name, x, B, chunk, *reads, h0=False, backward=False):
+    Bs, T, H, hd = x.shape
+    S = B.shape[-1]
+    cost.record(name, cost.ssd(Bs, T, H, hd, S, chunk, x.element_size(),
+                               B.element_size(), h0=h0, backward=backward),
+                *reads)
+    return (torch.empty((Bs, T, H, hd), dtype=torch.float32, device="meta"),
+            torch.empty((Bs, H, hd, S), dtype=torch.float32, device="meta"))
 
 
 class _SSDScan(torch.autograd.Function):
@@ -26,7 +38,11 @@ class _SSDScan(torch.autograd.Function):
     def forward(fctx, x, dt, A, B, C, chunk):
         fctx.set_materialize_grads(False)
         fctx.chunk = chunk
-        if on_cuda(x):
+        r = route(x)
+        if r == "meta":
+            y, hT = _meta("ssd_scan", x, B, chunk, x, dt, A, B, C)
+            fctx.save_for_backward(x, dt, A, B, C)
+        elif r == "cuda":
             y, hT, states = K.ssd_scan_kernel(x, dt, A, B, C, chunk=chunk)
             fctx.save_for_backward(x, dt, A, B, C, states)
         else:
@@ -43,8 +59,13 @@ class _SSDScan(torch.autograd.Function):
         if dy is None:
             return (None,) * 6
         saved = fctx.saved_tensors
-        bwd = K.ssd_scan_bwd_kernel if on_cuda(saved[0]) \
-            else R.ssd_scan_bwd_ref
+        r = route(saved[0])
+        if r == "meta":
+            x, B = saved[0], saved[3]
+            _meta("ssd_scan_bwd", x, B, fctx.chunk, *saved, dy,
+                  backward=True)
+            return (*(torch.empty_like(t) for t in saved), None)
+        bwd = K.ssd_scan_bwd_kernel if r == "cuda" else R.ssd_scan_bwd_ref
         return (*bwd(*saved, dy, chunk=fctx.chunk), None)
 
 
@@ -81,8 +102,12 @@ def ssd_scan_from(x, dt, A, B, C, h0, *, chunk: int = 128):
     input, CPU tensors ``ref.ssd_chunked``."""
     T = x.shape[1]
     x, dt, B, C, ch = _pad(x, dt, B, C, chunk)
-    if on_cuda(x):
+    r = route(x)
+    if r == "cuda":
         y, hT, _ = K.ssd_scan_kernel(x, dt, A, B, C, chunk=ch, h0=h0)
+    elif r == "meta":
+        y, hT = _meta("ssd_scan_from", x, B, ch, x, dt, A, B, C, h0,
+                      h0=True)
     else:
         y, hT = R.ssd_chunked(x, dt, A, B, C, h0, ch)
     return y[:, :T], hT

@@ -23,9 +23,20 @@ dispatch group of the JAX package's per-data-shard dispatch
 (``moe_groups = pods * data_rows``), so routing, positions, the
 capacity and the scatter see only them.
 
-Expert parallelism (``ctx.ep > 1``: experts stored over 'ed', an
-all_to_all of the dispatch buffers) raises: no real-execution
-reference script runs it yet (ROADMAP.md, Queue 1).
+Expert parallelism (serving at ``ctx.ep > 1``: experts stored over
+'ed') follows the JAX package's: each 'ed' rank routes its slice of the
+replicated tokens, one all_to_all over the 'ed' group takes each
+expert's dispatch buffer to the rank that stores it and one brings the
+outputs back, each rank writes its slice's rows and the layer's psum
+over the TP group assembles them. It departs from it where the tokens
+do not split over 'ed' (a decode step of fewer rows than 'ed' ranks):
+the port pads them with zero rows to a multiple of ``ep`` and drops the
+pads' outputs, so every token gets its experts, where the JAX package's
+slices of ``N // ep`` tokens leave the last ``N % ep`` tokens with no
+routed expert (ROADMAP.md, Queue 3). It needs
+the 'ed' group bound into the ctx (``build_serve_step``'s ``ed``), which
+the Communicator Pool does not build yet: the dry run
+(``launch/dryrun.py``) runs it.
 """
 from __future__ import annotations
 
@@ -108,10 +119,7 @@ def moe_ffn(cfg: ArchConfig, p, x, ctx: TPContext):
     aux)."""
     e = cfg.moe
     if ctx.ep > 1:
-        raise NotImplementedError(
-            "expert parallelism over 'ed' (engine_rows > 1) is not ported: "
-            "no real-execution reference script runs it (ROADMAP.md, "
-            "Queue 1); serve MoE models at engine_rows 1")
+        return _moe_ep(cfg, p, x, ctx)
     B, T, d = x.shape
     N, E, k = B * T, e.num_experts, e.top_k
     tokens = x.reshape(N, d)
@@ -146,6 +154,55 @@ def moe_ffn(cfg: ArchConfig, p, x, ctx: TPContext):
         whole = El == E and wg.shape[2] == e.d_ff_expert
         y = ctx.psum_scaled(y, ctx.tp if whole else 1)
     y = y.to(x.dtype)
+    if e.num_shared_experts:
+        y = y + mlp(p["shared"], x, ctx,
+                    e.num_shared_experts * e.d_ff_expert)
+    return y, aux
+
+
+def _moe_ep(cfg: ArchConfig, p, x, ctx: TPContext):
+    """``moe_ffn`` with the experts stored over 'ed' (module
+    docstring)."""
+    e = cfg.moe
+    if ctx.ed_group is None:
+        raise NotImplementedError(
+            "expert parallelism needs the island's 'ed' group bound into "
+            "the ctx (build_serve_step's ed); the Communicator Pool builds "
+            "none yet")
+    B, T, d = x.shape
+    N, E, k, ep = B * T, e.num_experts, e.top_k, ctx.ep
+    Nl, El = -(-N // ep), E // ep
+    tokens = x.reshape(N, d)
+    if N % ep:
+        tokens = torch.cat([tokens, tokens.new_zeros((Nl * ep - N, d))])
+    off = ctx.ep_rank() * Nl
+    tokens = tokens[off:off + Nl]
+    experts, weights, aux = route(p["router"], tokens, k)
+    e_flat = experts.reshape(Nl * k).long()
+    w_flat = weights.reshape(Nl * k)
+    t_flat = torch.arange(Nl * k, device=x.device) // k
+    pos = _positions_in_expert(e_flat, E).long()
+    cap = capacity(cfg, Nl)
+    slot = torch.where(pos < cap, e_flat * cap + pos, E * cap)
+    buf = x.new_zeros((E * cap + 1, d))
+    buf[slot] = tokens[t_flat]
+    # [E, cap, d]: expert block j to 'ed' rank j, which returns
+    # [ep, El, cap, d], the senders in rank order -> [El, ep * cap, d]
+    got = ctx.ed_group.all_to_all(buf[:-1].reshape(E, cap, d))
+    buf = got.reshape(ep, El, cap, d).transpose(0, 1).reshape(El, ep * cap,
+                                                               d)
+    wg = ctx.activate_view(p["e_gate"], 2)
+    wu = ctx.activate_view(p["e_up"], 2)
+    wd = ctx.activate_view(p["e_down"], 1)
+    h = silu(torch.bmm(buf, wg)) * torch.bmm(buf, wu)
+    out = torch.bmm(h, wd)                  # [El, ep * cap, d] partial
+    back = out.reshape(El, ep, cap, d).transpose(0, 1)
+    out = ctx.ed_group.all_to_all(back).reshape(E * cap, d)
+    flat_out = torch.cat([out, out.new_zeros((1, d))])
+    gathered = flat_out[slot] * w_flat[:, None].to(out.dtype)
+    y = torch.zeros((Nl * ep, d), dtype=torch.float32, device=x.device)
+    y[off:off + Nl] = gathered.float().reshape(Nl, k, d).sum(dim=1)
+    y = ctx.psum_scaled(y[:N].reshape(B, T, d), 1).to(x.dtype)
     if e.num_shared_experts:
         y = y + mlp(p["shared"], x, ctx,
                     e.num_shared_experts * e.d_ff_expert)

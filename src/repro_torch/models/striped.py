@@ -120,16 +120,20 @@ def stripe_partial(q, k_pool, v_pool, block_table, context_len, stripe: int,
     stripe's rows (``stripe_counts`` of them), a normalised partial
     (acc = out, l = 1, m = lse); a window there raises (K2 takes one
     scalar window, the stripe needs a bound on each row's local index).
-    On the CPU: ``_partial_attention``."""
+    On the CPU: ``_partial_attention``. On meta (the dry run): K2's meta
+    route, a window counted as its ``ceil(window / F)`` stripe-local
+    keys."""
     hd = q.shape[-1]
-    if pa_ops.on_cuda(q):
-        if window is not None:
+    r = pa_ops.route(q)
+    if r != "cpu":
+        if window is not None and r == "cuda":
             raise NotImplementedError(
                 "a sliding window over the striped pool needs a per-row "
                 "stripe-local bound that K2 does not take")
         out, lse = pa_ops.paged_attention_with_lse(
             q, k_pool, v_pool, block_table,
             stripe_counts(context_len, stripe, F).to(torch.int32),
+            window=-(-window // F) if window is not None else None,
             softmax_scale=hd ** -0.5)
         return out, torch.ones_like(lse), lse
     kg = paged_gather(k_pool, block_table)               # [B, Tl, KV, hd]
@@ -144,8 +148,9 @@ def stripe_partial_mla(qa, qp, pool, block_table, context_len, stripe: int,
     qp [B,H,Rr] at the pool's dtype (pre-scaled); pool [nblk,page,R+Rr]
     -> (acc [B,H,R], l [B,H], m [B,H]). On the card: ``mla_decode`` with
     its LSE (a normalised partial); on the CPU the plain products, the
-    scores accumulated in fp32 from q at the pool's dtype."""
-    if pa_ops.on_cuda(qa):
+    scores accumulated in fp32 from q at the pool's dtype; on meta the
+    card's route (its meta route)."""
+    if pa_ops.route(qa) != "cpu":
         out, lse = pa_ops.paged_mla_attention_with_lse(
             torch.cat([qa, qp], dim=-1), pool, block_table,
             stripe_counts(context_len, stripe, F).to(torch.int32), R=R)

@@ -18,6 +18,11 @@ class Hardware:
     startup_fixed: float = 20.0         # process/compile/init seconds
     mfu_prefill: float = 0.5            # achievable fraction of peak
     mfu_decode_bw: float = 0.7          # achievable fraction of HBM bw
+    # a collective group wider than one link domain (ranks joined by the
+    # fast links) runs at ``inter_bw`` a rank; v5e's torus has no such
+    # edge below the largest mesh, so its domain outsizes any group
+    domain_ranks: int = 1 << 16
+    inter_bw: float = 50e9              # B/s per rank beyond the domain
 
 
 V5E = Hardware()
@@ -29,7 +34,11 @@ H200 = Hardware(name="h200", peak_flops_bf16=989e12, hbm_bw=4.8e12,
 
 # the port's card: NVIDIA H100 SXM5 data sheet (dense bf16 tensor-core
 # FLOP/s, HBM3 bandwidth and capacity, NVLink 4 at 900 GB/s both ways);
-# the remaining fields take H200's values
+# the DGX H100 data sheet for the rest of the fabric: 8 GPUs a NVLink
+# domain, and beyond it one ConnectX-7 NDR 400 Gb/s port a GPU (50 GB/s
+# a direction). Data-sheet figures, not measured: the machine the port
+# runs on has one card. The remaining fields take H200's values
 H100 = Hardware(name="h100", peak_flops_bf16=989e12, hbm_bw=3.35e12,
                 hbm_bytes=80e9, ici_bw=450e9, ici_latency=2e-6,
-                weight_load_bw=1.5e9, startup_fixed=30.0)
+                weight_load_bw=1.5e9, startup_fixed=30.0,
+                domain_ranks=8, inter_bw=50e9)

@@ -362,7 +362,8 @@ def test_empty_lanes_never_reach_a_live_row(cuda):
     (2, 100, 16, 1, 256, None), (1, 150, 16, 1, 256, 40),
     (2, 1, 8, 8, 128, None), (2, 63, 8, 1, 128, None),
     (3, 65, 8, 2, 64, None), (2, 200, 16, 2, 128, 24),
-    (2, 65, 16, 1, 256, 40), (2, 200, 8, 1, 256, None)])
+    (2, 65, 16, 1, 256, 40), (2, 200, 8, 1, 256, None),
+    (2, 100, 14, 2, 64, None), (2, 130, 96, 8, 128, 40)])
 def test_dense_flash_kernels_match_plain(cuda, dtype, Bd, Td, Hd, KVd, hdd,
                                          window):
     """K5 forward and backward against their plain versions (fp32: the
@@ -371,7 +372,10 @@ def test_dense_flash_kernels_match_plain(cuda, dtype, Bd, Td, Hd, KVd, hdd,
     B >= 2, a tile's rows would run into the next batch row; rep 1, 4, 8
     and 16 (at hd 256 with one kv head the bf16 dK/dV kernel splits the
     heads into groups of partial sums); windows of 16, 24 and 40 that cut
-    inside a 64-key tile; hd 64, 128 and 256. The backward from the same
+    inside a 64-key tile; hd 64, 128 and 256; rep 7 (H 14, KV 2, hd 64)
+    and 12 (H 96, KV 8, hd 128), which do not divide a block's 64 rows,
+    so that the fp32 kernels' blocks idle their last rows (64 - 63 and
+    64 - 60). The backward from the same
     (out, lse), and through the autograd op (one launch of each, the
     same gradients to the bit: the backward has no atomics)."""
     rng = np.random.default_rng(1)
@@ -397,6 +401,21 @@ def test_dense_flash_kernels_match_plain(cuda, dtype, Bd, Td, Hd, KVd, hdd,
         torch.testing.assert_close(g, w, atol=0.0, rtol=0.0)
     assert _lib.LAUNCHES["flash_prefill"] == 1
     assert _lib.LAUNCHES["flash_prefill_bwd"] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,hd,rows", [(65, 64, 64), (33, 256, 32)])
+def test_dense_flash_fp32_refuses_rep_above_a_block(cuda, H, hd, rows):
+    """K5's fp32 route holds every query head of a kv head in one block
+    of 64 rows (32 at hd 256): a rep above that raises, naming it; the
+    bf16 route takes it."""
+    q = torch.zeros((1, 4, H, hd), device=cuda)
+    k = torch.zeros((1, 4, 1, hd), device=cuda)
+    with pytest.raises(ValueError, match=f"at most {rows}"):
+        fker.flash_prefill_kernel(q, k, k)
+    out, _ = fker.flash_prefill_kernel(q.bfloat16(), k.bfloat16(),
+                                       k.bfloat16())
+    assert out.shape == q.shape
 
 
 @pytest.mark.gpu

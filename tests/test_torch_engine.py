@@ -603,7 +603,9 @@ def test_port_is_self_contained():
     assert (REPO / "tools" / "http_bench.py") in files
     assert {"core/policy.py", "launch/serve.py", "launch/ranks.py",
             "core/weights_manager.py", "core/communicator_pool.py",
-            "core/views.py"} | {
+            "core/views.py", "launch/mesh.py", "launch/dryrun.py",
+            "analysis/roofline.py", "analysis/report.py",
+            "kernels/cost.py"} | {
         f"serving/{m}.py" for m in (
             "hardware", "simulator", "workload", "metrics", "frontdoor",
             "asyncloop", "server", "loadgen", "sampling")} <= port

@@ -427,7 +427,10 @@ def test_launcher_refuses_the_frontend_families(arch):
 
 def test_steps_refuse_whisper_where_the_reference_does(zoo):
     """The mixed step and the live lanes refuse an enc-dec model, as the
-    JAX package asserts; a striped pool refuses both families."""
+    JAX package asserts; a striped pool refuses both families' prefill
+    and whisper's decode; internvl2-1b's striped decode step builds (the
+    dry run counts it on meta tensors) and refuses to run on CPU
+    tensors, which no reference run holds."""
     _, _, tm, _ = zoo("whisper-base")
     plan = ParallelPlan(1, 1, 2)
     mode = FlyingMode(plan, 2)
@@ -441,6 +444,13 @@ def test_steps_refuse_whisper_where_the_reference_does(zoo):
         striped = PoolGeometry(model.cfg, plan, num_blocks=16,
                                block_base=4, layout="striped")
         for phase in ("prefill", "decode"):
+            if phase == "decode" and model.cfg.enc_dec is None:
+                step, _ = build_serve_step(model, mode, striped,
+                                           phase=phase)
+                with pytest.raises(ValueError, match="striped"):
+                    step(None, None, {"tokens": torch.zeros(
+                        (1, 1), dtype=torch.int32)})
+                continue
             with pytest.raises(ValueError, match="striped"):
                 build_serve_step(model, mode, striped, phase=phase)
 

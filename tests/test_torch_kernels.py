@@ -14,6 +14,8 @@ against ``jax.vjp`` of ``flash_prefill_ref`` at atol 1e-4 (gradients sum
 T products more than the forward does). The tests marked ``gpu`` launch
 the CUDA kernels against the plain versions and skip without a card.
 """
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -398,4 +400,4 @@ def test_cpu_dispatch_launches_no_kernel():
     torch.autograd.grad(fops.flash_prefill(q, k, v), (q, k, v), do)
     assert all(n == 0 for n in _lib.LAUNCHES.values())
     with pytest.raises(ValueError):
-        pops.on_cuda(torch.empty(1, device="meta"))
+        pops.route(types.SimpleNamespace(device=torch.device("xpu")))

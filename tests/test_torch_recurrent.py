@@ -412,7 +412,9 @@ def test_serve_steps_match_jax_step(zoo, arch, split):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_steps_refuse_mixed_live_and_striped(zoo, arch):
     """No reference run covers a recurrent model in a mixed, live or
-    striped step; the prefill and decode steps build."""
+    striped step; the prefill and decode steps build. The striped
+    decode step builds for the dry run's count on meta tensors and
+    refuses to run on CPU tensors."""
     _, _, tm, _ = zoo(arch)
     plan = ParallelPlan(1, 2, 4)
     mode = FlyingMode(plan, 2)
@@ -427,6 +429,9 @@ def test_steps_refuse_mixed_live_and_striped(zoo, arch):
                            layout="striped")
     with pytest.raises(ValueError, match="recurrent rows"):
         build_serve_step(tm, mode, striped, phase="prefill")
+    step, _ = build_serve_step(tm, mode, striped, phase="decode")
+    with pytest.raises(ValueError, match="meta tensors only"):
+        step(None, None, {"tokens": torch.zeros((1, 1), dtype=torch.int32)})
 
 
 def test_layers_refuse_serving_without_state(zoo):

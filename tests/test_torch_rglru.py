@@ -28,6 +28,7 @@ refuse a mixed step and a prefix cache for it.
 """
 import dataclasses
 import os
+import types
 
 import numpy as np
 import pytest
@@ -145,9 +146,11 @@ def test_plain_scan_keeps_bf16_inputs_in_fp32():
 
 
 def test_op_dispatch_and_final_state_gradient():
-    """CPU tensors launch no kernel; any other device raises; the final
-    state has no gradient (the training path discards it); a and g of
-    two shapes or dtypes are refused."""
+    """CPU tensors launch no kernel; meta tensors take the meta route
+    (the dry run's: outputs of the CPU call's shapes and dtypes, no
+    launch); any other device raises; the final state has no gradient
+    (the training path discards it); a and g of two shapes or dtypes are
+    refused."""
     a, g = (_t(x) for x in _draw(1, 30, 16, False))
     _lib.reset_launches()
     leaves = [a.clone().requires_grad_(True), g.clone().requires_grad_(True)]
@@ -157,8 +160,12 @@ def test_op_dispatch_and_final_state_gradient():
         == 0
     with pytest.raises(NotImplementedError):
         torch.autograd.grad(hT.sum(), leaves)
+    on_meta = rops.rglru_scan(a.to("meta"), g.to("meta"))
+    assert [(t.device.type, t.shape, t.dtype) for t in on_meta] == \
+        [("meta", t.shape, t.dtype) for t in (y, hT)]
+    assert _lib.LAUNCHES["rglru_scan"] == 0
     with pytest.raises(ValueError):
-        rops.rglru_scan(a.to("meta"), g.to("meta"))
+        rops.route(types.SimpleNamespace(device=torch.device("xpu")))
     with pytest.raises(ValueError):
         rops.rglru_scan(a, g[:, :-1])
     with pytest.raises(ValueError):

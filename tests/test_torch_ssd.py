@@ -20,6 +20,7 @@ cache for it.
 """
 import dataclasses
 import os
+import types
 
 import numpy as np
 import pytest
@@ -224,8 +225,10 @@ def test_forward_states_are_the_carry():
 
 
 def test_op_dispatch_and_final_state_gradient():
-    """CPU tensors launch no kernel; any other device raises; the final
-    state has no gradient (the training path discards it)."""
+    """CPU tensors launch no kernel; meta tensors take the meta route
+    (the dry run's: outputs of the CPU call's shapes and dtypes, no
+    launch); any other device raises; the final state has no gradient
+    (the training path discards it)."""
     ins = [torch.from_numpy(a) for a in _inputs(1, 40, 2, 32, 32)]
     _lib.reset_launches()
     leaves = [t.clone().requires_grad_(True) for t in ins]
@@ -234,8 +237,12 @@ def test_op_dispatch_and_final_state_gradient():
     assert _lib.LAUNCHES["ssd_scan"] == _lib.LAUNCHES["ssd_scan_bwd"] == 0
     with pytest.raises(NotImplementedError):
         torch.autograd.grad(hT.sum(), leaves)
+    on_meta = sops.ssd_scan(*(t.to("meta") for t in ins), chunk=32)
+    assert [(t.device.type, t.shape, t.dtype) for t in on_meta] == \
+        [("meta", t.shape, t.dtype) for t in (y, hT)]
+    assert _lib.LAUNCHES["ssd_scan"] == 0
     with pytest.raises(ValueError):
-        sops.ssd_scan(*(t.to("meta") for t in ins), chunk=32)
+        sops.route(types.SimpleNamespace(device=torch.device("xpu")))
 
 
 def test_softplus_is_jax_softplus():
