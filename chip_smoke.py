@@ -215,16 +215,19 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    call with its LSE), or the one-pool K1 and K3 and mla_decode (every
    call with its LSE), launched; K2's and mla_decode's LSE partials over
    each rank's stripe merged by ``lse_merge`` against one whole-context
-   call (fp32 tolerance); (b) llama3-8b at full width and depth in bf16
-   on a striped pool serving phase 5's 8 requests, the prefill chunk
+   call (fp32 tolerance); (b) llama3-8b at full width cut to
+   STRIPED_LAYERS of 32 layers in bf16 (to keep the script inside its
+   time limit once phase 22 came) on a striped pool serving phase 5's 8
+   requests, the prefill chunk
    raised to 2048 (striped prefill is fresh only): every request done,
    the pools' ``data_ptr``s unchanged, K1, K3, K5 forward and K2 with
    its LSE counted from zero and required, every greedy token held
    against phase 14's dense one-rank forward (its argmax or a near-tie
-   within NEAR_TIE_SD); a decode tick of 16 rows printed beside phase
-   14 (b)'s head-layout merge-2 tick, with its collectives and each
-   rank's peak; (c) deepseek-v2-236b at full width cut to 2 of 60 layers
-   (the dense MLA+MLP layer and one MLA+MoE layer) in bf16, 8 requests
+   within NEAR_TIE_SD); a decode tick of 16 rows printed beside the
+   same tick on a head-layout pool over the same weights (at the same
+   depth), with its collectives and each rank's peak; (c) deepseek-v2-236b at full width
+   cut to 2 of 60 layers (the dense MLA+MLP layer and one MLA+MoE
+   layer) in bf16, 8 requests
    of 256-1024 prompt tokens and 32 out in prefill chunks of 1024 on a
    striped pool: every request done, every sampled row finite,
    mla_decode with its LSE and the one-pool K1 and K3 counted from zero
@@ -350,6 +353,26 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    do not divide a block's 64 rows, with and without a window, at the
    fp32 tolerance. Every bound takes its bytes and operations from
    ``kernels/cost.py``.
+22. (run after phase 21) serving on an engine tile of two 'ed' rows: two
+   rank processes sharing the card over gloo at ``ParallelPlan(2, 1,
+   2)``, Phi-3.5-MoE at full width cut to 2 of 32 layers in fp32, each
+   rank storing 8 of the 16 experts and running the MoE layer's two
+   all_to_alls over its 'ed' group (``CommunicatorPool.seat``): (a) 8
+   requests (prompts 256-1024, 32 tokens out, chunks of 128) through
+   ``DynamicScheduler`` and ``FlyingEngine`` at the no-drop capacity
+   factor (``num_experts``), K1-K4 counted from zero and each launched
+   on both ranks, the streams equal on both ranks; before it, on an
+   engine of its own, 8 requests of 128 prompt tokens instrumented: a
+   decode step's mean ms in its collectives by kind (the card
+   synchronised before each) and in the rest; (b) 8 requests of 128 prompt tokens and 8
+   decode steps at the config's own capacity factor (1.25), the entries
+   each 'ed' slice drops a step printed, no token check; (c) on rank 0,
+   (a)'s requests on the one-rank engine (``ParallelPlan(1, 1, 1)``)
+   over the same weights, the tile's tokens held against its dense
+   forward by phase 14 (b)'s near-tie rule; the groups built and their
+   build ms, all_to_all calls and bytes a step, the decode step and
+   tok/s of (a) (not instrumented) and of (c), each rank's serving peak
+   (counted from its engine's build, the full weights freed) printed.
 
 Each kernel's launch count in the JSON record comes from the path that
 runs it: K1-K4 from phase 5, K5 and its backward at hd 128 from phase 8
@@ -360,10 +383,10 @@ mla_decode with its LSE from phase 16 (c)'s striped run, on rank 0,
 K6 and K7 from h0 and K2 and K4 at hd 256 from phase 19 (c), K5 and
 its backward at llama3-8b's TP2-local heads from phase 21 (b) and K5,
 K6 and K7 at the other TP2-local shapes from phase 21 (d), on rank 0
-(phase 14
-prints its own K1-K4 counts, and K2's and K4's LSE launches, in its rank
-processes; phases 17 and 18 print the counts of their own runs). The line
-before the last is the kernels' JSON record, the last line
+(phases 14 and 22 print their own K1-K4 counts, phase 14 also K2's and
+K4's LSE launches, in their rank processes; phases 17 and 18 print the
+counts of their own runs). The line before the last is the kernels' JSON
+record, the last line
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -3334,11 +3357,9 @@ def check_live_full_width(runs, smi: str) -> None:
           f"{max(res['e_s'] for res in runs):.1f} s of the phase")
 
 
-def serve_islands(torch, smi: str) -> dict:
+def serve_islands(torch, smi: str) -> None:
     """Phase 14: spawn two rank processes on the one card (gloo), run
-    ``islands_rank`` in each, and check and print what they found.
-    Returns (b)'s merge-2 decode tick, for phase 16 to print beside its
-    striped one."""
+    ``islands_rank`` in each, and check and print what they found."""
     import tempfile
 
     from repro_torch.launch.ranks import spawn
@@ -3425,7 +3446,6 @@ def serve_islands(torch, smi: str) -> dict:
           f"max_abs_err {max(res['c_err'] for res in runs):.3e}")
     check_live_full_width(runs, smi)
     print(f"islands: {smi}; phase 14 took {time.perf_counter() - t0:.1f} s")
-    return runs[0]["tick2"]
 
 
 # ---------------------------------------------------------------------------
@@ -3750,6 +3770,9 @@ STRIPED_KERNELS = ("paged_append_token", "paged_append_chunk",
                    "flash_prefill", "paged_attention", "paged_flash_prefill")
 STRIPED_MLA_KERNELS = ("paged_append_token", "paged_append_chunk",
                        "mla_decode")
+# phase 16 (b)'s llama3-8b depth: its gloo-staged striped prefill steps
+# take tens of seconds at 32 layers
+STRIPED_LAYERS = 8
 # phase 16 (c): the largest difference, in standard deviations of the
 # row over the vocab, between a logit of a step on the striped pool and
 # of the same step on the head-layout pool (merge 2): bf16 prefill (the
@@ -3916,11 +3939,13 @@ def striped_kernel_checks(torch, eng) -> dict:
 
 
 def striped_full_width(torch, weights) -> dict:
-    """Phase 16 (b): llama3-8b at full width and depth in bf16 on the
-    striped pool at merge 2 (2048 blocks of 16 rows a rank, 32 tokens a
-    block), phase 5's 8 requests with every prompt in one prefill chunk
-    (2048) and the launches counted from zero; the greedy tokens held
-    against the dense one-rank forward; then a decode tick of 16 rows."""
+    """Phase 16 (b): llama3-8b at full width (cut to STRIPED_LAYERS
+    layers by the caller) in bf16 on the striped pool at merge 2 (2048
+    blocks of 16 rows a rank, 32 tokens a block), phase 5's 8 requests
+    with every prompt in one prefill chunk (2048) and the launches
+    counted from zero; the greedy tokens held against the dense one-rank
+    forward; then a decode tick of 16 rows, and the same tick on a
+    head-layout pool over the same weights."""
     from repro_torch.core.weights_manager import _ptrs
     from repro_torch.kernels import _lib
     from repro_torch.launch.serve import replay
@@ -3964,6 +3989,16 @@ def striped_full_width(torch, weights) -> dict:
     res["tick"] = decode_tick_ms(torch, eng, 2, kernels=STRIPED_KERNELS)
     res["pools_unchanged"] = _ptrs(eng._pools) == pools
     res["checks"] = striped_kernel_checks(torch, eng)
+    del sched, clock, eng
+    gc_collect(torch)
+    # the same tick on the head-layout pool, at the same depth
+    _, head = striped_engine(model, params, "head",
+                             num_blocks=sc.num_blocks,
+                             block_base=sc.block_base,
+                             bpe=sc.batch_per_engine,
+                             max_blocks=sc.max_blocks_per_req,
+                             chunk=sc.prefill_chunk)
+    res["head_tick"] = decode_tick_ms(torch, head, 2)
     return res
 
 
@@ -4121,9 +4156,11 @@ def striped_mla(torch) -> dict:
 def striped_rank(rank: int, world: int, out: str) -> None:
     """One rank of phase 16: (a) the reduced llama3-8b and
     deepseek-v2-236b on the striped pool on the card and on the CPU, (b)
-    llama3-8b at full width and depth on it (and the kernel checks of
-    (a)), (c) deepseek-v2-236b cut to 2 layers on it and on the
-    head-layout pool. Writes ``{out}.{rank}.json``."""
+    llama3-8b at full width cut to STRIPED_LAYERS layers on it (and the
+    kernel checks of (a)), (c) deepseek-v2-236b cut to 2 layers on it and
+    on the head-layout pool. Writes ``{out}.{rank}.json``."""
+    import dataclasses
+
     import torch
 
     from repro_torch.configs import get_config
@@ -4136,7 +4173,9 @@ def striped_rank(rank: int, world: int, out: str) -> None:
                  for dev in ("cuda", "cpu")}}
     res["a_s"] = time.perf_counter() - t0
     t1 = time.perf_counter()
-    model = build_model(get_config("llama3-8b"), torch.bfloat16, "cuda")
+    model = build_model(dataclasses.replace(
+        get_config("llama3-8b"), num_layers=STRIPED_LAYERS),
+        torch.bfloat16, "cuda")
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -4155,7 +4194,7 @@ def striped_rank(rank: int, world: int, out: str) -> None:
         json.dump(res, f)
 
 
-def serve_striped(torch, smi: str, head_tick: dict) -> dict:
+def serve_striped(torch, smi: str) -> dict:
     """Phase 16: spawn two rank processes on the one card (gloo), run
     ``striped_rank`` in each, check and print what they found. Returns
     the LSE launches of K2 (from (b)) and of mla_decode (from (c)) for
@@ -4235,8 +4274,9 @@ def serve_striped(torch, smi: str, head_tick: dict) -> dict:
                   f"rank {r}: a striped {what} greedy token is off the dense "
                   f"one-rank forward's argmax by {g['worst']:.2f}x the "
                   f"near-tie bound (margins {g['margins']})")
-    tick = b["tick"]
-    print(f"striped (b): llama3-8b bf16, 32 layers, phase 5's 8 requests "
+    tick, head_tick = b["tick"], b["head_tick"]
+    print(f"striped (b): llama3-8b bf16, {STRIPED_LAYERS} of 32 layers, "
+          f"phase 5's 8 requests "
           f"(prompts {b['prompts']}) at merge 2 on the striped pool, each "
           f"prompt in one chunk of 2048: {b['done']}/8 done, {b['tokens']} "
           f"tokens in {b['wall_s']:.3f} s ({b['phases'].count('prefill')} "
@@ -4256,10 +4296,11 @@ def serve_striped(torch, smi: str, head_tick: dict) -> dict:
           f", at most {b['greedy']['worst']:.2f}x the bound)")
     print(f"striped (b): {smi}; decode tick of 16 rows (prompts of 512) on "
           f"the striped pool at merge 2: {tick['ms']:.2f} ms (the slower "
-          f"rank's) beside phase 14 (b)'s head-layout merge-2 tick "
-          f"{head_tick['ms']:.2f} ms; "
-          f"{tick['collectives'] / tick['steps']:.1f} TP collectives a step "
-          f"(head layout {head_tick['collectives'] / head_tick['steps']:.1f})"
+          f"rank's, {STRIPED_LAYERS} layers) beside the same tick on a "
+          f"head-layout pool over the same weights {head_tick['ms']:.2f} "
+          f"ms; {tick['collectives'] / tick['steps']:.1f} TP collectives a "
+          f"step (head layout: "
+          f"{head_tick['collectives'] / head_tick['steps']:.1f})"
           f"; launches {[res['b']['tick']['launches'] for res in runs]}; "
           f"greedy {tick['greedy']['flips']} of {tick['greedy']['tokens']} "
           f"near-ties (at most {tick['greedy']['worst']:.2f}x the bound); "
@@ -5951,6 +5992,370 @@ def train_ranks(torch, np, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 22: an engine tile of two 'ed' rows on two ranks sharing the card
+# ---------------------------------------------------------------------------
+
+# Phi-3.5-MoE at full width cut to EP_LAYERS of 32 layers, fp32; its
+# requests (prompts, outputs) and the capacity run's decode steps
+EP_LAYERS = 2
+EP_PROMPTS = (256, 1024)
+EP_OUT = 32
+EP_CHUNK = 128
+EP_DECODES = 8
+
+
+def ep_config(no_drop: bool):
+    """Phase 22's Phi-3.5-MoE: cut to ``EP_LAYERS`` layers, with the
+    reduced configs' no-drop rule (``capacity_factor = num_experts``) or
+    the config's own capacity factor."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=EP_LAYERS)
+    cf = float(cfg.moe.num_experts) if no_drop \
+        else cfg.moe.capacity_factor
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cf))
+
+
+def ep_requests(n: int = 8, out: int = EP_OUT, prompts=EP_PROMPTS):
+    """``n`` requests at time 0, prompts drawn in ``prompts`` from a
+    fixed seed, ``out`` tokens each."""
+    import numpy as np
+
+    from repro_torch.core.task_pool import Request
+    lens = np.random.default_rng(22).integers(prompts[0], prompts[1] + 1,
+                                              n)
+    return [Request(req_id=f"e{i}", arrival=0.0, prompt_len=int(p),
+                    output_len=out) for i, p in enumerate(lens)]
+
+
+class EpDrops:
+    """Wraps ``moe._moe_ep``: counts, on the card, the (token, choice)
+    entries that an 'ed' rank's capacity drops in its token slice (pads
+    included), one count a call."""
+
+    def __init__(self, torch, moe):
+        self.moe, self.inner = moe, moe._moe_ep
+        self.calls = []
+
+        def ffn(cfg, p, x, ctx):
+            n, ep = x.shape[0] * x.shape[1], ctx.ep
+            nl = -(-n // ep)
+            t = x.reshape(n, -1)
+            if n % ep:
+                t = torch.cat([t, t.new_zeros((nl * ep - n, t.shape[1]))])
+            t = t[ctx.ep_rank() * nl:(ctx.ep_rank() + 1) * nl]
+            e, _, _ = moe.route(p["router"], t, cfg.moe.top_k)
+            pos = moe._positions_in_expert(e.reshape(-1),
+                                           cfg.moe.num_experts)
+            self.calls.append(((pos >= moe.capacity(cfg, nl)).sum(),
+                               nl * cfg.moe.top_k))
+            return self.inner(cfg, p, x, ctx)
+        moe._moe_ep = ffn
+
+    def restore(self) -> list:
+        self.moe._moe_ep = self.inner
+        return [(int(d), m) for d, m in self.calls]
+
+
+def ep_engine(torch, cfg, plan):
+    """A FlyingEngine over ``plan`` for phase 22 (8 rows an engine, a
+    pool for the 8 requests) on weights seeded on the card, and its
+    geometry; the full weights are freed once the engine holds its
+    rank's storage shard (on the tile a copy, on one rank the weights
+    themselves), and the peak is counted from there."""
+    from repro_torch.core.engine import FlyingEngine
+    from repro_torch.core.kv_adaptor import PoolGeometry
+    from repro_torch.models.model import build_model
+    model = build_model(cfg, torch.float32, "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    geom = PoolGeometry(cfg, plan, num_blocks=1024, block_base=16)
+    eng = FlyingEngine(model, plan, geom, params, batch_per_engine=8,
+                       max_blocks_per_req=128, device="cuda",
+                       check_zero_copy=True)
+    del params
+    gc_collect(torch)
+    torch.cuda.reset_peak_memory_stats()
+    return eng, geom
+
+
+class CollectiveClock:
+    """Wraps ``RankGroup``'s collectives: the host seconds each kind
+    takes, the card synchronised first, so that a collective's time is
+    its own (gloo's staging through the host included) and not the wait
+    for the work queued before it."""
+
+    KINDS = ("all_reduce", "all_gather", "all_to_all")
+
+    def __init__(self, torch, views):
+        self.views, self.inner = views, {}
+        self.s = dict.fromkeys(self.KINDS, 0.0)
+        for kind in self.KINDS:
+            inner = self.inner[kind] = getattr(views.RankGroup, kind)
+
+            def timed(group, *a, _inner=inner, _kind=kind, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _inner(group, *a, **kw)
+                self.s[_kind] += time.perf_counter() - t0
+                return out
+            setattr(views.RankGroup, kind, timed)
+
+    def restore(self) -> None:
+        for kind, fn in self.inner.items():
+            setattr(self.views.RankGroup, kind, fn)
+
+
+class SplitClock(StepClock):
+    """``StepClock`` that also logs, a step, the seconds a
+    ``CollectiveClock`` counted in it by kind."""
+
+    def __init__(self, eng, coll: CollectiveClock):
+        super().__init__(eng)
+        self.coll, self.split = coll, []
+
+    def _step(self, kind, reqs, *a):
+        s0 = dict(self.coll.s)
+        dt = super()._step(kind, reqs, *a)
+        self.split.append({k: v - s0[k] for k, v in self.coll.s.items()})
+        return dt
+
+
+def ep_serve(torch, eng, geom, plan, reqs, split: bool = False) -> dict:
+    """``reqs`` through DynamicScheduler (HARD, chunks of EP_CHUNK) on
+    ``eng``, launches counted from zero: tokens, steps, wall, tok/s, the
+    median decode step, all_to_all calls and bytes a step (this rank's);
+    ``split``: instrumented by a ``CollectiveClock``, also where a decode
+    step's time goes (the mean ms of its collectives by kind and of the
+    rest)."""
+    from repro_torch.core import views
+    from repro_torch.core.scheduler import DynamicScheduler, SchedulerConfig
+    from repro_torch.kernels import _lib
+    coll = CollectiveClock(torch, views) if split else None
+    clock = SplitClock(eng, coll) if split else StepClock(eng)
+    sched = DynamicScheduler(plan, geom, clock, SchedulerConfig(
+        strategy="hard", max_batch_per_group=eng.bpe,
+        prefill_chunk=EP_CHUNK))
+    for r in reqs:
+        sched.submit(r)
+    st = eng.pool.stats
+    a2a0 = (st.calls.get("all-to-all", 0), st.nbytes.get("all-to-all", 0))
+    steps0 = eng.sync_stats.steps
+    gc_collect(torch)
+    _lib.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        sched.run(max_steps=2000)
+    finally:
+        if coll is not None:
+            coll.restore()
+    eng.drain()
+    torch.cuda.synchronize()
+    wall = eng.pool.host_max(time.perf_counter() - t0)
+    launches = {k: _lib.LAUNCHES[k] for k in SERVE_KERNELS}
+    toks = {r.req_id: list(map(int, eng.generated_tokens(r.req_id)))
+            for r in reqs}
+    steps = eng.sync_stats.steps - steps0
+    mid = sorted(dt for kind, _, dt in clock.log if kind == "decode")
+    res = {"toks": toks, "launches": launches, "wall_s": wall,
+           "steps": steps, "phases": [k for k, _, _ in clock.log],
+           "tok_s": sum(map(len, toks.values())) / wall,
+           "decode_ms": mid[len(mid) // 2] * 1e3 if mid else float("nan"),
+           "a2a": [(st.calls.get("all-to-all", 0) - a2a0[0]) / steps,
+                   (st.nbytes.get("all-to-all", 0) - a2a0[1]) / steps]}
+    if split:
+        dec = [sp for (kind, _, _), sp in zip(clock.log, clock.split)
+               if kind == "decode"]
+        res["decode_split"] = {
+            k: 1e3 * sum(sp[k] for sp in dec) / max(len(dec), 1)
+            for k in coll.KINDS}
+        res["decode_split"]["rest"] = 1e3 * sum(mid) / max(len(mid), 1) \
+            - sum(res["decode_split"].values())
+    return res
+
+
+def ep_tile_rank(rank: int, world: int, out: str) -> None:
+    """One rank of phase 22 on the tile of two 'ed' rows at
+    ``ParallelPlan(2, 1, 2)`` with no drop: first 8 requests of EP_CHUNK
+    prompt tokens with the collectives timed (the split, instrumented),
+    then on a new engine (a) the requests not instrumented; (b) 8 decode
+    steps of short requests at the config's own capacity factor; then on
+    rank 0 alone (c) (a)'s requests on the one-rank engine over the same
+    weights, and the tile's tokens held against its dense forward.
+    Writes ``{out}.{rank}.json``."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.modes import ParallelPlan
+    from repro_torch.core.views import SINGLE
+    from repro_torch.models import moe
+    from repro_torch.models.cache import TrainBackend
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(4)
+    t0 = time.perf_counter()
+    plan = ParallelPlan(2, 1, 2)
+    cfg = ep_config(True)
+    eng, geom = ep_engine(torch, cfg, plan)
+    split = ep_serve(torch, eng, geom, plan,
+                     ep_requests(prompts=(EP_CHUNK, EP_CHUNK)), split=True)
+    del eng
+    gc_collect(torch)
+    eng, geom = ep_engine(torch, cfg, plan)
+    st = eng.pool.stats
+    res = {"describe": eng.pool.describe(),
+           "build_ms": st.group_build_s * 1e3, "ed_groups": st.ed_groups,
+           "seat_ed": list(eng.pool.seat(eng.layout.islands[0]).ed.ranks),
+           "split": split}
+    res["a"] = ep_serve(torch, eng, geom, plan, ep_requests())
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    res["a_s"] = time.perf_counter() - t0
+    del eng
+    gc_collect(torch)
+
+    # (b): the config's own capacity factor, short prompts, EP_DECODES
+    # decode steps (no token check: a slice's capacity is its own)
+    t1 = time.perf_counter()
+    cfg_b = ep_config(False)
+    eng, geom = ep_engine(torch, cfg_b, plan)
+    drops = EpDrops(torch, moe)
+    try:
+        run = ep_serve(torch, eng, geom, plan, ep_requests(
+            out=EP_DECODES + 1, prompts=(EP_CHUNK, EP_CHUNK)))
+    finally:
+        calls = drops.restore()
+    res["b"] = {"phases": run["phases"], "calls": calls,
+                "layers": cfg_b.num_layers, "s": time.perf_counter() - t1}
+    del eng
+    gc_collect(torch)
+    if rank == 0:
+        # (c): the one-rank engine, its world patched to this rank alone
+        # (every collective of the tile is behind it)
+        t1 = time.perf_counter()
+        one = ParallelPlan(1, 1, 1)
+        with mock.patch("repro_torch.core.communicator_pool.world",
+                        lambda: (0, 1)):
+            eng, geom = ep_engine(torch, cfg, one)
+            reqs = ep_requests()
+            res["c"] = ep_serve(torch, eng, geom, one, reqs)
+            res["peak1_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            # the tile's tokens against the one-rank model's dense
+            # forward (phase 14 (b)'s near-tie rule)
+            acc = {"tokens": 0, "flips": 0, "worst": 0.0, "margins": []}
+            tile = res["a"]["toks"]
+            for r in reqs:
+                gen = np.asarray(tile[r.req_id], dtype=np.int64)
+                seq = np.concatenate([np.asarray(
+                    eng.prompt_tokens(r)[:r.prompt_len], dtype=np.int64),
+                    gen[:-1]])
+                with torch.no_grad():
+                    logits, _, _ = eng.model.forward(
+                        eng.params, SINGLE, mode="train",
+                        backend=TrainBackend(),
+                        tokens=torch.as_tensor(seq, device="cuda")[None])
+                tally_near_ties(acc, logits[0, r.prompt_len - 1:].float(),
+                                torch.as_tensor(gen, device="cuda"))
+            res["c"]["greedy"] = acc
+        res["c_s"] = time.perf_counter() - t1
+    res["rank_s"] = time.perf_counter() - t0
+    with open(f"{out}.{rank}.json", "w") as f:
+        json.dump(res, f)
+
+
+def serve_ep_tile(torch, smi: str) -> None:
+    """Phase 22: spawn two rank processes on the one card (gloo), run
+    ``ep_tile_rank`` in each, and check and print what they found."""
+    import tempfile
+
+    from repro_torch.launch.ranks import spawn
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        out = str(Path(d) / "ep")
+        spawn(ep_tile_rank, 2, (out,), device_type="cuda", timeout=600)
+        runs = []
+        for r in range(2):
+            with open(f"{out}.{r}.json") as f:
+                runs.append(json.load(f))
+    a, sp, c = runs[0]["a"], runs[0]["split"], runs[0]["c"]
+    for r, res in enumerate(runs):
+        check(res["seat_ed"] == [0, 1],
+              f"rank {r}: 'ed' group {res['seat_ed']}, not [0, 1]")
+        check(res["a"]["toks"] == a["toks"]
+              and res["split"]["toks"] == sp["toks"],
+              f"rank {r} streamed other tokens than rank 0")
+        check(all(len(t) == EP_OUT for t in res["a"]["toks"].values()),
+              f"rank {r}: a request short of its {EP_OUT} tokens")
+        for k in SERVE_KERNELS:
+            check(res["a"]["launches"][k] > 0,
+                  f"rank {r}: {k} never launched on the tile")
+        check(res["a"]["a2a"][0] > 0, f"rank {r}: no all_to_all a step")
+    same = sum(a["toks"][k] == c["toks"][k] for k in a["toks"])
+    g = c["greedy"]
+    check(g["worst"] <= 1.0,
+          f"phase 22: a tile token is off the one-rank dense forward's "
+          f"argmax by {g['worst']:.2f}x the near-tie bound (margins "
+          f"{g['margins']})")
+    print(f"ep tile: {runs[0]['describe']}; 'ed' group of rank 0 "
+          f"{runs[0]['seat_ed']}; two ranks share this card over gloo")
+    cfg = ep_config(True)
+    lo, hi = EP_PROMPTS
+    print(f"ep tile (a): {cfg.name}, {cfg.num_layers} layers of d_model "
+          f"{cfg.d_model}, fp32, capacity factor "
+          f"{cfg.moe.capacity_factor:g} (no drop), ParallelPlan(2, 1, 2), 8 "
+          f"requests of {lo}-{hi} prompt tokens and {EP_OUT} out, chunks "
+          f"of {EP_CHUNK}: {a['steps']} steps "
+          f"({a['phases'].count('mixed')} mixed, "
+          f"{a['phases'].count('decode')} decode) in {a['wall_s']:.3f} s, "
+          f"{a['tok_s']:.1f} tok/s, decode step {a['decode_ms']:.2f} ms "
+          f"(median); all_to_all {a['a2a'][0]:.1f} calls and "
+          f"{a['a2a'][1] / 2**20:.1f} MiB a step on rank 0; K1-K4 "
+          f"launches {[res['a']['launches'] for res in runs]}")
+    print(f"ep tile, instrumented (the card synchronised before each "
+          f"collective), run before (a) on an engine of its own: 8 requests "
+          f"of {EP_CHUNK} prompt tokens and {EP_OUT} out, {sp['steps']} "
+          f"steps in {sp['wall_s']:.3f} s, decode step "
+          f"{sp['decode_ms']:.2f} ms (median); a mean decode step's ms: "
+          f"{', '.join(f'{k} {v:.2f}' for k, v in sp['decode_split'].items())}")
+    print(f"ep tile (c): one-rank engine, same weights and requests: "
+          f"{c['steps']} steps in {c['wall_s']:.3f} s, {c['tok_s']:.1f} "
+          f"tok/s, decode step {c['decode_ms']:.2f} ms; {same}/8 requests' "
+          f"tokens equal the tile's; the tile's {g['tokens']} tokens "
+          f"against the one-rank dense forward: {g['flips']} near-ties off "
+          f"its argmax (margins {[f'{x:.3g}' for x in g['margins']]}, at "
+          f"most {g['worst']:.2f}x the bound of {NEAR_TIE_SD} row "
+          f"deviations); against the tile's (a): decode step "
+          f"{a['decode_ms'] / c['decode_ms']:.2f}x, tok/s "
+          f"{a['tok_s'] / c['tok_s']:.3f}x")
+    for r, res in enumerate(runs):
+        b = res["b"]
+        per = b["layers"] * 2        # a mixed step runs two MoE calls
+        steps, i = [], 0
+        for kind in b["phases"]:
+            n = per if kind == "mixed" else b["layers"]
+            d = sum(x for x, _ in b["calls"][i:i + n])
+            m = sum(y for _, y in b["calls"][i:i + n])
+            steps.append(f"{kind[0]} {d}/{m}")
+            i += n
+        print(f"ep tile (b) rank {r}: capacity factor "
+              f"{ep_config(False).moe.capacity_factor:g}, entries "
+              f"dropped/routed a step in its 'ed' slice: {', '.join(steps)}")
+        print(f"ep tile rank {r}: groups built in {res['build_ms']:.1f} ms "
+              f"({res['ed_groups']} 'ed' groups of their own); peak "
+              f"serving (a) on the tile {res['peak_gib']:.2f} GiB (from its "
+              f"engine's build, the full weights freed)"
+              + (f", {res['peak1_gib']:.2f} GiB serving (c) on the "
+                 f"one-rank engine" if r == 0 else "")
+              + f"; the instrumented run and (a) {res['a_s']:.1f} s, (b) "
+              f"{res['b']['s']:.1f} s"
+              + (f", (c) {res['c_s']:.1f} s" if r == 0 else ""))
+    print(f"ep tile: {smi}; phase 22 took {time.perf_counter() - t0:.1f} s")
+
+
 def gc_collect(torch) -> None:
     import gc
     gc.collect()
@@ -6077,11 +6482,11 @@ def main(argv=None) -> int:
                               bf16=True)
         launches.update(train_recurrentgemma(torch))
         gc_collect(torch)
-        head_tick = serve_islands(torch, smi)
+        serve_islands(torch, smi)
         moe_reference_check(torch)
         launches.update(serve_mla_full_width(torch, smi))
         gc_collect(torch)
-        launches.update(serve_striped(torch, smi, head_tick))
+        launches.update(serve_striped(torch, smi))
         gc_collect(torch)
         serve_frontends(torch, np, smi)
         gc_collect(torch)
@@ -6092,6 +6497,8 @@ def main(argv=None) -> int:
         serve_ranks(torch, np, smi)
         gc_collect(torch)
         launches.update(train_ranks(torch, np, smi))
+        gc_collect(torch)
+        serve_ep_tile(torch, smi)
     for r in rows:
         r["launches"] = launches[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches",

@@ -9,7 +9,13 @@ are made of them), and beside each TP group of a merge above 1 the view
 groups of its merge axis, one per storage rank: the group's ranks that
 hold the same storage shard, over which the live cross-layout reads
 merge their partials (the JAX package's ``view_axes``; at one rank per
-engine the view group is the TP group itself). ``dist.new_group`` is
+engine the view group is the TP group itself), and, for a MoE model
+whose experts are stored over 'ed' (``ep > 1``), the 'ed' groups
+(``modes.ed_group_ranks``: one engine's ranks of one 'model' index),
+over which the MoE layer's all_to_alls run (a dense model on a tile of
+several rows needs none: its TP group spans ('merge', 'ed', 'model')).
+A group equal to one already built is that group (at ``tp_base`` 1 an
+'ed' group is the merge-1 TP group). ``dist.new_group`` is
 collective over the whole world, so every rank creates every group in
 one fixed order, members or not; it cannot be lazy. At runtime a mode
 switch is an O(1) lookup of the island's groups (``seat``); nothing is
@@ -42,10 +48,11 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.kv_adaptor import PoolGeometry
-from repro_torch.core.modes import (Island, ParallelPlan, island_mode,
-                                    tp_group_ranks)
+from repro_torch.core.modes import (Island, ParallelPlan, ed_group_ranks,
+                                    island_mode, tp_group_ranks)
 from repro_torch.core.steps import build_serve_step
-from repro_torch.core.views import CommStats, RankGroup, tensor_bytes
+from repro_torch.core.views import (CommStats, RankGroup, make_serving_ctx,
+                                    tensor_bytes)
 
 
 def bucket_pow2(n: int, lo: int = 1) -> int:
@@ -74,7 +81,8 @@ def world() -> Tuple[int, int]:
 
 @dataclass
 class PoolStats(CommStats):
-    groups: int = 0
+    groups: int = 0           # process groups built (TP, view and 'ed')
+    ed_groups: int = 0        # of them, the 'ed' groups
     group_build_s: float = 0.0
     lookups: int = 0
     lookup_s: float = 0.0
@@ -85,18 +93,22 @@ class PoolStats(CommStats):
 class Seat(NamedTuple):
     """Where this rank sits in one island: its DP group, its batch rows
     ``[lo, hi)`` of the island's batch, whether it leads the group, the
-    group's TP collectives (None at tp 1) and its view group's (None at
-    merge 1)."""
+    group's TP collectives (None at tp 1), its view group's (None at
+    merge 1) and its 'ed' group's: the ranks of its engine at its 'model'
+    index, over which a MoE layer with its experts stored over 'ed'
+    exchanges its dispatch buffers (None unless ``ep > 1``)."""
     group: int
     lo: int
     hi: int
     lead: bool
     comm: Optional[RankGroup]
     view: Optional[RankGroup] = None
+    ed: Optional[RankGroup] = None
 
 
 class CommunicatorPool:
-    """Eager TP and view groups, per-island seats and step functions."""
+    """Eager TP, view and 'ed' groups, per-island seats and step
+    functions."""
 
     def __init__(self, model, plan: ParallelPlan, geom: PoolGeometry,
                  sample: Tuple[float, int] = (0.0, 0), *,
@@ -118,6 +130,13 @@ class CommunicatorPool:
         self.backend = dist.get_backend() if self.world > 1 else None
         self.host_group = None
         self.view_groups = 0  # of stats.groups, those of a merge axis
+        cfg = getattr(model, "cfg", None)
+        moe = getattr(cfg, "moe", None)
+        # the expert-parallel degree of every mode of the plan
+        self.ep = make_serving_ctx(1, plan.engine_rows, plan.tp_base,
+                                   moe.num_experts if moe else 0).ep
+        # 'ed' groups one already built stands for (the merge-1 TP group)
+        self.ed_shared = 0
         # this rank's groups by their world ranks (a view group equal to
         # its TP group is that group)
         self._groups: Dict[Tuple[int, ...], RankGroup] = {}
@@ -126,30 +145,40 @@ class CommunicatorPool:
             self.host_group = dist.new_group(backend="gloo")
             tile = plan.engine_rows * plan.tp_base
             built = set()
+            todo = []             # (members, kind), in one fixed order
             for ranks in tp_group_ranks(plan):
-                views = [ranks[s::tile] for s in range(tile)] \
-                    if len(ranks) > tile else []
-                for i, members in enumerate([ranks] + views):
-                    if len(members) == 1 or members in built:
-                        continue      # one rank: no collective to make
-                    built.add(members)
-                    handle = dist.new_group(ranks=list(members))
-                    self.stats.groups += 1
-                    if i:
-                        self.view_groups += 1
-                    if self.rank in members:
-                        self._groups[members] = RankGroup(
-                            handle, members, members.index(self.rank),
-                            self.stats)
+                todo.append((ranks, "tp"))
+                if len(ranks) > tile:
+                    todo += [(ranks[s::tile], "view") for s in range(tile)]
+            if self.ep > 1:
+                todo += [(g, "ed") for g in ed_group_ranks(plan)]
+            for members, kind in todo:
+                if len(members) == 1:
+                    continue          # one rank: no collective to make
+                if members in built:
+                    self.ed_shared += kind == "ed"
+                    continue
+                built.add(members)
+                handle = dist.new_group(ranks=list(members))
+                self.stats.groups += 1
+                self.view_groups += kind == "view"
+                self.stats.ed_groups += kind == "ed"
+                if self.rank in members:
+                    self._groups[members] = RankGroup(
+                        handle, members, members.index(self.rank),
+                        self.stats)
             self.stats.group_build_s = time.perf_counter() - t0
 
     def describe(self) -> str:
         if self.world == 1:
             return "1 rank, no process group"
-        return (f"{self.world} ranks over {self.backend}; "
-                f"{self.stats.groups - self.view_groups} TP groups and "
-                f"{self.view_groups} view groups built in "
-                f"{self.stats.group_build_s * 1e3:.1f} ms")
+        tp = self.stats.groups - self.view_groups - self.stats.ed_groups
+        return (f"{self.world} ranks over {self.backend}; {tp} TP groups, "
+                f"{self.view_groups} view groups and "
+                f"{self.stats.ed_groups} 'ed' groups built in "
+                f"{self.stats.group_build_s * 1e3:.1f} ms"
+                + (f" ({self.ed_shared} 'ed' groups are TP groups)"
+                   if self.ed_shared else ""))
 
     def seat(self, island: Island) -> Optional[Seat]:
         """This rank's seat in ``island``, None when the island does not
@@ -169,9 +198,17 @@ class CommunicatorPool:
                 # the merge axis at this rank's storage rank
                 members = ranks[(self.rank - first) % tile::tile]
                 view = self._groups[members] if len(members) > 1 else None
+                ed = None
+                if self.ep > 1:
+                    # its merge index's ranks at its 'model' index, as
+                    # ``ed_group_ranks`` slices them
+                    m, j = divmod(self.rank - first, tile)
+                    j %= self.plan.tp_base
+                    ed = self._groups[ranks[m * tile + j:(m + 1) * tile:
+                                            self.plan.tp_base]]
                 bpg = self.bpe * island.merge
                 s = Seat(g, g * bpg, (g + 1) * bpg, self.rank == first,
-                         comm, view)
+                         comm, view, ed)
             self._seats[island] = s
         self.stats.lookups += 1
         self.stats.lookup_s += time.perf_counter() - t0
@@ -218,18 +255,24 @@ class CommunicatorPool:
                seq_bucket: Optional[int] = None,
                mb_bucket: Optional[int] = None,
                live: Optional[Tuple[int, ...]] = None) -> Callable:
-        """Step fn ``run(params, states, batch, comm, view)`` for (island
-        shape, phase, variant). ``sampled`` fuses the pool's ``sample=
-        (temperature, top_k)`` into the step. ``live`` selects the
-        cross-layout read variant: the ordered lane-tag tuple of the
-        block segments the batch carries (``None``: the single-view
-        step); an SP island (``island.sp > 1``) runs the SP write
-        variant of it. The key's ``donate`` slot is always True (the
-        port updates the pools in place, as the JAX package's donated
-        steps do)."""
+        """Step fn ``run(params, states, batch, comm, view, ed)`` for
+        (island shape, phase, variant): ``comm``, ``view`` and ``ed`` are
+        the island seat's TP, view and 'ed' groups. ``sampled`` fuses the
+        pool's ``sample=(temperature, top_k)`` into the step. ``live``
+        selects the cross-layout read variant: the ordered lane-tag tuple
+        of the block segments the batch carries (``None``: the
+        single-view step; not held at ``ep > 1``, where it raises); an SP
+        island (``island.sp > 1``) runs the SP write variant of it. The
+        key's ``donate`` slot is always True (the port updates the pools
+        in place, as the JAX package's donated steps do)."""
         key = (island.merge, phase, sampled, True, batch_bucket,
                seq_bucket, mb_bucket, island.n_engines, live, island.sp)
         if key not in self._runners:
+            if self.ep > 1 and live is not None:
+                raise NotImplementedError(
+                    f"live lanes with the experts over 'ed' (ep={self.ep})"
+                    f": no test holds them against the JAX package "
+                    f"(ROADMAP.md Queue 1 item 5)")
             run, _ = build_serve_step(
                 self.model, island_mode(self.plan, island), self.geom,
                 phase=phase, sample=self.sample if sampled else None,

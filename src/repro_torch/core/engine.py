@@ -197,7 +197,7 @@ def _check_engine_family(cfg) -> None:
     ``frontend_embeds``, so the JAX package's engine serves whisper over
     zero cross caches and InternVL2 without its image prefix. These
     models serve through ``build_serve_step`` only (ROADMAP.md, Queue 1
-    item 2.4)."""
+    item 3)."""
     what = ("an enc-dec model (cross caches)" if cfg.enc_dec is not None
             else "a vision-prefix model (frontend embeddings)"
             if cfg.frontend is not None else None)
@@ -207,7 +207,7 @@ def _check_engine_family(cfg) -> None:
             f"stages a request's frontend_embeds (the JAX engine serves "
             f"such models over zero caches or without their prefix); "
             f"engine-level serving of these families is ROADMAP.md Queue "
-            f"1 item 2.4, step-level serving runs through "
+            f"1 item 3, step-level serving runs through "
             f"core.steps.build_serve_step")
 
 
@@ -379,8 +379,24 @@ class FlyingEngine:
 
     def _check_islands(self, layout: FleetLayout) -> None:
         """An SP island reads every block through the live lanes: its
-        write tag and merge must be tag-readable."""
+        write tag and merge must be tag-readable. With a MoE model's
+        experts over 'ed' (``ep > 1``) the engine serves head-layout
+        pools without SP islands or live lanes: SP islands and striped
+        pools raise here, ``live_readable`` is False, so the scheduler
+        plans no live carry and attaches no prefix across tags, and a
+        live step raises (``CommunicatorPool.runner``)."""
+        ep = self.pool.ep
+        if ep > 1 and self.geom.layout == "striped":
+            raise NotImplementedError(
+                f"striped pools with the experts over 'ed' (ep={ep}): no "
+                f"test holds them against the JAX package (ROADMAP.md "
+                f"Queue 1 item 5)")
         for isl in layout.islands:
+            if ep > 1 and isl.sp > 1:
+                raise NotImplementedError(
+                    f"{isl}: SP islands with the experts over 'ed' "
+                    f"(ep={ep}): no test holds them against the JAX "
+                    f"package (ROADMAP.md Queue 1 item 5)")
             if isl.sp > 1 and not (
                     self.live_readable()
                     and self.geom.live_readable(isl.write_tag)
@@ -1019,7 +1035,7 @@ class FlyingEngine:
         states = rt.states
         args = (rt.params, states, batch)
         if seat.comm is not None:
-            args += (seat.comm, seat.view)
+            args += (seat.comm, seat.view, seat.ed)
         out, rt.states = runner(*args)
         if self.check_zero_copy:
             # the step wrote the pools it was given, in place
@@ -1063,9 +1079,11 @@ class FlyingEngine:
         requests' KV across a rebind in place? The geometry half
         (``PoolGeometry.live_readable`` a tag) is the scheduler's check;
         this half covers what the steps implement: the head-layout paged
-        pool, no MLA, no sliding window, non-recurrent, non-enc-dec."""
+        pool, no MLA, no sliding window, non-recurrent, non-enc-dec, and
+        no experts over 'ed' (ROADMAP.md Queue 1 item 5)."""
         cfg = self.cfg
-        return (self.geom.layout == "head" and cfg.mla is None
+        return (self.geom.layout == "head" and self.pool.ep == 1
+                and cfg.mla is None
                 and cfg.enc_dec is None
                 and cfg.family not in ("ssm", "hybrid")
                 and self.pool.window is None)

@@ -394,6 +394,23 @@ def tp_group_ranks(plan: ParallelPlan) -> Tuple[Tuple[int, ...], ...]:
     return tuple(out)
 
 
+def ed_group_ranks(plan: ParallelPlan) -> Tuple[Tuple[int, ...], ...]:
+    """Every 'ed' group of every TP group ``tp_group_ranks`` yields: in a
+    TP group of ``merge * engine_rows * tp_base`` ranks (TP rank order
+    ('merge', 'ed', 'model')), the ranks of one merge index and one
+    'model' index (``TPContext.ed_members``). Such a group lies inside
+    one engine tile, so every merge's TP groups share them: one group
+    per engine and 'model' index, in that order, each listed once."""
+    tile = plan.engine_rows * plan.tp_base
+    out = {}
+    for ranks in tp_group_ranks(plan):
+        for m in range(len(ranks) // tile):
+            for j in range(plan.tp_base):
+                g = ranks[m * tile + j:(m + 1) * tile:plan.tp_base]
+                out.setdefault(g, None)
+    return tuple(out)
+
+
 def enumerate_layouts(plan: ParallelPlan) -> Tuple[FleetLayout, ...]:
     """All valid layouts: every buddy decomposition of the engine range
     crossed with every per-island merge. NOTE: this count is doubly

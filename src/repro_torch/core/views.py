@@ -75,16 +75,19 @@ def pow2_shards(n: int, tp: int) -> int:
 @dataclass
 class CommStats:
     """Collectives issued, by the TP groups (device tensors) and by the
-    host group (step durations, token harvests), and their result bytes
-    by kind under the JAX package's names (``all-reduce``,
+    host group (step durations, token harvests), and their calls and
+    result bytes by kind under the JAX package's names (``all-reduce``,
     ``all-gather``, ``all-to-all``, ``collective-broadcast``; the
-    roofline's ``wire_bytes`` takes them)."""
+    roofline's ``wire_bytes`` takes the bytes)."""
     collectives: int = 0
     host_collectives: int = 0
     nbytes: Dict[str, int] = dataclasses.field(default_factory=dict)
+    calls: Dict[str, int] = dataclasses.field(default_factory=dict)
 
     def add_bytes(self, kind: str, n: int) -> None:
+        """One collective of ``kind`` whose result is ``n`` bytes."""
         self.nbytes[kind] = self.nbytes.get(kind, 0) + int(n)
+        self.calls[kind] = self.calls.get(kind, 0) + 1
 
 
 def tensor_bytes(t: torch.Tensor) -> int:
@@ -395,14 +398,16 @@ def make_train_ctx(tp_base: int, group: Optional[RankGroup] = None
 def make_serving_ctx(merge: int, engine_rows: int, tp_base: int,
                      n_experts: int = 0,
                      group: Optional[RankGroup] = None,
-                     view_group: Optional[RankGroup] = None) -> TPContext:
+                     view_group: Optional[RankGroup] = None,
+                     ed_group: Optional[RankGroup] = None) -> TPContext:
     """TPContext for a flying-serving mode over ('dp', 'merge', 'ed',
-    'model'); ``group`` and ``view_group`` bind it to one island's TP and
-    view groups (see ``TPContext.bind``). ``ep`` is the JAX package's:
-    ``engine_rows`` when a MoE model's ``n_experts`` split over them (the
-    MoE layer's all_to_all then runs over the 'ed' group ``bind``
-    takes)."""
+    'model'); ``group``, ``view_group`` and ``ed_group`` bind it to one
+    island's TP, view and 'ed' groups (see ``TPContext.bind``). ``ep`` is
+    the JAX package's: ``engine_rows`` when a MoE model's ``n_experts``
+    split over them (the MoE layer's all_to_all then runs over the 'ed'
+    group)."""
     ep = engine_rows if (n_experts and n_experts % engine_rows == 0
                          and engine_rows > 1) else 1
     ctx = TPContext(tp=merge * engine_rows * tp_base, view_m=merge, ep=ep)
-    return ctx.bind(group, view_group) if group is not None else ctx
+    return ctx.bind(group, view_group, ed_group) if group is not None \
+        else ctx

@@ -73,7 +73,7 @@ At one engine the layout policy has nothing to merge: a one-rank run
 never rebinds, and the scheduler refuses a ``--fixed-merge`` other than 1
 (a merge wider than its one engine). ``--sim`` runs one process.
 whisper-base and internvl2-1b do not serve on the real path (the engine
-stages no frontend embeddings; ROADMAP.md Queue 1 item 2.4).
+stages no frontend embeddings; ROADMAP.md Queue 1 item 3).
 """
 from __future__ import annotations
 

@@ -34,9 +34,9 @@ the port pads them with zero rows to a multiple of ``ep`` and drops the
 pads' outputs, so every token gets its experts, where the JAX package's
 slices of ``N // ep`` tokens leave the last ``N % ep`` tokens with no
 routed expert (ROADMAP.md, Queue 3). It needs
-the 'ed' group bound into the ctx (``build_serve_step``'s ``ed``), which
-the Communicator Pool does not build yet: the dry run
-(``launch/dryrun.py``) runs it.
+the 'ed' group bound into the ctx (``build_serve_step``'s ``ed``): the
+engine passes its island seat's (``CommunicatorPool.seat``), the dry run
+(``launch/dryrun.py``) its own.
 """
 from __future__ import annotations
 
@@ -166,9 +166,10 @@ def _moe_ep(cfg: ArchConfig, p, x, ctx: TPContext):
     e = cfg.moe
     if ctx.ed_group is None:
         raise NotImplementedError(
-            "expert parallelism needs the island's 'ed' group bound into "
-            "the ctx (build_serve_step's ed); the Communicator Pool builds "
-            "none yet")
+            f"expert parallelism (ep={ctx.ep}) needs the island's 'ed' "
+            f"group bound into the ctx, and the step was given none "
+            f"(build_serve_step's run(..., ed=)); it does not fall back "
+            f"to ep=1")
     B, T, d = x.shape
     N, E, k, ep = B * T, e.num_experts, e.top_k, ctx.ep
     Nl, El = -(-N // ep), E // ep

@@ -13,7 +13,7 @@ written by the prefill and read by the decode steps), and three training
 steps of both packages' ``build_train_step``; at atol = rtol = 1e-4
 unless a test says otherwise (check_serve_consistency's 3e-3 would also
 do). Then the refusals: the engine and the launcher refuse both
-families (engine-level serving is ROADMAP Queue 1 item 2.4), the mixed,
+families (engine-level serving is ROADMAP Queue 1 item 3), the mixed,
 live and striped steps refuse whisper, and a decoder position past
 whisper's 448 raises.
 """
@@ -402,7 +402,7 @@ def test_engine_refuses_the_frontend_families(zoo, arch):
     _, _, tm, tp = zoo(arch)
     plan = ParallelPlan(1, 1, 1)
     geom = PoolGeometry(tm.cfg, plan, num_blocks=16, block_base=4)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2.4"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
         FlyingEngine(tm, plan, geom, tp, device="cpu")
 
 
@@ -421,7 +421,7 @@ def test_launcher_refuses_the_frontend_families(arch):
         env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0
     assert "NotImplementedError" in proc.stderr
-    assert "Queue 1 item 2.4" in proc.stderr
+    assert "Queue 1 item 3" in proc.stderr
     assert "requests done" not in proc.stdout
 
 

@@ -193,7 +193,7 @@ def test_unported_paths_raise():
                       positions=torch.zeros((1, 1), dtype=torch.long))
     # Mamba-2 and RecurrentGemma serve through the engine (their rows stay
     # with each request, no mixed step); the engine stages no frontend
-    # embeddings, so whisper and InternVL2 still raise (Queue 1 item 2.4)
+    # embeddings, so whisper and InternVL2 still raise (Queue 1 item 3)
     from repro_torch.core.engine import FlyingEngine
     from repro_torch.core.kv_adaptor import PoolGeometry
     from repro_torch.core.modes import ParallelPlan
@@ -208,5 +208,5 @@ def test_unported_paths_raise():
             eng = FlyingEngine(m, plan, geom, p, device="cpu")
             assert eng.has_request_rows() and not eng.supports_mixed()
             continue
-        with pytest.raises(NotImplementedError, match="Queue 1 item 2.4"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
             FlyingEngine(m, plan, geom, p, device="cpu")

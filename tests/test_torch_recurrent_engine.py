@@ -27,7 +27,7 @@ either layer; a ragged row masked past its ``valid`` ends in the state
 taken by a new request is zeroed in every recurrent leaf. Then the
 launcher: it serves both families on the CPU, refuses ``--prefix-cache``
 for them, and still refuses whisper-base and internvl2-1b (ROADMAP Queue
-1 item 2.4).
+1 item 3).
 """
 import os
 import subprocess
@@ -365,7 +365,7 @@ def test_launcher_serves_the_recurrent_families(arch):
     else:
         assert proc.returncode != 0
         assert "NotImplementedError" in proc.stderr
-        assert "Queue 1 item 2.4" in proc.stderr
+        assert "Queue 1 item 3" in proc.stderr
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -383,6 +383,6 @@ def test_engine_still_refuses_the_modality_families(arch):
     tm = build_model(cfg, torch.float32, "cpu")
     plan = ParallelPlan(1, 1, 1)
     geom = PoolGeometry(cfg, plan, num_blocks=16, block_base=4)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2.4"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
         FlyingEngine(tm, plan, geom, tm.init(torch.Generator()),
                      device="cpu")
