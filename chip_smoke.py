@@ -318,7 +318,7 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    and depth in bf16 at phase 5's geometry (two one-rank engines of
    2048 blocks a rank, which the layout policy merges to TP2 for
    priority traffic) over HTTP at wall pace through the launcher's rank
-   entry (``launch.serve._rank_main``), 12 requests at Poisson 2/s (4
+   entry (``launch.serve._rank_main``), 8 requests at Poisson 2/s (3
    of them priority), sent by ``loadgen.drive_http`` from a process of
    its own, which then stops the server with SIGINT: every stream done
    with its full output in the vocab, at least one rebind, K1-K4
@@ -353,26 +353,40 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    do not divide a block's 64 rows, with and without a window, at the
    fp32 tolerance. Every bound takes its bytes and operations from
    ``kernels/cost.py``.
-22. (run after phase 21) serving on an engine tile of two 'ed' rows: two
-   rank processes sharing the card over gloo at ``ParallelPlan(2, 1,
-   2)``, Phi-3.5-MoE at full width cut to 2 of 32 layers in fp32, each
-   rank storing 8 of the 16 experts and running the MoE layer's two
-   all_to_alls over its 'ed' group (``CommunicatorPool.seat``): (a) 8
+22. (run after phase 21) serving on two engine tiles of two 'ed' rows:
+   four rank processes sharing the card over gloo at ``ParallelPlan(2,
+   1, 4)`` (it raises on fewer), Phi-3.5-MoE at full width cut to 2 of
+   32 layers in fp32, each rank storing 8 of the 16 experts and running
+   the MoE layer's two all_to_alls over its 'ed' group
+   (``CommunicatorPool.seat``); the ranks seed the weights on the card
+   in turn and keep only their storage slices on the host. First, on an
+   engine of its own, 4 requests of 128 prompt tokens under HARD at
+   merge 1, instrumented: a decode step's mean ms in its collectives by
+   kind (the card synchronised before each) and in the rest. (a) 8
    requests (prompts 256-1024, 32 tokens out, chunks of 128) through
-   ``DynamicScheduler`` and ``FlyingEngine`` at the no-drop capacity
-   factor (``num_experts``), K1-K4 counted from zero and each launched
-   on both ranks, the streams equal on both ranks; before it, on an
-   engine of its own, 8 requests of 128 prompt tokens instrumented: a
-   decode step's mean ms in its collectives by kind (the card
-   synchronised before each) and in the rest; (b) 8 requests of 128 prompt tokens and 8
-   decode steps at the config's own capacity factor (1.25), the entries
-   each 'ed' slice drops a step printed, no token check; (c) on rank 0,
+   ``DynamicScheduler`` and ``FlyingEngine`` under LIVE at the no-drop
+   capacity factor (``num_experts / top_k``): the merge goes 1 -> 2
+   while decodes and a chunked prefill are in flight (the decodes ride
+   in place on live lanes, nothing paused or recomputed) and back to 1
+   once nothing holds KV, for the last 2 requests; every request done,
+   every weight and pool ``data_ptr`` unchanged across both rebinds,
+   K1-K4 and K2's and K4's LSE launches counted from zero and each
+   launched on every rank, the streams equal on every rank; then on
+   (a)'s engine decode ticks of 16 requests of 256 tokens at merge 1,
+   at merge 2, and of 16 tag-1 riders at merge 2. (b) 8 requests of 128
+   prompt tokens and 8 decode steps at the config's own capacity factor
+   (1.25), the entries each 'ed' slice drops a step printed, no token
+   check. (d) one request of 3072 prompt tokens and 16 out on a pure-SP
+   island ``Island(0, 2, 2, sp=2)`` over pools of 2944 tokens a rank,
+   K2's and K4's LSE launches required on every rank. (c) on rank 0,
    (a)'s requests on the one-rank engine (``ParallelPlan(1, 1, 1)``)
-   over the same weights, the tile's tokens held against its dense
-   forward by phase 14 (b)'s near-tie rule; the groups built and their
-   build ms, all_to_all calls and bytes a step, the decode step and
-   tok/s of (a) (not instrumented) and of (c), each rank's serving peak
-   (counted from its engine's build, the full weights freed) printed.
+   over the same weights, (a)'s and (d)'s tokens held against its dense
+   forward by phase 14 (b)'s near-tie rule. Printed: the groups and
+   their build ms, lanes, all_to_all calls and bytes and TP collectives
+   a step, the rebind ms, the decode step and tok/s of (a) (not
+   instrumented) and of (c), the ticks, each rank's serving peak
+   (counted from its engine's build) and the card's memory in use over
+   all four.
 
 Each kernel's launch count in the JSON record comes from the path that
 runs it: K1-K4 from phase 5, K5 and its backward at hd 128 from phase 8
@@ -2618,16 +2632,25 @@ def train_recurrentgemma(torch):
 # phase 14: two ranks on the one card over gloo
 # ---------------------------------------------------------------------------
 
+def holds_kv(sched) -> bool:
+    """Whether any request of ``sched`` holds KV: running, paused, or
+    part-way through its chunked prefill."""
+    return bool(sched.running or sched.paused
+                or any(r.prefilled > 0 for r in sched.waiting))
+
+
 class ScriptedMerge:
     """Layout policy that binds both engines into one TP2 island once, at
     the first tick from ``bind`` on, and dissolves any TP island once,
     at the first tick from ``release`` on; on every other tick it keeps
     the layout the scheduler holds (the scheduler itself restores the
     DP groups of the requests a HARD bind paused once their engines are
-    idle)."""
+    idle). With ``idle`` the release waits for a tick where no request
+    holds KV (``holds_kv``), so that a LIVE merge-down carries nothing
+    (a tag-2 request cannot ride down to merge 1: it would pause)."""
 
-    def __init__(self, bind: int, release: int):
-        self.bind, self.release = bind, release
+    def __init__(self, bind: int, release: int, idle: bool = False):
+        self.bind, self.release, self.idle = bind, release, idle
         self.bound = self.released = False
 
     def decide(self, sched):
@@ -2635,7 +2658,8 @@ class ScriptedMerge:
         if not self.bound and tick >= self.bind:
             self.bound = True
             return 2
-        if not self.released and tick >= self.release:
+        if not self.released and tick >= self.release and not (
+                self.idle and holds_kv(sched)):
             self.released = True
             return 1
         return sched.layout
@@ -2751,14 +2775,17 @@ def lse_merge_check(torch, eng) -> float:
 
 
 def decode_tick_ms(torch, eng, merge: int, steps: int = 10,
-                   prompt: int = 512, kernels=SERVE_KERNELS) -> dict:
+                   prompt: int = 512, kernels=SERVE_KERNELS,
+                   hold: bool = True) -> dict:
     """Fleet decode ticks at one uniform merge: 2 x bpe requests of
     ``prompt`` tokens prefilled, two warm ticks, then ``steps`` ticks
     timed on the host clock to the end of a drain (which syncs every
     rank): the mean ms a tick, the slowest rank's. Returns the tick ms,
     the launches of ``kernels`` (K1-K4 by default) and those that
     returned the LSE, and the TP collectives of this rank over the
-    prefill and the ticks."""
+    prefill and the ticks; ``hold`` also holds the greedy tokens against
+    a dense forward on this rank's parameters (``greedy_margins``: they
+    must be the whole model's)."""
     from repro_torch.core.task_pool import Request
     from repro_torch.kernels import _lib
     eng.rebind(merge)
@@ -2791,7 +2818,7 @@ def decode_tick_ms(torch, eng, merge: int, steps: int = 10,
     for r in reqs:
         check(len(eng.generated_tokens(r.req_id)) == steps + 3,
               f"merge {merge}: {r.req_id} short of tokens")
-    greedy = greedy_margins(torch, eng, reqs)
+    greedy = greedy_margins(torch, eng, reqs) if hold else None
     for r in reqs:
         eng.adaptors[r.engine_group].release(r.req_id)
     return {"ms": ms, "launches": launches, "lse": lse,
@@ -2851,16 +2878,24 @@ class MergeWhenMixed:
     """Layout policy for the LIVE traces: binds both engines into one TP2
     island once, at the first tick where a request decodes while another
     is part-way through its chunked prefill, and records the riders (the
-    requests decoding then); on every other tick it keeps the layout."""
+    requests decoding then); with ``release_idle`` it dissolves the
+    island once, at the first tick after that where no request holds KV
+    (``holds_kv``); on every other tick it keeps the layout."""
 
-    def __init__(self):
+    def __init__(self, release_idle: bool = False):
         self.riders = None
+        self.release_idle = release_idle
+        self.released = False
 
     def decide(self, sched):
         if self.riders is None and sched.running and any(
                 0 < r.prefilled < r.prompt_len for r in sched.waiting):
             self.riders = sorted(r.req_id for r in sched.running)
             return 2
+        if self.release_idle and self.riders is not None \
+                and not self.released and not holds_kv(sched):
+            self.released = True
+            return 1
         return sched.layout
 
 
@@ -3120,15 +3155,16 @@ def live_full_width(torch, stack, cfg) -> dict:
         "greedy": greedy_margins(torch, eng, riders)}
 
 
-def live_tick_ms(torch, eng, steps: int = 10, prompt: int = 512) -> dict:
+def live_tick_ms(torch, eng, steps: int = 10, prompt: int = 512,
+                 hold: bool = True) -> dict:
     """Phase 14 (e): a fleet decode tick of 16 rows at merge 2 whose KV is
     tag 1: 2 x bpe requests of ``prompt`` tokens prefilled and decoded
     twice at merge 1 (each rank's 8 rows), a LIVE rebind to merge 2
     (their pending slots retagged), two warm ticks, then ``steps`` ticks
     timed as ``decode_tick_ms`` times them. Returns the tick ms, K1-K4's
     launches and K2's LSE launches over the 12 live ticks (one a lane a
-    layer a tick), their lanes, the TP collectives a tick and the greedy
-    check of every token."""
+    layer a tick), their lanes, the TP collectives a tick and, with
+    ``hold``, the greedy check of every token."""
     from repro_torch.kernels import _lib
     eng.rebind(1)
     reqs = [_request(f"tick{i}", i % 2, prompt) for i in range(2 * eng.bpe)]
@@ -3155,7 +3191,7 @@ def live_tick_ms(torch, eng, steps: int = 10, prompt: int = 512) -> dict:
     for r in reqs:
         check(len(eng.generated_tokens(r.req_id)) == steps + 5,
               f"live tick: {r.req_id} short of tokens")
-    greedy = greedy_margins(torch, eng, reqs)
+    greedy = greedy_margins(torch, eng, reqs) if hold else None
     for r in reqs:
         eng.adaptors[r.engine_group].release(r.req_id)
     return {"ms": ms, "launches": launches, "lse": lse,
@@ -5585,15 +5621,15 @@ def check_lockstep_trace(runs) -> dict:
 def serve_ranks(torch, np, smi: str) -> None:
     """Phase 20: (a) LOCKSTEP_TRACE through the leader and the follower,
     card against CPU; (b) llama3-8b at full width and depth in bf16 on
-    two ranks over HTTP at wall pace (phase 5's geometry, 12 requests at
+    two ranks over HTTP at wall pace (phase 5's geometry, 8 requests at
     Poisson 2/s, a quarter priority), stopped by SIGINT. Its prefill
     chunks on the TP2 island (its row-parallel all_reduces host-staged
     by gloo, a few seconds a chunk) take most of the phase, so it
-    serves the first 12 requests of the trace (4 of them priority) to
+    serves the first 8 requests of the trace (3 of them priority) to
     keep the script inside its time limit."""
     t0 = time.perf_counter()
     cfg = serve_config(ranks=2, serve=True, pace="wall", port=0,
-                       requests=12, rate=2.0, priority_frac=0.25,
+                       requests=8, rate=2.0, priority_frac=0.25,
                        num_blocks=2048)
     reqs, out, runs = ranks_http_run(cfg, trace=True)
     a = check_lockstep_trace([res["a"] for res in runs])
@@ -5993,42 +6029,60 @@ def train_ranks(torch, np, smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 22: an engine tile of two 'ed' rows on two ranks sharing the card
+# phase 22: two engine tiles of two 'ed' rows on four ranks sharing the card
 # ---------------------------------------------------------------------------
 
 # Phi-3.5-MoE at full width cut to EP_LAYERS of 32 layers, fp32; its
-# requests (prompts, outputs) and the capacity run's decode steps
+# requests (prompts, outputs), the capacity run's decode steps, and the
+# virtual arrival of (a)'s last EP_LATE requests (after the first are
+# done, so that the merge goes back to 1 with nothing in flight)
 EP_LAYERS = 2
 EP_PROMPTS = (256, 1024)
 EP_OUT = 32
 EP_CHUNK = 128
 EP_DECODES = 8
+EP_LATE = 2
+EP_LATE_S = 100.0
+# the instrumented run's requests (EP_CHUNK prompt tokens each)
+EP_SPLIT = 4
+EP_RANKS = 4
+# (d): a pool of EP_SP_BLOCKS blocks of EP_CHUNK tokens a rank (2944
+# usable at tag 1) and one request of EP_SP_PROMPT tokens on an SP
+# island, then EP_SP_STEPS decodes
+EP_SP_BLOCKS, EP_SP_PROMPT, EP_SP_STEPS = 24, 3072, 16
+# the decode ticks' prompts (16 requests; at 512 the merge-2 prefill's
+# no-drop MoE buffers staged by gloo took the host past its memory)
+EP_TICK = 256
 
 
 def ep_config(no_drop: bool):
-    """Phase 22's Phi-3.5-MoE: cut to ``EP_LAYERS`` layers, with the
-    reduced configs' no-drop rule (``capacity_factor = num_experts``) or
+    """Phase 22's Phi-3.5-MoE: cut to ``EP_LAYERS`` layers, with no drop
+    (``capacity_factor = num_experts / top_k``: an expert's capacity is
+    then every token of the slice, and a token takes an expert once) or
     the config's own capacity factor."""
     import dataclasses
 
     from repro_torch.configs import get_config
     cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=EP_LAYERS)
-    cf = float(cfg.moe.num_experts) if no_drop \
+    cf = cfg.moe.num_experts / cfg.moe.top_k if no_drop \
         else cfg.moe.capacity_factor
     return dataclasses.replace(cfg, moe=dataclasses.replace(
         cfg.moe, capacity_factor=cf))
 
 
-def ep_requests(n: int = 8, out: int = EP_OUT, prompts=EP_PROMPTS):
-    """``n`` requests at time 0, prompts drawn in ``prompts`` from a
-    fixed seed, ``out`` tokens each."""
+def ep_requests(n: int = 8, out: int = EP_OUT, prompts=EP_PROMPTS,
+                late: int = 0):
+    """``n`` requests, prompts drawn in ``prompts`` from a fixed seed,
+    ``out`` tokens each; the last ``late`` arrive at EP_LATE_S, the
+    others at time 0."""
     import numpy as np
 
     from repro_torch.core.task_pool import Request
     lens = np.random.default_rng(22).integers(prompts[0], prompts[1] + 1,
                                               n)
-    return [Request(req_id=f"e{i}", arrival=0.0, prompt_len=int(p),
-                    output_len=out) for i, p in enumerate(lens)]
+    return [Request(req_id=f"e{i}", arrival=EP_LATE_S if i >= n - late
+                    else 0.0, prompt_len=int(p), output_len=out)
+            for i, p in enumerate(lens)]
 
 
 class EpDrops:
@@ -6060,22 +6114,72 @@ class EpDrops:
         return [(int(d), m) for d, m in self.calls]
 
 
-def ep_engine(torch, cfg, plan):
-    """A FlyingEngine over ``plan`` for phase 22 (8 rows an engine, a
-    pool for the 8 requests) on weights seeded on the card, and its
-    geometry; the full weights are freed once the engine holds its
-    rank's storage shard (on the tile a copy, on one rank the weights
-    themselves), and the peak is counted from there."""
+def ep_weights(torch, cfg, plan, rank: int, world: int):
+    """The weights every engine of the tiles takes its rank's storage
+    shard of, seeded on the card by each rank in turn (a barrier
+    between; ``ep_full`` seeds the same tree) and moved to the host:
+    four full trees at once would not fit the one card beside the
+    engines, nor the host beside the ranks' gloo staging. Host tensors
+    of the full shapes in which only the rank's storage slices
+    (``WeightsManager.storage_shard``'s) are written: the pages of the
+    others are never touched, so they take no memory, and the engine
+    reads only its slices."""
+    import torch.distributed as dist
+
+    from repro_torch.core.weights_manager import (WeightsManager,
+                                                  _map_with_path)
+    wm = WeightsManager(cfg, plan)
+    ed, model = divmod(rank % (plan.engine_rows * plan.tp_base),
+                       plan.tp_base)
+    index = {"ed,model": ed * plan.tp_base + model, "ed": ed,
+             "model": model}
+
+    def host(path, t):
+        cuts = wm.shard_dims(path, tuple(t.shape))
+        if not cuts:
+            return t.cpu()
+        out = torch.empty(t.shape, dtype=t.dtype)
+        dst, src = out, t
+        for d, k, axes in cuts:
+            size = t.shape[d] // k
+            dst = dst.narrow(d, index[axes] * size, size)
+            src = src.narrow(d, index[axes] * size, size)
+        dst.copy_(src)
+        return out
+
+    params = None
+    for r in range(world):
+        if r == rank:
+            full = ep_full(torch, cfg)
+            params = _map_with_path(host, full)
+            del full
+            gc_collect(torch)
+        dist.barrier()
+    return params
+
+
+def ep_full(torch, cfg):
+    """Phase 22's full weights, seeded on the card."""
+    from repro_torch.models.model import build_model
+    return build_model(cfg, torch.float32, "cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+
+
+def ep_engine(torch, cfg, plan, params, *, num_blocks: int = 1024,
+              block_base: int = 16, layout=None, bpe: int = 8):
+    """A FlyingEngine over ``plan`` for phase 22 (``bpe`` rows an
+    engine, by default a pool for the 8 requests) on ``params`` (of which
+    it keeps the rank's storage shard on the card), and its geometry;
+    the card's peak is counted from there."""
     from repro_torch.core.engine import FlyingEngine
     from repro_torch.core.kv_adaptor import PoolGeometry
     from repro_torch.models.model import build_model
     model = build_model(cfg, torch.float32, "cuda")
-    params = model.init(torch.Generator(device="cuda").manual_seed(0))
-    geom = PoolGeometry(cfg, plan, num_blocks=1024, block_base=16)
-    eng = FlyingEngine(model, plan, geom, params, batch_per_engine=8,
+    geom = PoolGeometry(cfg, plan, num_blocks=num_blocks,
+                        block_base=block_base)
+    eng = FlyingEngine(model, plan, geom, params, batch_per_engine=bpe,
                        max_blocks_per_req=128, device="cuda",
-                       check_zero_copy=True)
-    del params
+                       check_zero_copy=True, layout=layout)
     gc_collect(torch)
     torch.cuda.reset_peak_memory_stats()
     return eng, geom
@@ -6123,25 +6227,29 @@ class SplitClock(StepClock):
         return dt
 
 
-def ep_serve(torch, eng, geom, plan, reqs, split: bool = False) -> dict:
-    """``reqs`` through DynamicScheduler (HARD, chunks of EP_CHUNK) on
-    ``eng``, launches counted from zero: tokens, steps, wall, tok/s, the
-    median decode step, all_to_all calls and bytes a step (this rank's);
-    ``split``: instrumented by a ``CollectiveClock``, also where a decode
-    step's time goes (the mean ms of its collectives by kind and of the
-    rest)."""
+def ep_serve(torch, eng, geom, plan, reqs, split: bool = False,
+             policy=None, strategy: str = "hard") -> dict:
+    """``reqs`` through DynamicScheduler (``strategy``, chunks of
+    EP_CHUNK, ``policy``) on ``eng``, launches counted from zero:
+    tokens, steps, wall, tok/s, the median decode step, all_to_all calls
+    and bytes and TP collectives a step (this rank's), the merges and
+    preempt_stats, K1-K4's launches and those of K2 and K4 that returned
+    the LSE (the live lanes); ``split``: instrumented by a
+    ``CollectiveClock``, also where a decode step's time goes (the mean
+    ms of its collectives by kind and of the rest)."""
     from repro_torch.core import views
     from repro_torch.core.scheduler import DynamicScheduler, SchedulerConfig
     from repro_torch.kernels import _lib
     coll = CollectiveClock(torch, views) if split else None
     clock = SplitClock(eng, coll) if split else StepClock(eng)
     sched = DynamicScheduler(plan, geom, clock, SchedulerConfig(
-        strategy="hard", max_batch_per_group=eng.bpe,
-        prefill_chunk=EP_CHUNK))
+        strategy=strategy, max_batch_per_group=eng.bpe,
+        prefill_chunk=EP_CHUNK), policy=policy)
     for r in reqs:
         sched.submit(r)
     st = eng.pool.stats
     a2a0 = (st.calls.get("all-to-all", 0), st.nbytes.get("all-to-all", 0))
+    coll0 = st.collectives
     steps0 = eng.sync_stats.steps
     gc_collect(torch)
     _lib.reset_launches()
@@ -6160,12 +6268,18 @@ def ep_serve(torch, eng, geom, plan, reqs, split: bool = False) -> dict:
             for r in reqs}
     steps = eng.sync_stats.steps - steps0
     mid = sorted(dt for kind, _, dt in clock.log if kind == "decode")
-    res = {"toks": toks, "launches": launches, "wall_s": wall,
+    res = {"toks": toks, "launches": launches, "lse": dict(
+               _lib.LSE_LAUNCHES), "wall_s": wall,
            "steps": steps, "phases": [k for k, _, _ in clock.log],
+           "merges": [l.merge for l in sched.log],
+           "preempt": dict(sched.preempt_stats),
+           "done": sum(r.state == "done" for r in reqs),
            "tok_s": sum(map(len, toks.values())) / wall,
            "decode_ms": mid[len(mid) // 2] * 1e3 if mid else float("nan"),
            "a2a": [(st.calls.get("all-to-all", 0) - a2a0[0]) / steps,
-                   (st.nbytes.get("all-to-all", 0) - a2a0[1]) / steps]}
+                   (st.nbytes.get("all-to-all", 0) - a2a0[1]) / steps],
+           "collectives": (st.collectives - coll0) / steps,
+           "lanes": _lane_keys(eng)}
     if split:
         dec = [sp for (kind, _, _), sp in zip(clock.log, clock.split)
                if kind == "decode"]
@@ -6177,44 +6291,90 @@ def ep_serve(torch, eng, geom, plan, reqs, split: bool = False) -> dict:
     return res
 
 
+def _card_in_use(torch) -> float:
+    """GiB in use on the whole card (every rank's), now."""
+    free, total = torch.cuda.mem_get_info()
+    return (total - free) / 2**30
+
+
 def ep_tile_rank(rank: int, world: int, out: str) -> None:
-    """One rank of phase 22 on the tile of two 'ed' rows at
-    ``ParallelPlan(2, 1, 2)`` with no drop: first 8 requests of EP_CHUNK
-    prompt tokens with the collectives timed (the split, instrumented),
-    then on a new engine (a) the requests not instrumented; (b) 8 decode
-    steps of short requests at the config's own capacity factor; then on
-    rank 0 alone (c) (a)'s requests on the one-rank engine over the same
-    weights, and the tile's tokens held against its dense forward.
-    Writes ``{out}.{rank}.json``."""
+    """One rank of phase 22 on two tiles of two 'ed' rows at
+    ``ParallelPlan(2, 1, 4)`` with no drop: first EP_SPLIT requests of
+    EP_CHUNK prompt tokens under HARD with the collectives timed (the split,
+    instrumented), then on a new engine (a) 8 requests under LIVE, the
+    merge going to 2 while decodes and a chunked prefill are in flight
+    and back to 1 once nothing holds KV, for the last 2 (every weight
+    and pool data_ptr held across both rebinds), then on the same
+    engine fleet decode ticks at merge 1 and 2 and a tick of 16 tag-1
+    riders at merge 2; (b) 8 decode steps of short requests at the
+    config's own capacity factor; (d) one EP_SP_PROMPT-token request on
+    a pure-SP island ``Island(0, 2, 2, sp=2)`` over pools cut below its
+    context; then on rank 0 alone (c) (a)'s requests on the one-rank
+    engine over the same weights, and the tile's tokens ((a) and (d))
+    held against its dense forward. Writes ``{out}.{rank}.json``."""
     from unittest import mock
 
     import numpy as np
     import torch
 
-    from repro_torch.core.modes import ParallelPlan
+    from repro_torch.core.weights_manager import _ptrs
+    from repro_torch.core.modes import FleetLayout, Island, ParallelPlan
     from repro_torch.core.views import SINGLE
     from repro_torch.models import moe
     from repro_torch.models.cache import TrainBackend
+    if world < EP_RANKS:
+        raise ValueError(f"phase 22 runs {EP_RANKS} ranks, not {world}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    torch.set_num_threads(4)
+    torch.set_num_threads(2)
     t0 = time.perf_counter()
-    plan = ParallelPlan(2, 1, 2)
+    plan = ParallelPlan(2, 1, 4)
     cfg = ep_config(True)
-    eng, geom = ep_engine(torch, cfg, plan)
-    split = ep_serve(torch, eng, geom, plan,
-                     ep_requests(prompts=(EP_CHUNK, EP_CHUNK)), split=True)
+    params = ep_weights(torch, cfg, plan, rank, world)
+    res = {"weights_s": time.perf_counter() - t0}
+    card = [_card_in_use(torch)]
+
+    def engine(c=cfg, **kw):
+        eng, geom = ep_engine(torch, c, plan, params, **kw)
+        card.append(_card_in_use(torch))
+        return eng, geom
+
+    def serve(eng, geom, reqs, **kw):
+        return ep_serve(torch, eng, geom, plan, reqs, **kw)
+
+    eng, geom = engine()
+    split = serve(eng, geom, ep_requests(EP_SPLIT,
+                                         prompts=(EP_CHUNK, EP_CHUNK)),
+                  split=True)
     del eng
-    gc_collect(torch)
-    eng, geom = ep_engine(torch, cfg, plan)
+    eng, geom = engine()
     st = eng.pool.stats
-    res = {"describe": eng.pool.describe(),
-           "build_ms": st.group_build_s * 1e3, "ed_groups": st.ed_groups,
-           "seat_ed": list(eng.pool.seat(eng.layout.islands[0]).ed.ranks),
-           "split": split}
-    res["a"] = ep_serve(torch, eng, geom, plan, ep_requests())
+    res.update({"describe": eng.pool.describe(),
+                "build_ms": st.group_build_s * 1e3,
+                "ed_groups": st.ed_groups,
+                "seat_ed": list(eng.pool.seat(
+                    eng.layout.islands[0]).ed.ranks),
+                "split": split})
+    # (a): LIVE, merge 1 -> 2 -> 1
+    ptrs = (_ptrs(eng.params), _ptrs(eng._paged(eng._pools)))
+    policy = MergeWhenMixed(release_idle=True)
+    res["a"] = serve(eng, geom, ep_requests(late=EP_LATE), policy=policy,
+                     strategy="live")
+    res["a"]["riders"] = policy.riders
+    res["a"]["zero_copy"] = (_ptrs(eng.params),
+                             _ptrs(eng._paged(eng._pools))) == ptrs
+    res["a"]["rebind_ms"] = [dt * 1e3 for dt in eng.switch_log]
     res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    card.append(_card_in_use(torch))
     res["a_s"] = time.perf_counter() - t0
+    # the decode ticks on (a)'s engine: 16 rows at merge 1, at merge
+    # 2, and 16 tag-1 riders at merge 2
+    t1 = time.perf_counter()
+    res["tick1"] = decode_tick_ms(torch, eng, 1, prompt=EP_TICK, hold=False)
+    res["tick2"] = decode_tick_ms(torch, eng, 2, prompt=EP_TICK, hold=False)
+    res["tick_live"] = live_tick_ms(torch, eng, prompt=EP_TICK, hold=False)
+    res["tick_rebind_ms"] = [dt * 1e3 for dt in eng.switch_log[2:]]
+    res["tick_s"] = time.perf_counter() - t1
     del eng
     gc_collect(torch)
 
@@ -6222,45 +6382,74 @@ def ep_tile_rank(rank: int, world: int, out: str) -> None:
     # decode steps (no token check: a slice's capacity is its own)
     t1 = time.perf_counter()
     cfg_b = ep_config(False)
-    eng, geom = ep_engine(torch, cfg_b, plan)
+    eng, geom = engine(cfg_b)
     drops = EpDrops(torch, moe)
     try:
-        run = ep_serve(torch, eng, geom, plan, ep_requests(
-            out=EP_DECODES + 1, prompts=(EP_CHUNK, EP_CHUNK)))
+        run = serve(eng, geom, ep_requests(out=EP_DECODES + 1,
+                                           prompts=(EP_CHUNK, EP_CHUNK)))
     finally:
         calls = drops.restore()
     res["b"] = {"phases": run["phases"], "calls": calls,
-                "layers": cfg_b.num_layers, "s": time.perf_counter() - t1}
+                "layers": cfg_b.num_layers,
+                "s": time.perf_counter() - t1}
     del eng
+
+    # (d): a context over one engine's pool on a pure-SP island
+    t1 = time.perf_counter()
+    # one row an engine: the island's padded rows would run the MoE too
+    eng, _ = engine(num_blocks=EP_SP_BLOCKS, block_base=EP_CHUNK, bpe=1,
+                    layout=FleetLayout(plan, (Island(0, 2, 2, sp=2),)))
+    from repro_torch.kernels import _lib
+    _lib.reset_launches()
+    sp = _sp_serve(eng, EP_SP_PROMPT, EP_SP_STEPS)
+    eng.drain()
+    torch.cuda.synchronize()
+    res["d"] = {"toks": sp["toks"], "shards": sp["shards"],
+                "one_pool": sp["one_pool"], "context": sp["context"],
+                "lse": dict(_lib.LSE_LAUNCHES),
+                "lanes": _lane_keys(eng),
+                "wall_s": time.perf_counter() - t1}
+    sp_req = sp["req"]
+    del eng, sp, params
     gc_collect(torch)
+    res["card_gib"] = max(card)
     if rank == 0:
         # (c): the one-rank engine, its world patched to this rank alone
-        # (every collective of the tile is behind it)
+        # (every collective of the tiles is behind it), then the tiles'
+        # tokens against its model's dense forward (phase 14 (b)'s
+        # near-tie rule)
         t1 = time.perf_counter()
         one = ParallelPlan(1, 1, 1)
         with mock.patch("repro_torch.core.communicator_pool.world",
                         lambda: (0, 1)):
-            eng, geom = ep_engine(torch, cfg, one)
-            reqs = ep_requests()
+            # the full tree seeded anew on the card (the other ranks'
+            # engines are gone): at one rank the engine's shard is it
+            eng, geom = ep_engine(torch, cfg, one, ep_full(torch, cfg))
+            reqs = ep_requests(late=EP_LATE)
             res["c"] = ep_serve(torch, eng, geom, one, reqs)
             res["peak1_gib"] = torch.cuda.max_memory_allocated() / 2**30
-            # the tile's tokens against the one-rank model's dense
-            # forward (phase 14 (b)'s near-tie rule)
-            acc = {"tokens": 0, "flips": 0, "worst": 0.0, "margins": []}
-            tile = res["a"]["toks"]
-            for r in reqs:
-                gen = np.asarray(tile[r.req_id], dtype=np.int64)
-                seq = np.concatenate([np.asarray(
-                    eng.prompt_tokens(r)[:r.prompt_len], dtype=np.int64),
-                    gen[:-1]])
+
+            def dense(seq):
                 with torch.no_grad():
                     logits, _, _ = eng.model.forward(
                         eng.params, SINGLE, mode="train",
-                        backend=TrainBackend(),
-                        tokens=torch.as_tensor(seq, device="cuda")[None])
-                tally_near_ties(acc, logits[0, r.prompt_len - 1:].float(),
-                                torch.as_tensor(gen, device="cuda"))
-            res["c"]["greedy"] = acc
+                        backend=TrainBackend(), tokens=seq[None])
+                return logits[0].float()
+
+            for what, runs in (("greedy", [(r, res["a"]["toks"][r.req_id])
+                                           for r in reqs]),
+                               ("sp_greedy", [(sp_req, res["d"]["toks"])])):
+                acc = {"tokens": 0, "flips": 0, "worst": 0.0,
+                       "margins": []}
+                for r, gen in runs:
+                    gen = np.asarray(gen, dtype=np.int64)
+                    seq = np.concatenate([np.asarray(
+                        eng.prompt_tokens(r)[:r.prompt_len],
+                        dtype=np.int64), gen[:-1]])
+                    rows = dense(torch.as_tensor(seq, device="cuda"))
+                    tally_near_ties(acc, rows[r.prompt_len - 1:],
+                                    torch.as_tensor(gen, device="cuda"))
+                res["c"][what] = acc
         res["c_s"] = time.perf_counter() - t1
     res["rank_s"] = time.perf_counter() - t0
     with open(f"{out}.{rank}.json", "w") as f:
@@ -6268,92 +6457,168 @@ def ep_tile_rank(rank: int, world: int, out: str) -> None:
 
 
 def serve_ep_tile(torch, smi: str) -> None:
-    """Phase 22: spawn two rank processes on the one card (gloo), run
-    ``ep_tile_rank`` in each, and check and print what they found."""
+    """Phase 22: spawn EP_RANKS rank processes on the one card (gloo),
+    run ``ep_tile_rank`` in each, and check and print what they
+    found."""
     import tempfile
 
     from repro_torch.launch.ranks import spawn
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as d:
         out = str(Path(d) / "ep")
-        spawn(ep_tile_rank, 2, (out,), device_type="cuda", timeout=600)
+        spawn(ep_tile_rank, EP_RANKS, (out,), device_type="cuda",
+              timeout=600)
         runs = []
-        for r in range(2):
+        for r in range(EP_RANKS):
             with open(f"{out}.{r}.json") as f:
                 runs.append(json.load(f))
-    a, sp, c = runs[0]["a"], runs[0]["split"], runs[0]["c"]
+    check_ep_tile(runs)
+    print_ep_tile(runs, smi)
+    print(f"ep tile: {smi}; phase 22 took {time.perf_counter() - t0:.1f} s")
+
+
+def merge_runs(merges) -> list:
+    """The merges a scheduler log went through, each run of equal
+    merges once: ``[1, 1, 2, 2, 1]`` -> ``[1, 2, 1]``."""
+    return [m for i, m in enumerate(merges) if i == 0 or m != merges[i - 1]]
+
+
+def check_ep_tile(runs) -> None:
+    """Phase 22's verdict over every rank's result."""
+    a, d, c = runs[0]["a"], runs[0]["d"], runs[0]["c"]
     for r, res in enumerate(runs):
-        check(res["seat_ed"] == [0, 1],
-              f"rank {r}: 'ed' group {res['seat_ed']}, not [0, 1]")
-        check(res["a"]["toks"] == a["toks"]
-              and res["split"]["toks"] == sp["toks"],
+        eng_tile = [2 * (r // 2), 2 * (r // 2) + 1]
+        check(res["seat_ed"] == eng_tile,
+              f"rank {r}: 'ed' group {res['seat_ed']}, not {eng_tile}")
+        x = res["a"]
+        for k in ("toks", "merges", "preempt", "phases"):
+            check(x[k] == a[k], f"rank {r} served another {k} than rank 0")
+        check(res["split"]["toks"] == runs[0]["split"]["toks"]
+              and res["d"]["toks"] == d["toks"],
               f"rank {r} streamed other tokens than rank 0")
-        check(all(len(t) == EP_OUT for t in res["a"]["toks"].values()),
-              f"rank {r}: a request short of its {EP_OUT} tokens")
+        check(x["done"] == 8 and all(len(t) == EP_OUT
+                                     for t in x["toks"].values()),
+              f"rank {r}: (a) {x['done']}/8 done")
+        merges = merge_runs(x["merges"])
+        p = x["preempt"]
+        check(merges == [1, 2, 1] and bool(x["riders"]) and
+              p["live_riders"] > 0 and p["paused"] == 0 and
+              p["recomputed_tokens"] == 0,
+              f"rank {r}: (a) did not ride 1 -> 2 -> 1: merges {merges}, "
+              f"riders {x['riders']}, {p}")
+        check(x["zero_copy"], f"rank {r}: (a) moved a weight or a pool")
+        check(res["d"]["context"] > res["d"]["one_pool"] and
+              res["d"]["shards"] == [0, 1],
+              f"rank {r}: SP run of {res['d']['context']} tokens over "
+              f"pools of {res['d']['one_pool']}, shards "
+              f"{res['d']['shards']}")
         for k in SERVE_KERNELS:
-            check(res["a"]["launches"][k] > 0,
-                  f"rank {r}: {k} never launched on the tile")
-        check(res["a"]["a2a"][0] > 0, f"rank {r}: no all_to_all a step")
+            check(x["launches"][k] > 0,
+                  f"rank {r}: {k} never launched in (a)")
+        for what, lse in (("(a)", x["lse"]), ("(d)", res["d"]["lse"])):
+            check(all(lse[k] > 0 for k in ("paged_attention",
+                                           "paged_flash_prefill")),
+                  f"rank {r}: the live lanes of {what} never launched K2 "
+                  f"and K4 with their LSE: {lse}")
+        check(x["a2a"][0] > 0, f"rank {r}: no all_to_all a step")
+    for what in ("greedy", "sp_greedy"):
+        g = c[what]
+        check(g["tokens"] > 0 and g["worst"] <= 1.0,
+              f"phase 22: a tile token ({what}) is off the one-rank dense "
+              f"forward's argmax by {g['worst']:.2f}x the near-tie bound "
+              f"(margins {g['margins']})")
+
+
+def print_ep_tile(runs, smi: str) -> None:
+    """Phase 22's readings, on lines before the last."""
+    a, sp, c, d = (runs[0][k] for k in ("a", "split", "c", "d"))
     same = sum(a["toks"][k] == c["toks"][k] for k in a["toks"])
-    g = c["greedy"]
-    check(g["worst"] <= 1.0,
-          f"phase 22: a tile token is off the one-rank dense forward's "
-          f"argmax by {g['worst']:.2f}x the near-tie bound (margins "
-          f"{g['margins']})")
-    print(f"ep tile: {runs[0]['describe']}; 'ed' group of rank 0 "
-          f"{runs[0]['seat_ed']}; two ranks share this card over gloo")
+    g, gs = c["greedy"], c["sp_greedy"]
     cfg = ep_config(True)
     lo, hi = EP_PROMPTS
+    print(f"ep tile: {runs[0]['describe']}; 'ed' groups of ranks "
+          f"{[res['seat_ed'] for res in runs]}; {EP_RANKS} ranks share "
+          f"this card over gloo, host-staged")
     print(f"ep tile (a): {cfg.name}, {cfg.num_layers} layers of d_model "
           f"{cfg.d_model}, fp32, capacity factor "
-          f"{cfg.moe.capacity_factor:g} (no drop), ParallelPlan(2, 1, 2), 8 "
-          f"requests of {lo}-{hi} prompt tokens and {EP_OUT} out, chunks "
-          f"of {EP_CHUNK}: {a['steps']} steps "
-          f"({a['phases'].count('mixed')} mixed, "
+          f"{cfg.moe.capacity_factor:g} (no drop), ParallelPlan(2, 1, 4), "
+          f"LIVE, 8 requests of {lo}-{hi} prompt tokens and {EP_OUT} out "
+          f"(the last {EP_LATE} arriving once the first are done), chunks "
+          f"of {EP_CHUNK}: merges {merge_runs(a['merges'])}, "
+          f"riders {a['riders']}, preempt_stats {a['preempt']}, lanes "
+          f"{a['lanes']}, weight and pool data_ptrs unchanged; "
+          f"{a['steps']} steps ({a['phases'].count('mixed')} mixed, "
           f"{a['phases'].count('decode')} decode) in {a['wall_s']:.3f} s, "
           f"{a['tok_s']:.1f} tok/s, decode step {a['decode_ms']:.2f} ms "
-          f"(median); all_to_all {a['a2a'][0]:.1f} calls and "
-          f"{a['a2a'][1] / 2**20:.1f} MiB a step on rank 0; K1-K4 "
-          f"launches {[res['a']['launches'] for res in runs]}")
+          f"(median); a step on rank 0: {a['a2a'][0]:.1f} all_to_alls of "
+          f"{a['a2a'][1] / 2**20:.1f} MiB, {a['collectives']:.1f} TP "
+          f"collectives; rebinds "
+          f"{', '.join(f'{x:.2f}' for x in a['rebind_ms'])} ms")
+    print(f"ep tile (a): K1-K4 launches a rank "
+          f"{[res['a']['launches'] for res in runs]}, of them returning the "
+          f"LSE (the live lanes) {[res['a']['lse'] for res in runs]}")
+    t1, t2, tl = (runs[0][k] for k in ("tick1", "tick2", "tick_live"))
+    print(f"ep tile: {smi}; decode tick of 16 requests of {EP_TICK} tokens "
+          f"(the slowest rank's): merge 1 {t1['ms']:.2f} ms, merge 2 "
+          f"{t2['ms']:.2f} ms, 16 tag-1 riders at merge 2 {tl['ms']:.2f} ms "
+          f"(lanes {tl['lanes']}); TP collectives a tick on rank 0: "
+          f"{t1['collectives'] / t1['steps']:.1f}, "
+          f"{t2['collectives'] / t2['steps']:.1f}, {tl['collectives']:.1f}; "
+          f"K2 with its LSE over the live ticks "
+          f"{[res['tick_live']['lse']['paged_attention'] for res in runs]}"
+          f"; the ticks' rebinds "
+          f"{', '.join(f'{x:.2f}' for x in runs[0]['tick_rebind_ms'])} ms")
     print(f"ep tile, instrumented (the card synchronised before each "
-          f"collective), run before (a) on an engine of its own: 8 requests "
-          f"of {EP_CHUNK} prompt tokens and {EP_OUT} out, {sp['steps']} "
-          f"steps in {sp['wall_s']:.3f} s, decode step "
+          f"collective), run before (a) on an engine of its own, HARD at "
+          f"merge 1: {EP_SPLIT} requests of {EP_CHUNK} prompt tokens and "
+          f"{EP_OUT} out, {sp['steps']} steps in {sp['wall_s']:.3f} s, "
+          f"decode step "
           f"{sp['decode_ms']:.2f} ms (median); a mean decode step's ms: "
           f"{', '.join(f'{k} {v:.2f}' for k, v in sp['decode_split'].items())}")
     print(f"ep tile (c): one-rank engine, same weights and requests: "
           f"{c['steps']} steps in {c['wall_s']:.3f} s, {c['tok_s']:.1f} "
           f"tok/s, decode step {c['decode_ms']:.2f} ms; {same}/8 requests' "
-          f"tokens equal the tile's; the tile's {g['tokens']} tokens "
-          f"against the one-rank dense forward: {g['flips']} near-ties off "
-          f"its argmax (margins {[f'{x:.3g}' for x in g['margins']]}, at "
-          f"most {g['worst']:.2f}x the bound of {NEAR_TIE_SD} row "
-          f"deviations); against the tile's (a): decode step "
-          f"{a['decode_ms'] / c['decode_ms']:.2f}x, tok/s "
-          f"{a['tok_s'] / c['tok_s']:.3f}x")
+          f"tokens equal (a)'s; (a)'s {g['tokens']} tokens against the "
+          f"one-rank dense forward: {g['flips']} near-ties off its argmax "
+          f"(margins {[f'{x:.3g}' for x in g['margins']]}, at most "
+          f"{g['worst']:.2f}x the bound of {NEAR_TIE_SD} row deviations)")
+    print(f"ep tile (d): SP island Island(0, 2, 2, sp=2) served a "
+          f"{d['context']}-token context over pools of {d['one_pool']} "
+          f"tokens a rank (shards {d['shards']}, lanes {d['lanes']}) in "
+          f"{d['wall_s']:.3f} s; K2/K4 LSE launches "
+          f"{[res['d']['lse'] for res in runs]}; greedy against the dense "
+          f"forward: {gs['flips']} of {gs['tokens']} near-ties (at most "
+          f"{gs['worst']:.2f}x the bound)")
     for r, res in enumerate(runs):
         b = res["b"]
         per = b["layers"] * 2        # a mixed step runs two MoE calls
         steps, i = [], 0
         for kind in b["phases"]:
             n = per if kind == "mixed" else b["layers"]
-            d = sum(x for x, _ in b["calls"][i:i + n])
+            dd = sum(x for x, _ in b["calls"][i:i + n])
             m = sum(y for _, y in b["calls"][i:i + n])
-            steps.append(f"{kind[0]} {d}/{m}")
+            steps.append(f"{kind[0]} {dd}/{m}")
             i += n
         print(f"ep tile (b) rank {r}: capacity factor "
               f"{ep_config(False).moe.capacity_factor:g}, entries "
               f"dropped/routed a step in its 'ed' slice: {', '.join(steps)}")
+    for r, res in enumerate(runs):
         print(f"ep tile rank {r}: groups built in {res['build_ms']:.1f} ms "
-              f"({res['ed_groups']} 'ed' groups of their own); peak "
-              f"serving (a) on the tile {res['peak_gib']:.2f} GiB (from its "
-              f"engine's build, the full weights freed)"
+              f"({res['ed_groups']} 'ed' groups of their own); weights "
+              f"seeded in turn in {res['weights_s']:.1f} s; peak serving (a) "
+              f"{res['peak_gib']:.2f} GiB (this rank's allocations, from "
+              f"its engine's build)"
               + (f", {res['peak1_gib']:.2f} GiB serving (c) on the "
                  f"one-rank engine" if r == 0 else "")
-              + f"; the instrumented run and (a) {res['a_s']:.1f} s, (b) "
-              f"{res['b']['s']:.1f} s"
-              + (f", (c) {res['c_s']:.1f} s" if r == 0 else ""))
-    print(f"ep tile: {smi}; phase 22 took {time.perf_counter() - t0:.1f} s")
+              + f"; the split and (a) {res['a_s']:.1f} s, ticks "
+              f"{res['tick_s']:.1f} s, (b) {res['b']['s']:.1f} s, (d) "
+              f"{res['d']['wall_s']:.1f} s"
+              + (f", (c) {res['c_s']:.1f} s" if r == 0 else "")
+              + f", rank {res['rank_s']:.1f} s")
+    print(f"ep tile: {smi}; the card in use (every rank's allocations and "
+          f"contexts, sampled after each engine's build and after (a)) at "
+          f"most {max(res['card_gib'] for res in runs):.2f} GiB; the ranks' "
+          f"peaks sum to {sum(res['peak_gib'] for res in runs):.2f} GiB")
 
 
 def gc_collect(torch) -> None:

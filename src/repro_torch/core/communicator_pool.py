@@ -261,18 +261,13 @@ class CommunicatorPool:
         pool's ``sample=(temperature, top_k)`` into the step. ``live``
         selects the cross-layout read variant: the ordered lane-tag tuple
         of the block segments the batch carries (``None``: the
-        single-view step; not held at ``ep > 1``, where it raises); an SP
-        island (``island.sp > 1``) runs the SP write variant of it. The
+        single-view step); an SP island (``island.sp > 1``) runs the SP
+        write variant of it. The
         key's ``donate`` slot is always True (the port updates the pools
         in place, as the JAX package's donated steps do)."""
         key = (island.merge, phase, sampled, True, batch_bucket,
                seq_bucket, mb_bucket, island.n_engines, live, island.sp)
         if key not in self._runners:
-            if self.ep > 1 and live is not None:
-                raise NotImplementedError(
-                    f"live lanes with the experts over 'ed' (ep={self.ep})"
-                    f": no test holds them against the JAX package "
-                    f"(ROADMAP.md Queue 1 item 5)")
             run, _ = build_serve_step(
                 self.model, island_mode(self.plan, island), self.geom,
                 phase=phase, sample=self.sample if sampled else None,

@@ -381,10 +381,8 @@ class FlyingEngine:
         """An SP island reads every block through the live lanes: its
         write tag and merge must be tag-readable. With a MoE model's
         experts over 'ed' (``ep > 1``) the engine serves head-layout
-        pools without SP islands or live lanes: SP islands and striped
-        pools raise here, ``live_readable`` is False, so the scheduler
-        plans no live carry and attaches no prefix across tags, and a
-        live step raises (``CommunicatorPool.runner``)."""
+        pools only: a striped pool raises here (the JAX engine has no
+        live read program for it either)."""
         ep = self.pool.ep
         if ep > 1 and self.geom.layout == "striped":
             raise NotImplementedError(
@@ -392,11 +390,6 @@ class FlyingEngine:
                 f"test holds them against the JAX package (ROADMAP.md "
                 f"Queue 1 item 5)")
         for isl in layout.islands:
-            if ep > 1 and isl.sp > 1:
-                raise NotImplementedError(
-                    f"{isl}: SP islands with the experts over 'ed' "
-                    f"(ep={ep}): no test holds them against the JAX "
-                    f"package (ROADMAP.md Queue 1 item 5)")
             if isl.sp > 1 and not (
                     self.live_readable()
                     and self.geom.live_readable(isl.write_tag)
@@ -1079,10 +1072,11 @@ class FlyingEngine:
         requests' KV across a rebind in place? The geometry half
         (``PoolGeometry.live_readable`` a tag) is the scheduler's check;
         this half covers what the steps implement: the head-layout paged
-        pool, no MLA, no sliding window, non-recurrent, non-enc-dec, and
-        no experts over 'ed' (ROADMAP.md Queue 1 item 5)."""
+        pool, no MLA, no sliding window, non-recurrent, non-enc-dec. A
+        MoE model's experts over 'ed' (``ep > 1``) take part: a live or
+        SP step's tokens split over 'ed' as a plain step's do."""
         cfg = self.cfg
-        return (self.geom.layout == "head" and self.pool.ep == 1
+        return (self.geom.layout == "head"
                 and cfg.mla is None
                 and cfg.enc_dec is None
                 and cfg.family not in ("ssm", "hybrid")

@@ -117,39 +117,48 @@ def live_split(eng, Req, switch: bool) -> dict:
     2xDP]`` with a decode rider on engine 0 (tags 1, 2) and a chunked
     prefill on engine 1 whose prompt streams across it (tags 1, 2),
     while the DP island on engines 2-3 keeps decoding. ``switch=False``
-    is the never-switched reference with the same launches."""
+    is the never-switched reference with the same launches. A fleet of
+    2 engines runs it without the DP island (``[DP|DP]`` -> ``[TP2]``),
+    and a fleet of one engine, never switched, serves both requests on
+    engine 0."""
     def isl(e):
         return eng.layout.island_of(e)
+    n = len(eng.adaptors)
     r0 = _req(Req, 0, "r0", 9)
-    lp = _req(Req, 1, "lp", 12)
-    bg = [_req(Req, 2, "b2", 9), _req(Req, 3, "b3", 9)]
-    isl_bg = isl(2)
-    _start(eng, bg, isl_bg)
+    lp = _req(Req, min(1, n - 1), "lp", 12)
+    g = lp.engine_group
+    bg = [_req(Req, 2, "b2", 9), _req(Req, 3, "b3", 9)] if n >= 4 else []
+    isl_bg = isl(2) if bg else None
+    if bg:
+        _start(eng, bg, isl_bg)
     _start(eng, [r0], isl(0))
-    _chunk(eng, lp, isl(1), 0, 4)
+    _chunk(eng, lp, isl(g), 0, 4)
     _decode(eng, [r0], isl(0), 2)
-    _decode(eng, bg, isl_bg, 2)
+    if bg:
+        _decode(eng, bg, isl_bg, 2)
     if switch:
         eng.rebind(eng.layout.carve(0, 2, 2))
         eng.adaptors[0].retag_tail("r0")
-        assert isl(2) == isl_bg
-    _chunk(eng, lp, isl(1), 4, 4)
+        assert not bg or isl(2) == isl_bg
+    _chunk(eng, lp, isl(g), 4, 4)
     _decode(eng, [r0], isl(0), 2)
-    _decode(eng, bg, isl_bg, 2)
-    _chunk(eng, lp, isl(1), 8, 4)
-    eng.adaptors[1].append_slots("lp", 1)
+    if bg:
+        _decode(eng, bg, isl_bg, 2)
+    _chunk(eng, lp, isl(g), 8, 4)
+    eng.adaptors[g].append_slots("lp", 1)
     if switch:
         _decode(eng, [r0, lp], isl(0), 3)
     else:
         _decode(eng, [r0], isl(0), 3)
-        _decode(eng, [lp], isl(1), 3)
-    _decode(eng, bg, isl_bg, 3)
-    out = {"bg_drains": eng.island_sync_stats(isl_bg).drains,
+        _decode(eng, [lp], isl(g), 3)
+    if bg:
+        _decode(eng, bg, isl_bg, 3)
+    out = {"bg_drains": eng.island_sync_stats(isl_bg).drains if bg else 0,
            "toks": {r.req_id: list(map(int, eng.generated_tokens(r.req_id)))
                     for r in [r0, lp] + bg},
            "host_argmax": eng.sync_stats.host_argmax,
-           "tags": {rid: list(eng.adaptors[g].table[rid].tags())
-                    for rid, g in (("r0", 0), ("lp", 1))},
+           "tags": {rid: list(eng.adaptors[e].table[rid].tags())
+                    for rid, e in (("r0", 0), ("lp", g))},
            "keys": _key_text(eng.pool._runners)}
     return out
 
@@ -161,15 +170,18 @@ def sp_split(eng, Req, sp: bool) -> dict:
     """One request on a pure-SP island ``Island(0, 2, 2, sp=2)`` whose
     context (45 tokens) exceeds one engine's pool (7 usable blocks of 4
     tokens), prefilled a block a chunk, beside a DP island on engines
-    2-3; ``sp=False`` serves it at merge 1 from a big pool."""
+    2-3 (none in a fleet of fewer than 4 engines); ``sp=False`` serves
+    it at merge 1 from a big pool."""
     def isl(e):
         return eng.layout.island_of(e)
     ad = eng.adaptors[0]
     cap = eng.geom.capacity(1)
     r = _req(Req, 0, "long", SP_PROMPT)
-    bg = [_req(Req, 2, "b2", 9), _req(Req, 3, "b3", 9)]
-    isl_bg = isl(2)
-    _start(eng, bg, isl_bg)
+    bg = [_req(Req, 2, "b2", 9), _req(Req, 3, "b3", 9)] \
+        if len(eng.adaptors) >= 4 else []
+    isl_bg = isl(2) if bg else None
+    if bg:
+        _start(eng, bg, isl_bg)
     for lo in range(0, SP_PROMPT, cap):
         ad.append_slots_batch(["long"], [cap])
         r.prefilled = lo
@@ -177,8 +189,9 @@ def sp_split(eng, Req, sp: bool) -> dict:
     r.prefilled = SP_PROMPT
     ad.append_slots("long", 1)
     _decode(eng, [r], isl(0), SP_STEPS)
-    _decode(eng, bg, isl_bg, SP_STEPS)
-    out = {"bg_drains": eng.island_sync_stats(isl_bg).drains,
+    if bg:
+        _decode(eng, bg, isl_bg, SP_STEPS)
+    out = {"bg_drains": eng.island_sync_stats(isl_bg).drains if bg else 0,
            "toks": {q.req_id: list(map(int, eng.generated_tokens(q.req_id)))
                     for q in [r] + bg},
            "host_argmax": eng.sync_stats.host_argmax,
@@ -190,14 +203,16 @@ def sp_split(eng, Req, sp: bool) -> dict:
     return out
 
 
-def sched_live(eng, make_sched, Req) -> dict:
+def sched_live(eng, make_sched, Req, arrivals=None) -> dict:
     """A scheduler trace under LIVE: 8 staggered requests (prompts of 8
     to 20 tokens in 8-token chunks, 6 tokens out) on a clock of 10 ms a
     step, the merge scripted 1 -> 2 at tick 4 while decodes and a
-    chunked prefill are in flight."""
+    chunked prefill are in flight. ``arrivals`` (8 times) replaces the
+    arrivals 4 ms apart."""
     sched = make_sched(eng)
     for i in range(8):
-        sched.submit(Req(req_id=f"r{i}", arrival=0.004 * i,
+        sched.submit(Req(req_id=f"r{i}", arrival=0.004 * i if arrivals
+                         is None else arrivals[i],
                          prompt_len=8 + 4 * (i % 4), output_len=6))
     sched.run(max_steps=400)
     done = sorted(r.req_id for r in sched.pool.all.values()
@@ -211,6 +226,8 @@ def sched_live(eng, make_sched, Req) -> dict:
             "switches": sched.switches,
             "preempt": dict(sched.preempt_stats),
             "keys": _key_text(eng.pool._runners),
+            "adaptors": [[list(map(int, a.free)), sorted(a.table)]
+                         for a in sched.adaptors],
             "host_argmax": eng.sync_stats.host_argmax}
 
 
